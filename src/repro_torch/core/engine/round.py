@@ -1,0 +1,101 @@
+"""Round execution: the single-round core and the bucket executor.
+
+Layering, as in ``repro.core.engine.round``:
+
+    ClientUpdate    (engine.client)      — K-step local SGD, vmapped over clients
+    Aggregator      (engine.aggregators) — client stack -> aggregate
+    ServerOptimizer (engine.server)      — aggregate -> next global params
+
+PyTorch runs eagerly, so there is no executable registry: ``run_bucket``
+executes one round, and the trainer calls it once per round of a bucket.
+``dispatch_count`` counts ``run_bucket`` calls. The reference's
+``compile_count`` has no counterpart yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine.aggregators import get_aggregator
+from repro_torch.core.engine.backends.local import make_parallel_round_core
+from repro_torch.core.engine.server import get_server_optimizer
+from repro_torch.data.pipeline import BucketBatch
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim import tree_map
+
+PyTree = Any
+LossFn = Callable[[PyTree, Dict[str, torch.Tensor]], Any]
+
+
+def _eta(eta) -> float:
+    """The client learning rate rounded to f32, as the reference feeds it."""
+    return float(np.float32(eta))
+
+
+class RoundEngine:
+    """Runs buckets of rounds on one device."""
+
+    def __init__(self, loss_fn: LossFn, *, aggregator: str = "mean",
+                 trim_fraction: float = 0.1, server: str = "avg",
+                 server_lr: float = 1.0, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.server = get_server_optimizer(server)
+        self.round_core = make_parallel_round_core(
+            loss_fn, get_aggregator(aggregator, trim_fraction=trim_fraction),
+            self.server, server_lr)
+        self.dispatch_count = 0
+
+    def to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def place_bucket(self, bb: BucketBatch) -> BucketBatch:
+        """Host -> device copy of a bucket's batches and weights (the
+        builders' ``place_fn``)."""
+        return BucketBatch(
+            batches={k: self.to_device(v) for k, v in bb.batches.items()},
+            weights=self.to_device(bb.weights), active=bb.active,
+            n_rounds=bb.n_rounds)
+
+    def init_server_state(self, params: PyTree) -> Any:
+        return self.server.init(params)
+
+    def run_bucket(self, params, batches, weights, eta, server_state
+                   ) -> Tuple[PyTree, torch.Tensor, torch.Tensor, Any]:
+        """One round: batches leaves (N, K, b, ...); weights (N,).
+        Returns (params, first_losses (N,), last_losses (N,), state)."""
+        out = self.round_core(
+            params, {k: self.to_device(v) for k, v in batches.items()},
+            self.to_device(weights), _eta(eta), server_state)
+        self.dispatch_count += 1
+        return out
+
+
+def make_round_fn(loss_fn: LossFn, *, server: str = "avg",
+                  server_lr: float = 1.0, aggregator: str = "mean",
+                  device: DeviceLike = None):
+    """Single-round builder.
+
+    round_fn(params, batches{(N,K,b,...)}, weights (N,), eta, server_state)
+        -> (new_params, first_losses (N,), mean_last_loss, server_state)
+
+    Returns ``(round_fn, srv_init)``; ``srv_init`` is None for the stateless
+    ``avg`` server (its state is ``()``). Inputs may be numpy arrays or
+    tensors; they are placed on ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
+    srv = get_server_optimizer(server)
+    core = make_parallel_round_core(loss_fn, get_aggregator(aggregator), srv,
+                                    server_lr)
+
+    def round_fn(params, batches, weights, eta, server_state):
+        place = lambda x: torch.as_tensor(x, device=device)
+        new_params, first_losses, last_losses, server_state = core(
+            tree_map(place, params), {k: place(v) for k, v in
+                                      batches.items()},
+            place(weights), _eta(eta), server_state)
+        return new_params, first_losses, torch.mean(last_losses), \
+            server_state
+
+    srv_init = None if server == "avg" else srv.init
+    return round_fn, srv_init

@@ -1,0 +1,114 @@
+"""The paper's FedAvg runtime model (§3.2, Eq. 3-5) and compute accounting.
+
+A copy of ``repro.core.runtime_model`` without the adaptive-downlink level
+charges and the serve-while-training stretch, which belong to later slices.
+
+Nominal per-round wall-clock for client c:
+    W_r^c = |x|/D^c + K_r * beta^c + |x|/U^c          (Eq. 3)
+The server waits for the straggler:
+    W_r = max_c W_r^c                                  (Eq. 4)
+Homogeneous-client total over R rounds:
+    W = R(|x|/D + |x|/U) + beta * sum_r K_r            (Eq. 5)
+
+An optional heterogeneous straggler model (lognormal client speed spread)
+serves sensitivity studies.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+from repro_torch.configs.base import RuntimeModelConfig
+
+
+@dataclass
+class RoundCost:
+    wall_clock_s: float
+    sgd_steps: int
+    uplink_mbit: float
+    downlink_mbit: float
+
+
+class RuntimeModel:
+    def __init__(self, model_size_mbit: float, cfg: RuntimeModelConfig,
+                 clients_per_round: int = 1, heterogeneity: float = 0.0,
+                 seed: int = 0, uplink_compression: float = 1.0,
+                 downlink_compression: float = 1.0):
+        """heterogeneity: sigma of lognormal speed multipliers per sampled
+        client, applied to the client's whole round time (compute and both
+        wire legs); 0 reproduces the paper's homogeneous Eq. 5.
+        ``uplink_compression`` / ``downlink_compression``: ratios by which a
+        codec shrinks each wire leg (1.0 = the paper's uncompressed |x|)."""
+        self.size = model_size_mbit
+        self.cfg = cfg
+        self.n = clients_per_round
+        self.het = heterogeneity
+        self.uplink_compression = float(uplink_compression)
+        self.downlink_compression = float(downlink_compression)
+        self._seed = int(seed)
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def uplink_mbit_per_client(self) -> float:
+        return self.size / self.uplink_compression
+
+    @property
+    def downlink_mbit_per_client(self) -> float:
+        return self.size / self.downlink_compression
+
+    def comm_time(self) -> float:
+        """Per-round communication term, heterogeneity-free (Eq. 5 mean)."""
+        return (self.downlink_mbit_per_client / self.cfg.download_mbps
+                + self.uplink_mbit_per_client / self.cfg.upload_mbps)
+
+    def _base_seconds(self, k: int) -> float:
+        """Eq. 3 for the nominal (speed-multiplier 1.0) client."""
+        return (self.downlink_mbit_per_client / self.cfg.download_mbps
+                + k * self.cfg.beta_seconds
+                + self.uplink_mbit_per_client / self.cfg.upload_mbps)
+
+    def draw_client_times(self, round_idx: Optional[int],
+                          client_ids: Sequence[int], k: int) -> np.ndarray:
+        """Seeded per-client round durations (Eq. 3 x lognormal multiplier).
+
+        ``round_idx=None``: stream mode, one draw per client off the model's
+        own rng. ``round_idx`` given: counter mode, each multiplier drawn
+        from ``default_rng([seed, round_idx, client_id])``."""
+        ids = np.asarray(client_ids, dtype=np.int64)
+        base = self._base_seconds(k)
+        if self.het <= 0:
+            return np.full(ids.shape[0], base, dtype=np.float64)
+        if round_idx is None:
+            mult = self._rng.lognormal(0.0, self.het, size=ids.shape[0])
+        else:
+            mult = np.array([
+                np.random.default_rng(
+                    [self._seed, int(round_idx), int(c)]
+                ).lognormal(0.0, self.het) for c in ids])
+        return base * mult
+
+    def round_cost(self, k: int) -> RoundCost:
+        """Eq. 3/4: straggler max over the round's client draws."""
+        if self.het > 0:
+            times = self.draw_client_times(None, np.arange(self.n), k)
+            wall = float(np.max(times))
+        else:
+            wall = self._base_seconds(k)
+        return RoundCost(wall_clock_s=wall,
+                         sgd_steps=k * self.n,
+                         uplink_mbit=self.uplink_mbit_per_client * self.n,
+                         downlink_mbit=self.downlink_mbit_per_client * self.n)
+
+    def total_time(self, ks: Sequence[int]) -> float:
+        """Eq. 5 (homogeneous)."""
+        r = len(ks)
+        return r * self.comm_time() + self.cfg.beta_seconds * float(np.sum(ks))
+
+    def total_sgd_steps(self, ks: Sequence[int]) -> int:
+        return int(np.sum(ks)) * self.n
+
+    def relative_sgd_steps(self, ks: Sequence[int], k0: int) -> float:
+        """Table 4: schedule compute relative to K-eta-fixed."""
+        return float(np.sum(ks)) / (k0 * len(ks))
