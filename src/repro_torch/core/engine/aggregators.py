@@ -80,6 +80,9 @@ _FACTORIES: Dict[str, Callable[..., Aggregator]] = {
         lambda cp, w: trimmed_mean(cp, w, trim_fraction)),
 }
 AGGREGATORS = tuple(_FACTORIES)
+#: aggregators the weighted sum distributes over, so a compressed codec can
+#: aggregate decoded payloads in their place
+LINEAR_AGGREGATORS = ("mean", "kernel")
 
 
 def get_aggregator(name, *, trim_fraction: float = 0.1) -> Aggregator:

@@ -10,6 +10,10 @@ PyTorch runs eagerly, so there is no executable registry: ``run_bucket``
 executes one round, and the trainer calls it once per round of a bucket.
 ``dispatch_count`` counts ``run_bucket`` calls. The reference's
 ``compile_count`` has no counterpart yet.
+
+With a transport or downlink codec (``engine.transport``) the engine owns
+the codec state (``transport_state``, ``downlink_state``) and threads it
+through every ``run_bucket``.
 """
 from __future__ import annotations
 
@@ -18,9 +22,11 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine.aggregators import get_aggregator
+from repro_torch.core.engine.aggregators import (LINEAR_AGGREGATORS,
+                                                 get_aggregator)
 from repro_torch.core.engine.backends.local import make_parallel_round_core
 from repro_torch.core.engine.server import get_server_optimizer
+from repro_torch.core.engine.transport import get_downlink, get_transport
 from repro_torch.data.pipeline import BucketBatch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim import tree_map
@@ -39,13 +45,40 @@ class RoundEngine:
 
     def __init__(self, loss_fn: LossFn, *, aggregator: str = "mean",
                  trim_fraction: float = 0.1, server: str = "avg",
-                 server_lr: float = 1.0, device: DeviceLike = None):
+                 server_lr: float = 1.0, transport=None,
+                 topk_frac: float = 0.1, downlink=None,
+                 downlink_ref: str = "f32", device: DeviceLike = None):
+        """``transport``: None/"none" keeps the plain aggregator path;
+        "int8"/"int8x2"/"topk" (or a ``Transport``) aggregates compressed
+        deltas and needs a linear aggregator. ``downlink``: None/"none"
+        keeps the uncompressed broadcast; a codec name makes every round
+        start from ``params_ref + decode(payload)``. ``downlink_ref``: the
+        store of the broadcast reference and residual, "f32" or "q8";
+        anything but "f32" needs a downlink codec."""
         self.device = resolve_device(device)
+        self.transport = get_transport(transport, topk_frac=topk_frac)
+        if self.transport is not None and \
+                self.transport.name != "none" and \
+                aggregator not in LINEAR_AGGREGATORS:
+            raise ValueError(
+                f"transport {self.transport.name!r} requires a linear "
+                f"aggregator {LINEAR_AGGREGATORS}, got {aggregator!r}")
+        self.downlink = get_downlink(downlink, topk_frac=topk_frac,
+                                     ref_store=downlink_ref)
+        if self.downlink is None and downlink_ref != "f32":
+            raise ValueError(
+                f"downlink_ref={downlink_ref!r} requires a downlink codec")
         self.server = get_server_optimizer(server)
         self.round_core = make_parallel_round_core(
             loss_fn, get_aggregator(aggregator, trim_fraction=trim_fraction),
-            self.server, server_lr)
+            self.server, server_lr, transport=self.transport,
+            downlink=self.downlink)
         self.dispatch_count = 0
+        self.transport_state: Any = None
+        self.downlink_state: Any = None
+        #: the int32 adaptive downlink level of the most recent round, on
+        #: the device (-1 for fixed-rate codecs); None without a downlink
+        self.last_downlink_levels = None
 
     def to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -61,15 +94,34 @@ class RoundEngine:
     def init_server_state(self, params: PyTree) -> Any:
         return self.server.init(params)
 
+    def init_transport_state(self, params: PyTree) -> Any:
+        """Create (and own) the uplink codec's error-feedback state."""
+        self.transport_state = (() if self.transport is None
+                                else self.transport.init_state(params))
+        return self.transport_state
+
+    def init_downlink_state(self, params: PyTree) -> Any:
+        """Create (and own) the broadcast reference and downlink
+        residual."""
+        self.downlink_state = (() if self.downlink is None
+                               else self.downlink.init_state(params))
+        return self.downlink_state
+
     def run_bucket(self, params, batches, weights, eta, server_state
                    ) -> Tuple[PyTree, torch.Tensor, torch.Tensor, Any]:
         """One round: batches leaves (N, K, b, ...); weights (N,).
         Returns (params, first_losses (N,), last_losses (N,), state)."""
-        out = self.round_core(
+        if self.transport_state is None:
+            self.init_transport_state(params)
+        if self.downlink_state is None:
+            self.init_downlink_state(params)
+        (params, firsts, lasts, server_state, self.transport_state,
+         self.downlink_state, self.last_downlink_levels) = self.round_core(
             params, {k: self.to_device(v) for k, v in batches.items()},
-            self.to_device(weights), _eta(eta), server_state)
+            self.to_device(weights), _eta(eta), server_state,
+            self.transport_state, self.downlink_state)
         self.dispatch_count += 1
-        return out
+        return params, firsts, lasts, server_state
 
 
 def make_round_fn(loss_fn: LossFn, *, server: str = "avg",
@@ -93,7 +145,7 @@ def make_round_fn(loss_fn: LossFn, *, server: str = "avg",
         new_params, first_losses, last_losses, server_state = core(
             tree_map(place, params), {k: place(v) for k, v in
                                       batches.items()},
-            place(weights), _eta(eta), server_state)
+            place(weights), _eta(eta), server_state)[:4]
         return new_params, first_losses, torch.mean(last_losses), \
             server_state
 

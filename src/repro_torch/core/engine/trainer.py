@@ -20,6 +20,7 @@ checkpointing.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -59,10 +60,7 @@ class History:
 def _refuse_unported(fed: FedConfig) -> None:
     """Raise on configuration this slice of the port does not implement,
     naming the field, rather than running something else."""
-    unported = [("transport", fed.transport != "none"),
-                ("downlink", fed.downlink != "none"),
-                ("downlink_ref", fed.downlink_ref != "f32"),
-                ("cohort_chunk", bool(fed.cohort_chunk)),
+    unported = [("cohort_chunk", bool(fed.cohort_chunk)),
                 ("aggregation", fed.aggregation != "sync")]
     for name, bad in unported:
         if bad:
@@ -83,13 +81,20 @@ class FedAvgTrainer:
         self.engine = RoundEngine(loss_fn, aggregator=fed.aggregator,
                                   trim_fraction=fed.trim_fraction,
                                   server=fed.server_optimizer,
-                                  server_lr=fed.server_lr, device=device)
+                                  server_lr=fed.server_lr,
+                                  transport=fed.transport,
+                                  topk_frac=fed.topk_frac,
+                                  downlink=fed.downlink,
+                                  downlink_ref=fed.downlink_ref,
+                                  device=device)
         self.device = self.engine.device
         self.params = tree_map(self.engine.to_device, init_params)
         self.server_state = self.engine.init_server_state(self.params)
+        self.engine.init_transport_state(self.params)
+        self.engine.init_downlink_state(self.params)
         self.data = data
         self.fed = fed
-        self.runtime = runtime
+        self.runtime = self._wire_runtime(runtime)
         self.eval_fn = eval_fn
         self.ctrl = DecayController(fed)
         self.history = History()
@@ -104,6 +109,24 @@ class FedAvgTrainer:
     @property
     def dispatch_count(self) -> int:
         return self.engine.dispatch_count
+
+    def _wire_runtime(self, runtime: RuntimeModel) -> RuntimeModel:
+        """Charge each wire leg what its codec ships, on a copy of the
+        runtime model (one may be shared by trainers with other codecs)
+        whose straggler rng continues the shared one's stream."""
+        up, down = self.engine.transport, self.engine.downlink
+        if up is None and down is None:
+            return runtime
+        rt = copy.copy(runtime)
+        rt._rng = np.random.default_rng()
+        rt._rng.bit_generator.state = runtime._rng.bit_generator.state
+        if up is not None:
+            rt.uplink_compression = up.compression_ratio(self.params)
+        if down is not None:
+            rt.downlink_compression = down.compression_ratio(self.params)
+            if hasattr(down, "level_ratios"):   # adaptive: per-level charge
+                rt.downlink_level_ratios = down.level_ratios(self.params)
+        return rt
 
     def run(self, rounds: Optional[int] = None, eval_every: int = 10,
             verbose: bool = False) -> History:
@@ -137,16 +160,21 @@ class FedAvgTrainer:
 
     def _dispatch(self, bucket: Bucket, builder) -> torch.Tensor:
         """Run one bucket's rounds; returns the (B, N) first-step losses,
-        still on the device."""
-        firsts = []
+        still on the device. With an adaptive downlink a last column holds
+        each round's level, so one read brings back both."""
+        rows = []
+        per_level = self.runtime.downlink_level_ratios is not None
         for eta in bucket.etas:
             bb = builder.get()                  # one round: B = 1
             self.params, f, _lasts, self.server_state = \
                 self.engine.run_bucket(
                     self.params, {k: v[0] for k, v in bb.batches.items()},
                     bb.weights[0], eta, self.server_state)
-            firsts.append(f)
-        return torch.stack(firsts)
+            if per_level:
+                f = torch.cat([f, self.engine.last_downlink_levels
+                               .to(f.dtype).reshape(1)])
+            rows.append(f)
+        return torch.stack(rows)
 
     def _run_pipelined(self, sched: RoundScheduler, builder,
                        verbose: bool) -> None:
@@ -183,13 +211,19 @@ class FedAvgTrainer:
 
     # ------------------------------------------------------------------
     def _absorb(self, bucket: Bucket, firsts: torch.Tensor) -> None:
-        """Read a finished bucket's losses back and account its rounds."""
+        """Read a finished bucket's losses (and adaptive downlink levels)
+        back and account its rounds."""
         losses = firsts.cpu().numpy()             # device sync
+        levels = None
+        if self.runtime.downlink_level_ratios is not None:
+            losses, levels = losses[:, :-1], losses[:, -1]
         h = self.history
         for i, r in enumerate(bucket.rounds):
             round_loss = float(np.mean(losses[i]))
             self.ctrl.observe_round_losses(round_loss)
-            cost = self.runtime.round_cost(bucket.k)
+            cost = self.runtime.round_cost(
+                bucket.k,
+                downlink_level=None if levels is None else int(levels[i]))
             self._wall += cost.wall_clock_s
             self._steps += cost.sgd_steps
             self._up_mbit += cost.uplink_mbit

@@ -1,7 +1,7 @@
 """The paper's FedAvg runtime model (§3.2, Eq. 3-5) and compute accounting.
 
-A copy of ``repro.core.runtime_model`` without the adaptive-downlink level
-charges and the serve-while-training stretch, which belong to later slices.
+A copy of ``repro.core.runtime_model`` without the serve-while-training
+stretch, which belongs to a later slice.
 
 Nominal per-round wall-clock for client c:
     W_r^c = |x|/D^c + K_r * beta^c + |x|/U^c          (Eq. 3)
@@ -16,7 +16,7 @@ serves sensitivity studies.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,6 +47,10 @@ class RuntimeModel:
         self.het = heterogeneity
         self.uplink_compression = float(uplink_compression)
         self.downlink_compression = float(downlink_compression)
+        #: {level: ratio} of the adaptive downlink codec, set by the
+        #: trainer and read by ``round_cost(..., downlink_level=...)``;
+        #: None charges every round the fixed ``downlink_compression``
+        self.downlink_level_ratios = None
         self._seed = int(seed)
         self._rng = np.random.default_rng(seed)
 
@@ -63,21 +67,40 @@ class RuntimeModel:
         return (self.downlink_mbit_per_client / self.cfg.download_mbps
                 + self.uplink_mbit_per_client / self.cfg.upload_mbps)
 
-    def _base_seconds(self, k: int) -> float:
+    def _leg_mbit(self, downlink_level: Optional[int] = None
+                  ) -> Tuple[float, float]:
+        """(uplink, downlink) encoded mbit per client for one round, with
+        the adaptive downlink's per-level charge applied."""
+        up = self.uplink_mbit_per_client
+        down = self.downlink_mbit_per_client
+        if self.downlink_level_ratios is not None and \
+                downlink_level is not None and downlink_level >= 0:
+            if downlink_level == 0:
+                down = 0.0
+            else:
+                ratio = self.downlink_level_ratios.get(
+                    downlink_level, self.downlink_compression)
+                down = self.size / float(ratio)
+        return up, down
+
+    def _base_seconds(self, k: int,
+                      downlink_level: Optional[int] = None) -> float:
         """Eq. 3 for the nominal (speed-multiplier 1.0) client."""
-        return (self.downlink_mbit_per_client / self.cfg.download_mbps
+        up, down = self._leg_mbit(downlink_level)
+        return (down / self.cfg.download_mbps
                 + k * self.cfg.beta_seconds
-                + self.uplink_mbit_per_client / self.cfg.upload_mbps)
+                + up / self.cfg.upload_mbps)
 
     def draw_client_times(self, round_idx: Optional[int],
-                          client_ids: Sequence[int], k: int) -> np.ndarray:
+                          client_ids: Sequence[int], k: int, *,
+                          downlink_level: Optional[int] = None) -> np.ndarray:
         """Seeded per-client round durations (Eq. 3 x lognormal multiplier).
 
         ``round_idx=None``: stream mode, one draw per client off the model's
         own rng. ``round_idx`` given: counter mode, each multiplier drawn
         from ``default_rng([seed, round_idx, client_id])``."""
         ids = np.asarray(client_ids, dtype=np.int64)
-        base = self._base_seconds(k)
+        base = self._base_seconds(k, downlink_level)
         if self.het <= 0:
             return np.full(ids.shape[0], base, dtype=np.float64)
         if round_idx is None:
@@ -89,17 +112,23 @@ class RuntimeModel:
                 ).lognormal(0.0, self.het) for c in ids])
         return base * mult
 
-    def round_cost(self, k: int) -> RoundCost:
-        """Eq. 3/4: straggler max over the round's client draws."""
+    def round_cost(self, k: int, downlink_level: Optional[int] = None
+                   ) -> RoundCost:
+        """Eq. 3/4: straggler max over the round's client draws.
+        ``downlink_level`` (read only when ``downlink_level_ratios`` is
+        set): 0 ships no broadcast, a level in the map charges its ratio,
+        -1/None the configured ratio."""
+        up, down = self._leg_mbit(downlink_level)
         if self.het > 0:
-            times = self.draw_client_times(None, np.arange(self.n), k)
+            times = self.draw_client_times(None, np.arange(self.n), k,
+                                           downlink_level=downlink_level)
             wall = float(np.max(times))
         else:
-            wall = self._base_seconds(k)
+            wall = self._base_seconds(k, downlink_level)
         return RoundCost(wall_clock_s=wall,
                          sgd_steps=k * self.n,
-                         uplink_mbit=self.uplink_mbit_per_client * self.n,
-                         downlink_mbit=self.downlink_mbit_per_client * self.n)
+                         uplink_mbit=up * self.n,
+                         downlink_mbit=down * self.n)
 
     def total_time(self, ks: Sequence[int]) -> float:
         """Eq. 5 (homogeneous)."""

@@ -29,6 +29,28 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
              ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
     },
+    "delta_codec": {
+        # (q, w, qr, wr, out, n, m, stream); qr = wr = None for one plane
+        "int8_reduce_launch": (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int64,
+                                     ctypes.c_void_p],
+            ctypes.c_int),
+        # (ref, q, s, qr, rs, out, m, dtype, stream)
+        "int8_apply_launch": (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_void_p],
+            ctypes.c_int),
+        # (vals, idx, w, out, n, s, m, stream)
+        "topk_reduce_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_void_p],
+            ctypes.c_int),
+        # (ref, vals, idx, acc, out, s, m, dtype, stream)
+        "topk_apply_launch": (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -57,31 +79,34 @@ def _stale(name: str) -> bool:
             or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
 
 
-def _build(name: str) -> None:
-    """Run ``nvcc`` on one source and move the library into place, or
-    raise with the compiler output."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, _lib_path(name))
-    build_logs[name] = proc.stdout
-
-
 def build_all(names: Optional[List[str]] = None) -> List[str]:
-    """Compile every stale source, one after the other; returns the names
-    built. (One source today: run them in parallel once a second slow one
-    exists.)"""
+    """Compile every stale source, one ``nvcc`` per source, all started
+    together; returns the names built, or raises with the output of each
+    compile that failed."""
     names = [n for n in (list(_SIGNATURES) if names is None else names)
              if _stale(n)]
+    if not names:
+        return names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
     for n in names:
-        _build(n)
+        tmp = BUILD_DIR / f"lib{n}.{os.getpid()}.tmp.so"
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {n}.cu (exit {proc.returncode})"
+                          f":\n{out}")
+        else:
+            os.replace(tmp, _lib_path(n))
+            build_logs[n] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return names
 
 

@@ -1,3 +1,3 @@
-from repro_torch.models import layers, small
+from repro_torch.models import attention, layers, small
 
-__all__ = ["layers", "small"]
+__all__ = ["attention", "layers", "small"]

@@ -24,7 +24,9 @@ PORT = SRC / "repro_torch"
 
 def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.bridge, "
-            "repro_torch.kernels.ops, repro_torch.kernels._build\n"
+            "repro_torch.kernels.ops, repro_torch.kernels._build, "
+            "repro_torch.kernels.delta_codec, repro_torch.models.attention, "
+            "repro_torch.core.engine.transport\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -69,17 +71,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         entry()
 
 
-@pytest.mark.parametrize("field,value", [
-    ("transport", "int8"), ("downlink", "int8"), ("downlink_ref", "q8"),
-    ("cohort_chunk", 2), ("aggregation", "async"),
-    ("sampler", "fixed_cohort"),
-])
-def test_trainer_refuses_unported_config_by_name(field, value):
+REFUSED = [
+    # the wire path is ported: these refuse what the reference refuses
+    ("transport", "int8", {"aggregator": "median"}),      # needs linear
+    ("downlink", "int8", {"downlink_ref": "q4"}),         # unknown store
+    ("downlink_ref", "q8", {}),                           # needs a downlink
+    ("cohort_chunk", 2, {}), ("aggregation", "async", {}),
+    ("sampler", "fixed_cohort", {}),
+]
+
+
+@pytest.mark.parametrize("field,value,extra", REFUSED,
+                         ids=[f"{f}-{v}" for f, v, _ in REFUSED])
+def test_trainer_refuses_unported_config_by_name(field, value, extra):
     task = get_paper_task("femnist")
     data = make_paper_task("femnist", np.random.default_rng(0),
                            num_clients=4, samples_per_client=4)
     params = small.init_task_model(0, task, device="cpu")
-    fed = FedConfig(clients_per_round=2, **{field: value})
+    fed = FedConfig(clients_per_round=2, **{field: value, **extra})
     with pytest.raises(ValueError, match=field):
         FedAvgTrainer(lambda p, b: small.task_loss(p, task, b), params, data,
                       fed, RuntimeModel(1.0, task.runtime, 2), device="cpu")
