@@ -37,7 +37,19 @@ exits non-zero without printing a result:
               int8x2 up / int8 down, top-k both ways at 10%); ms per round,
               each kernel's and the encoders' device ms per round, and launch
               counts that must equal rounds x leaves (x N for the per-row
-              top-k reduce).
+              top-k reduce);
+7. lm       — the dense LM serving path. Phase ``kernel`` rows hold
+              ``flash_attention`` against its plain version at the prefill
+              shape and edge shapes (GQA, window, softcap, hd 128 and 32,
+              non-causal, bf16, Sq = 1 against Sk = 257) with times, the SDPA
+              time and the flops bound; phase ``parity`` runs reduced
+              qwen1.5-0.5b and gemma2-27b on the card (kernel) against the
+              CPU (plain): prefill logits and states, 8 greedy tokens; then
+              qwen1.5-0.5b at full width (463,987,712 f32 params): prefill
+              B 2 x S 4096 through the kernel (24 launches each; ms and the
+              kernel's share), the same batch through the plain path, and
+              ``ServingLoop`` greedy decode at the launcher's defaults
+              (batch 4, prompt 16, 32 tokens): tokens/s and peak memory.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -92,9 +104,12 @@ def kernel_shapes():
 # tasks two rounds each (Shakespeare's host-bound GRU takes ~13 s a round)
 CIFAR_ROUNDS, OTHER_ROUNDS = 4, 2
 
-# data-sheet peaks: (device bytes/s, f32 flop/s outside the tensor cores)
-CARD_PEAKS = [("H100 PCIe", (2.0e12, 51e12)), ("H100 NVL", (3.9e12, 60e12)),
-              ("H200", (4.8e12, 67e12)), ("H100", (3.35e12, 67e12))]
+# data-sheet peaks: (device bytes/s, f32 flop/s outside the tensor cores,
+# dense bf16 tensor-core flop/s)
+CARD_PEAKS = [("H100 PCIe", (2.0e12, 51e12, 756e12)),
+              ("H100 NVL", (3.9e12, 60e12, 835e12)),
+              ("H200", (4.8e12, 67e12, 989e12)),
+              ("H100", (3.35e12, 67e12, 989e12))]
 
 
 def emit(obj) -> None:
@@ -255,13 +270,15 @@ def wire_leaf_shapes():
 
 
 def _row(name, label, shape, err, tol, t, plain, lib, nbytes, flops, bw,
-         f32_peak):
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
+         peak):
+    """One kernel row; ``peak`` is the flop rate of the inputs' type."""
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
     row = {"phase": "kernel", "name": name, "shape": label, **shape,
            "max_abs_err": err, "tol": tol, "ms": t, "plain_ms": plain,
            "library_ms": lib, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes}
+           "bytes": nbytes, "flops": flops, "bytes_bound_ms": t_bytes,
+           "flops_bound_ms": t_ops}
     row["bound_share"] = row["bound_ms"] / row["ms"] if t else None
     emit(row)
     return row
@@ -689,6 +706,279 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dense LM serving path (phase 7)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:12
+FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# (label, B, H, KV, Sq, Sk, hd, dtype, causal, window, softcap); the first
+# row is the full-width prefill's shape (qwen1.5-0.5b, B 2, S 4096)
+FLASH_SHAPES = [
+    ("prefill", 2, 16, 16, 4096, 4096, 64, "float32", True, None, None),
+    ("gqa", 1, 8, 2, 300, 300, 64, "float32", True, None, None),
+    ("window64", 1, 8, 2, 300, 300, 64, "float32", True, 64, None),
+    ("softcap50", 1, 8, 2, 300, 300, 64, "float32", True, None, 50.0),
+    ("hd128", 1, 4, 2, 512, 512, 128, "float32", True, None, None),
+    ("hd32", 2, 4, 4, 256, 256, 32, "float32", True, None, None),
+    ("noncausal", 1, 8, 2, 300, 300, 64, "float32", False, None, None),
+    ("bf16", 2, 16, 16, 4096, 4096, 64, "bfloat16", True, None, None),
+    ("sq1", 2, 16, 16, 1, 257, 64, "float32", True, None, None),
+]
+LM_ARCH = "qwen1.5-0.5b"
+LM_PARAMS = 463_987_712
+LM_BATCH, LM_SEQ = 2, 4096            # train_4k's sequence length
+PARITY_ARCHS = ("qwen1.5-0.5b-reduced", "gemma2-27b-reduced")
+PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
+SERVE = dict(batch=4, prompt_len=16, tokens=32)   # launch/serve.py defaults
+
+
+def attended_pairs(torch, sq, sk, causal, window) -> int:
+    """(query, key) pairs the mask lets through, counted from the mask."""
+    qi = torch.arange(sq)[:, None]
+    kj = torch.arange(sk)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        m &= kj <= qi
+    if window is not None:
+        m &= kj > qi - window
+    return int(m.sum())
+
+
+def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
+    """``flash_attention`` against its plain version at ``FLASH_SHAPES``,
+    with device times of the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` (the library call, where one computes
+    the same function; none for the softcap)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(256 * 2 ** 20 // 4, device="cuda")
+    rows = []
+    for (label, B, H, KV, sq, sk, hd, dt, causal, window,
+         softcap) in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q = (torch.randn((B, H, sq, hd), generator=gen, device="cuda")
+             * 0.5).to(dtype)
+        k = (torch.randn((B, KV, sk, hd), generator=gen, device="cuda")
+             * 0.5).to(dtype)
+        v = torch.randn((B, KV, sk, hd), generator=gen,
+                        device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash {label}: not repeatable")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[dt])
+        err = float((got.float() - want.float()).abs().max())
+        del got, again, want
+        lib = None
+        if softcap is None:
+            from repro_torch.kernels.ref import attention_mask
+            mask = (None if window is None and sq == sk
+                    else attention_mask(sq, sk, causal, window, "cuda"))
+            lkw = (dict(attn_mask=mask) if mask is not None
+                   else dict(is_causal=causal))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=H != KV, **lkw), flush)
+        pairs = attended_pairs(torch, sq, sk, causal, window)
+        es = q.element_size()
+        nbytes = es * (2 * q.numel() + k.numel() + v.numel())
+        rows.append(_row(
+            "flash_attention", label,
+            {"b": B, "h": H, "kv": KV, "sq": sq, "sk": sk, "hd": hd,
+             "dtype": dt, **{key: val for key, val in kw.items()
+                             if val is not None}}, err, FLASH_TOL[dt],
+            time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush),
+            time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw), flush),
+            lib, nbytes, 4 * B * H * hd * pairs, bw,
+            f32_peak if dt == "float32" else bf16_peak))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _lm_tokens(cfg, b, s, seed):
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def phase_parity_lm(torch):
+    """Reduced qwen1.5-0.5b and gemma2-27b: prefill through the kernel on
+    the card against the plain path on the CPU (last-token logits and the
+    decode states), then 8 greedy decode steps on both, each fed the CPU's
+    token: the card's argmax must equal the CPU's wherever the CPU's top-2
+    logit gap exceeds the tolerance."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves, tree_map
+    for name in PARITY_ARCHS:
+        cfg = get_arch(name)
+        cpu = registry.init(0, cfg, device="cpu")
+        card = tree_map(lambda t: t.to("cuda"), cpu)
+        toks = torch.tensor(_lm_tokens(cfg, 2, 96, 5))
+        with torch.no_grad():
+            want, wst = make_prefill_step(cfg, use_kernel=False)(
+                cpu, {"tokens": toks})
+            got, gst = make_prefill_step(cfg, use_kernel=True)(
+                card, {"tokens": toks.cuda()})
+        torch.testing.assert_close(got.cpu(), want, **PARITY_TOL)
+        st_err = 0.0
+        for a, b in zip(tree_leaves(wst), tree_leaves(gst)):
+            torch.testing.assert_close(b.cpu(), a, **PARITY_TOL)
+            st_err = max(st_err, float((b.cpu() - a).abs().max()))
+        step = registry.decode_fn(cfg)
+        n_prompt, n_new = 16, 8
+        steps = n_prompt + n_new - 1
+        caches = {"cpu": registry.init_cache(cpu, cfg, 2, steps),
+                  "cuda": registry.init_cache(card, cfg, 2, steps)}
+        params = {"cpu": cpu, "cuda": card}
+        prompt = torch.tensor(_lm_tokens(cfg, 2, n_prompt, 6))
+        ids, gaps, worst = [], [], 0.0
+        tok = None
+        with torch.no_grad():
+            for pos in range(steps):
+                fed = prompt[:, pos] if pos < n_prompt else tok
+                logits = {dev: step(params[dev], caches[dev], fed.to(dev),
+                                    pos)[0].cpu() for dev in params}
+                worst = max(worst, float((logits["cuda"]
+                                          - logits["cpu"]).abs().max()))
+                if pos < n_prompt - 1:
+                    continue
+                top2 = torch.topk(logits["cpu"], 2, dim=-1).values
+                gap = top2[:, 0] - top2[:, 1]
+                tok = torch.argmax(logits["cpu"], dim=-1)
+                card_tok = torch.argmax(logits["cuda"], dim=-1)
+                tol = 2 * (PARITY_TOL["atol"] + PARITY_TOL["rtol"]
+                           * float(logits["cpu"].abs().max()))
+                bad = (card_tok != tok) & (gap > tol)
+                if bool(bad.any()):
+                    raise AssertionError(f"{name} decode step {pos}: card "
+                                         f"{card_tok.tolist()} vs cpu "
+                                         f"{tok.tolist()}, gaps "
+                                         f"{gap.tolist()}")
+                ids.append(tok.tolist())
+                gaps.append(float(gap.min()))
+        emit({"phase": "parity", "what": f"{name}: prefill (kernel, cuda) "
+              f"vs plain (cpu), 8 greedy decode tokens",
+              "logits_max_abs_err": float((got.cpu() - want).abs().max()),
+              "states_max_abs_err": st_err, "tol": PARITY_TOL,
+              "greedy_ids": [list(r) for r in zip(*ids)][:2],
+              "decode_logit_max_abs_err": worst,
+              "min_top2_gap": min(gaps)})
+
+
+def phase_lm(torch):
+    """qwen1.5-0.5b at full width: prefill through the kernel, the plain
+    path on the same batch, then ``ServingLoop`` greedy decode. Returns the
+    kernel launches counted over the four kernel prefills."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine.model_store import GlobalModelStore
+    from repro_torch.core.serve import ServingLoop
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init(torch.Generator().manual_seed(0), cfg,
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != LM_PARAMS or registry.param_count(cfg) != LM_PARAMS:
+        raise AssertionError(f"{LM_ARCH}: {n_params} params, want "
+                             f"{LM_PARAMS}")
+    batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, 7),
+                                    device="cuda")}
+
+    # instrumentation of this script only: CUDA events around each kernel
+    # call, host clock around each prefill
+    events, kernel = [], fa.flash_attention
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = kernel(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    def run(step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = step(params, batch)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    prefill = make_prefill_step(cfg, use_kernel=True)
+    fa.launches = 0
+    fa.flash_attention = timed
+    try:
+        times, shares = [], []
+        for i in range(4):                       # one warm-up, three timed
+            events.clear()
+            (logits, states), ms = run(prefill)
+            if i:
+                times.append(ms)
+                shares.append(sum(a.elapsed_time(b) for a, b in events) / ms)
+    finally:
+        fa.flash_attention = kernel
+    launches = fa.launches
+    if launches != 4 * cfg.num_layers:
+        raise AssertionError(f"{launches} flash launches in 4 prefills, "
+                             f"want {4 * cfg.num_layers}")
+    if logits.shape != (LM_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} or "
+                             f"not finite")
+    (plain_logits, plain_states), plain_ms = run(
+        make_prefill_step(cfg, use_kernel=False))
+    if fa.launches != launches:
+        raise AssertionError("the plain prefill launched the kernel")
+    torch.testing.assert_close(logits, plain_logits, rtol=1e-3, atol=1e-3)
+    st_err = 0.0
+    for a, b in zip(tree_leaves(states), tree_leaves(plain_states)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+        st_err = max(st_err, float((a - b).abs().max()))
+    order = sorted(times)
+    emit({"phase": "lm", "what": "prefill", "arch": LM_ARCH,
+          "params": n_params, "dtype": "float32", "batch": LM_BATCH,
+          "seq": LM_SEQ, "init_s": init_s,
+          "ms": order[len(order) // 2], "ms_runs": times,
+          "flash_share": statistics.median(shares),
+          "flash_launches_per_prefill": launches // 4,
+          "plain_ms": plain_ms,
+          "logits_max_abs_err_vs_plain": float(
+              (logits - plain_logits).abs().max()),
+          "states_max_abs_err_vs_plain": st_err,
+          "logits_argmax": torch.argmax(logits, -1).tolist()})
+    del states, plain_states, logits, plain_logits
+
+    loop = ServingLoop(GlobalModelStore(params=params), cfg, **SERVE)
+    runs = [loop.decode(loop._traffic(t)) for t in range(2)]
+    ids, dt = runs[-1]
+    n_tok = SERVE["batch"] * SERVE["tokens"]
+    if ids.shape != (SERVE["batch"], SERVE["tokens"]):
+        raise AssertionError(f"decode ids {tuple(ids.shape)}")
+    emit({"phase": "lm", "what": "serve", "arch": LM_ARCH, **SERVE,
+          "tokens_per_s": n_tok / dt, "first_tokens_per_s": n_tok / runs[0][1],
+          "ms_per_step": dt / SERVE["tokens"] * 1e3,
+          "ids": ids.tolist(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -704,12 +994,14 @@ def main() -> int:
         return 1
 
     name, _ = phase_device(torch)
-    bw, f32_peak = card_peaks(name)
+    bw, f32_peak, bf16_peak = card_peaks(name)
     phase_build()
     rows, max_err = phase_kernel(torch, bw, f32_peak)
     wrows = phase_wire_kernels(torch, bw, f32_peak)
+    frows = phase_flash_kernel(torch, bw, f32_peak, bf16_peak)
     phase_parity(torch)
     phase_parity_wire(torch)
+    phase_parity_lm(torch)
     cifar, cifar_s = paper_data("cifar100")
     launches = run_task(torch, "cifar100", CIFAR_ROUNDS, cifar, cifar_s)
     for task in MAIN_TASKS[1:]:
@@ -720,6 +1012,7 @@ def main() -> int:
             wire_launches[k] += v
     if not all(wire_launches.values()):
         raise AssertionError(f"a wire kernel never ran: {wire_launches}")
+    flash_launches = phase_lm(torch)
 
     # one CIFAR100 round: the sums over its eight leaves (for the int8
     # kernels, the one-plane codec's round)
@@ -747,6 +1040,16 @@ def main() -> int:
         kernels.append(summary(kname, "src/repro_torch/csrc/delta_codec.cu",
                                replaces, wire_launches[kname], per_round,
                                err))
+    # flash_attention: the full-width prefill's shape (one launch of it)
+    top = frows[0]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:114",
+        "launches": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,47 @@
-from repro_torch.configs.base import FedConfig, RuntimeModelConfig
+"""Config registry: ``get_arch('<id>')`` resolves an architecture the port
+runs, by the reference's exact names (dots and dashes); module names use
+underscores.
+
+The port carries the four dense architectures. The other six of the
+reference are refused by name, with the slice of the port that brings them
+(``ROADMAP.md``).
+"""
+from repro_torch.configs.base import (ArchConfig, FedConfig, MoEConfig,
+                                      RuntimeModelConfig, ShapeConfig,
+                                      SSMConfig)
 from repro_torch.configs.paper_tasks import (PAPER_TASKS, PaperTaskConfig,
                                              get_paper_task)
+from repro_torch.configs.shapes import SHAPES, get_shape
 
-__all__ = ["FedConfig", "RuntimeModelConfig", "PAPER_TASKS",
-           "PaperTaskConfig", "get_paper_task"]
+from repro_torch.configs import (gemma2_27b, nemotron_4_340b, qwen1_5_0_5b,
+                                 qwen2_7b)
+
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (qwen1_5_0_5b, qwen2_7b, gemma2_27b, nemotron_4_340b)}
+
+#: the reference's other architectures, and the part of the port that
+#: brings each
+LATER_ARCHS = {
+    "mixtral-8x22b": "the MoE slice (moe_gmm.gmm)",
+    "phi3.5-moe-42b-a6.6b": "the MoE slice (moe_gmm.gmm)",
+    "mamba2-780m": "the SSM slice (ssd_scan)",
+    "zamba2-7b": "the SSM slice (ssd_scan)",
+    "whisper-tiny": "the encoder-decoder slice",
+    "llava-next-34b": "the encoder-decoder slice (after whisper)",
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    base = name[: -len("-reduced")] if name.endswith("-reduced") else name
+    if base in LATER_ARCHS:
+        raise ValueError(f"arch {base!r} is not ported yet: it comes with "
+                         f"{LATER_ARCHS[base]}; the port runs "
+                         f"{sorted(ARCHS)}")
+    cfg = ARCHS[base]
+    return cfg.reduced() if base != name else cfg
+
+
+__all__ = ["ArchConfig", "FedConfig", "MoEConfig", "RuntimeModelConfig",
+           "ShapeConfig", "SSMConfig", "ARCHS", "LATER_ARCHS", "SHAPES",
+           "PAPER_TASKS", "PaperTaskConfig", "get_arch", "get_shape",
+           "get_paper_task"]

@@ -55,6 +55,10 @@ class History:
     val_rounds: List[int] = field(default_factory=list)
     val_error: List[float] = field(default_factory=list)
     max_val_acc: List[float] = field(default_factory=list)    # Fig. 2 metric
+    serve_rounds: List[int] = field(default_factory=list)     # ServingLoop.tick
+    serve_tokens_per_sec: List[float] = field(default_factory=list)
+    serve_swap_us: List[float] = field(default_factory=list)  # snapshot swap
+    serve_staleness: List[int] = field(default_factory=list)  # versions behind
 
 
 def _refuse_unported(fed: FedConfig) -> None:

@@ -51,6 +51,15 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                      ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
     },
+    "flash_attention": {
+        # (q, k, v, o, dims[6], strides[12], causal, window, softcap, scale,
+        #  dtype, stream); dims and strides are host int64 arrays
+        "flash_attention_launch": (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.kernels import delta_codec as _dc
 from repro_torch.kernels import fedavg_reduce as _fr
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.ref import flash_attention_ref
 
 PyTree = Any
 
@@ -62,3 +64,44 @@ def topk_delta_apply(ref: torch.Tensor, vals: torch.Tensor,
     """Downlink top-k reconstruction: the kept coordinates scatter-added
     into a copy of the broadcast reference."""
     return _dc.topk_scatter_apply(ref, vals, idx)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (model layout adapter)
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through the kernel (the plain version on the CPU); backward
+    by autograd through the plain version, as the reference's custom VJP
+    differentiates its jnp oracle."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, softcap = ctx.opts
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_ref(*leaves, causal=causal, window=window,
+                                      softcap=softcap)
+        grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Model layout: q (B, Sq, H, hd); k/v (B, Sk, KV, hd) -> (B, Sq, H, hd).
+
+    The attention layer calls this when ``use_kernel=True``. The kernel
+    reads the transposed views through their strides, so nothing is
+    copied, and takes any S and hd in (16, 32, 64, 128): the reference's
+    padding to 128 was TPU tiling."""
+    out = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal, window, softcap)
+    return out.transpose(1, 2)

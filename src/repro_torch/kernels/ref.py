@@ -6,6 +6,7 @@ mirror the oracles of ``repro.kernels.ref`` and ``repro.kernels.delta_codec``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -18,6 +19,42 @@ def fedavg_reduce_ref(client_params: torch.Tensor,
     x = client_params.to(torch.float32)
     w = weights.to(torch.float32)
     return (w[:, None] * x).sum(dim=0).to(client_params.dtype)
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window: Optional[int],
+                   device) -> torch.Tensor:
+    """(Sq, Sk) boolean, True = attend; query and key positions both count
+    from 0: causal ``kj <= qi``, a window adds ``kj > qi - window``."""
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd), H = KV * G, query head h
+    reads kv head h // G -> (B, H, Sq, hd) in q's dtype. Scores in f32,
+    scaled by 1/sqrt(hd), softcapped, masked to the finite -1e30, softmax
+    over the keys."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, Sq, hd).to(torch.float32)
+    scores = torch.einsum("bkgqh,bksh->bkgqs", qg,
+                          k.to(torch.float32)) / math.sqrt(hd)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.to(torch.float32))
+    return out.reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def int8_decompress_reduce_ref(q: torch.Tensor, w_eff: torch.Tensor,

@@ -1,3 +1,3 @@
-from repro_torch.models import attention, layers, small
+from repro_torch.models import attention, layers, registry, small, transformer
 
-__all__ = ["attention", "layers", "small"]
+__all__ = ["attention", "layers", "registry", "small", "transformer"]

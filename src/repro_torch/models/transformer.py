@@ -1,0 +1,367 @@
+"""Decoder-only LM for the dense architectures (``repro.models.transformer``).
+
+Layers are grouped into *cycles*, one repetition of ``cfg.layer_pattern``
+(e.g. (local, global) for gemma2). The params of all cycles are stacked on
+a leading axis under ``params["stack"]["b{i}"]`` with the reference's
+keys, so ``bridge.params_from_jax`` maps a reference tree 1:1; the
+reference's ``lax.scan`` over cycles is a loop over that axis, and
+``remat`` checkpoints one cycle at a time (``torch.utils.checkpoint``) when
+autograd is on.
+
+Only ``arch_type == "dense"`` runs here; the other families raise, naming
+the part of the port that brings them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.utils.checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention, layers
+from repro_torch.optim import tree_map
+
+PyTree = Any
+
+#: where each non-dense family arrives (ROADMAP.md)
+LATER_FAMILIES = {"moe": "the MoE slice", "ssm": "the SSM slice",
+                  "hybrid": "the SSM slice",
+                  "audio": "the encoder-decoder slice",
+                  "vlm": "the encoder-decoder slice"}
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    if cfg.arch_type != "dense":
+        raise ValueError(
+            f"arch {cfg.name!r} is {cfg.arch_type!r}: the port runs dense "
+            f"LMs only; {cfg.arch_type} comes with "
+            f"{LATER_FAMILIES.get(cfg.arch_type, 'a later slice')}")
+
+
+# ---------------------------------------------------------------------------
+# structure helpers
+# ---------------------------------------------------------------------------
+
+def cycle_spec(cfg: ArchConfig) -> Tuple[str, ...]:
+    if cfg.layer_pattern is None:
+        return ("mamba",) if cfg.arch_type == "ssm" else ("attn",)
+    return tuple(cfg.layer_pattern)
+
+
+def cycle_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(num full cycles, number of tail layers)."""
+    n = len(cycle_spec(cfg))
+    return cfg.num_layers // n, cfg.num_layers % n
+
+
+def _layer_window(cfg: ArchConfig, ltype: str,
+                  global_window: Optional[int]) -> Optional[int]:
+    if ltype == "local":
+        return cfg.sliding_window
+    if ltype == "global":
+        return global_window           # None normally; capped in long mode
+    # plain "attn": honour an arch-level sliding window
+    if cfg.sliding_window is None:
+        return global_window
+    return cfg.sliding_window
+
+
+def _index(tree: PyTree, i: int) -> PyTree:
+    """One cycle's slice of a stacked tree (views, no copies)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack(trees) -> PyTree:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# single block init/apply
+# ---------------------------------------------------------------------------
+
+def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
+    d_ff = cfg.d_ff if cfg.d_ff else 4 * cfg.d_model
+    return {"ln1": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device),
+            "attn": attention.attn_init(gen, cfg, dtype, device),
+            "ln2": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device),
+            "mlp": layers.mlp_init(gen, cfg.d_model, d_ff, cfg.mlp_type,
+                                   dtype, device)}
+
+
+def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
+                 global_window=None, use_kernel=False):
+    """Full-sequence block. Returns (x, decode state {k, v})."""
+    window = _layer_window(cfg, ltype, global_window)
+    h, (k, v) = attention.attention(
+        bp["attn"], cfg, layers.norm_apply(cfg.norm_type, bp["ln1"], x),
+        positions, window=window, use_kernel=use_kernel)
+    x = x + h
+    hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
+    return x + layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type), {"k": k, "v": v}
+
+
+def _block_decode(bp, cfg: ArchConfig, ltype: str, x, state, pos, *,
+                  global_window=None, ring=False):
+    """One token through one block; writes its cache slot in place."""
+    window = _layer_window(cfg, ltype, global_window)
+    use_ring = ring and window is not None
+    xn = layers.norm_apply(cfg.norm_type, bp["ln1"], x)
+    if "ks" in state:        # two-level int8 cache (Q-KV)
+        h, state = attention.attention_decode_quant(
+            bp["attn"], cfg, xn, state, pos, window=window, ring=use_ring)
+    else:
+        h, _, _ = attention.attention_decode(
+            bp["attn"], cfg, xn, state["k"], state["v"], pos, window=window,
+            ring=use_ring)
+    x = x + h
+    hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
+    return x + layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type), state
+
+
+# ---------------------------------------------------------------------------
+# model init
+# ---------------------------------------------------------------------------
+
+def init_lm(gen: Optional[torch.Generator], cfg: ArchConfig,
+            dtype=torch.float32, device="cpu") -> PyTree:
+    """The reference's parameter tree, drawn from ``gen`` (on the ``meta``
+    device: shapes only, ``gen`` unused)."""
+    require_dense(cfg)
+    spec = cycle_spec(cfg)
+    n_cycles, n_tail = cycle_counts(cfg)
+    params: Dict[str, Any] = {
+        "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, device),
+        "final_norm": layers.norm_init(cfg.norm_type, cfg.d_model, dtype,
+                                       device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(gen, cfg.d_model,
+                                              cfg.vocab_size, dtype=dtype,
+                                              device=device)
+    if n_cycles > 0:
+        params["stack"] = _stack([
+            {f"b{i}": _block_init(gen, cfg, lt, dtype, device)
+             for i, lt in enumerate(spec)} for _ in range(n_cycles)])
+    if n_tail:
+        params["tail"] = {f"b{i}": _block_init(gen, cfg, spec[i], dtype,
+                                               device)
+                          for i in range(n_tail)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _cycle_apply(cparams, cfg, x, positions, kw):
+    states = {}
+    for i, lt in enumerate(cycle_spec(cfg)):
+        x, states[f"b{i}"] = _block_apply(cparams[f"b{i}"], cfg, lt, x,
+                                          positions, **kw)
+    return x, states
+
+
+def embed_inputs(params, cfg: ArchConfig, tokens):
+    """Token embedding. Returns (x, positions, n_prefix)."""
+    x = layers.embedding_apply(params["embed"], tokens)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    return x, positions, 0
+
+
+def forward_lm(params, cfg: ArchConfig, tokens, *,
+               global_window: Optional[int] = None, remat: bool = False,
+               use_kernel: bool = False, return_states: bool = False,
+               return_features: bool = False):
+    """Full-sequence forward. Returns (logits|features, aux[, decode
+    states]); states are stacked over cycles like the params."""
+    require_dense(cfg)
+    x, positions, _ = embed_inputs(params, cfg, tokens)
+    kw = dict(global_window=global_window, use_kernel=use_kernel)
+    stack_states = None
+    if "stack" in params:
+        n_cycles = cycle_counts(cfg)[0]
+        per_cycle = []
+        for c in range(n_cycles):
+            cparams = _index(params["stack"], c)
+            if remat and torch.is_grad_enabled():
+                x, st = torch.utils.checkpoint.checkpoint(
+                    _cycle_apply, cparams, cfg, x, positions, kw,
+                    use_reentrant=False)
+            else:
+                x, st = _cycle_apply(cparams, cfg, x, positions, kw)
+            if return_states:
+                per_cycle.append(st)
+        if return_states:
+            stack_states = _stack(per_cycle)
+    tail_states = {}
+    if "tail" in params:
+        spec = cycle_spec(cfg)
+        for i in range(cfg.num_layers % len(spec)):
+            x, tail_states[f"b{i}"] = _block_apply(
+                params["tail"][f"b{i}"], cfg, spec[i], x, positions, **kw)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = x if return_features else _readout(params, cfg, x)
+    if return_states:
+        return out, aux, {"stack": stack_states, "tail": tail_states}
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def xent_loss(logits, targets, mask=None):
+    """Token cross-entropy in f32. logits: (B,S,V); targets: (B,S) int."""
+    logits32 = logits.to(torch.float32)
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# Chunk the readout + cross-entropy over sequence positions when the full
+# (B, S, V) logits would be large: each chunk's logits are recomputed in the
+# backward pass, so they never all exist (the reference's constants).
+LOSS_CHUNK = 512
+LOSS_CHUNK_MIN_ELEMENTS = 1 << 28      # B*S*V above this triggers chunking
+
+
+def _readout(params, cfg: ArchConfig, x):
+    x = layers.norm_apply(cfg.norm_type, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = layers.embedding_attend(params["embed"], x)
+    else:
+        logits = layers.dense_apply(params["lm_head"], x)
+    return layers.softcap(logits, cfg.final_logit_softcap)
+
+
+def _chunk_nll(params, cfg, f, t, m):
+    """(sum of masked nll, sum of mask) over one chunk."""
+    logits32 = _readout(params, cfg, f).to(torch.float32)
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, t.long()[..., None])[..., 0]
+    return torch.sum((logz - gold) * m), torch.sum(m)
+
+
+def _chunked_xent(params, cfg: ArchConfig, feats, targets, mask=None):
+    """feats: (B, S, d) pre-readout features; targets: (B, S)."""
+    B, S, _ = feats.shape
+    chunk = LOSS_CHUNK
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=feats.device)
+    pad = (-S) % chunk
+    if pad:
+        feats = torch.nn.functional.pad(feats, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    nll = torch.zeros((), dtype=torch.float32, device=feats.device)
+    msum = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for off in range(0, S + pad, chunk):
+        args = (params, cfg, feats[:, off:off + chunk],
+                targets[:, off:off + chunk], mask[:, off:off + chunk])
+        if torch.is_grad_enabled():
+            n, m = torch.utils.checkpoint.checkpoint(_chunk_nll, *args,
+                                                     use_reentrant=False)
+        else:
+            n, m = _chunk_nll(*args)
+        nll, msum = nll + n, msum + m
+    return nll / torch.clamp(msum, min=1.0)
+
+
+def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = False, use_kernel: bool = False):
+    """Next-token LM loss. batch: {tokens, [mask]}. Returns (loss,
+    {"xent", "aux"})."""
+    tokens = batch["tokens"]
+    feats, aux = forward_lm(params, cfg, tokens, remat=remat,
+                            use_kernel=use_kernel, return_features=True)
+    pred_feats = feats[:, :-1]
+    targets = tokens[:, 1:]
+    mask = batch.get("mask")
+    mask = mask[:, 1:].to(torch.float32) if mask is not None else None
+    B, Sm1 = targets.shape
+    if B * Sm1 * cfg.vocab_size >= LOSS_CHUNK_MIN_ELEMENTS and Sm1 > LOSS_CHUNK:
+        loss = _chunked_xent(params, cfg, pred_feats, targets, mask)
+    else:
+        loss = xent_loss(_readout(params, cfg, pred_feats), targets, mask)
+    # dense: no router loss (the reference adds router_aux_coef * aux for MoE)
+    return loss, {"xent": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# decode (serve)
+# ---------------------------------------------------------------------------
+
+def _block_cache(cfg: ArchConfig, ltype: str, batch: int, max_seq: int, dtype,
+                 ring: bool = False, global_window=None, quant: bool = False,
+                 device="cpu"):
+    # ring=True: windowed layers allocate a window-length ring buffer
+    eff = max_seq
+    if ring:
+        w = _layer_window(cfg, ltype, global_window)
+        if w is not None:
+            eff = min(max_seq, w)
+    shape = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
+    if quant:  # two-level int8 + per-(token, head) f32 scales (Q-KV)
+        sshape = shape[:-1] + (1,)
+        i8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"k": torch.zeros(shape, **i8), "ks": torch.ones(sshape, **f32),
+                "kr": torch.zeros(shape, **i8), "krs": torch.ones(sshape, **f32),
+                "v": torch.zeros(shape, **i8), "vs": torch.ones(sshape, **f32),
+                "vr": torch.zeros(shape, **i8), "vrs": torch.ones(sshape, **f32)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache_lm(cfg: ArchConfig, batch: int, max_seq: int,
+                  dtype=torch.float32, *, ring: bool = False,
+                  global_window=None, quant: bool = False, device="cpu"):
+    require_dense(cfg)
+    spec = cycle_spec(cfg)
+    n_cycles, n_tail = cycle_counts(cfg)
+    kw = dict(ring=ring, global_window=global_window, quant=quant,
+              device=device)
+    cache: Dict[str, Any] = {}
+    if n_cycles:
+        cache["stack"] = _stack([
+            {f"b{i}": _block_cache(cfg, lt, batch, max_seq, dtype, **kw)
+             for i, lt in enumerate(spec)} for _ in range(n_cycles)])
+    if n_tail:
+        cache["tail"] = {f"b{i}": _block_cache(cfg, spec[i], batch, max_seq,
+                                               dtype, **kw)
+                         for i in range(n_tail)}
+    return cache
+
+
+def decode_step_lm(params, cfg: ArchConfig, cache, token, pos: int, *,
+                   global_window: Optional[int] = None, ring: bool = False):
+    """One decode step. token: (B,) int; pos: int position.
+
+    Writes each layer's new k/v into ``cache`` in place and returns
+    (logits (B, V), cache) — the same dict."""
+    x = layers.embedding_apply(params["embed"], token[:, None])   # (B,1,d)
+    spec = cycle_spec(cfg)
+    kw = dict(global_window=global_window, ring=ring)
+    if "stack" in params:
+        for c in range(cycle_counts(cfg)[0]):
+            cparams, ccache = _index(params["stack"], c), \
+                _index(cache["stack"], c)
+            for i, lt in enumerate(spec):
+                x, _ = _block_decode(cparams[f"b{i}"], cfg, lt, x,
+                                     ccache[f"b{i}"], pos, **kw)
+    if "tail" in params:
+        for i in range(cfg.num_layers % len(spec)):
+            x, _ = _block_decode(params["tail"][f"b{i}"], cfg, spec[i], x,
+                                 cache["tail"][f"b{i}"], pos, **kw)
+    logits = _readout(params, cfg, x)
+    return logits[:, 0], cache

@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import delta_codec as tdc
 from repro_torch.kernels import fedavg_reduce as tfr
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 # f32 as tests/test_kernels.py:12; bf16 at one bf16 ulp of the f32 sum
@@ -223,3 +225,91 @@ def test_delta_codec_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                torch.zeros(2, device=cuda),
                                torch.zeros(2, dtype=torch.int64,
                                            device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:12: f32 2e-4, bf16 3e-2
+FA_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+          torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+FA_CASES = [
+    # (B, H, KV, Sq, Sk, hd, causal, window, softcap)
+    (2, 16, 16, 512, 512, 64, True, None, None),    # qwen1.5-0.5b heads
+    (1, 8, 2, 300, 300, 64, True, None, None),      # GQA, no tile multiple
+    (1, 8, 2, 300, 300, 64, True, 64, None),        # window
+    (1, 8, 2, 300, 300, 64, True, None, 50.0),      # softcap
+    (1, 4, 2, 512, 512, 128, True, 4096, 50.0),     # gemma2 hd 128
+    (2, 4, 4, 96, 96, 32, True, None, None),        # reduced configs' hd
+    (1, 2, 1, 80, 80, 16, True, 16, None),          # hd 16
+    (1, 4, 2, 200, 200, 64, False, None, None),     # non-causal
+    (1, 4, 2, 200, 200, 64, False, 48, 20.0),       # non-causal + window
+    (2, 4, 2, 1, 257, 64, True, None, None),        # Sq = 1 vs Sk = 257
+    (2, 4, 2, 1, 257, 64, False, None, None),
+]
+
+
+def _fa_inputs(case, dtype, cuda, seed=0):
+    B, H, KV, Sq, Sk, hd = case[:6]
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, H, Sq, hd), generator=g) * 0.5
+    k = torch.randn((B, KV, Sk, hd), generator=g) * 0.5
+    v = torch.randn((B, KV, Sk, hd), generator=g)
+    return [t.to(cuda, dtype) for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
+    q, k, v = _fa_inputs(case, dtype, cuda)
+    causal, window, softcap = case[6:]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = tfa.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    again = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)               # fixed order: repeatable
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_model_layout_views_and_grads(cuda):
+    """ops.flash_attention hands the kernel (B, S, H, hd) tensors as
+    transposed views; its gradient goes through the plain version."""
+    g = torch.Generator().manual_seed(1)
+    B, S, H, KV, hd = 2, 130, 8, 2, 64
+    q, k, v = (torch.randn(shape, generator=g).to(cuda).requires_grad_()
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    w = torch.randn((B, S, H, hd), generator=g).to(cuda)
+    before = tfa.launches
+    out = tops.flash_attention(q, k, v, causal=True, window=40, softcap=30.0)
+    assert tfa.launches == before + 1 and out.is_contiguous()
+    (out * w).sum().backward()
+    refs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = tref.flash_attention_ref(
+        *(t.transpose(1, 2) for t in refs), causal=True, window=40,
+        softcap=30.0).transpose(1, 2)
+    (want * w).sum().backward()
+    torch.testing.assert_close(out, want, **FA_TOL[torch.float32])
+    for got, ref in zip((q, k, v), refs):
+        torch.testing.assert_close(got.grad, ref.grad, **FA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 48), device=cuda)
+    with pytest.raises(ValueError):                 # hd 48
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros((1, 3, 8, 64), device=cuda)
+    k = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError):                 # H % KV != 0
+        tfa.flash_attention(q, k, k)
+    with pytest.raises(TypeError):                  # f16
+        tfa.flash_attention(*(t.half() for t in (k, k, k)))
+    with pytest.raises(ValueError):                 # mixed devices
+        tfa.flash_attention(k, k.cpu(), k)

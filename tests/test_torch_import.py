@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import FedConfig, get_paper_task
+from repro_torch.configs import FedConfig, get_arch, get_paper_task
 from repro_torch.core import (FedAvgTrainer, RuntimeModel, make_round_fn,
                               run_reference_rounds)
 from repro_torch.core.engine.trainer import make_eval_fn
 from repro_torch.data import make_paper_task
-from repro_torch.models import small
+from repro_torch.launch import serve
+from repro_torch.models import registry, small, transformer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -26,7 +27,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.bridge, "
             "repro_torch.kernels.ops, repro_torch.kernels._build, "
             "repro_torch.kernels.delta_codec, repro_torch.models.attention, "
-            "repro_torch.core.engine.transport\n"
+            "repro_torch.core.engine.transport, repro_torch.configs, "
+            "repro_torch.models.registry, repro_torch.models.transformer, "
+            "repro_torch.kernels.flash_attention, repro_torch.distributed, "
+            "repro_torch.core.engine.model_store, repro_torch.core.serve, "
+            "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -63,6 +68,8 @@ def _trainer_no_device():
     lambda: small.init_task_model(0, get_paper_task("sent140")),
     lambda: run_reference_rounds(None, {}, None, FedConfig(), 1),
     lambda: make_eval_fn(None, None),
+    lambda: registry.init(0, get_arch("qwen1.5-0.5b-reduced")),
+    lambda: serve.main(["--tokens", "1"]),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
@@ -92,3 +99,21 @@ def test_trainer_refuses_unported_config_by_name(field, value, extra):
     with pytest.raises(ValueError, match=field):
         FedAvgTrainer(lambda p, b: small.task_loss(p, task, b), params, data,
                       fed, RuntimeModel(1.0, task.runtime, 2), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "zamba2-7b-reduced",
+                                  "whisper-tiny", "llava-next-34b",
+                                  "mamba2-780m", "phi3.5-moe-42b-a6.6b"])
+def test_get_arch_refuses_unported_families_by_name(name):
+    with pytest.raises(ValueError, match="slice"):
+        get_arch(name)
+
+
+def test_model_refuses_non_dense_arch_and_serve_refuses_checkpoint():
+    import dataclasses
+    moe = dataclasses.replace(get_arch("qwen1.5-0.5b-reduced"),
+                              arch_type="moe")
+    with pytest.raises(ValueError, match="MoE slice"):
+        transformer.init_lm(None, moe, device="meta")
+    with pytest.raises(SystemExit, match="checkpoint"):
+        serve.main(["--checkpoint", "/nonexistent", "--device", "cpu"])
