@@ -49,7 +49,20 @@ exits non-zero without printing a result:
               B 2 x S 4096 through the kernel (24 launches each; ms and the
               kernel's share), the same batch through the plain path, and
               ``ServingLoop`` greedy decode at the launcher's defaults
-              (batch 4, prompt 16, 32 tokens): tokens/s and peak memory.
+              (batch 4, prompt 16, 32 tokens): tokens/s and peak memory;
+8. moe      — the MoE serving path. Phase ``kernel`` rows hold ``gmm``
+              against its plain version (bitwise repeat too) at the
+              phi3.5-moe prefill's gate/up and down shapes, the reference
+              sweep's and the decode-dispatch floor C = 8, f32 and bf16,
+              with the ``torch.bmm`` time and the bound; phase ``parity``
+              adds reduced phi3.5-moe-42b-a6.6b and mixtral-8x22b (routing
+              ids too, decode on the serving loop's dense MoE path); then
+              phi3.5-moe-42b-a6.6b at full width and 8 of its 32 layers
+              (10.7 B f32 params from seed 0): prefill B 2 x S 4096 through
+              ``flash_attention`` and ``gmm`` (3 x layers gmm and layers
+              flash launches each; ms, each kernel's share), the plain path
+              on the same batch (logits, states, routing flips), and
+              ``ServingLoop`` dense-path decode: tokens/s, peak memory.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -177,9 +190,9 @@ def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build_all()
-    ptxas = [line.strip() for log in _build.build_logs.values()
-             for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas = {name: [line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "ptxas": ptxas})
 
@@ -729,7 +742,8 @@ FLASH_SHAPES = [
 LM_ARCH = "qwen1.5-0.5b"
 LM_PARAMS = 463_987_712
 LM_BATCH, LM_SEQ = 2, 4096            # train_4k's sequence length
-PARITY_ARCHS = ("qwen1.5-0.5b-reduced", "gemma2-27b-reduced")
+PARITY_ARCHS = ("qwen1.5-0.5b-reduced", "gemma2-27b-reduced",
+                "phi3.5-moe-42b-a6.6b-reduced", "mixtral-8x22b-reduced")
 PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
 SERVE = dict(batch=4, prompt_len=16, tokens=32)   # launch/serve.py defaults
 
@@ -809,12 +823,93 @@ def _lm_tokens(cfg, b, s, seed):
         0, cfg.vocab_size, size=(b, s)).astype(np.int32)
 
 
+class RouteLog:
+    """Instrumentation of this script only: wraps ``models.moe._route`` and
+    keeps, for each call (one MoE layer), the routing ids and each token's
+    smallest margin between neighbouring probabilities of its top k + 1,
+    on the device (no synchronisation).
+
+    With ``force`` (the log of another run) each layer takes that run's
+    ids, weighted by this run's own probabilities as ``_route`` weights
+    them, so one flipped choice cannot cascade through the later layers;
+    the own ids are still logged for ``route_flips``. Where the ids agree
+    the forced result is bit for bit the unforced one."""
+
+    def __init__(self, torch, force=None):
+        from repro_torch.models import moe
+        self.torch, self.mod, self.route, self.calls = torch, moe, \
+            moe._route, []
+        self.force = force
+
+    def __enter__(self):
+        torch = self.torch
+
+        def recording(p, cfg, xf):
+            w, ids, aux = self.route(p, cfg, xf)
+            probs = torch.softmax((xf @ p["router"]["kernel"]).float(), -1)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            self.calls.append((ids, (top[:, :-1] - top[:, 1:]).amin(-1)))
+            if self.force is None:
+                return w, ids, aux
+            ids = self.force.calls[len(self.calls) - 1][0]
+            w = torch.gather(probs, -1, ids)
+            w = w / torch.sum(w, dim=-1, keepdim=True)
+            E = cfg.moe.num_experts
+            f_e = torch.mean(torch.nn.functional.one_hot(ids[:, 0], E)
+                             .to(torch.float32), dim=0)
+            aux = E * torch.sum(f_e * torch.mean(probs, dim=0))
+            return w.to(xf.dtype), ids, aux
+        self.mod._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.route
+
+
+# routing probabilities closer than this may order differently on two
+# devices or paths: 2 x (atol + rtol x 1) of PARITY_TOL, probabilities <= 1
+ROUTE_TOL = 2 * (PARITY_TOL["atol"] + PARITY_TOL["rtol"])
+
+
+def route_flips(torch, a: RouteLog, b: RouteLog, layers: int):
+    """Compare two runs' own routing ids, layer by layer: {flipped (token,
+    layer) choices, their count per layer, the smallest margin among them,
+    the smallest margin of all}. Raises where ids differ though the margin
+    exceeds ROUTE_TOL."""
+    if len(a.calls) != layers or len(b.calls) != layers:
+        raise AssertionError(f"{len(a.calls)} / {len(b.calls)} routed "
+                             f"layers, want {layers}")
+    per_layer, flip_margin, smallest, bad = [], math.inf, math.inf, []
+    for layer, ((ia, ma), (ib, mb)) in enumerate(zip(a.calls, b.calls)):
+        margin = torch.minimum(ma.cpu(), mb.cpu())
+        diff = (ia.cpu() != ib.cpu()).any(-1)
+        per_layer.append(int(diff.sum()))
+        if bool(diff.any()):
+            flip_margin = min(flip_margin, float(margin[diff].min()))
+            wide = diff & (margin > ROUTE_TOL)
+            if bool(wide.any()):
+                bad.append((layer, int(wide.sum()),
+                            float(margin[wide].max())))
+        smallest = min(smallest, float(margin.min()))
+    out = {"route_flips": sum(per_layer), "route_flips_per_layer": per_layer,
+           "route_flip_min_margin": (flip_margin if sum(per_layer)
+                                     else None),
+           "min_route_margin": smallest, "route_tol": ROUTE_TOL}
+    if bad:
+        raise AssertionError(f"routing differs where the margin exceeds "
+                             f"{ROUTE_TOL}: (layer, tokens, largest margin) "
+                             f"{bad}; {out}")
+    return out
+
+
 def phase_parity_lm(torch):
-    """Reduced qwen1.5-0.5b and gemma2-27b: prefill through the kernel on
-    the card against the plain path on the CPU (last-token logits and the
-    decode states), then 8 greedy decode steps on both, each fed the CPU's
-    token: the card's argmax must equal the CPU's wherever the CPU's top-2
-    logit gap exceeds the tolerance."""
+    """Reduced qwen1.5-0.5b, gemma2-27b, phi3.5-moe-42b-a6.6b and
+    mixtral-8x22b: prefill through the kernels on the card against the
+    plain path on the CPU (last-token logits, the decode states and, for
+    MoE, every layer's routing ids), then 8 greedy decode steps on both
+    (MoE on the serving loop's dense path), each fed the CPU's token: the
+    card's argmax must equal the CPU's wherever the CPU's top-2 logit gap
+    exceeds the tolerance."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed import make_prefill_step
     from repro_torch.models import registry
@@ -824,17 +919,21 @@ def phase_parity_lm(torch):
         cpu = registry.init(0, cfg, device="cpu")
         card = tree_map(lambda t: t.to("cuda"), cpu)
         toks = torch.tensor(_lm_tokens(cfg, 2, 96, 5))
-        with torch.no_grad():
+        with torch.no_grad(), RouteLog(torch) as rcpu:
             want, wst = make_prefill_step(cfg, use_kernel=False)(
                 cpu, {"tokens": toks})
+        with torch.no_grad(), RouteLog(torch) as rcard:
             got, gst = make_prefill_step(cfg, use_kernel=True)(
                 card, {"tokens": toks.cuda()})
+        routing = {}
+        if cfg.moe is not None:
+            routing = route_flips(torch, rcpu, rcard, cfg.num_layers)
         torch.testing.assert_close(got.cpu(), want, **PARITY_TOL)
         st_err = 0.0
         for a, b in zip(tree_leaves(wst), tree_leaves(gst)):
             torch.testing.assert_close(b.cpu(), a, **PARITY_TOL)
             st_err = max(st_err, float((b.cpu() - a).abs().max()))
-        step = registry.decode_fn(cfg)
+        step = registry.decode_fn(cfg, moe_path="dense")
         n_prompt, n_new = 16, 8
         steps = n_prompt + n_new - 1
         caches = {"cpu": registry.init_cache(cpu, cfg, 2, steps),
@@ -872,7 +971,7 @@ def phase_parity_lm(torch):
               "states_max_abs_err": st_err, "tol": PARITY_TOL,
               "greedy_ids": [list(r) for r in zip(*ids)][:2],
               "decode_logit_max_abs_err": worst,
-              "min_top2_gap": min(gaps)})
+              "min_top2_gap": min(gaps), **routing})
 
 
 def phase_lm(torch):
@@ -979,6 +1078,199 @@ def phase_lm(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the MoE serving path (phase 8)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:12-14
+GMM_TOL = FLASH_TOL
+# (label, E, C, d, f): the full-width prefill's gate/up and down shapes
+# first (phi3.5-moe, B 2 x S 4096, top-2 of 16 experts: capacity 1280),
+# then the reference sweep (tests/test_kernels.py:138-139) and the
+# decode-dispatch floor C = 8
+GMM_SHAPES = [("gate_up", 16, 1280, 4096, 6400),
+              ("down", 16, 1280, 6400, 4096),
+              ("sweep", 4, 128, 256, 512),
+              ("sweep", 8, 100, 512, 384),
+              ("sweep", 2, 257, 320, 640),
+              ("decode_c8", 16, 8, 4096, 6400)]
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# 8 of its 32 layers: all 32 hold 168 GB in f32, past the card's 80 GB
+MOE_LAYERS = 8
+MOE_BATCH, MOE_SEQ = 2, 4096
+
+
+def phase_gmm_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
+    """``gmm`` against its plain version at ``GMM_SHAPES`` in f32 and bf16,
+    with device times of the kernel, the plain version and ``torch.bmm``
+    (the library call computing the same product); inputs at the model's
+    scales (unit activations, weights of stddev d^-0.5)."""
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels.ref import gmm_ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(256 * 2 ** 20 // 4, device="cuda")
+    rows = []
+    for label, E, C, d, f in GMM_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            x = torch.randn((E, C, d), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((E, d, f), generator=gen, device="cuda")
+                 / math.sqrt(d)).to(dtype)
+            got = mg.gmm(x, w)
+            again = mg.gmm(x, w)
+            want = gmm_ref(x, w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"gmm {label} {dt}: not repeatable")
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **GMM_TOL[dt])
+            err = float((got.float() - want.float()).abs().max())
+            del got, again, want
+            es = x.element_size()
+            rows.append(_row(
+                "gmm", label, {"e": E, "c": C, "d": d, "f": f, "dtype": dt},
+                err, GMM_TOL[dt],
+                time_ms(torch, lambda: mg.gmm(x, w), flush),
+                time_ms(torch, lambda: gmm_ref(x, w), flush),
+                time_ms(torch, lambda: torch.bmm(x, w), flush),
+                es * (E * C * d + E * d * f + E * C * f), 2 * E * C * d * f,
+                bw, f32_peak if dt == "float32" else bf16_peak))
+            del x, w
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe(torch):
+    """phi3.5-moe-42b-a6.6b at full width, ``MOE_LAYERS`` deep: prefill
+    through the kernels, the plain path on the same batch, then
+    ``ServingLoop`` greedy decode on the dense MoE path. Returns the
+    kernel launches (gmm, flash) counted over the four kernel prefills."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine.model_store import GlobalModelStore
+    from repro_torch.core.serve import ServingLoop
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init(torch.Generator().manual_seed(0), cfg,
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != registry.param_count(cfg):
+        raise AssertionError(f"{n_params} params, want "
+                             f"{registry.param_count(cfg)}")
+    batch = {"tokens": torch.tensor(_lm_tokens(cfg, MOE_BATCH, MOE_SEQ, 8),
+                                    device="cuda")}
+
+    # instrumentation of this script only: CUDA events around each kernel
+    # call, host clock around each prefill
+    events = {"gmm": [], "flash": []}
+    kernels = {"gmm": (mg, "gmm"), "flash": (fa, "flash_attention")}
+    saved = {key: getattr(mod, fn) for key, (mod, fn) in kernels.items()}
+
+    def timed(key):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = saved[key](*a, **kw)
+            ev[1].record()
+            events[key].append(ev)
+            return out
+        return call
+
+    def run(step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = step(params, batch)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    prefill = make_prefill_step(cfg, use_kernel=True)
+    mg.launches, fa.launches = 0, 0
+    for key, (mod, fn) in kernels.items():
+        setattr(mod, fn, timed(key))
+    try:
+        times, shares = [], {"gmm": [], "flash": []}
+        with RouteLog(torch) as kroutes:          # the warm-up run
+            (logits, states), _ = run(prefill)
+        for _ in range(3):
+            for evs in events.values():
+                evs.clear()
+            (logits, states), ms = run(prefill)
+            times.append(ms)
+            for key, evs in events.items():
+                shares[key].append(
+                    sum(a.elapsed_time(b) for a, b in evs) / ms)
+    finally:
+        for key, (mod, fn) in kernels.items():
+            setattr(mod, fn, saved[key])
+    launches = {"gmm": mg.launches, "flash": fa.launches}
+    want = {"gmm": 4 * 3 * cfg.num_layers, "flash": 4 * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"launches in 4 prefills {launches}, want "
+                             f"{want}")
+    if logits.shape != (MOE_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} or "
+                             f"not finite")
+    # the plain path takes the kernel run's routing ids (RouteLog), so its
+    # logits and states are held to the tolerance even where a choice with
+    # a margin under ROUTE_TOL flips; the flips are counted from each run's
+    # own ids
+    with RouteLog(torch, force=kroutes) as proutes:
+        (plain_logits, plain_states), plain_ms = run(
+            make_prefill_step(cfg, use_kernel=False))
+    if (mg.launches, fa.launches) != (want["gmm"], want["flash"]):
+        raise AssertionError("the plain prefill launched a kernel")
+    routing = route_flips(torch, kroutes, proutes, cfg.num_layers)
+    torch.testing.assert_close(logits, plain_logits, rtol=1e-3, atol=1e-3)
+    st_err = 0.0
+    for a, b in zip(tree_leaves(states), tree_leaves(plain_states)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+        st_err = max(st_err, float((a - b).abs().max()))
+    order = sorted(times)
+    emit({"phase": "moe", "what": "prefill", "arch": MOE_ARCH,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "d_ff": cfg.d_ff, "params": n_params,
+          "active_params": registry.active_param_count(cfg),
+          "dtype": "float32", "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "init_s": init_s, "ms": order[len(order) // 2], "ms_runs": times,
+          "gmm_share": statistics.median(shares["gmm"]),
+          "flash_share": statistics.median(shares["flash"]),
+          "gmm_launches_per_prefill": launches["gmm"] // 4,
+          "flash_launches_per_prefill": launches["flash"] // 4,
+          "plain_ms": plain_ms,
+          "logits_max_abs_err_vs_plain": float(
+              (logits - plain_logits).abs().max()),
+          "states_max_abs_err_vs_plain": st_err, **routing,
+          "logits_argmax": torch.argmax(logits, -1).tolist()})
+    del states, plain_states, logits, plain_logits, kroutes, proutes
+
+    loop = ServingLoop(GlobalModelStore(params=params), cfg, **SERVE)
+    runs = [loop.decode(loop._traffic(t)) for t in range(2)]
+    ids, dt = runs[-1]
+    n_tok = SERVE["batch"] * SERVE["tokens"]
+    if ids.shape != (SERVE["batch"], SERVE["tokens"]):
+        raise AssertionError(f"decode ids {tuple(ids.shape)}")
+    emit({"phase": "moe", "what": "serve", "arch": MOE_ARCH,
+          "layers": cfg.num_layers, "moe_path": "dense", **SERVE,
+          "tokens_per_s": n_tok / dt, "first_tokens_per_s": n_tok / runs[0][1],
+          "ms_per_step": dt / SERVE["tokens"] * 1e3,
+          "ids": ids.tolist(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -999,6 +1291,7 @@ def main() -> int:
     rows, max_err = phase_kernel(torch, bw, f32_peak)
     wrows = phase_wire_kernels(torch, bw, f32_peak)
     frows = phase_flash_kernel(torch, bw, f32_peak, bf16_peak)
+    grows = phase_gmm_kernel(torch, bw, f32_peak, bf16_peak)
     phase_parity(torch)
     phase_parity_wire(torch)
     phase_parity_lm(torch)
@@ -1013,6 +1306,7 @@ def main() -> int:
     if not all(wire_launches.values()):
         raise AssertionError(f"a wire kernel never ran: {wire_launches}")
     flash_launches = phase_lm(torch)
+    moe_launches = phase_moe(torch)
 
     # one CIFAR100 round: the sums over its eight leaves (for the int8
     # kernels, the one-plane codec's round)
@@ -1048,6 +1342,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:114",
         "launches": flash_launches,
         "max_abs_err": max(r["max_abs_err"] for r in frows),
+        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}})
+    # gmm: the full-width prefill's gate/up shape in f32 (one launch of it)
+    top = grows[0]
+    kernels.append({
+        "name": "gmm", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:61",
+        "launches": moe_launches["gmm"],
+        "max_abs_err": max(r["max_abs_err"] for r in grows),
         **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}})
     emit({"kernels": kernels})

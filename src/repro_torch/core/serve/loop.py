@@ -47,11 +47,13 @@ def _sync(device: torch.device) -> None:
 class ServingLoop:
     """Hot-swaps ``store.snapshot()`` under the decode step and replays
     deterministic traffic against the served version. Runs where the
-    store's params live."""
+    store's params live; MoE layers decode on ``moe_path`` (every expert
+    on every token by default, as the reference's loop)."""
 
     def __init__(self, store: GlobalModelStore, cfg, *, batch: int = 2,
                  prompt_len: int = 4, tokens: int = 8,
-                 traffic: str = "synthetic", seed: int = 0):
+                 moe_path: str = "dense", traffic: str = "synthetic",
+                 seed: int = 0):
         if cfg.arch_type == "audio":
             raise ValueError(
                 f"arch {cfg.name!r} is an audio encoder-decoder: its decode "
@@ -65,7 +67,7 @@ class ServingLoop:
         self.batch = int(batch)
         self.prompt_len = int(prompt_len)
         self.tokens = int(tokens)
-        self._step = registry.decode_fn(cfg)
+        self._step = registry.decode_fn(cfg, moe_path=moe_path)
         self._traffic = TRAFFIC[traffic](cfg=cfg, batch=self.batch,
                                          prompt_len=self.prompt_len, seed=seed)
         self.params: PyTree = None

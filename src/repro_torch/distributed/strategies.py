@@ -2,8 +2,8 @@
 
 On one device a step is the model call itself; the mesh arguments of the
 reference (``act_spec``, ``attn_kv_spec``, ``moe_shards``,
-``moe_spmd_axes``) and its federated train steps wait for the multi-device
-slice.
+``moe_spmd_axes``), its ``dispatch_sharded`` MoE path and its federated
+train steps wait for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -12,25 +12,28 @@ from repro_torch.models import registry, transformer
 
 
 def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
-                    ring: bool = False):
+                    moe_path: str = "dispatch", ring: bool = False):
     """One greedy-decode step: (params, cache, token, pos) -> (logits,
     cache), the cache updated in place."""
-    return registry.decode_fn(cfg, long_mode=long_mode, ring=ring)
+    return registry.decode_fn(cfg, long_mode=long_mode, moe_path=moe_path,
+                              ring=ring)
 
 
 def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
-                      use_kernel: bool = False):
+                      moe_path: str = "dispatch", use_kernel: bool = False):
     """Full-sequence prefill: (params, batch) -> (last-token logits (B, V),
     decode states). The readout runs on the last position only, so the
     (B, S, V) logits never exist. ``use_kernel=True`` runs every layer's
-    attention through the flash kernel."""
-    transformer.require_dense(cfg)
+    attention through the flash kernel and, on the ``dispatch`` MoE path,
+    every expert FFN through the grouped-matmul kernel."""
+    transformer.require_ported(cfg)
     gw = registry.LONG_GLOBAL_WINDOW if long_mode else None
 
     def prefill_step(params, batch):
         feats, _, states = transformer.forward_lm(
             params, cfg, batch["tokens"], global_window=gw,
-            use_kernel=use_kernel, return_states=True, return_features=True)
+            moe_path=moe_path, use_kernel=use_kernel, return_states=True,
+            return_features=True)
         logits = transformer._readout(params, cfg, feats[:, -1:])
         return logits[:, 0], states
 

@@ -60,6 +60,12 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                      ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
     },
+    "moe_gmm": {
+        # (x, w, out, E, C, d, f, dtype, vec, stream)
+        "gmm_launch": (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            ctypes.c_int),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,95 @@
+"""Grouped matmul of the MoE expert FFN: the CUDA kernel's wrapper.
+
+The kernel (``csrc/moe_gmm.cu``) replaces the Pallas TPU kernel
+``repro/kernels/moe_gmm.py::gmm``: ``out[e] = x[e] @ w[e]`` for x (E, C, d)
+and w (E, d, f), summed in f32 and stored in x's dtype. It is bound by
+operations at the shapes the MoE prefill gives it; the source note says how
+the design serves that.
+
+For tensors on the CPU the wrapper runs the plain version
+(``ref.gmm_ref``); for CUDA tensors it launches the kernel or raises.
+``launches`` counts kernel launches, and only those. ``gmm`` is a
+``torch.autograd.Function``: its backward differentiates the plain version,
+as the reference has no backward kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import gmm_ref
+
+#: kernel launches made by ``gmm`` in this process
+launches = 0
+
+# dtype tags of csrc/moe_gmm.cu
+_DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
+_BM = 128                 # rows of C per CTA (csrc/moe_gmm.cu kBM)
+_GRID_MAX = 65535         # CUDA's limit on grid.y and grid.z
+
+
+def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, d) @ w (E, d, f) -> (E, C, f) in x's dtype; f32 or bf16,
+    one dtype, one device, contiguous. No autograd: see ``gmm``."""
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
+            or w.shape[1] != x.shape[2]:
+        raise ValueError(f"gmm takes x (E, C, d) and w (E, d, f); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in _DTYPE_TAGS or w.dtype != x.dtype:
+        raise TypeError(f"gmm takes float32 or bfloat16, one dtype; got "
+                        f"{x.dtype} and {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"gmm: x on {x.device}, w on {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("gmm: x and w must be contiguous")
+    dev = x.device
+    if dev.type == "cpu":
+        return gmm_ref(x, w)
+    if dev.type != "cuda":
+        raise ValueError(f"gmm runs on cuda or cpu, not {dev}")
+    E, C, d = x.shape
+    f = w.shape[2]
+    if E > _GRID_MAX or -(-C // _BM) > _GRID_MAX \
+            or max(C * d, d * f, C * f) >= 2 ** 31:
+        raise ValueError(f"gmm kernel: shape {(E, C, d, f)} past its grid "
+                         f"or 32-bit index limits")
+    out = torch.empty((E, C, f), dtype=x.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    vw = 16 // x.element_size()
+    vec = int(d % vw == 0 and f % vw == 0 and x.data_ptr() % 16 == 0
+              and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    lib = _build.load("moe_gmm")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), E,
+                             C, d, f, _DTYPE_TAGS[x.dtype], vec, stream)
+    if err != 0:
+        raise RuntimeError(f"gmm kernel launch failed: CUDA error {err} for "
+                           f"x {tuple(x.shape)}, w {tuple(w.shape)} "
+                           f"{x.dtype}")
+    global launches
+    launches += 1
+    return out
+
+
+class _Gmm(torch.autograd.Function):
+    """Forward through the kernel (the plain version on the CPU); backward
+    by autograd through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return gmm_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = gmm_ref(*leaves)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, d) @ w (E, d, f) -> (E, C, f) in x's dtype, differentiable."""
+    return _Gmm.apply(x, w)

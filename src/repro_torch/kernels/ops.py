@@ -10,6 +10,7 @@ import torch
 from repro_torch.kernels import delta_codec as _dc
 from repro_torch.kernels import fedavg_reduce as _fr
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _mg
 from repro_torch.kernels.ref import flash_attention_ref
 
 PyTree = Any
@@ -105,3 +106,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal, window, softcap)
     return out.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# MoE grouped matmul
+# ---------------------------------------------------------------------------
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, d) @ (E, d, f) -> (E, C, f) in x's dtype. The kernel takes any
+    C: the reference's padding of C to 128 was TPU tiling."""
+    return _mg.gmm(x, w)
+
+
+def moe_gmm(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+            down: torch.Tensor, *, mlp_type: str = "swiglu") -> torch.Tensor:
+    """The gated expert FFN on dispatched tokens, three grouped matmuls:
+    x (E, C, d) -> (E, C, d). The activation runs in f32 and casts to x's
+    dtype before ``down``, as the reference's."""
+    if mlp_type == "swiglu":
+        h = torch.nn.functional.silu(gmm(x, gate).to(torch.float32))
+        h = (h * gmm(x, up).to(torch.float32)).to(x.dtype)
+    else:
+        h = torch.nn.functional.gelu(gmm(x, up).to(torch.float32),
+                                     approximate="tanh").to(x.dtype)
+    return gmm(h, down)

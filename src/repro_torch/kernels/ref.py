@@ -113,3 +113,24 @@ def topk_scatter_apply_ref(ref: torch.Tensor, vals: torch.Tensor,
     i, v = _in_range(idx, vals.to(torch.float32), out.shape[0])
     out.index_add_(0, i, v)
     return out.to(ref.dtype)
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul: x (E, C, d) @ w (E, d, f) -> (E, C, f), in f32 and
+    cast to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.to(torch.float32),
+                        w.to(torch.float32)).to(x.dtype)
+
+
+def moe_ffn_ref(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+                down: torch.Tensor, *, mlp_type: str = "swiglu"
+                ) -> torch.Tensor:
+    """The gated expert FFN on dispatched tokens: x (E, C, d) -> (E, C, d).
+    The activation runs in f32 and casts to x's dtype before ``down``."""
+    if mlp_type == "swiglu":
+        h = torch.nn.functional.silu(gmm_ref(x, gate).to(torch.float32))
+        h = h * gmm_ref(x, up).to(torch.float32)
+    else:
+        h = torch.nn.functional.gelu(gmm_ref(x, up).to(torch.float32),
+                                     approximate="tanh")
+    return gmm_ref(h.to(x.dtype), down)

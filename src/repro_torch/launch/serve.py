@@ -5,9 +5,11 @@
         --batch 4 --prompt-len 16 --tokens 32 [--device cpu]
 
 Serves the reduced config of ``--arch`` with params from ``--seed``, as the
-reference does without a checkpoint. The reference's default arch
-(zamba2-7b) is a hybrid SSM that arrives with the SSM slice, so the default
-here is qwen1.5-0.5b. ``--checkpoint`` is refused until the checkpoint
+reference does without a checkpoint; MoE archs (mixtral-8x22b,
+phi3.5-moe-42b-a6.6b) decode on the serving loop's dense MoE path, every
+expert on every token, as the reference serves them. The reference's
+default arch (zamba2-7b) is a hybrid SSM that arrives with the SSM slice,
+so the default here is qwen1.5-0.5b. ``--checkpoint`` is refused until the checkpoint
 port lands.
 """
 from __future__ import annotations

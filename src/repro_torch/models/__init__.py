@@ -1,3 +1,4 @@
-from repro_torch.models import attention, layers, registry, small, transformer
+from repro_torch.models import (attention, layers, moe, registry, small,
+                                transformer)
 
-__all__ = ["attention", "layers", "registry", "small", "transformer"]
+__all__ = ["attention", "layers", "moe", "registry", "small", "transformer"]

@@ -27,8 +27,9 @@ import torch.nn.functional as F
 def normal_init(gen: torch.Generator, shape, stddev, dtype, device):
     if torch.device(device).type == "meta":
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
-    w = stddev * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
-    return w.to(device=device, dtype=dtype)
+    # scaled in place: host memory holds one copy of a (GB-sized) bank
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+    return w.mul_(stddev).to(device=device, dtype=dtype)
 
 
 def lecun_init(gen: torch.Generator, shape, fan_in, dtype, device):

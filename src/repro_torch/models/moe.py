@@ -1,0 +1,160 @@
+"""Mixture-of-Experts layer: top-k router and expert FFN bank
+(``repro.models.moe``).
+
+Two execution paths, as the reference's:
+
+* ``dense``    — every expert computes every token, combined by the routing
+  weights. Exact and simple; the serving loop decodes through it.
+* ``dispatch`` — capacity-based sorted dispatch: tokens sorted by expert id
+  into fixed-capacity slots, the grouped expert FFN, a weighted combine.
+  ``use_kernel=True`` runs the FFN through ``kernels.ops.moe_gmm`` (three
+  launches of the CUDA grouped matmul on the card).
+
+The reference's ``dispatch_sharded`` path waits for the multi-device slice
+and is refused by name. Aux load-balance loss follows Switch/Mixtral:
+E * sum_e f_e * P_e.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
+
+PATHS = ("dense", "dispatch")
+
+
+def moe_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu"):
+    """Router and the gate/up/down banks: normal with stddev d^-0.5 (down
+    f^-0.5), drawn in the reference's order."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, cfg.d_ff, m.num_experts
+    scale = 1.0 / math.sqrt(d)
+    return {
+        "router": {"kernel": layers.normal_init(gen, (d, E), scale, dtype,
+                                                device)},
+        "gate": layers.normal_init(gen, (E, d, f), scale, dtype, device),
+        "up": layers.normal_init(gen, (E, d, f), scale, dtype, device),
+        "down": layers.normal_init(gen, (E, f, d), 1.0 / math.sqrt(f), dtype,
+                                   device),
+    }
+
+
+def _route(p, cfg: ArchConfig, xf):
+    """xf: (T, d) -> (weights (T, k) in xf's dtype, ids (T, k), aux)."""
+    m = cfg.moe
+    logits = (xf @ p["router"]["kernel"]).to(torch.float32)     # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.topk(probs, m.top_k, dim=-1)                 # (T, k)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    # load-balance aux: E * sum_e (fraction routed to e) * (mean prob of e)
+    E = m.num_experts
+    f_e = torch.mean(F.one_hot(ids[:, 0], E).to(torch.float32), dim=0)
+    P_e = torch.mean(probs, dim=0)
+    aux = E * torch.sum(f_e * P_e)
+    return w.to(xf.dtype), ids, aux
+
+
+def _expert_ffn(p, cfg: ArchConfig, xe):
+    """xe: (E, C, d) -> (E, C, d) through each expert's gated FFN, in xe's
+    dtype."""
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["gate"]))
+        h = h * torch.einsum("ecd,edf->ecf", xe, p["up"])
+    else:  # gelu fallback
+        h = F.gelu(torch.einsum("ecd,edf->ecf", xe, p["up"]),
+                   approximate="tanh")
+    return torch.einsum("ecf,efd->ecd", h, p["down"])
+
+
+def moe_apply_dense(p, cfg: ArchConfig, x) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """All experts on all tokens. x: (B, S, d) -> (y, aux)."""
+    B, S, d = x.shape
+    m = cfg.moe
+    xf = x.reshape(-1, d)
+    w, ids, aux = _route(p, cfg, xf)
+    outs = _expert_ffn(p, cfg, xf.expand((m.num_experts,) + xf.shape))
+    # outs: (E, T, d); combine weighted by routing
+    comb = torch.zeros((xf.shape[0], m.num_experts), dtype=x.dtype,
+                       device=x.device).scatter_add(1, ids, w)
+    y = torch.einsum("te,etd->td", comb, outs)
+    return y.reshape(B, S, d), aux
+
+
+def capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots per expert: ceil(T k / E * capacity_factor) in Python floats,
+    rounded up to a multiple of 8, at least 8 (the reference's)."""
+    m = cfg.moe
+    cap = int(math.ceil(tokens * m.top_k / m.num_experts * m.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False):
+    """Capacity-based sorted dispatch. x: (B, S, d) -> (y, aux)."""
+    B, S, d = x.shape
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    dev = x.device
+    # the combine gives each token exactly k adds onto zero; for k <= 2 the
+    # sum 0 + a + b equals 0 + b + a, so the card's unordered index_add
+    # repeats bit for bit
+    if dev.type == "cuda" and k > 2:
+        raise ValueError(f"the dispatch combine repeats bit for bit on the "
+                         f"card for top_k <= 2, not {k}")
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    w, ids, aux = _route(p, cfg, xf)
+    cap = capacity(cfg, T)
+
+    flat_ids = ids.reshape(-1)                                  # (T*k,)
+    flat_src = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_w = w.reshape(-1)
+
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[order]
+    # rank within expert = position - start offset of that expert
+    counts = torch.bincount(sorted_ids, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * k, device=dev) - starts[sorted_ids]
+    keep = rank < cap
+    slot = torch.where(keep, sorted_ids * cap + rank,
+                       torch.full_like(rank, E * cap))
+    src = flat_src[order]
+
+    # dispatch: kept slots are unique, so each gets one exact add; dropped
+    # tokens all land on the extra row E*cap, which is discarded
+    disp = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
+    disp = disp.index_add(0, slot, xf[src])
+    xe = disp[:-1].reshape(E, cap, d)
+
+    if use_kernel:
+        ye = kops.moe_gmm(xe, p["gate"], p["up"], p["down"],
+                          mlp_type=cfg.mlp_type)
+    else:
+        ye = _expert_ffn(p, cfg, xe)
+
+    yf = torch.cat([ye.reshape(E * cap, d),
+                    torch.zeros((1, d), dtype=x.dtype, device=dev)])
+    contrib = yf[slot] * (flat_w[order] * keep)[:, None]       # (T*k, d)
+    y = torch.zeros((T, d), dtype=x.dtype, device=dev).index_add(
+        0, src, contrib)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply(p, cfg: ArchConfig, x, *, path: str = "dispatch",
+              use_kernel: bool = False):
+    if path == "dense":
+        return moe_apply_dense(p, cfg, x)
+    if path == "dispatch":
+        return moe_apply_dispatch(p, cfg, x, use_kernel=use_kernel)
+    if path == "dispatch_sharded":
+        raise ValueError("moe path 'dispatch_sharded' shards the dispatch "
+                         "over a device mesh: it comes with the "
+                         "multi-device slice")
+    raise ValueError(f"unknown moe path {path!r}: one of {PATHS}")

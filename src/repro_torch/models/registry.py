@@ -1,5 +1,5 @@
-"""Unified model API over the architectures the port runs (dense LMs), the
-names of ``repro.models.registry``:
+"""Unified model API over the architectures the port runs (dense and MoE
+LMs), the names of ``repro.models.registry``:
 
     init(seed_or_generator, cfg, dtype, device) -> params
     loss_fn(cfg)(params, batch)                 -> (scalar, metrics)
@@ -46,23 +46,25 @@ def init(seed_or_generator: Union[int, torch.Generator], cfg: ArchConfig,
                                resolve_device(device))
 
 
-def loss_fn(cfg: ArchConfig, *, remat: bool = False, use_kernel: bool = False):
-    transformer.require_dense(cfg)
+def loss_fn(cfg: ArchConfig, *, remat: bool = False,
+            moe_path: str = "dispatch", use_kernel: bool = False):
+    transformer.require_ported(cfg)
 
     def fn(params, batch):
         return transformer.loss_lm(params, cfg, batch, remat=remat,
-                                   use_kernel=use_kernel)
+                                   moe_path=moe_path, use_kernel=use_kernel)
     return fn
 
 
 def forward_fn(cfg: ArchConfig, *, long_mode: bool = False,
-               use_kernel: bool = False):
-    transformer.require_dense(cfg)
+               moe_path: str = "dispatch", use_kernel: bool = False):
+    transformer.require_ported(cfg)
     gw = LONG_GLOBAL_WINDOW if long_mode else None
 
     def fn(params, batch):
         return transformer.forward_lm(params, cfg, batch["tokens"],
-                                      global_window=gw, use_kernel=use_kernel)
+                                      global_window=gw, moe_path=moe_path,
+                                      use_kernel=use_kernel)
     return fn
 
 
@@ -76,13 +78,15 @@ def init_cache(params, cfg: ArchConfig, batch: int, max_seq: int,
         device=params["embed"]["embedding"].device)
 
 
-def decode_fn(cfg: ArchConfig, *, long_mode: bool = False, ring: bool = False):
-    transformer.require_dense(cfg)
+def decode_fn(cfg: ArchConfig, *, long_mode: bool = False,
+              moe_path: str = "dispatch", ring: bool = False):
+    transformer.require_ported(cfg)
     gw = LONG_GLOBAL_WINDOW if long_mode else None
 
     def fn(params, cache, token, pos):
         return transformer.decode_step_lm(params, cfg, cache, token, pos,
-                                          global_window=gw, ring=ring)
+                                          global_window=gw, moe_path=moe_path,
+                                          ring=ring)
     return fn
 
 

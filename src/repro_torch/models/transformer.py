@@ -1,4 +1,5 @@
-"""Decoder-only LM for the dense architectures (``repro.models.transformer``).
+"""Decoder-only LM for the dense and MoE architectures
+(``repro.models.transformer``).
 
 Layers are grouped into *cycles*, one repetition of ``cfg.layer_pattern``
 (e.g. (local, global) for gemma2). The params of all cycles are stacked on
@@ -8,8 +9,10 @@ reference's ``lax.scan`` over cycles is a loop over that axis, and
 ``remat`` checkpoints one cycle at a time (``torch.utils.checkpoint``) when
 autograd is on.
 
-Only ``arch_type == "dense"`` runs here; the other families raise, naming
-the part of the port that brings them.
+``arch_type`` "dense" and "moe" run here; the other families raise,
+naming the part of the port that brings them. An MoE block holds ``moe``
+(``models/moe.py``) where a dense block holds ``mlp``; its load-balance aux
+is summed over the layers and never kept in the decode states.
 """
 from __future__ import annotations
 
@@ -20,22 +23,23 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.optim import tree_map
 
 PyTree = Any
 
-#: where each non-dense family arrives (ROADMAP.md)
-LATER_FAMILIES = {"moe": "the MoE slice", "ssm": "the SSM slice",
-                  "hybrid": "the SSM slice",
+#: the families the port runs, and where each other one arrives (ROADMAP.md)
+PORTED_FAMILIES = ("dense", "moe")
+LATER_FAMILIES = {"ssm": "the SSM slice", "hybrid": "the SSM slice",
                   "audio": "the encoder-decoder slice",
                   "vlm": "the encoder-decoder slice"}
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.arch_type != "dense":
+def require_ported(cfg: ArchConfig) -> None:
+    if cfg.arch_type not in PORTED_FAMILIES:
         raise ValueError(
             f"arch {cfg.name!r} is {cfg.arch_type!r}: the port runs dense "
-            f"LMs only; {cfg.arch_type} comes with "
+            f"and MoE LMs; {cfg.arch_type} comes with "
             f"{LATER_FAMILIES.get(cfg.arch_type, 'a later slice')}")
 
 
@@ -79,33 +83,59 @@ def _stack(trees) -> PyTree:
     return torch.stack(trees)
 
 
+def _stack_init(make, n: int) -> PyTree:
+    """Stack ``n`` trees from ``make()`` (called in order) on a new leading
+    axis, copying each into its slot as it is made: the device holds the
+    stack and one tree, never two stacks (a full-width MoE layer is GBs)."""
+    out = None
+    for i in range(n):
+        tree = make()
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                           tree)
+        tree_map(lambda dst, src: dst.copy_(src), _index(out, i), tree)
+        del tree                 # freed before the next is drawn
+    return out
+
+
 # ---------------------------------------------------------------------------
 # single block init/apply
 # ---------------------------------------------------------------------------
 
 def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
-    d_ff = cfg.d_ff if cfg.d_ff else 4 * cfg.d_model
-    return {"ln1": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device),
-            "attn": attention.attn_init(gen, cfg, dtype, device),
-            "ln2": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device),
-            "mlp": layers.mlp_init(gen, cfg.d_model, d_ff, cfg.mlp_type,
-                                   dtype, device)}
+    p = {"ln1": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device),
+         "attn": attention.attn_init(gen, cfg, dtype, device),
+         "ln2": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device)}
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype, device)
+    else:
+        d_ff = cfg.d_ff if cfg.d_ff else 4 * cfg.d_model
+        p["mlp"] = layers.mlp_init(gen, cfg.d_model, d_ff, cfg.mlp_type,
+                                   dtype, device)
+    return p
 
 
 def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
-                 global_window=None, use_kernel=False):
-    """Full-sequence block. Returns (x, decode state {k, v})."""
+                 global_window=None, moe_path="dispatch", use_kernel=False):
+    """Full-sequence block. Returns (x, {k, v, aux}): the caller pops the
+    MoE aux out of the decode state."""
     window = _layer_window(cfg, ltype, global_window)
     h, (k, v) = attention.attention(
         bp["attn"], cfg, layers.norm_apply(cfg.norm_type, bp["ln1"], x),
         positions, window=window, use_kernel=use_kernel)
     x = x + h
     hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
-    return x + layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type), {"k": k, "v": v}
+    if "moe" in bp:
+        h, aux = moe_lib.moe_apply(bp["moe"], cfg, hn, path=moe_path,
+                                   use_kernel=use_kernel)
+    else:
+        h = layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, {"k": k, "v": v, "aux": aux}
 
 
 def _block_decode(bp, cfg: ArchConfig, ltype: str, x, state, pos, *,
-                  global_window=None, ring=False):
+                  global_window=None, moe_path="dense", ring=False):
     """One token through one block; writes its cache slot in place."""
     window = _layer_window(cfg, ltype, global_window)
     use_ring = ring and window is not None
@@ -119,7 +149,11 @@ def _block_decode(bp, cfg: ArchConfig, ltype: str, x, state, pos, *,
             ring=use_ring)
     x = x + h
     hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
-    return x + layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type), state
+    if "moe" in bp:
+        h, _ = moe_lib.moe_apply(bp["moe"], cfg, hn, path=moe_path)
+    else:
+        h = layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type)
+    return x + h, state
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +164,7 @@ def init_lm(gen: Optional[torch.Generator], cfg: ArchConfig,
             dtype=torch.float32, device="cpu") -> PyTree:
     """The reference's parameter tree, drawn from ``gen`` (on the ``meta``
     device: shapes only, ``gen`` unused)."""
-    require_dense(cfg)
+    require_ported(cfg)
     spec = cycle_spec(cfg)
     n_cycles, n_tail = cycle_counts(cfg)
     params: Dict[str, Any] = {
@@ -144,9 +178,9 @@ def init_lm(gen: Optional[torch.Generator], cfg: ArchConfig,
                                               cfg.vocab_size, dtype=dtype,
                                               device=device)
     if n_cycles > 0:
-        params["stack"] = _stack([
-            {f"b{i}": _block_init(gen, cfg, lt, dtype, device)
-             for i, lt in enumerate(spec)} for _ in range(n_cycles)])
+        params["stack"] = _stack_init(
+            lambda: {f"b{i}": _block_init(gen, cfg, lt, dtype, device)
+                     for i, lt in enumerate(spec)}, n_cycles)
     if n_tail:
         params["tail"] = {f"b{i}": _block_init(gen, cfg, spec[i], dtype,
                                                device)
@@ -159,11 +193,14 @@ def init_lm(gen: Optional[torch.Generator], cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def _cycle_apply(cparams, cfg, x, positions, kw):
+    """One cycle -> (x, {b{i}: {k, v}}, the cycle's summed aux)."""
     states = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lt in enumerate(cycle_spec(cfg)):
-        x, states[f"b{i}"] = _block_apply(cparams[f"b{i}"], cfg, lt, x,
-                                          positions, **kw)
-    return x, states
+        x, st = _block_apply(cparams[f"b{i}"], cfg, lt, x, positions, **kw)
+        aux = aux + st.pop("aux")
+        states[f"b{i}"] = st
+    return x, states, aux
 
 
 def embed_inputs(params, cfg: ArchConfig, tokens):
@@ -177,36 +214,42 @@ def embed_inputs(params, cfg: ArchConfig, tokens):
 
 def forward_lm(params, cfg: ArchConfig, tokens, *,
                global_window: Optional[int] = None, remat: bool = False,
-               use_kernel: bool = False, return_states: bool = False,
-               return_features: bool = False):
+               moe_path: str = "dispatch", use_kernel: bool = False,
+               return_states: bool = False, return_features: bool = False):
     """Full-sequence forward. Returns (logits|features, aux[, decode
-    states]); states are stacked over cycles like the params."""
-    require_dense(cfg)
+    states]); states are stacked over cycles like the params, and aux is
+    the MoE load-balance loss summed over the layers (0 for dense)."""
+    require_ported(cfg)
     x, positions, _ = embed_inputs(params, cfg, tokens)
-    kw = dict(global_window=global_window, use_kernel=use_kernel)
+    kw = dict(global_window=global_window, moe_path=moe_path,
+              use_kernel=use_kernel)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stack_states = None
     if "stack" in params:
         n_cycles = cycle_counts(cfg)[0]
-        per_cycle = []
+        per_cycle, auxs = [], []
         for c in range(n_cycles):
             cparams = _index(params["stack"], c)
             if remat and torch.is_grad_enabled():
-                x, st = torch.utils.checkpoint.checkpoint(
+                x, st, a = torch.utils.checkpoint.checkpoint(
                     _cycle_apply, cparams, cfg, x, positions, kw,
                     use_reentrant=False)
             else:
-                x, st = _cycle_apply(cparams, cfg, x, positions, kw)
+                x, st, a = _cycle_apply(cparams, cfg, x, positions, kw)
+            auxs.append(a)
             if return_states:
                 per_cycle.append(st)
+        aux = aux + torch.sum(torch.stack(auxs))
         if return_states:
             stack_states = _stack(per_cycle)
     tail_states = {}
     if "tail" in params:
         spec = cycle_spec(cfg)
         for i in range(cfg.num_layers % len(spec)):
-            x, tail_states[f"b{i}"] = _block_apply(
-                params["tail"][f"b{i}"], cfg, spec[i], x, positions, **kw)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, st = _block_apply(params["tail"][f"b{i}"], cfg, spec[i], x,
+                                 positions, **kw)
+            aux = aux + st.pop("aux")
+            tail_states[f"b{i}"] = st
     out = x if return_features else _readout(params, cfg, x)
     if return_states:
         return out, aux, {"stack": stack_states, "tail": tail_states}
@@ -278,12 +321,14 @@ def _chunked_xent(params, cfg: ArchConfig, feats, targets, mask=None):
 
 
 def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
-            remat: bool = False, use_kernel: bool = False):
-    """Next-token LM loss. batch: {tokens, [mask]}. Returns (loss,
-    {"xent", "aux"})."""
+            remat: bool = False, moe_path: str = "dispatch",
+            use_kernel: bool = False):
+    """Next-token LM loss plus ``router_aux_coef`` x the MoE aux. batch:
+    {tokens, [mask]}. Returns (loss, {"xent", "aux"})."""
     tokens = batch["tokens"]
     feats, aux = forward_lm(params, cfg, tokens, remat=remat,
-                            use_kernel=use_kernel, return_features=True)
+                            moe_path=moe_path, use_kernel=use_kernel,
+                            return_features=True)
     pred_feats = feats[:, :-1]
     targets = tokens[:, 1:]
     mask = batch.get("mask")
@@ -293,8 +338,8 @@ def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         loss = _chunked_xent(params, cfg, pred_feats, targets, mask)
     else:
         loss = xent_loss(_readout(params, cfg, pred_feats), targets, mask)
-    # dense: no router loss (the reference adds router_aux_coef * aux for MoE)
-    return loss, {"xent": loss, "aux": aux}
+    aux_coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return loss + aux_coef * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +371,7 @@ def _block_cache(cfg: ArchConfig, ltype: str, batch: int, max_seq: int, dtype,
 def init_cache_lm(cfg: ArchConfig, batch: int, max_seq: int,
                   dtype=torch.float32, *, ring: bool = False,
                   global_window=None, quant: bool = False, device="cpu"):
-    require_dense(cfg)
+    require_ported(cfg)
     spec = cycle_spec(cfg)
     n_cycles, n_tail = cycle_counts(cfg)
     kw = dict(ring=ring, global_window=global_window, quant=quant,
@@ -344,14 +389,17 @@ def init_cache_lm(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def decode_step_lm(params, cfg: ArchConfig, cache, token, pos: int, *,
-                   global_window: Optional[int] = None, ring: bool = False):
-    """One decode step. token: (B,) int; pos: int position.
+                   global_window: Optional[int] = None,
+                   moe_path: str = "dispatch", ring: bool = False):
+    """One decode step. token: (B,) int; pos: int position. MoE layers run
+    ``moe_path`` without the kernel (one token a sequence), as the
+    reference's.
 
     Writes each layer's new k/v into ``cache`` in place and returns
     (logits (B, V), cache) — the same dict."""
     x = layers.embedding_apply(params["embed"], token[:, None])   # (B,1,d)
     spec = cycle_spec(cfg)
-    kw = dict(global_window=global_window, ring=ring)
+    kw = dict(global_window=global_window, moe_path=moe_path, ring=ring)
     if "stack" in params:
         for c in range(cycle_counts(cfg)[0]):
             cparams, ccache = _index(params["stack"], c), \

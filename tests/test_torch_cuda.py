@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import delta_codec as tdc
 from repro_torch.kernels import fedavg_reduce as tfr
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -313,3 +314,87 @@ def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         tfa.flash_attention(*(t.half() for t in (k, k, k)))
     with pytest.raises(ValueError):                 # mixed devices
         tfa.flash_attention(k, k.cpu(), k)
+
+
+# ---------------------------------------------------------------------------
+# MoE grouped matmul (csrc/moe_gmm.cu)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:12: f32 2e-4, bf16 3e-2
+GMM_CASES = [
+    # (E, C, d, f)
+    (4, 128, 256, 512), (8, 100, 512, 384), (2, 257, 320, 640),  # sweep
+    (16, 8, 4096, 640),          # the decode-dispatch floor C = 8
+    (1, 1, 1, 1),
+    (3, 7, 5, 9),                # d, f no multiple of 4: scalar loads
+    (2, 64, 100, 96),            # vector loads in f32, scalar in bf16
+    (2, 130, 64, 130),           # ragged C and f tiles
+]
+
+
+def _gmm_inputs(case, dtype, cuda, seed=0):
+    E, C, d, f = case
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((E, C, d), generator=g) * 0.1
+    w = torch.randn((E, d, f), generator=g) * 0.05
+    return x.to(cuda, dtype), w.to(cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain_version(cuda, case, dtype):
+    x, w = _gmm_inputs(case, dtype, cuda)
+    before = tmg.launches
+    got = tmg.gmm(x, w)
+    again = tmg.gmm(x, w)
+    torch.cuda.synchronize()
+    assert tmg.launches == before + 2
+    assert got.dtype == dtype and got.shape == case[:2] + case[3:]
+    assert torch.equal(got, again)               # fixed order: repeatable
+    want = tref.gmm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_gmm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, w = _gmm_inputs((2, 16, 32, 64), torch.float32, cuda)
+    with pytest.raises(TypeError):                  # mixed dtypes
+        tmg.gmm(x, w.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        tmg.gmm(x.half(), w.half())
+    with pytest.raises(ValueError):                 # not contiguous
+        tmg.gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError):                 # mixed devices
+        tmg.gmm(x, w.cpu())
+    before = tmg.launches
+    empty = tmg.gmm(x[:, :0].contiguous(), w)
+    assert empty.shape == (2, 0, 64) and tmg.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])
+def test_moe_gmm_through_the_kernel_matches_plain_and_grads(cuda, mlp_type):
+    """Three launches (two for gelu) per expert FFN; the gradient goes
+    through the plain version."""
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn((4, 100, 128), generator=g) * 0.3).to(cuda)
+    gate, up = ((torch.randn((4, 128, 256), generator=g) * 0.05).to(cuda)
+                for _ in range(2))
+    down = (torch.randn((4, 256, 128), generator=g) * 0.05).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, gate, up, down)]
+    before = tmg.launches
+    out = tops.moe_gmm(*leaves, mlp_type=mlp_type)
+    assert tmg.launches == before + (3 if mlp_type == "swiglu" else 2)
+    refs = [t.clone().requires_grad_() for t in (x, gate, up, down)]
+    want = tref.moe_ffn_ref(*refs, mlp_type=mlp_type)
+    torch.testing.assert_close(out, want, **FA_TOL[torch.float32])
+    w = torch.randn(out.shape, generator=g).to(cuda)
+    (out * w).sum().backward()
+    (want * w).sum().backward()
+    for got, ref in zip(leaves, refs):
+        if ref.grad is None:
+            assert got.grad is None
+        else:
+            torch.testing.assert_close(got.grad, ref.grad,
+                                       **FA_TOL[torch.float32])

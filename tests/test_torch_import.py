@@ -31,7 +31,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.models.registry, repro_torch.models.transformer, "
             "repro_torch.kernels.flash_attention, repro_torch.distributed, "
             "repro_torch.core.engine.model_store, repro_torch.core.serve, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.models.moe, "
+            "repro_torch.kernels.moe_gmm\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -101,9 +102,9 @@ def test_trainer_refuses_unported_config_by_name(field, value, extra):
                       fed, RuntimeModel(1.0, task.runtime, 2), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "zamba2-7b-reduced",
+@pytest.mark.parametrize("name", ["mamba2-780m-reduced", "zamba2-7b-reduced",
                                   "whisper-tiny", "llava-next-34b",
-                                  "mamba2-780m", "phi3.5-moe-42b-a6.6b"])
+                                  "mamba2-780m", "whisper-tiny-reduced"])
 def test_get_arch_refuses_unported_families_by_name(name):
     with pytest.raises(ValueError, match="slice"):
         get_arch(name)
@@ -111,9 +112,9 @@ def test_get_arch_refuses_unported_families_by_name(name):
 
 def test_model_refuses_non_dense_arch_and_serve_refuses_checkpoint():
     import dataclasses
-    moe = dataclasses.replace(get_arch("qwen1.5-0.5b-reduced"),
-                              arch_type="moe")
-    with pytest.raises(ValueError, match="MoE slice"):
-        transformer.init_lm(None, moe, device="meta")
+    ssm = dataclasses.replace(get_arch("qwen1.5-0.5b-reduced"),
+                              arch_type="ssm")
+    with pytest.raises(ValueError, match="SSM slice"):
+        transformer.init_lm(None, ssm, device="meta")
     with pytest.raises(SystemExit, match="checkpoint"):
         serve.main(["--checkpoint", "/nonexistent", "--device", "cpu"])
