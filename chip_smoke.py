@@ -62,7 +62,20 @@ exits non-zero without printing a result:
               ``flash_attention`` and ``gmm`` (3 x layers gmm and layers
               flash launches each; ms, each kernel's share), the plain path
               on the same batch (logits, states, routing flips), and
-              ``ServingLoop`` dense-path decode: tokens/s, peak memory.
+              ``ServingLoop`` dense-path decode: tokens/s, peak memory;
+9. ssm      — the SSM serving path. Phase ``kernel`` rows hold ``ssd_scan``
+              against its plain version at the mamba2-780m prefill shape
+              first, then the reference sweep, zamba2-7b's widths, the
+              reduced configs' chunk 32, a ragged S, S < chunk and bf16, with
+              times and the bound (no single library call computes the
+              scan); phase ``parity`` adds reduced mamba2-780m, zamba2-7b and
+              a 5-layer hybrid with the shared attention block (prefill
+              logits, SSM and conv states, 8 greedy tokens); then
+              mamba2-780m at full width and depth (48 layers, 857,379,072
+              f32 params from seed 0): prefill B 2 x S 4096 through
+              ``ssd_scan`` (48 launches each; ms, the kernel's share), the
+              plain path on the same batch, and ``ServingLoop`` greedy
+              decode through the SSM and conv states: tokens/s, peak memory.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -902,20 +915,20 @@ def route_flips(torch, a: RouteLog, b: RouteLog, layers: int):
     return out
 
 
-def phase_parity_lm(torch):
-    """Reduced qwen1.5-0.5b, gemma2-27b, phi3.5-moe-42b-a6.6b and
-    mixtral-8x22b: prefill through the kernels on the card against the
-    plain path on the CPU (last-token logits, the decode states and, for
-    MoE, every layer's routing ids), then 8 greedy decode steps on both
-    (MoE on the serving loop's dense path), each fed the CPU's token: the
-    card's argmax must equal the CPU's wherever the CPU's top-2 logit gap
-    exceeds the tolerance."""
-    from repro_torch.configs import get_arch
+def phase_parity_lm(torch, names=PARITY_ARCHS):
+    """Reduced configs (``PARITY_ARCHS``: qwen1.5-0.5b, gemma2-27b,
+    phi3.5-moe-42b-a6.6b, mixtral-8x22b; ``SSM_PARITY``): prefill through
+    the kernels on the card against the plain path on the CPU (last-token
+    logits, the decode states (KV, or SSM and conv) and, for MoE, every
+    layer's routing ids), then 8 greedy decode steps on both (MoE on the
+    serving loop's dense path), each fed the CPU's token: the card's argmax
+    must equal the CPU's wherever the CPU's top-2 logit gap exceeds the
+    tolerance."""
     from repro_torch.distributed import make_prefill_step
     from repro_torch.models import registry
     from repro_torch.optim import tree_leaves, tree_map
-    for name in PARITY_ARCHS:
-        cfg = get_arch(name)
+    for name in names:
+        cfg = lm_config(name)
         cpu = registry.init(0, cfg, device="cpu")
         card = tree_map(lambda t: t.to("cuda"), cpu)
         toks = torch.tensor(_lm_tokens(cfg, 2, 96, 5))
@@ -974,18 +987,29 @@ def phase_parity_lm(torch):
               "min_top2_gap": min(gaps), **routing})
 
 
-def phase_lm(torch):
-    """qwen1.5-0.5b at full width: prefill through the kernel, the plain
-    path on the same batch, then ``ServingLoop`` greedy decode. Returns the
-    kernel launches counted over the four kernel prefills."""
+def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
+             kernel=("flash_attention", "flash"), seed=7,
+             state_tol=PARITY_TOL, extra=None):
+    """One architecture at full width (``arch``, ``n_want`` params): prefill
+    B 2 x S 4096 through the kernel (module and wrapper name ``kernel[0]``
+    of ``repro_torch.kernels``, one launch a layer; ``kernel[1]`` names its
+    share), the plain path on the same batch (logits within 1e-3, decode
+    states within ``state_tol``), then ``ServingLoop`` greedy decode.
+    ``extra(cfg)`` adds config fields to the prefill line. Phase ``lm``:
+    qwen1.5-0.5b through ``flash_attention``; phase ``ssm``: mamba2-780m
+    through ``ssd_scan``. Returns the kernel launches counted over the
+    four kernel prefills."""
+    import importlib
     from repro_torch.configs import get_arch
     from repro_torch.core.engine.model_store import GlobalModelStore
     from repro_torch.core.serve import ServingLoop
     from repro_torch.distributed import make_prefill_step
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import registry
     from repro_torch.optim import tree_leaves
-    cfg = get_arch(LM_ARCH)
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel[0]}")
+    fn_name = kernel[0]
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = registry.init(torch.Generator().manual_seed(0), cfg,
@@ -993,21 +1017,20 @@ def phase_lm(torch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    if n_params != LM_PARAMS or registry.param_count(cfg) != LM_PARAMS:
-        raise AssertionError(f"{LM_ARCH}: {n_params} params, want "
-                             f"{LM_PARAMS}")
-    batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, 7),
+    if n_params != n_want or registry.param_count(cfg) != n_want:
+        raise AssertionError(f"{arch}: {n_params} params, want {n_want}")
+    batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, seed),
                                     device="cuda")}
 
     # instrumentation of this script only: CUDA events around each kernel
     # call, host clock around each prefill
-    events, kernel = [], fa.flash_attention
+    events, wrapper = [], getattr(mod, fn_name)
 
     def timed(*a, **kw):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        out = kernel(*a, **kw)
+        out = wrapper(*a, **kw)
         ev[1].record()
         events.append(ev)
         return out
@@ -1021,8 +1044,8 @@ def phase_lm(torch):
         return out, (time.perf_counter() - t) * 1e3
 
     prefill = make_prefill_step(cfg, use_kernel=True)
-    fa.launches = 0
-    fa.flash_attention = timed
+    mod.launches = 0
+    setattr(mod, fn_name, timed)
     try:
         times, shares = [], []
         for i in range(4):                       # one warm-up, three timed
@@ -1032,10 +1055,10 @@ def phase_lm(torch):
                 times.append(ms)
                 shares.append(sum(a.elapsed_time(b) for a, b in events) / ms)
     finally:
-        fa.flash_attention = kernel
-    launches = fa.launches
+        setattr(mod, fn_name, wrapper)
+    launches = mod.launches
     if launches != 4 * cfg.num_layers:
-        raise AssertionError(f"{launches} flash launches in 4 prefills, "
+        raise AssertionError(f"{launches} {fn_name} launches in 4 prefills, "
                              f"want {4 * cfg.num_layers}")
     if logits.shape != (LM_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1043,24 +1066,29 @@ def phase_lm(torch):
                              f"not finite")
     (plain_logits, plain_states), plain_ms = run(
         make_prefill_step(cfg, use_kernel=False))
-    if fa.launches != launches:
+    if mod.launches != launches:
         raise AssertionError("the plain prefill launched the kernel")
     torch.testing.assert_close(logits, plain_logits, rtol=1e-3, atol=1e-3)
-    st_err = 0.0
-    for a, b in zip(tree_leaves(states), tree_leaves(plain_states)):
-        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
-        st_err = max(st_err, float((a - b).abs().max()))
+    st_err = {}                      # by state name: k, v or ssm, conv
+    for (path, st), (_, plain) in zip(leaf_items(states, ""),
+                                      leaf_items(plain_states, "")):
+        torch.testing.assert_close(st, plain, **state_tol)
+        key = path.rsplit(".", 1)[-1]
+        st_err[key] = max(st_err.get(key, 0.0),
+                          float((st - plain).abs().max()))
     order = sorted(times)
-    emit({"phase": "lm", "what": "prefill", "arch": LM_ARCH,
+    emit({"phase": phase, "what": "prefill", "arch": arch,
+          **(extra(cfg) if extra else {}),
           "params": n_params, "dtype": "float32", "batch": LM_BATCH,
           "seq": LM_SEQ, "init_s": init_s,
           "ms": order[len(order) // 2], "ms_runs": times,
-          "flash_share": statistics.median(shares),
-          "flash_launches_per_prefill": launches // 4,
+          f"{kernel[1]}_share": statistics.median(shares),
+          f"{kernel[1]}_launches_per_prefill": launches // 4,
           "plain_ms": plain_ms,
           "logits_max_abs_err_vs_plain": float(
               (logits - plain_logits).abs().max()),
-          "states_max_abs_err_vs_plain": st_err,
+          "states_max_abs_err_vs_plain": max(st_err.values()),
+          "states_max_abs_err_by_key": st_err, "states_tol": state_tol,
           "logits_argmax": torch.argmax(logits, -1).tolist()})
     del states, plain_states, logits, plain_logits
 
@@ -1070,7 +1098,7 @@ def phase_lm(torch):
     n_tok = SERVE["batch"] * SERVE["tokens"]
     if ids.shape != (SERVE["batch"], SERVE["tokens"]):
         raise AssertionError(f"decode ids {tuple(ids.shape)}")
-    emit({"phase": "lm", "what": "serve", "arch": LM_ARCH, **SERVE,
+    emit({"phase": phase, "what": "serve", "arch": arch, **SERVE,
           "tokens_per_s": n_tok / dt, "first_tokens_per_s": n_tok / runs[0][1],
           "ms_per_step": dt / SERVE["tokens"] * 1e3,
           "ids": ids.tolist(),
@@ -1271,6 +1299,126 @@ def phase_moe(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the SSM serving path (phase 9)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:104-107 (the cumsum and the sums run in another
+# order); bf16 adds one bf16 ulp of the output
+SSD_TOL = {"float32": dict(rtol=5e-4, atol=5e-4),
+           "bfloat16": dict(rtol=2 ** -7, atol=5e-4)}
+# (label, B, S, H, P, N, chunk, dtype): the full-width prefill's shape
+# first (mamba2-780m, B 2, S 4096), then the reference sweep
+# (tests/test_kernels.py:89-93), zamba2-7b's widths, the reduced configs'
+# widths and chunk, a ragged S, S < chunk and bf16
+SSD_SHAPES = [
+    ("prefill", 2, 4096, 48, 64, 128, 256, "float32"),
+    ("sweep", 1, 64, 2, 32, 16, 16, "float32"),
+    ("sweep", 2, 96, 3, 64, 32, 32, "float32"),
+    ("sweep", 1, 256, 1, 64, 128, 64, "float32"),
+    ("zamba2", 1, 4096, 112, 64, 64, 256, "float32"),
+    ("chunk32", 2, 4096, 8, 32, 16, 32, "float32"),
+    ("ragged", 2, 4000, 48, 64, 128, 256, "float32"),
+    ("short", 2, 100, 48, 64, 128, 256, "float32"),
+    ("bf16", 2, 4096, 48, 64, 128, 256, "bfloat16"),
+]
+SSM_ARCH = "mamba2-780m"
+SSM_PARAMS = 857_379_072
+HYBRID = "zamba2-7b-reduced-hybrid5"
+SSM_PARITY = ("mamba2-780m-reduced", "zamba2-7b-reduced", HYBRID)
+# the plain path's decode states against the kernel path's, 48 layers deep
+SSM_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def lm_config(name: str):
+    """The config of ``name``; ``HYBRID`` is reduced zamba2-7b with the
+    pattern (mamba, attn) over 5 layers: 2 cycles through the shared
+    attention block and a mamba tail (reduced zamba2 keeps only its first
+    two layer types, both mamba)."""
+    from repro_torch.configs import get_arch
+    if name != HYBRID:
+        return get_arch(name)
+    return dataclasses.replace(get_arch("zamba2-7b-reduced"), name=HYBRID,
+                               layer_pattern=("mamba", "attn"), num_layers=5)
+
+
+def ssd_work(B, S, H, P, N, Q):
+    """(flops, bytes) the scan needs at these shapes, x/b/c/y in 4-byte
+    elements. Flops: C.B^T once per batch and chunk over the causal pairs
+    (heads share it), and per head the gate (3 a pair), gate.x over the
+    pairs, the chunk states and the inter-chunk term C.S_prev (Q N P
+    each, for every chunk after the first), the state recurrence and the
+    D skip; steps past S count nothing. Bytes: x, dt, b, c, A, D read once,
+    y and the final state written once."""
+    flops, pairs = 0, 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        pairs = q * (q + 1) // 2
+        flops += B * (2 * pairs * N + H * (3 * pairs + 2 * pairs * P
+                                           + 2 * q * N * P + 2 * N * P))
+        if s0:
+            flops += B * H * 2 * q * N * P
+    flops += B * S * H * P * 2
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N + 2 * H
+                  + B * H * N * P)
+    return flops, nbytes
+
+
+def ssd_inputs(torch, gen, B, S, H, P, N, dtype):
+    """The reference kernel test's distributions (tests/test_kernels.py:
+    95-100): unit x, softplus(unit) dt, A = -exp(0.3 unit), b/c at 0.5."""
+    dev = "cuda"
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    b = (torch.randn((B, S, N), generator=gen, device=dev) * 0.5).to(dtype)
+    c = (torch.randn((B, S, N), generator=gen, device=dev) * 0.5).to(dtype)
+    D = torch.linspace(0.5, 1.5, H, device=dev)
+    return x, dt, A, b, c, D
+
+
+def phase_ssd_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
+    """``ssd_scan`` against its plain version at ``SSD_SHAPES``, with device
+    times of the kernel and the plain version (no single PyTorch call
+    computes the scan: library time null)."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 * 2 ** 20 // 4, device="cuda")
+    rows = []
+    for label, B, S, H, P, N, Q, dt_name in SSD_SHAPES:
+        dtype = getattr(torch, dt_name)
+        args = ssd_inputs(torch, gen, B, S, H, P, N, dtype)
+        got = ss.ssd_scan(*args, chunk=Q)
+        again = ss.ssd_scan(*args, chunk=Q)
+        want = ssd_scan_ref(*args, chunk=Q)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssd_scan {label}: not repeatable")
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   **SSD_TOL[dt_name])
+        torch.testing.assert_close(got[1], want[1], **SSD_TOL["float32"])
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        del got, again, want
+        flops, nbytes = ssd_work(B, S, H, P, N, Q)
+        if dtype == torch.bfloat16:       # x, y, b, c in 2-byte elements
+            nbytes -= 2 * (2 * B * S * H * P + 2 * B * S * N)
+        rows.append(_row(
+            "ssd_scan", label,
+            {"b": B, "s": S, "h": H, "p": P, "n": N, "chunk": Q,
+             "dtype": dt_name}, err, SSD_TOL[dt_name],
+            time_ms(torch, lambda: ss.ssd_scan(*args, chunk=Q), flush),
+            time_ms(torch, lambda: ssd_scan_ref(*args, chunk=Q), flush),
+            None, nbytes, flops, bw,
+            f32_peak if dt_name == "float32" else bf16_peak))
+        del args
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1292,9 +1440,11 @@ def main() -> int:
     wrows = phase_wire_kernels(torch, bw, f32_peak)
     frows = phase_flash_kernel(torch, bw, f32_peak, bf16_peak)
     grows = phase_gmm_kernel(torch, bw, f32_peak, bf16_peak)
+    srows = phase_ssd_kernel(torch, bw, f32_peak, bf16_peak)
     phase_parity(torch)
     phase_parity_wire(torch)
     phase_parity_lm(torch)
+    phase_parity_lm(torch, SSM_PARITY)
     cifar, cifar_s = paper_data("cifar100")
     launches = run_task(torch, "cifar100", CIFAR_ROUNDS, cifar, cifar_s)
     for task in MAIN_TASKS[1:]:
@@ -1307,6 +1457,12 @@ def main() -> int:
         raise AssertionError(f"a wire kernel never ran: {wire_launches}")
     flash_launches = phase_lm(torch)
     moe_launches = phase_moe(torch)
+    ssd_launches = phase_lm(
+        torch, "ssm", SSM_ARCH, SSM_PARAMS, ("ssd_scan", "ssd"), 9,
+        SSM_STATE_TOL, lambda cfg: {
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "ssm_heads": cfg.ssm.n_heads(cfg.d_model),
+            "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk_size})
 
     # one CIFAR100 round: the sums over its eight leaves (for the int8
     # kernels, the one-plane codec's round)
@@ -1352,6 +1508,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm.py:61",
         "launches": moe_launches["gmm"],
         "max_abs_err": max(r["max_abs_err"] for r in grows),
+        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}})
+    # ssd_scan: the full-width prefill's shape (one launch of it)
+    top = srows[0]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:87",
+        "launches": ssd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in srows),
         **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}})
     emit({"kernels": kernels})

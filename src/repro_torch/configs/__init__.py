@@ -2,9 +2,10 @@
 runs, by the reference's exact names (dots and dashes); module names use
 underscores.
 
-The port carries the four dense architectures and the two MoE ones. The
-other four of the reference are refused by name, with the slice of the port
-that brings them (``ROADMAP.md``).
+The port carries the four dense architectures, the two MoE ones and the
+two SSM ones (mamba2 and the zamba2 hybrid). The reference's other two are
+refused by name, with the slice of the port that brings them
+(``ROADMAP.md``).
 """
 from repro_torch.configs.base import (ArchConfig, FedConfig, MoEConfig,
                                       RuntimeModelConfig, ShapeConfig,
@@ -13,18 +14,17 @@ from repro_torch.configs.paper_tasks import (PAPER_TASKS, PaperTaskConfig,
                                              get_paper_task)
 from repro_torch.configs.shapes import SHAPES, get_shape
 
-from repro_torch.configs import (gemma2_27b, mixtral_8x22b, nemotron_4_340b,
-                                 phi3_5_moe_42b, qwen1_5_0_5b, qwen2_7b)
+from repro_torch.configs import (gemma2_27b, mamba2_780m, mixtral_8x22b,
+                                 nemotron_4_340b, phi3_5_moe_42b,
+                                 qwen1_5_0_5b, qwen2_7b, zamba2_7b)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
          for m in (qwen1_5_0_5b, qwen2_7b, gemma2_27b, nemotron_4_340b,
-                   mixtral_8x22b, phi3_5_moe_42b)}
+                   mixtral_8x22b, phi3_5_moe_42b, mamba2_780m, zamba2_7b)}
 
 #: the reference's other architectures, and the part of the port that
 #: brings each
 LATER_ARCHS = {
-    "mamba2-780m": "the SSM slice (ssd_scan)",
-    "zamba2-7b": "the SSM slice (ssd_scan)",
     "whisper-tiny": "the encoder-decoder slice",
     "llava-next-34b": "the encoder-decoder slice (after whisper)",
 }

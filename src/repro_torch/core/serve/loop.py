@@ -5,7 +5,8 @@ The loop pulls ``GlobalModelStore.snapshot()`` (the tree clients hold),
 hot-swaps it under the decode step, and replays a deterministic traffic
 stream against it: each ``tick`` takes one batch of prompts, a pure
 function of ``(seed, tick)``, runs teacher-forced prefill through the
-decode path, then greedy decode through the KV cache, and records
+decode path, then greedy decode through the decode cache (KV caches, and
+SSM and conv states for mamba layers), and records
 tokens/s, swap latency and staleness into ``History``.
 
 Traffic streams are a plain name -> factory dict (``TRAFFIC``); the

@@ -24,8 +24,9 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
     """Full-sequence prefill: (params, batch) -> (last-token logits (B, V),
     decode states). The readout runs on the last position only, so the
     (B, S, V) logits never exist. ``use_kernel=True`` runs every layer's
-    attention through the flash kernel and, on the ``dispatch`` MoE path,
-    every expert FFN through the grouped-matmul kernel."""
+    attention through the flash kernel, on the ``dispatch`` MoE path every
+    expert FFN through the grouped-matmul kernel, and every mamba layer's
+    scan through the SSD kernel."""
     transformer.require_ported(cfg)
     gw = registry.LONG_GLOBAL_WINDOW if long_mode else None
 

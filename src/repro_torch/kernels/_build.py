@@ -66,6 +66,13 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
             ctypes.c_int),
     },
+    "ssd_scan": {
+        # (x, dt, A, b, c, D, y, final_state, cs, states, dims[6],
+        #  strides[6], dtype, stream); dims and strides are host int64 arrays
+        "ssd_scan_launch": (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,8 @@ from repro_torch.kernels import delta_codec as _dc
 from repro_torch.kernels import fedavg_reduce as _fr
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _mg
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
 
 PyTree = Any
 
@@ -130,3 +131,40 @@ def moe_gmm(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
         h = torch.nn.functional.gelu(gmm(x, up).to(torch.float32),
                                      approximate="tanh").to(x.dtype)
     return gmm(h, down)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (model layout adapter)
+# ---------------------------------------------------------------------------
+
+class _SsdScan(torch.autograd.Function):
+    """Forward through the kernel (the plain version on the CPU); backward
+    by autograd through the plain version (the reference's Pallas scan has
+    no backward kernel; its model differentiates ``ssd_chunked``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, b, c, D, chunk):
+        ctx.save_for_backward(x, dt, A, b, c, D)
+        ctx.chunk = chunk
+        return _ssd.ssd_scan(x, dt, A, b, c, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = ssd_scan_ref(*leaves, chunk=ctx.chunk)
+        grads = torch.autograd.grad(outs, leaves, (gy, gstate))
+        return (*grads, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 256):
+    """Model layout (as ``models.ssm.ssd_chunked``): x (B, S, H, P); dt
+    (B, S, H); a_log = A (H,) negative rates; b/c (B, S, N); d (H,). Returns
+    (y (B, S, H, P) in x's dtype, state (B, H, N, P) f32).
+
+    The kernel reads these tensors in place: the reference's per-(batch,
+    head) copies, its broadcast of b and c to every head and its zero
+    padding of S were TPU layout."""
+    return _SsdScan.apply(x, dt, a_log, b, c, d, chunk)

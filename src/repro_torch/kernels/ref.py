@@ -134,3 +134,72 @@ def moe_ffn_ref(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
         h = torch.nn.functional.gelu(gmm_ref(x, up).to(torch.float32),
                                      approximate="tanh")
     return gmm_ref(h.to(x.dtype), down)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, D: torch.Tensor, *,
+                 chunk: int):
+    """Mamba2 SSD chunked scan (``repro.models.ssm.ssd_chunked``), in f32.
+
+    x (B, S, H, P) per-head inputs; dt (B, S, H) step sizes; A (H,) negative
+    decay rates; b/c (B, S, N) input and output projections, shared by the
+    heads (one group); D (H,) skip. Returns y (B, S, H, P) in x's dtype and
+    the final state (B, H, N, P) in f32.
+
+    S is padded with zeros to a multiple of ``chunk`` (dt = 0 there, so the
+    state does not change) and y is cut back. Within a chunk of Q steps,
+    with cs the cumsum of dt*A:
+    ``y_i = sum_{j<=i} (C_i.B_j) exp(cs_i - cs_j) dt_j x_j
+    + exp(cs_i) C_i.S_prev + D x_i``; the chunk's state
+    ``S = exp(cs_last) S_prev + sum_j exp(cs_last - cs_j) dt_j B_j x_j^T``
+    carries to the next chunk in a loop. The decay's exponent is masked to
+    -inf above the diagonal before ``exp``, so nothing overflows to inf,
+    there or in the backward pass.
+    """
+    out_dtype = x.dtype
+    x, dt, A, b, c, D = (t.to(torch.float32) for t in (x, dt, A, b, c, D))
+    Bsz, S, H, P = x.shape
+    N = b.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    NC = (S + pad) // chunk
+    # heads ahead of the chunk's steps: (B, NC, H, Q, *)
+    xc = x.reshape(Bsz, NC, chunk, H, P).transpose(2, 3)
+    dtc = dt.reshape(Bsz, NC, chunk, H).transpose(2, 3)
+    bc = b.reshape(Bsz, NC, chunk, N)
+    cc = c.reshape(Bsz, NC, chunk, N)
+    cs = torch.cumsum(dtc * A[:, None], dim=-1)               # (B,NC,H,Q)
+
+    # intra-chunk: ((C B^T) o L) (x dt), L[i, j] = exp(cs_i - cs_j), i >= j
+    cb = cc @ bc.transpose(-1, -2)                            # (B,NC,Q,Q)
+    idx = torch.arange(chunk, device=x.device)
+    causal = idx[:, None] >= idx[None, :]
+    expo = torch.where(causal, cs[..., :, None] - cs[..., None, :],
+                       -math.inf)                             # (B,NC,H,Q,Q)
+    gate = torch.exp(expo) * cb[:, :, None]
+    xdt = xc * dtc[..., None]                                 # (B,NC,H,Q,P)
+    y = gate @ xdt
+
+    # chunk states: sum_j exp(cs_last - cs_j) dt_j B_j (x) x_j
+    last = cs[..., -1:]                                       # (B,NC,H,1)
+    w = torch.exp(last - cs) * dtc                            # (B,NC,H,Q)
+    states = (bc[:, :, None] * w[..., None]).transpose(-1, -2) @ xc
+
+    # inter-chunk recurrence over the chunks
+    decay = torch.exp(last[..., 0])                           # (B,NC,H)
+    st = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    prev = []
+    for k in range(NC):
+        prev.append(st)
+        st = st * decay[:, k, :, None, None] + states[:, k]
+    prev = torch.stack(prev, dim=1)                           # (B,NC,H,N,P)
+
+    # inter-chunk output: exp(cs_i) C_i . S_prev
+    y = y + torch.exp(cs)[..., None] * (cc[:, :, None] @ prev)
+    y = y + xc * D[:, None, None]
+    y = y.transpose(2, 3).reshape(Bsz, S + pad, H, P)[:, :S]
+    return y.to(out_dtype), st

@@ -1,16 +1,15 @@
 """Batched serving launcher: greedy decode through the KV cache, built on
 ``GlobalModelStore`` + ``ServingLoop`` (``repro.launch.serve``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --batch 4 --prompt-len 16 --tokens 32 [--device cpu]
 
-Serves the reduced config of ``--arch`` with params from ``--seed``, as the
-reference does without a checkpoint; MoE archs (mixtral-8x22b,
-phi3.5-moe-42b-a6.6b) decode on the serving loop's dense MoE path, every
-expert on every token, as the reference serves them. The reference's
-default arch (zamba2-7b) is a hybrid SSM that arrives with the SSM slice,
-so the default here is qwen1.5-0.5b. ``--checkpoint`` is refused until the checkpoint
-port lands.
+Serves the reduced config of ``--arch`` (default zamba2-7b, as the
+reference's) with params from ``--seed``, as the reference does without a
+checkpoint; MoE archs (mixtral-8x22b, phi3.5-moe-42b-a6.6b) decode on the
+serving loop's dense MoE path, every expert on every token, as the
+reference serves them; SSM and hybrid archs decode through their SSM and
+conv states. ``--checkpoint`` is refused until the checkpoint port lands.
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ from repro_torch.core.serve import ServingLoop
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 
-DEFAULT_ARCH = "qwen1.5-0.5b"
+DEFAULT_ARCH = "zamba2-7b"
 
 
 def main(argv=None):

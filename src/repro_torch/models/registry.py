@@ -1,5 +1,5 @@
-"""Unified model API over the architectures the port runs (dense and MoE
-LMs), the names of ``repro.models.registry``:
+"""Unified model API over the architectures the port runs (dense, MoE, SSM
+and hybrid LMs), the names of ``repro.models.registry``:
 
     init(seed_or_generator, cfg, dtype, device) -> params
     loss_fn(cfg)(params, batch)                 -> (scalar, metrics)

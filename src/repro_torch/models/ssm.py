@@ -1,0 +1,158 @@
+"""Mamba2 (SSD, state-space duality) block (``repro.models.ssm``).
+
+arXiv:2405.21060: input projection -> short depthwise causal conv on
+(x, B, C) -> per-head scalar-decay SSM evaluated with the chunked SSD
+algorithm (intra-chunk quadratic terms + inter-chunk state passing) ->
+gated RMSNorm -> output projection. n_groups is 1: B and C are shared by
+the heads.
+
+``ssm_forward(..., use_kernel=True)`` runs the scan through
+``kernels.ops.ssd_scan`` (the hand-written CUDA kernel on the card), the
+same function on the same arguments as ``ssd_chunked``; the reference's
+model keeps ``ssd_chunked`` there and leaves its Pallas ``ssd_scan`` to the
+kernel tests (ROADMAP.md queue C).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.models import layers
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_inner = s.d_inner(cfg.d_model)
+    n_heads = s.n_heads(cfg.d_model)
+    conv_dim = d_inner + 2 * s.d_state
+    return s, d_inner, n_heads, conv_dim
+
+
+def _filled(values, dtype, device):
+    """A constant parameter (shape only on ``meta``)."""
+    t = torch.as_tensor(values, dtype=torch.float32)
+    if torch.device(device).type == "meta":
+        return torch.empty(t.shape, dtype=dtype, device="meta")
+    return t.to(device=device, dtype=dtype)
+
+
+def ssm_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu"):
+    s, d_inner, n_heads, conv_dim = _dims(cfg)
+    in_dim = 2 * d_inner + 2 * s.d_state + n_heads    # z, x, B, C, dt
+    return {
+        "in_proj": layers.dense_init(gen, cfg.d_model, in_dim, dtype=dtype,
+                                     device=device),
+        "conv_w": layers.normal_init(gen, (s.d_conv, conv_dim), 0.1, dtype,
+                                     device),
+        "conv_b": _filled([0.0] * conv_dim, dtype, device),
+        # A in -[1, 16], as in the paper's code
+        "A_log": _filled(torch.log(torch.linspace(1.0, 16.0, n_heads)), dtype,
+                         device),
+        "D": _filled([1.0] * n_heads, dtype, device),
+        "dt_bias": _filled([math.log(math.expm1(0.01))] * n_heads, dtype,
+                           device),
+        "norm": layers.rmsnorm_init(d_inner, dtype, device),
+        "out_proj": layers.dense_init(gen, d_inner, cfg.d_model, dtype=dtype,
+                                      device=device),
+    }
+
+
+def _split_proj(p, cfg: ArchConfig, u):
+    """u: (B, S, d_model) -> z, xBC, dt_raw (views of one projection)."""
+    s, d_inner, n_heads, conv_dim = _dims(cfg)
+    zxbcdt = layers.dense_apply(p["in_proj"], u)
+    z = zxbcdt[..., :d_inner]
+    xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
+    dt_raw = zxbcdt[..., d_inner + conv_dim:]
+    return z, xBC, dt_raw
+
+
+def _causal_conv(p, xBC, cfg: ArchConfig):
+    """Depthwise causal conv over the sequence, then SiLU. xBC: (B, S,
+    conv_dim); the d_conv taps are unrolled, as in the reference."""
+    w = p["conv_w"]                                   # (d_conv, conv_dim)
+    S = xBC.shape[1]
+    xp = F.pad(xBC, (0, 0, cfg.ssm.d_conv - 1, 0))
+    out = torch.zeros_like(xBC)
+    for i in range(cfg.ssm.d_conv):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return F.silu(out + p["conv_b"])
+
+
+#: the chunked SSD contraction, x (B, S, H, P), dt (B, S, H), A (H,), B_/C_
+#: (B, S, N), D (H,) -> (y, final state (B, H, N, P)): the kernel's plain
+#: version
+ssd_chunked = ssd_scan_ref
+
+
+def ssm_forward(p, cfg: ArchConfig, u, *,
+                use_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence forward. u: (B, S, d_model). Returns (out, {"ssm":
+    final state in u's dtype, "conv": the last d_conv - 1 raw xBC rows})."""
+    s, d_inner, n_heads, conv_dim = _dims(cfg)
+    Bsz, S, _ = u.shape
+    z, xBC_raw, dt_raw = _split_proj(p, cfg, u)
+    xBC = _causal_conv(p, xBC_raw, cfg)
+    f32 = torch.float32
+    x = xBC[..., :d_inner].reshape(Bsz, S, n_heads, s.head_dim)
+    B_ = xBC[..., d_inner:d_inner + s.d_state]
+    C_ = xBC[..., d_inner + s.d_state:]
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))
+    scan = ops.ssd_scan if use_kernel else ssd_chunked
+    y, final_state = scan(x.to(f32), dt, A, B_.to(f32), C_.to(f32),
+                          p["D"].to(f32), chunk=s.chunk_size)
+    y = y.reshape(Bsz, S, d_inner).to(u.dtype)
+    y = layers.rmsnorm_apply(p["norm"], y * F.silu(z))
+    out = layers.dense_apply(p["out_proj"], y)
+    # decode-ready states; the conv rows are copied out of the projection
+    # so that the (B, S, conv_dim) tensor is freed with the layer
+    state = {"ssm": final_state.to(u.dtype),
+             "conv": xBC_raw[:, -(s.d_conv - 1):, :].clone()}
+    return out, state
+
+
+def ssm_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                   device="cpu"):
+    s, d_inner, n_heads, conv_dim = _dims(cfg)
+    return {
+        "ssm": torch.zeros((batch, n_heads, s.d_state, s.head_dim),
+                           dtype=dtype, device=device),
+        "conv": torch.zeros((batch, s.d_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+    }
+
+
+def ssm_decode_step(p, cfg: ArchConfig, u, state):
+    """One-token recurrent step. u: (B, 1, d_model). Returns (out,
+    new_state); ``state`` is not written (the model's decode copies the new
+    state into its cache)."""
+    s, d_inner, n_heads, conv_dim = _dims(cfg)
+    Bsz = u.shape[0]
+    f32 = torch.float32
+    z, xBC_raw, dt_raw = _split_proj(p, cfg, u)             # (B, 1, *)
+    window = torch.cat([state["conv"], xBC_raw], dim=1)     # (B, d_conv, cd)
+    xBC = F.silu(torch.einsum("btc,tc->bc", window, p["conv_w"])
+                 + p["conv_b"])                              # (B, conv_dim)
+    x = xBC[:, :d_inner].reshape(Bsz, n_heads, s.head_dim)
+    B_ = xBC[:, d_inner:d_inner + s.d_state]
+    C_ = xBC[:, d_inner + s.d_state:]
+    dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))                      # (H,)
+    decay = torch.exp(dt * A)                               # (B, H)
+    st = state["ssm"].to(f32)
+    st = st * decay[..., None, None] + torch.einsum(
+        "bh,bn,bhp->bhnp", dt, B_.to(f32), x.to(f32))
+    y = torch.einsum("bn,bhnp->bhp", C_.to(f32), st)
+    y = y + x.to(f32) * p["D"].to(f32)[None, :, None]
+    y = y.reshape(Bsz, 1, d_inner).to(u.dtype)
+    y = layers.rmsnorm_apply(p["norm"], y * F.silu(z))
+    out = layers.dense_apply(p["out_proj"], y)
+    new_state = {"ssm": st.to(state["ssm"].dtype), "conv": window[:, 1:, :]}
+    return out, new_state

@@ -1,18 +1,23 @@
-"""Decoder-only LM for the dense and MoE architectures
+"""Decoder-only LM for the dense, MoE, SSM and hybrid architectures
 (``repro.models.transformer``).
 
 Layers are grouped into *cycles*, one repetition of ``cfg.layer_pattern``
-(e.g. (local, global) for gemma2). The params of all cycles are stacked on
-a leading axis under ``params["stack"]["b{i}"]`` with the reference's
-keys, so ``bridge.params_from_jax`` maps a reference tree 1:1; the
-reference's ``lax.scan`` over cycles is a loop over that axis, and
-``remat`` checkpoints one cycle at a time (``torch.utils.checkpoint``) when
-autograd is on.
+(e.g. (local, global) for gemma2, five mamba and a shared attention block
+for zamba2). The params of all cycles are stacked on a leading axis under
+``params["stack"]["b{i}"]`` with the reference's keys, so
+``bridge.params_from_jax`` maps a reference tree 1:1; the reference's
+``lax.scan`` over cycles is a loop over that axis, and ``remat``
+checkpoints one cycle at a time (``torch.utils.checkpoint``) when autograd
+is on.
 
-``arch_type`` "dense" and "moe" run here; the other families raise,
-naming the part of the port that brings them. An MoE block holds ``moe``
-(``models/moe.py``) where a dense block holds ``mlp``; its load-balance aux
-is summed over the layers and never kept in the decode states.
+``arch_type`` "dense", "moe", "ssm" and "hybrid" run here; the other
+families raise, naming the part of the port that brings them. An MoE block
+holds ``moe`` (``models/moe.py``) where a dense block holds ``mlp``; its
+load-balance aux is summed over the layers and never kept in the decode
+states. A mamba block holds ``{"ln", "ssm"}`` (``models/ssm.py``) and its
+decode state is ``{"ssm", "conv"}``. A hybrid's ``attn`` positions all run
+the one block in ``params["shared"]`` (absent from the stack) and each
+keeps its own KV cache.
 """
 from __future__ import annotations
 
@@ -24,22 +29,22 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.optim import tree_map
 
 PyTree = Any
 
 #: the families the port runs, and where each other one arrives (ROADMAP.md)
-PORTED_FAMILIES = ("dense", "moe")
-LATER_FAMILIES = {"ssm": "the SSM slice", "hybrid": "the SSM slice",
-                  "audio": "the encoder-decoder slice",
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+LATER_FAMILIES = {"audio": "the encoder-decoder slice",
                   "vlm": "the encoder-decoder slice"}
 
 
 def require_ported(cfg: ArchConfig) -> None:
     if cfg.arch_type not in PORTED_FAMILIES:
         raise ValueError(
-            f"arch {cfg.name!r} is {cfg.arch_type!r}: the port runs dense "
-            f"and MoE LMs; {cfg.arch_type} comes with "
+            f"arch {cfg.name!r} is {cfg.arch_type!r}: the port runs dense, "
+            f"MoE, SSM and hybrid LMs; {cfg.arch_type} comes with "
             f"{LATER_FAMILIES.get(cfg.arch_type, 'a later slice')}")
 
 
@@ -57,6 +62,10 @@ def cycle_counts(cfg: ArchConfig) -> Tuple[int, int]:
     """(num full cycles, number of tail layers)."""
     n = len(cycle_spec(cfg))
     return cfg.num_layers // n, cfg.num_layers % n
+
+
+def _is_shared(cfg: ArchConfig, ltype: str) -> bool:
+    return cfg.arch_type == "hybrid" and ltype == "attn"
 
 
 def _layer_window(cfg: ArchConfig, ltype: str,
@@ -103,10 +112,14 @@ def _stack_init(make, n: int) -> PyTree:
 # ---------------------------------------------------------------------------
 
 def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
+    if ltype == "mamba":
+        return {"ln": layers.norm_init(cfg.norm_type, cfg.d_model, dtype,
+                                       device),
+                "ssm": ssm_lib.ssm_init(gen, cfg, dtype, device)}
     p = {"ln1": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device),
          "attn": attention.attn_init(gen, cfg, dtype, device),
          "ln2": layers.norm_init(cfg.norm_type, cfg.d_model, dtype, device)}
-    if cfg.moe is not None:
+    if cfg.moe is not None and not _is_shared(cfg, ltype):
         p["moe"] = moe_lib.moe_init(gen, cfg, dtype, device)
     else:
         d_ff = cfg.d_ff if cfg.d_ff else 4 * cfg.d_model
@@ -117,8 +130,14 @@ def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
 
 def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
                  global_window=None, moe_path="dispatch", use_kernel=False):
-    """Full-sequence block. Returns (x, {k, v, aux}): the caller pops the
-    MoE aux out of the decode state."""
+    """Full-sequence block. Returns (x, decode state + {aux}): the caller
+    pops the MoE aux out of the decode state."""
+    if ltype == "mamba":
+        h, state = ssm_lib.ssm_forward(
+            bp["ssm"], cfg, layers.norm_apply(cfg.norm_type, bp["ln"], x),
+            use_kernel=use_kernel)
+        state["aux"] = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + h, state
     window = _layer_window(cfg, ltype, global_window)
     h, (k, v) = attention.attention(
         bp["attn"], cfg, layers.norm_apply(cfg.norm_type, bp["ln1"], x),
@@ -136,7 +155,15 @@ def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
 
 def _block_decode(bp, cfg: ArchConfig, ltype: str, x, state, pos, *,
                   global_window=None, moe_path="dense", ring=False):
-    """One token through one block; writes its cache slot in place."""
+    """One token through one block; writes its cache slot (a mamba block:
+    its SSM and conv states) in place."""
+    if ltype == "mamba":
+        h, new = ssm_lib.ssm_decode_step(
+            bp["ssm"], cfg, layers.norm_apply(cfg.norm_type, bp["ln"], x),
+            state)
+        state["ssm"].copy_(new["ssm"])
+        state["conv"].copy_(new["conv"])
+        return x + h, state
     window = _layer_window(cfg, ltype, global_window)
     use_ring = ring and window is not None
     xn = layers.norm_apply(cfg.norm_type, bp["ln1"], x)
@@ -177,27 +204,39 @@ def init_lm(gen: Optional[torch.Generator], cfg: ArchConfig,
         params["lm_head"] = layers.dense_init(gen, cfg.d_model,
                                               cfg.vocab_size, dtype=dtype,
                                               device=device)
+    if cfg.arch_type == "hybrid":
+        params["shared"] = _block_init(gen, cfg, "shared_attn_block", dtype,
+                                       device)
     if n_cycles > 0:
         params["stack"] = _stack_init(
             lambda: {f"b{i}": _block_init(gen, cfg, lt, dtype, device)
-                     for i, lt in enumerate(spec)}, n_cycles)
+                     for i, lt in enumerate(spec)
+                     if not _is_shared(cfg, lt)}, n_cycles)
     if n_tail:
         params["tail"] = {f"b{i}": _block_init(gen, cfg, spec[i], dtype,
                                                device)
-                          for i in range(n_tail)}
+                          for i in range(n_tail)
+                          if not _is_shared(cfg, spec[i])}
     return params
+
+
+def _block_params(cfg: ArchConfig, ltype: str, blocks, i: int, shared):
+    """The params of block ``i`` of a cycle (or the tail): the shared
+    attention block at a hybrid's ``attn`` positions."""
+    return shared if _is_shared(cfg, ltype) else blocks[f"b{i}"]
 
 
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _cycle_apply(cparams, cfg, x, positions, kw):
-    """One cycle -> (x, {b{i}: {k, v}}, the cycle's summed aux)."""
+def _cycle_apply(cparams, shared, cfg, x, positions, kw):
+    """One cycle -> (x, {b{i}: decode state}, the cycle's summed aux)."""
     states = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lt in enumerate(cycle_spec(cfg)):
-        x, st = _block_apply(cparams[f"b{i}"], cfg, lt, x, positions, **kw)
+        x, st = _block_apply(_block_params(cfg, lt, cparams, i, shared), cfg,
+                             lt, x, positions, **kw)
         aux = aux + st.pop("aux")
         states[f"b{i}"] = st
     return x, states, aux
@@ -224,6 +263,7 @@ def forward_lm(params, cfg: ArchConfig, tokens, *,
     kw = dict(global_window=global_window, moe_path=moe_path,
               use_kernel=use_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared")
     stack_states = None
     if "stack" in params:
         n_cycles = cycle_counts(cfg)[0]
@@ -232,10 +272,11 @@ def forward_lm(params, cfg: ArchConfig, tokens, *,
             cparams = _index(params["stack"], c)
             if remat and torch.is_grad_enabled():
                 x, st, a = torch.utils.checkpoint.checkpoint(
-                    _cycle_apply, cparams, cfg, x, positions, kw,
+                    _cycle_apply, cparams, shared, cfg, x, positions, kw,
                     use_reentrant=False)
             else:
-                x, st, a = _cycle_apply(cparams, cfg, x, positions, kw)
+                x, st, a = _cycle_apply(cparams, shared, cfg, x, positions,
+                                        kw)
             auxs.append(a)
             if return_states:
                 per_cycle.append(st)
@@ -246,8 +287,9 @@ def forward_lm(params, cfg: ArchConfig, tokens, *,
     if "tail" in params:
         spec = cycle_spec(cfg)
         for i in range(cfg.num_layers % len(spec)):
-            x, st = _block_apply(params["tail"][f"b{i}"], cfg, spec[i], x,
-                                 positions, **kw)
+            x, st = _block_apply(
+                _block_params(cfg, spec[i], params["tail"], i, shared), cfg,
+                spec[i], x, positions, **kw)
             aux = aux + st.pop("aux")
             tail_states[f"b{i}"] = st
     out = x if return_features else _readout(params, cfg, x)
@@ -349,6 +391,8 @@ def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
 def _block_cache(cfg: ArchConfig, ltype: str, batch: int, max_seq: int, dtype,
                  ring: bool = False, global_window=None, quant: bool = False,
                  device="cpu"):
+    if ltype == "mamba":
+        return ssm_lib.ssm_init_state(cfg, batch, dtype, device)
     # ring=True: windowed layers allocate a window-length ring buffer
     eff = max_seq
     if ring:
@@ -395,21 +439,24 @@ def decode_step_lm(params, cfg: ArchConfig, cache, token, pos: int, *,
     ``moe_path`` without the kernel (one token a sequence), as the
     reference's.
 
-    Writes each layer's new k/v into ``cache`` in place and returns
-    (logits (B, V), cache) — the same dict."""
+    Writes each layer's new k/v (a mamba layer's SSM and conv states) into
+    ``cache`` in place and returns (logits (B, V), cache) — the same dict."""
     x = layers.embedding_apply(params["embed"], token[:, None])   # (B,1,d)
     spec = cycle_spec(cfg)
+    shared = params.get("shared")
     kw = dict(global_window=global_window, moe_path=moe_path, ring=ring)
     if "stack" in params:
         for c in range(cycle_counts(cfg)[0]):
             cparams, ccache = _index(params["stack"], c), \
                 _index(cache["stack"], c)
             for i, lt in enumerate(spec):
-                x, _ = _block_decode(cparams[f"b{i}"], cfg, lt, x,
-                                     ccache[f"b{i}"], pos, **kw)
+                x, _ = _block_decode(
+                    _block_params(cfg, lt, cparams, i, shared), cfg, lt, x,
+                    ccache[f"b{i}"], pos, **kw)
     if "tail" in params:
         for i in range(cfg.num_layers % len(spec)):
-            x, _ = _block_decode(params["tail"][f"b{i}"], cfg, spec[i], x,
-                                 cache["tail"][f"b{i}"], pos, **kw)
+            x, _ = _block_decode(
+                _block_params(cfg, spec[i], params["tail"], i, shared), cfg,
+                spec[i], x, cache["tail"][f"b{i}"], pos, **kw)
     logits = _readout(params, cfg, x)
     return logits[:, 0], cache

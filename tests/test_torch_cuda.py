@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tss
 
 # f32 as tests/test_kernels.py:12; bf16 at one bf16 ulp of the f32 sum
 # rounded to bf16 (what the plain version returns): a sum in another order
@@ -398,3 +399,138 @@ def test_moe_gmm_through_the_kernel_matches_plain_and_grads(cuda, mlp_type):
         else:
             torch.testing.assert_close(got.grad, ref.grad,
                                        **FA_TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunked scan (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:104-107: f32 5e-4 (the cumsum and the sums run in
+# another order); bf16 adds one bf16 ulp of the output to it
+SSD_TOL = {torch.float32: dict(rtol=5e-4, atol=5e-4),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=5e-4)}
+SSD_CASES = [
+    # (B, S, H, P, N, chunk)
+    (1, 64, 2, 32, 16, 16), (2, 96, 3, 64, 32, 32),
+    (1, 256, 1, 64, 128, 64),            # the reference sweep
+    (2, 1024, 4, 64, 128, 256),          # mamba2-780m's chunk and widths
+    (1, 300, 3, 64, 64, 256),            # zamba2's N; ragged last chunk
+    (2, 100, 2, 32, 16, 32),             # the reduced configs' widths
+    (1, 10, 2, 8, 4, 32),                # S < chunk
+    (1, 200, 2, 40, 256, 96),            # N at its limit, chunk % 64 != 0
+    (1, 1, 1, 1, 1, 1),
+]
+
+
+def _ssd_inputs(case, cuda, dtype=torch.float32, seed=0):
+    B, S, H, P, N, _ = case
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.exp(torch.randn((H,), generator=g) * 0.3)
+    b = torch.randn((B, S, N), generator=g) * 0.5
+    c = torch.randn((B, S, N), generator=g) * 0.5
+    D = torch.linspace(0.5, 1.5, H)
+    return (x.to(cuda, dtype), dt.to(cuda), A.to(cuda), b.to(cuda, dtype),
+            c.to(cuda, dtype), D.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_version(cuda, case, dtype):
+    args = _ssd_inputs(case, cuda, dtype)
+    chunk = case[-1]
+    before = tss.launches
+    y, st = tss.ssd_scan(*args, chunk=chunk)
+    y2, st2 = tss.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tss.launches == before + 2
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert st.dtype == torch.float32 and st.shape == (
+        case[0], case[2], case[4], case[3])
+    assert torch.equal(y, y2) and torch.equal(st, st2)   # no atomics
+    want_y, want_st = tref.ssd_scan_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(st, want_st, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_reads_model_layout_views(cuda):
+    """x, b and c as slices of one (B, S, conv_dim) projection, as the
+    Mamba2 block passes them: read through their strides, no copy, and the
+    same result as on contiguous copies."""
+    B, S, H, P, N = 2, 300, 4, 64, 32
+    g = torch.Generator().manual_seed(1)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g).to(cuda)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not x.is_contiguous() and x.data_ptr() == xbc.data_ptr()
+    _, dt, A, _, _, D = _ssd_inputs((B, S, H, P, N, 64), cuda)
+    got = tss.ssd_scan(x, dt, A, b, c, D, chunk=64)
+    same = tss.ssd_scan(x.contiguous(), dt, A, b.contiguous(),
+                        c.contiguous(), D, chunk=64)
+    for a, e in zip(got, same):
+        assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_large_decay_stays_finite(cuda):
+    """cs_i - cs_j for j > i far past exp's range (dt*A summing to about
+    -500 within a chunk, as the model's fastest heads do): the gate selects
+    before the exponent. (Where cs reaches the thousands, the f32 cumsum's
+    order alone moves exp(cs_i - cs_j) by ~1e-3 relative, in the reference
+    as here: the chunked form's own conditioning.)"""
+    args = list(_ssd_inputs((1, 512, 2, 64, 64, 256), cuda))
+    args[1] = args[1] * 2.5
+    dA = args[1][0, :256] * args[2]
+    assert float(dA.sum(0).min()) < -88.0           # exp(88) is past f32
+    y, st = tss.ssd_scan(*args, chunk=256)
+    want_y, want_st = tref.ssd_scan_ref(*args, chunk=256)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    torch.testing.assert_close(y, want_y, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(st, want_st, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ops_ssd_scan_grads_through_plain_version(cuda):
+    args = [t.clone().requires_grad_() for t in
+            _ssd_inputs((2, 100, 3, 32, 16, 32), cuda)]
+    before = tss.launches
+    y, st = tops.ssd_scan(*args, chunk=32)
+    assert tss.launches == before + 1
+    refs = [t.detach().clone().requires_grad_() for t in args]
+    want_y, want_st = tref.ssd_scan_ref(*refs, chunk=32)
+    torch.testing.assert_close(y, want_y, **SSD_TOL[torch.float32])
+    g = torch.Generator().manual_seed(3)
+    wy = torch.randn(y.shape, generator=g).to(cuda)
+    ws = torch.randn(st.shape, generator=g).to(cuda)
+    ((y * wy).sum() + (st * ws).sum()).backward()
+    ((want_y * wy).sum() + (want_st * ws).sum()).backward()
+    for got, ref in zip(args, refs):
+        torch.testing.assert_close(got.grad, ref.grad,
+                                   **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, dt, A, b, c, D = _ssd_inputs((1, 64, 2, 32, 16, 16), cuda)
+    with pytest.raises(ValueError):                 # P > 64
+        tss.ssd_scan(torch.zeros((1, 64, 2, 65), device=cuda), dt, A, b, c,
+                     D, chunk=16)
+    big = torch.zeros((1, 64, 257), device=cuda)
+    with pytest.raises(ValueError):                 # N > 256
+        tss.ssd_scan(x, dt, A, big, big, D, chunk=16)
+    with pytest.raises(TypeError):                  # mixed dtypes
+        tss.ssd_scan(x, dt, A, b.to(torch.bfloat16), c, D, chunk=16)
+    with pytest.raises(TypeError):                  # f16
+        tss.ssd_scan(x.half(), dt, A, b.half(), c.half(), D, chunk=16)
+    with pytest.raises(ValueError):                 # mixed devices
+        tss.ssd_scan(x, dt.cpu(), A, b, c, D, chunk=16)
+    with pytest.raises(ValueError):                 # dt does not fit
+        tss.ssd_scan(x, dt[:, :10], A, b, c, D, chunk=16)
+    before = tss.launches
+    y, st = tss.ssd_scan(x[:, :0], dt[:, :0], A, b[:, :0], c[:, :0], D,
+                         chunk=16)
+    assert y.shape == (1, 0, 2, 32) and not st.any()
+    assert tss.launches == before                   # S = 0: nothing to run

@@ -32,7 +32,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.kernels.flash_attention, repro_torch.distributed, "
             "repro_torch.core.engine.model_store, repro_torch.core.serve, "
             "repro_torch.launch.serve, repro_torch.models.moe, "
-            "repro_torch.kernels.moe_gmm\n"
+            "repro_torch.kernels.moe_gmm, repro_torch.models.ssm, "
+            "repro_torch.kernels.ssd_scan\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -102,19 +103,26 @@ def test_trainer_refuses_unported_config_by_name(field, value, extra):
                       fed, RuntimeModel(1.0, task.runtime, 2), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m-reduced", "zamba2-7b-reduced",
-                                  "whisper-tiny", "llava-next-34b",
-                                  "mamba2-780m", "whisper-tiny-reduced"])
+@pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-34b",
+                                  "whisper-tiny-reduced"])
 def test_get_arch_refuses_unported_families_by_name(name):
     with pytest.raises(ValueError, match="slice"):
         get_arch(name)
 
 
+@pytest.mark.parametrize("name", ["mamba2-780m-reduced", "zamba2-7b-reduced",
+                                  "mamba2-780m"])
+def test_get_arch_resolves_ssm_families_by_name(name):
+    cfg = get_arch(name)
+    assert cfg.name == name and cfg.arch_type in ("ssm", "hybrid")
+    assert cfg.ssm is not None
+
+
 def test_model_refuses_non_dense_arch_and_serve_refuses_checkpoint():
     import dataclasses
-    ssm = dataclasses.replace(get_arch("qwen1.5-0.5b-reduced"),
-                              arch_type="ssm")
-    with pytest.raises(ValueError, match="SSM slice"):
-        transformer.init_lm(None, ssm, device="meta")
+    audio = dataclasses.replace(get_arch("qwen1.5-0.5b-reduced"),
+                                arch_type="audio")
+    with pytest.raises(ValueError, match="encoder-decoder slice"):
+        transformer.init_lm(None, audio, device="meta")
     with pytest.raises(SystemExit, match="checkpoint"):
         serve.main(["--checkpoint", "/nonexistent", "--device", "cpu"])

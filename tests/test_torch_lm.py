@@ -408,7 +408,8 @@ def test_serve_launcher_runs_reduced_config_on_cpu(capsys):
 def test_param_count_exact_at_full_width():
     assert set(ARCHS) == {"qwen1.5-0.5b", "qwen2-7b", "gemma2-27b",
                           "nemotron-4-340b", "mixtral-8x22b",
-                          "phi3.5-moe-42b-a6.6b"}
+                          "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                          "zamba2-7b"}
     for name, cfg in ARCHS.items():
         assert treg.param_count(cfg) == jreg.param_count(jget_arch(name))
         assert treg.active_param_count(cfg) == jreg.active_param_count(
