@@ -75,7 +75,22 @@ exits non-zero without printing a result:
               f32 params from seed 0): prefill B 2 x S 4096 through
               ``ssd_scan`` (48 launches each; ms, the kernel's share), the
               plain path on the same batch, and ``ServingLoop`` greedy
-              decode through the SSM and conv states: tokens/s, peak memory.
+              decode through the SSM and conv states: tokens/s, peak memory;
+              then zamba2-7b at full width (81 layers, 5,737,416,000 f32
+              params): the same through ``ssd_scan`` (68 mamba layers) and
+              ``flash_attention`` at head_dim 112 (13 shared-block layers),
+              whose rows at hd 112 and 192 (nemotron-4-340b) phase
+              ``kernel`` holds too;
+10. mesh    — the multi-device round at one rank over NCCL: the four
+              client-sharded wrappers (kernel on this rank's rows, then the
+              collective) against their plain sharded versions at every
+              CIFAR100 leaf, with times; then ``FedAvgTrainer`` with a
+              ``MeshBackend`` on CIFAR100 at paper width for 2 rounds with
+              the plain uplink and each wire pair, and 1 round of grouped
+              reduce on a (1, 1) ("pod", "data") mesh, each bitwise
+              against the same rounds on ``LocalBackend``; launch and
+              collective counts exact; ms per round, mesh and local, and
+              the all-reduces' device ms per round.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -85,6 +100,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -751,6 +767,16 @@ FLASH_SHAPES = [
     ("noncausal", 1, 8, 2, 300, 300, 64, "float32", False, None, None),
     ("bf16", 2, 16, 16, 4096, 4096, 64, "bfloat16", True, None, None),
     ("sq1", 2, 16, 16, 1, 257, 64, "float32", True, None, None),
+    # head dims 112 (zamba2-7b's shared block at full width, B 2 x S 4096)
+    # and 192 (nemotron-4-340b: 96 heads, GQA kv 8, S 2048)
+    ("zamba2.hd112", 2, 32, 32, 4096, 4096, 112, "float32", True, None,
+     None),
+    ("zamba2.hd112.bf16", 2, 32, 32, 4096, 4096, 112, "bfloat16", True,
+     None, None),
+    ("nemotron.hd192", 1, 96, 8, 2048, 2048, 192, "float32", True, None,
+     None),
+    ("nemotron.hd192.bf16", 1, 96, 8, 2048, 2048, 192, "bfloat16", True,
+     None, None),
 ]
 LM_ARCH = "qwen1.5-0.5b"
 LM_PARAMS = 463_987_712
@@ -987,18 +1013,30 @@ def phase_parity_lm(torch, names=PARITY_ARCHS):
               "min_top2_gap": min(gaps), **routing})
 
 
+FLASH = ("flash_attention", "flash", "attn")
+SSD = ("ssd_scan", "ssd", "mamba")
+
+
+def layer_count(cfg, ltype: str) -> int:
+    """Layers of type ``ltype`` in ``cfg``'s stack (a hybrid's ``attn``
+    positions all run the one shared block)."""
+    from repro_torch.models.transformer import cycle_spec
+    spec = cycle_spec(cfg)
+    return sum(spec[i % len(spec)] == ltype for i in range(cfg.num_layers))
+
+
 def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
-             kernel=("flash_attention", "flash"), seed=7,
-             state_tol=PARITY_TOL, extra=None):
+             kernels=(FLASH,), seed=7, state_tol=PARITY_TOL, extra=None):
     """One architecture at full width (``arch``, ``n_want`` params): prefill
-    B 2 x S 4096 through the kernel (module and wrapper name ``kernel[0]``
-    of ``repro_torch.kernels``, one launch a layer; ``kernel[1]`` names its
-    share), the plain path on the same batch (logits within 1e-3, decode
-    states within ``state_tol``), then ``ServingLoop`` greedy decode.
-    ``extra(cfg)`` adds config fields to the prefill line. Phase ``lm``:
-    qwen1.5-0.5b through ``flash_attention``; phase ``ssm``: mamba2-780m
-    through ``ssd_scan``. Returns the kernel launches counted over the
-    four kernel prefills."""
+    B 2 x S 4096 through its kernels (each ``(module, short name, layer
+    type)``: the wrapper of that name in ``repro_torch.kernels``, one launch
+    a layer of that type; the short name names its share), the plain path
+    on the same batch (logits within 1e-3, decode states within
+    ``state_tol``), then ``ServingLoop`` greedy decode. ``extra(cfg)`` adds
+    config fields to the prefill line. Phase ``lm``: qwen1.5-0.5b through
+    ``flash_attention``; phase ``ssm``: mamba2-780m through ``ssd_scan``;
+    phase ``zamba2``: zamba2-7b through both. Returns {module: launches}
+    counted over the four kernel prefills."""
     import importlib
     from repro_torch.configs import get_arch
     from repro_torch.core.engine.model_store import GlobalModelStore
@@ -1006,8 +1044,8 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     from repro_torch.distributed import make_prefill_step
     from repro_torch.models import registry
     from repro_torch.optim import tree_leaves
-    mod = importlib.import_module(f"repro_torch.kernels.{kernel[0]}")
-    fn_name = kernel[0]
+    mods = {k[0]: importlib.import_module(f"repro_torch.kernels.{k[0]}")
+            for k in kernels}
     cfg = get_arch(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1024,16 +1062,19 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
 
     # instrumentation of this script only: CUDA events around each kernel
     # call, host clock around each prefill
-    events, wrapper = [], getattr(mod, fn_name)
+    events = {name: [] for name in mods}
+    wrappers = {name: getattr(mod, name) for name, mod in mods.items()}
 
-    def timed(*a, **kw):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = wrapper(*a, **kw)
-        ev[1].record()
-        events.append(ev)
-        return out
+    def timed(name):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = wrappers[name](*a, **kw)
+            ev[1].record()
+            events[name].append(ev)
+            return out
+        return call
 
     def run(step):
         torch.cuda.synchronize()
@@ -1044,30 +1085,37 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
         return out, (time.perf_counter() - t) * 1e3
 
     prefill = make_prefill_step(cfg, use_kernel=True)
-    mod.launches = 0
-    setattr(mod, fn_name, timed)
+    for name, mod in mods.items():
+        mod.launches = 0
+        setattr(mod, name, timed(name))
     try:
-        times, shares = [], []
+        times, shares = [], {name: [] for name in mods}
         for i in range(4):                       # one warm-up, three timed
-            events.clear()
+            for evs in events.values():
+                evs.clear()
             (logits, states), ms = run(prefill)
             if i:
                 times.append(ms)
-                shares.append(sum(a.elapsed_time(b) for a, b in events) / ms)
+                for name, evs in events.items():
+                    shares[name].append(
+                        sum(a.elapsed_time(b) for a, b in evs) / ms)
     finally:
-        setattr(mod, fn_name, wrapper)
-    launches = mod.launches
-    if launches != 4 * cfg.num_layers:
-        raise AssertionError(f"{launches} {fn_name} launches in 4 prefills, "
-                             f"want {4 * cfg.num_layers}")
+        for name, mod in mods.items():
+            setattr(mod, name, wrappers[name])
+    launches = {name: mod.launches for name, mod in mods.items()}
+    for name, _, ltype in kernels:
+        if launches[name] != 4 * layer_count(cfg, ltype):
+            raise AssertionError(
+                f"{launches[name]} {name} launches in 4 prefills, want "
+                f"{4 * layer_count(cfg, ltype)}")
     if logits.shape != (LM_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} or "
                              f"not finite")
     (plain_logits, plain_states), plain_ms = run(
         make_prefill_step(cfg, use_kernel=False))
-    if mod.launches != launches:
-        raise AssertionError("the plain prefill launched the kernel")
+    if {name: mod.launches for name, mod in mods.items()} != launches:
+        raise AssertionError("the plain prefill launched a kernel")
     torch.testing.assert_close(logits, plain_logits, rtol=1e-3, atol=1e-3)
     st_err = {}                      # by state name: k, v or ssm, conv
     for (path, st), (_, plain) in zip(leaf_items(states, ""),
@@ -1082,8 +1130,10 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
           "params": n_params, "dtype": "float32", "batch": LM_BATCH,
           "seq": LM_SEQ, "init_s": init_s,
           "ms": order[len(order) // 2], "ms_runs": times,
-          f"{kernel[1]}_share": statistics.median(shares),
-          f"{kernel[1]}_launches_per_prefill": launches // 4,
+          **{f"{short}_share": statistics.median(shares[name])
+             for name, short, _ in kernels},
+          **{f"{short}_launches_per_prefill": launches[name] // 4
+             for name, short, _ in kernels},
           "plain_ms": plain_ms,
           "logits_max_abs_err_vs_plain": float(
               (logits - plain_logits).abs().max()),
@@ -1328,6 +1378,10 @@ HYBRID = "zamba2-7b-reduced-hybrid5"
 SSM_PARITY = ("mamba2-780m-reduced", "zamba2-7b-reduced", HYBRID)
 # the plain path's decode states against the kernel path's, 48 layers deep
 SSM_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+# phase zamba2: the hybrid at full width (81 layers: 68 mamba, 13 through
+# the shared attention block at head_dim 112)
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_PARAMS = 5_737_416_000
 
 
 def lm_config(name: str):
@@ -1419,6 +1473,425 @@ def phase_ssd_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the multi-device round (phase 10)
+# ---------------------------------------------------------------------------
+
+# the client-sharded kernels: the name in the kernels line, what it replaces
+SHARDED_KERNELS = {
+    "fedavg_reduce_sharded": "src/repro/kernels/fedavg_reduce.py:104",
+    "int8_decompress_reduce_sharded": "src/repro/kernels/delta_codec.py:116",
+    "int8_decode_apply_sharded": "src/repro/kernels/delta_codec.py:212",
+    "topk_scatter_reduce_sharded": "src/repro/kernels/delta_codec.py:371",
+}
+# phase mesh's runs, CIFAR100 at paper width with aggregator="kernel":
+# (label, uplink, downlink, mesh, reduce, rounds)
+MESH_RUNS = [("kernel", None, None, "data", "flat", 2)] + [
+    (f"{up}/{down}", up, down, "data", "flat", 2)
+    for up, down in WIRE_CONFIGS] + [
+    ("kernel.grouped", None, None, "pod_data", "grouped", 1)]
+
+
+def init_world1(torch):
+    """A one-rank NCCL group on the card (tcp://localhost on a free port)
+    and its meshes: (1,) ("data",) and (1, 1) ("pod", "data")."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_distributed("cuda", init_method=f"tcp://localhost:{port}", rank=0,
+                     world_size=1)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group {dist.get_backend()}, want "
+                             f"nccl on the card")
+    return {"data": (make_mesh((1,), ("data",), "cuda"), ("data",)),
+            "pod_data": (make_mesh((1, 1), ("pod", "data"), "cuda"),
+                         ("pod", "data"))}
+
+
+def phase_sharded_kernels(torch, bw: float, f32_peak: float, meshes):
+    """The four sharded wrappers (the kernel on this rank's rows, then the
+    NCCL collective) against their plain sharded versions (the plain body,
+    then the same collective) at every CIFAR100 leaf (N = 25), with
+    times of both; at one rank the collective moves no byte between
+    devices, so the bound is the kernel's. No single PyTorch call computes
+    a reduce across ranks: library time null."""
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(256 * 2 ** 20 // 4, device="cuda")
+    dev = "cuda"
+    mesh, axes = meshes["data"]
+    kw = dict(mesh=mesh, client_axes=axes)
+    rows = []
+    for label, n, m in wire_leaf_shapes():
+        if not label.startswith("cifar100."):
+            continue
+        x = torch.randn((n, m), generator=gen, device=dev)
+        w = torch.softmax(torch.randn((n,), generator=gen, device=dev), 0)
+        q = torch.randint(-127, 128, (n, m), generator=gen, device=dev,
+                          dtype=torch.int8)
+        refv = torch.randn((m,), generator=gen, device=dev)
+        s = torch.full((1,), 3e-3, device=dev)
+        k = math.ceil(TOPK_FRAC * m)
+        idx = torch.stack([torch.randperm(m, generator=gen, device=dev)[:k]
+                           for _ in range(n)]).to(torch.int32)
+        vals = torch.randn(idx.shape, generator=gen, device=dev)
+        w1 = w * 1e-4
+        cases = [
+            ("fedavg_reduce_sharded",
+             lambda: fr.fedavg_reduce_sharded(x, w, **kw),
+             lambda: ref.fedavg_reduce_sharded_ref(x, w, **kw),
+             TOL["float32"], {"n": n, "m": m},
+             4 * n * m + 4 * m + 4 * n, 2 * n * m),
+            ("int8_decompress_reduce_sharded",
+             lambda: dc.int8_decompress_reduce_sharded(q, w1, **kw),
+             lambda: ref.int8_decompress_reduce_sharded_ref(q, w1, **kw),
+             REDUCE_TOL, {"n": n, "m": m, "planes": 1},
+             n * m + 4 * n + 4 * m, 2 * n * m),
+            ("int8_decode_apply_sharded",
+             lambda: dc.int8_decode_apply_sharded(refv, q[0], s, mesh=mesh,
+                                                  axes=axes),
+             lambda: ref.int8_decode_apply_sharded_ref(refv, q[0], s,
+                                                       mesh=mesh, axes=axes),
+             "exact", {"m": m, "planes": 1}, 8 * m + m + 4, 2 * m),
+            ("topk_scatter_reduce_sharded",
+             lambda: dc.topk_scatter_reduce_sharded(vals, idx, w, m, **kw),
+             lambda: ref.topk_scatter_reduce_sharded_ref(vals, idx, w, m,
+                                                         **kw),
+             "exact", {"n": n, "m": m, "s": k}, 8 * n * k + 4 * n + 4 * m,
+             2 * n * k),
+        ]
+        for name, fn, plain, tol, shape, nbytes, flops in cases:
+            got, again = fn(), fn()
+            want = plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} {label}: not repeatable")
+            if isinstance(tol, dict) and "rtol" in tol:
+                torch.testing.assert_close(got, want, **tol)
+                err = float((got - want).abs().max())
+            else:
+                err = _check(torch, got, want, tol, f"{name} {label}")
+            rows.append(_row(name, label, {**shape, "world": 1}, err, tol,
+                             time_ms(torch, fn, flush),
+                             time_ms(torch, plain, flush), None, nbytes,
+                             flops, bw, f32_peak))
+        del x, q, refv, idx, vals
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_mesh(torch, data, up, down, backend, rounds: int):
+    """``FedAvgTrainer(aggregator="kernel")`` on CIFAR100 at paper width
+    with the codec pair and backend (None: local); returns the trainer,
+    its History, ms per round (host clock) and the all-reduces' device ms
+    per round (CUDA events)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_paper_task
+    from repro_torch.core import FedAvgTrainer, RuntimeModel
+    from repro_torch.models import small
+    task = get_paper_task("cifar100")
+    fed = dataclasses.replace(task.fed, k_schedule="rounds",
+                              aggregator="kernel", rounds=rounds,
+                              transport=up, downlink=down,
+                              topk_frac=TOPK_FRAC)
+    trainer = FedAvgTrainer(
+        lambda p, b: small.task_loss(p, task, b),
+        small.init_task_model(0, task), data, fed,
+        RuntimeModel(task.model_size_mb, task.runtime,
+                     fed.clients_per_round), backend=backend)
+
+    # instrumentation of this script only: host clock around each round,
+    # CUDA events around each all-reduce
+    round_ms, events = [], []
+    run_bucket, all_reduce = trainer.engine.run_bucket, dist.all_reduce
+
+    def timed_bucket(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_bucket(*a)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_all_reduce(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = all_reduce(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    trainer.engine.run_bucket = timed_bucket
+    dist.all_reduce = timed_all_reduce
+    try:
+        h = trainer.run(rounds)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    ar_ms = sum(a.elapsed_time(b) for a, b in events) / rounds
+    return trainer, h, round_ms, ar_ms, len(events)
+
+
+def phase_mesh(torch, data, meshes):
+    """``FedAvgTrainer(backend=MeshBackend(...), aggregator="kernel")`` at
+    one rank over NCCL on CIFAR100 at paper width (U 25, b 32, K 50, 40):
+    plain uplink, the three wire pairs, and grouped reduce on the
+    ("pod", "data") mesh; each run against the same rounds on
+    ``LocalBackend``, params bit for bit. Counts zeroed before each mesh
+    run: launches of each sharded kernel = rounds x leaves (x N for the
+    per-row top-k reduce); all-reduces = rounds x leaves x tiers (x 2 with
+    error feedback, whose true sum is all-reduced too); all-gathers =
+    rounds x (2 for the losses: their lengths, then the rows; + leaves
+    for the int8 downlink's sharded decode-apply). Returns the launches
+    summed over the runs."""
+    from repro_torch.optim import tree_leaves
+    same = lambda a, b: all(torch.equal(x, y) for x, y in
+                            zip(tree_leaves(a.params), tree_leaves(b.params)))
+    # cuDNN's default convolution algorithms may sum a weight gradient with
+    # atomics, in another order each run: two LocalBackend runs of the
+    # CIFAR100 CNN are compared once as they are, and the phase then runs
+    # with deterministic cuDNN algorithms so that bitwise means something
+    first = run_mesh(torch, data, None, None, None, 1)[0]
+    emit({"phase": "mesh", "what": "local run repeated, default cuDNN",
+          "bitwise": same(first, run_mesh(torch, data, None, None, None,
+                                          1)[0])})
+    del first
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _mesh_runs(torch, data, meshes, same)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _mesh_runs(torch, data, meshes, same):
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.kernels import collectives
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.optim import tree_leaves
+    totals = dict.fromkeys(SHARDED_KERNELS, 0)
+    for label, up, down, mesh_name, reduce, rounds in MESH_RUNS:
+        local, hl, local_ms, _, _ = run_mesh(torch, data, up, down, None,
+                                             rounds)
+        mesh, axes = meshes[mesh_name]
+        fr.sharded_launches = 0
+        for key in dc.sharded_launches:
+            dc.sharded_launches[key] = 0
+        for key in collectives.counts:
+            collectives.counts[key] = 0
+        tr, hm, mesh_ms, ar_ms, n_ar = run_mesh(
+            torch, data, up, down, MeshBackend(mesh, reduce=reduce), rounds)
+        launches = {"fedavg_reduce_sharded": fr.sharded_launches,
+                    **dc.sharded_launches}
+        counts = dict(collectives.counts)
+        leaves, n = len(tree_leaves(tr.params)), tr.fed.clients_per_round
+        tiers = len(axes) if reduce == "grouped" else 1
+        ef = up in ("int8", "topk")
+        int8_down = (down or "").startswith("int8")
+        want = {"fedavg_reduce_sharded": rounds * leaves * (up is None),
+                "int8_decompress_reduce_sharded":
+                    rounds * leaves * (up or "").startswith("int8"),
+                "int8_decode_apply_sharded": rounds * leaves * int8_down,
+                "topk_scatter_reduce_sharded":
+                    rounds * leaves * n * (up == "topk")}
+        want_counts = {"all_reduce": rounds * leaves * tiers * (1 + ef),
+                       "all_gather": rounds * (2 + leaves * int8_down)}
+        if launches != want or counts != want_counts:
+            raise AssertionError(f"mesh {label}: launches {launches}, "
+                                 f"collectives {counts}; want {want}, "
+                                 f"{want_counts}")
+        if not same(tr, local) or hm.train_loss != hl.train_loss or \
+                (hm.k, hm.wall_clock_s, hm.uplink_mbit, hm.downlink_mbit) \
+                != (hl.k, hl.wall_clock_s, hl.uplink_mbit,
+                    hl.downlink_mbit):
+            raise AssertionError(f"mesh {label}: not bitwise LocalBackend's "
+                                 f"rounds (params equal: {same(tr, local)})")
+        if not all(math.isfinite(v) for v in hm.train_loss):
+            raise AssertionError(f"mesh {label}: loss {hm.train_loss}")
+        for key, v in launches.items():
+            totals[key] += v
+        emit({"phase": "mesh", "run": label, "uplink": up, "downlink": down,
+              "mesh": mesh_name, "reduce": reduce, "world": 1,
+              "backend": "nccl", "rounds": rounds, "k": hm.k,
+              "loss": hm.train_loss, "launches": launches,
+              "collectives": counts, "all_reduces_timed": n_ar,
+              "bitwise_local": True,
+              "ms_per_round": sum(mesh_ms) / rounds, "ms_rounds": mesh_ms,
+              "local_ms_per_round": sum(local_ms) / rounds,
+              "local_ms_rounds": local_ms,
+              "all_reduce_ms_per_round": ar_ms})
+        del tr, local
+        torch.cuda.empty_cache()
+    return totals
+
+
+# the two-rank gloo run on the one card: the sharded kernels at every
+# CIFAR100 leaf, and one round of the mesh trainer
+GLOO_WORLD = 2
+
+
+def _leaf_inputs(torch, m: int, seed: int):
+    """The sharded kernels' inputs at one leaf (N = 25 rows), drawn on the
+    host from ``seed``, so every rank and the one-rank run get the same."""
+    gen = torch.Generator().manual_seed(seed)
+    n, k = 25, math.ceil(TOPK_FRAC * m)
+    return {"x": torch.randn((n, m), generator=gen),
+            "w": torch.softmax(torch.randn((n,), generator=gen), 0),
+            "q": torch.randint(-127, 128, (n, m), generator=gen,
+                               dtype=torch.int8),
+            "ref": torch.randn((m,), generator=gen),
+            "s": torch.full((1,), 3e-3),
+            "idx": torch.stack([torch.randperm(m, generator=gen)[:k]
+                                for _ in range(n)]).to(torch.int32),
+            "vals": torch.randn((n, k), generator=gen)}
+
+
+def _sharded_at_leaves(torch, mesh, axes, rows):
+    """The four sharded wrappers at every CIFAR100 leaf on this rank's
+    ``rows`` of the leaf's inputs (on the card); results on the host."""
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    out = {}
+    leaves = [(label, m) for label, _, m in wire_leaf_shapes()
+              if label.startswith("cifar100.")]
+    for i, (label, m) in enumerate(leaves):
+        t = {k: v.cuda() for k, v in _leaf_inputs(torch, m, i).items()}
+        r = {k: t[k][rows[0]:rows[1]] for k in ("x", "w", "q", "idx",
+                                                 "vals")}
+        kw = dict(mesh=mesh, client_axes=axes)
+        got = {"fedavg_reduce_sharded":
+               fr.fedavg_reduce_sharded(r["x"], r["w"], **kw),
+               "int8_decompress_reduce_sharded":
+               dc.int8_decompress_reduce_sharded(r["q"], r["w"] * 1e-4, **kw),
+               "int8_decode_apply_sharded":
+               dc.int8_decode_apply_sharded(t["ref"], t["q"][0], t["s"],
+                                            mesh=mesh, axes=axes),
+               "topk_scatter_reduce_sharded":
+               dc.topk_scatter_reduce_sharded(r["vals"], r["idx"], r["w"], m,
+                                              **kw)}
+        out.update({(name, label): v.cpu() for name, v in got.items()})
+    return out
+
+
+def gloo_rank(rank: int, world: int, path: str, out: str) -> None:
+    """One rank of the gloo run on the card (a spawned process): the
+    sharded kernels on its rows, then one CIFAR100 round of the mesh
+    trainer; writes both for the parent."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.kernels.collectives import rows_of
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{path}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((world,), ("data",), "cuda")
+        res = {"rows": rows_of(mesh, ("data",), 25),
+               "kernels": _sharded_at_leaves(
+                   torch, mesh, ("data",), rows_of(mesh, ("data",), 25))}
+        data, _ = paper_data("cifar100")
+        tr, h, ms, _, _ = run_mesh(torch, data, None, None,
+                                   MeshBackend(mesh), 1)
+        res["params"] = {k: v.cpu() for k, v in leaf_items(tr.params, "")}
+        res["loss"], res["ms"] = h.train_loss, ms
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_gloo(torch, data):
+    """Two gloo ranks spawned on the one card, each launching the CUDA
+    kernels on its rows (25 = 13 + 12) and all-reducing through gloo:
+    every sharded kernel at every CIFAR100 leaf within 1e-6 of the
+    one-rank result, and one paper-width CIFAR100 round of the mesh
+    trainer against the same round on ``LocalBackend``, both with
+    deterministic cuDNN (parameters within the port's parity tolerance
+    1e-4: each rank's vmapped CNN sees 13 or 12 clients, not 25, and 50
+    local steps carry the difference forward)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    tmp = tempfile.mkdtemp()
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=gloo_rank, args=(r, GLOO_WORLD,
+                                                  os.path.join(tmp, "pg"),
+                                                  tmp))
+             for r in range(GLOO_WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"gloo ranks exited "
+                             f"{[p.exitcode for p in procs]}")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                        weights_only=False) for r in range(GLOO_WORLD)]
+    # the one-rank results: the unsharded kernels on all 25 rows
+    want = {}
+    leaves = [(label, m) for label, _, m in wire_leaf_shapes()
+              if label.startswith("cifar100.")]
+    for i, (label, m) in enumerate(leaves):
+        t = {k: v.cuda() for k, v in _leaf_inputs(torch, m, i).items()}
+        want[("fedavg_reduce_sharded", label)] = fr.fedavg_reduce(
+            t["x"], t["w"])
+        want[("int8_decompress_reduce_sharded", label)] = \
+            dc.int8_decompress_reduce(t["q"], t["w"] * 1e-4)
+        want[("int8_decode_apply_sharded", label)] = dc.int8_decode_apply(
+            t["ref"], t["q"][0], t["s"])
+        want[("topk_scatter_reduce_sharded", label)] = \
+            dc.topk_scatter_reduce(t["vals"], t["idx"], t["w"], m)
+    err = dict.fromkeys(SHARDED_KERNELS, 0.0)
+    for key, w in want.items():
+        w = w.cpu()
+        for res in ranks:
+            e = float((res["kernels"][key] - w).abs().max())
+            if e > 1e-6:
+                raise AssertionError(f"gloo {key}: {e} from one rank")
+            err[key[0]] = max(err[key[0]], e)
+    for res in ranks[1:]:
+        for k, v in res["params"].items():
+            if not torch.equal(v, ranks[0]["params"][k]):
+                raise AssertionError(f"gloo: ranks disagree on {k}")
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+    try:
+        local = run_mesh(torch, data, None, None, None, 1)[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    p_err = 0.0
+    for k, v in leaf_items(local.params, ""):
+        torch.testing.assert_close(ranks[0]["params"][k], v.cpu(),
+                                   rtol=1e-4, atol=1e-4)
+        p_err = max(p_err, float((ranks[0]["params"][k] - v.cpu())
+                                 .abs().max()))
+    emit({"phase": "mesh", "run": "gloo", "world": GLOO_WORLD,
+          "backend": "gloo", "device": "cuda:0 (one card, both ranks)",
+          "rows": [r["rows"] for r in ranks],
+          "kernels_max_abs_err_vs_one_rank": err, "tol": 1e-6,
+          "round_params_max_abs_err_vs_local": p_err,
+          "round_loss": ranks[0]["loss"], "round_ms": ranks[0]["ms"],
+          "spawn_s": spawn_s})
+    del local
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1455,14 +1928,28 @@ def main() -> int:
             wire_launches[k] += v
     if not all(wire_launches.values()):
         raise AssertionError(f"a wire kernel never ran: {wire_launches}")
-    flash_launches = phase_lm(torch)
+    import torch.distributed as dist
+    meshes = init_world1(torch)
+    try:
+        mrows = phase_sharded_kernels(torch, bw, f32_peak, meshes)
+        mesh_launches = phase_mesh(torch, cifar, meshes)
+    finally:
+        dist.destroy_process_group()
+    phase_mesh_gloo(torch, cifar)
+    if not all(mesh_launches.values()):
+        raise AssertionError(f"a sharded kernel never ran: {mesh_launches}")
+    flash_launches = phase_lm(torch)["flash_attention"]
     moe_launches = phase_moe(torch)
-    ssd_launches = phase_lm(
-        torch, "ssm", SSM_ARCH, SSM_PARAMS, ("ssd_scan", "ssd"), 9,
-        SSM_STATE_TOL, lambda cfg: {
-            "layers": cfg.num_layers, "d_model": cfg.d_model,
-            "ssm_heads": cfg.ssm.n_heads(cfg.d_model),
-            "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk_size})
+    ssm_fields = lambda cfg: {
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "ssm_heads": cfg.ssm.n_heads(cfg.d_model),
+        "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk_size,
+        "attn_layers": layer_count(cfg, "attn"),
+        "head_dim": cfg.head_dim}
+    ssd_launches = phase_lm(torch, "ssm", SSM_ARCH, SSM_PARAMS, (SSD,), 9,
+                            SSM_STATE_TOL, ssm_fields)["ssd_scan"]
+    phase_lm(torch, "zamba2", ZAMBA_ARCH, ZAMBA_PARAMS, (FLASH, SSD), 11,
+             SSM_STATE_TOL, ssm_fields)
 
     # one CIFAR100 round: the sums over its eight leaves (for the int8
     # kernels, the one-plane codec's round)
@@ -1490,6 +1977,15 @@ def main() -> int:
         kernels.append(summary(kname, "src/repro_torch/csrc/delta_codec.cu",
                                replaces, wire_launches[kname], per_round,
                                err))
+    # the sharded kernels: one CIFAR100 round (eight leaves, one plane),
+    # each kernel with its NCCL collective at one rank
+    for kname, replaces in SHARDED_KERNELS.items():
+        mine = [r for r in mrows if r["name"] == kname]
+        src = ("src/repro_torch/csrc/fedavg_reduce.cu"
+               if kname.startswith("fedavg") else
+               "src/repro_torch/csrc/delta_codec.cu")
+        kernels.append(summary(kname, src, replaces, mesh_launches[kname],
+                               mine, max(r["max_abs_err"] for r in mine)))
     # flash_attention: the full-width prefill's shape (one launch of it)
     top = frows[0]
     kernels.append({

@@ -1,7 +1,8 @@
 """Single-device round core: the round's N clients as one vmapped update.
 
 The port of ``make_parallel_round_core`` with its transport (uplink codec)
-and downlink branches. The reference decodes the broadcast lazily inside
+and downlink branches, and of ``LocalBackend``, the backend that runs it
+on one device. The reference decodes the broadcast lazily inside
 each vmapped client and relies on XLA to merge that decode with the
 server's. A ctypes kernel cannot run under ``torch.func.vmap``, so here
 the server reconstructs the broadcast once (``encode_broadcast``, through
@@ -15,8 +16,10 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.core.engine.aggregators import Aggregator
+from repro_torch.core.engine.aggregators import Aggregator, get_aggregator
+from repro_torch.core.engine.backends.base import ExecutionBackend
 from repro_torch.core.engine.client import make_client_update
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim import tree_leaves
 
 PyTree = Any
@@ -70,3 +73,21 @@ def make_parallel_round_core(loss_fn: LossFn, aggregator: Aggregator,
                 d_state, level)
 
     return round_core
+
+
+class LocalBackend(ExecutionBackend):
+    """The whole cohort on one device (``device=None`` means the card)."""
+
+    name = "local"
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+
+    def make_round_core(self, loss_fn: LossFn, *, aggregator: str = "mean",
+                        trim_fraction: float = 0.1, server=None,
+                        server_lr: float = 1.0, transport=None,
+                        downlink=None):
+        agg = get_aggregator(aggregator, trim_fraction=trim_fraction)
+        return make_parallel_round_core(loss_fn, agg, server, server_lr,
+                                        transport=transport,
+                                        downlink=downlink)

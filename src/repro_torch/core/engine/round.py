@@ -5,6 +5,9 @@ Layering, as in ``repro.core.engine.round``:
     ClientUpdate    (engine.client)      — K-step local SGD, vmapped over clients
     Aggregator      (engine.aggregators) — client stack -> aggregate
     ServerOptimizer (engine.server)      — aggregate -> next global params
+    ExecutionBackend (engine.backends)   — where the fan-out runs: one device
+                                           (LocalBackend) or the ranks of a
+                                           mesh (MeshBackend)
 
 PyTorch runs eagerly, so there is no executable registry: ``run_bucket``
 executes one round, and the trainer calls it once per round of a bucket.
@@ -17,14 +20,16 @@ through every ``run_bucket``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine.aggregators import (LINEAR_AGGREGATORS,
                                                  get_aggregator)
-from repro_torch.core.engine.backends.local import make_parallel_round_core
+from repro_torch.core.engine.backends import (ExecutionBackend,
+                                              LocalBackend,
+                                              make_parallel_round_core)
 from repro_torch.core.engine.server import get_server_optimizer
 from repro_torch.core.engine.transport import get_downlink, get_transport
 from repro_torch.data.pipeline import BucketBatch
@@ -41,11 +46,12 @@ def _eta(eta) -> float:
 
 
 class RoundEngine:
-    """Runs buckets of rounds on one device."""
+    """Runs buckets of rounds; its backend decides where."""
 
     def __init__(self, loss_fn: LossFn, *, aggregator: str = "mean",
                  trim_fraction: float = 0.1, server: str = "avg",
-                 server_lr: float = 1.0, transport=None,
+                 server_lr: float = 1.0,
+                 backend: Optional[ExecutionBackend] = None, transport=None,
                  topk_frac: float = 0.1, downlink=None,
                  downlink_ref: str = "f32", device: DeviceLike = None):
         """``transport``: None/"none" keeps the plain aggregator path;
@@ -54,8 +60,17 @@ class RoundEngine:
         keeps the uncompressed broadcast; a codec name makes every round
         start from ``params_ref + decode(payload)``. ``downlink_ref``: the
         store of the broadcast reference and residual, "f32" or "q8";
-        anything but "f32" needs a downlink codec."""
-        self.device = resolve_device(device)
+        anything but "f32" needs a downlink codec. ``backend``: the round
+        core and the placement (None: ``LocalBackend(device)``); a given
+        backend brings its device, which ``device`` may only repeat."""
+        if backend is None:
+            backend = LocalBackend(device)
+        elif device is not None and \
+                torch.device(device).type != backend.device.type:
+            raise ValueError(f"device={str(device)!r} but the {backend.name} "
+                             f"backend runs on {backend.device}")
+        self.backend = backend
+        self.device = backend.device
         self.transport = get_transport(transport, topk_frac=topk_frac)
         if self.transport is not None and \
                 self.transport.name != "none" and \
@@ -63,16 +78,17 @@ class RoundEngine:
             raise ValueError(
                 f"transport {self.transport.name!r} requires a linear "
                 f"aggregator {LINEAR_AGGREGATORS}, got {aggregator!r}")
-        self.downlink = get_downlink(downlink, topk_frac=topk_frac,
-                                     ref_store=downlink_ref)
+        self.downlink = backend.bind_downlink(
+            get_downlink(downlink, topk_frac=topk_frac,
+                         ref_store=downlink_ref))
         if self.downlink is None and downlink_ref != "f32":
             raise ValueError(
                 f"downlink_ref={downlink_ref!r} requires a downlink codec")
         self.server = get_server_optimizer(server)
-        self.round_core = make_parallel_round_core(
-            loss_fn, get_aggregator(aggregator, trim_fraction=trim_fraction),
-            self.server, server_lr, transport=self.transport,
-            downlink=self.downlink)
+        self.round_core = backend.make_round_core(
+            loss_fn, aggregator=aggregator, trim_fraction=trim_fraction,
+            server=self.server, server_lr=server_lr,
+            transport=self.transport, downlink=self.downlink)
         self.dispatch_count = 0
         self.transport_state: Any = None
         self.downlink_state: Any = None
@@ -81,15 +97,12 @@ class RoundEngine:
         self.last_downlink_levels = None
 
     def to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        return self.backend.to_device(x)
 
     def place_bucket(self, bb: BucketBatch) -> BucketBatch:
-        """Host -> device copy of a bucket's batches and weights (the
-        builders' ``place_fn``)."""
-        return BucketBatch(
-            batches={k: self.to_device(v) for k, v in bb.batches.items()},
-            weights=self.to_device(bb.weights), active=bb.active,
-            n_rounds=bb.n_rounds)
+        """Host -> device copy of a bucket's batches and weights, this
+        rank's client rows on a mesh (the builders' ``place_fn``)."""
+        return self.backend.place_bucket(bb)
 
     def init_server_state(self, params: PyTree) -> Any:
         return self.server.init(params)
@@ -109,17 +122,21 @@ class RoundEngine:
 
     def run_bucket(self, params, batches, weights, eta, server_state
                    ) -> Tuple[PyTree, torch.Tensor, torch.Tensor, Any]:
-        """One round: batches leaves (N, K, b, ...); weights (N,).
+        """One round: batches leaves (N, K, b, ...); weights (N,), host
+        arrays of the whole cohort or tensors placed by ``place_bucket``.
         Returns (params, first_losses (N,), last_losses (N,), state)."""
+        be = self.backend
+        params = be.place_params(params)
         if self.transport_state is None:
             self.init_transport_state(params)
         if self.downlink_state is None:
             self.init_downlink_state(params)
         (params, firsts, lasts, server_state, self.transport_state,
          self.downlink_state, self.last_downlink_levels) = self.round_core(
-            params, {k: self.to_device(v) for k, v in batches.items()},
-            self.to_device(weights), _eta(eta), server_state,
-            self.transport_state, self.downlink_state)
+            params, be.place_batches(batches), be.place_weights(weights),
+            _eta(eta), server_state,
+            be.place_transport_state(self.transport_state),
+            self.downlink_state)
         self.dispatch_count += 1
         return params, firsts, lasts, server_state
 

@@ -1,4 +1,6 @@
-"""FedAvgTrainer: Algorithm 1 on one device, driven round by round.
+"""FedAvgTrainer: Algorithm 1, driven round by round, on one device or,
+with a ``MeshBackend``, with the cohort's clients spread over the ranks of
+a mesh (one trainer a rank; every rank keeps the same History).
 
 RoundScheduler (K-bucket plan) -> BatchPrefetcher (host tensors for the
 next round, built and copied to the device on a background thread) ->
@@ -77,9 +79,12 @@ class FedAvgTrainer:
                  data: FederatedData, fed: FedConfig,
                  runtime: RuntimeModel,
                  eval_fn: Optional[Callable[[PyTree], Dict[str, float]]] = None,
-                 *, device: DeviceLike = None):
+                 *, device: DeviceLike = None, backend=None):
         """``device``: where the rounds run (default ``cuda``, which raises
-        without a card); ``init_params`` are copied there."""
+        without a card); ``init_params`` are copied there. ``backend``: an
+        ``engine.backends.ExecutionBackend`` (default ``LocalBackend``);
+        with a ``MeshBackend`` every rank runs this trainer on the same
+        seed and ``init_params``, and it brings its own device."""
         _refuse_unported(fed)
         self.sampler = make_sampler(fed)
         self.engine = RoundEngine(loss_fn, aggregator=fed.aggregator,
@@ -90,7 +95,7 @@ class FedAvgTrainer:
                                   topk_frac=fed.topk_frac,
                                   downlink=fed.downlink,
                                   downlink_ref=fed.downlink_ref,
-                                  device=device)
+                                  backend=backend, device=device)
         self.device = self.engine.device
         self.params = tree_map(self.engine.to_device, init_params)
         self.server_state = self.engine.init_server_state(self.params)

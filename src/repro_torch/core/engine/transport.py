@@ -32,6 +32,12 @@ keeps reference and residual as two-level int8 leaves.
 planes) with plain tensor code; its level rides out of the round so the
 trainer charges the wire per level.
 
+On a mesh (``MeshBackend``) a codec is bound with ``with_mesh``: each rank
+holds its own client rows, ``reduce`` runs the client-sharded kernels
+(``ops.*_sharded``: the kernel on this rank's rows, then an all-reduce),
+the error-feedback sum is all-reduced, and the int8 ``decode_apply`` cuts
+the vector into one slice a rank where the ranks divide it.
+
 Payloads are lists with one dict per parameter leaf, in ``tree_leaves``
 order. ``encode(..., stacked=True)`` takes leaves with a leading client
 axis and works on the (N, M) rows directly (per-row amax for int8,
@@ -41,12 +47,14 @@ never raw indices.
 """
 from __future__ import annotations
 
+import copy
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.collectives import all_reduce_tiers, axes_size
 from repro_torch.models.attention import quantize_kv, quantize_kv_residual
 from repro_torch.optim import tree_leaves, tree_map
 
@@ -85,6 +93,26 @@ class Transport:
 
     name: str = "base"
     error_feedback: bool = False
+    # the mesh a bound copy reduces over (``with_mesh``); None: one device
+    _mesh = None
+    _client_axes: Optional[tuple] = None
+    _reduce_tiers: Optional[tuple] = None
+
+    def with_mesh(self, mesh, client_axes: Sequence[str],
+                  reduce_tiers=None) -> "Transport":
+        """A copy bound to ``mesh``: ``reduce`` routes through the
+        client-sharded kernels over ``client_axes`` (``reduce_tiers``: one
+        all-reduce a tier, innermost first)."""
+        t = copy.copy(self)
+        t._mesh = mesh
+        t._client_axes = tuple(client_axes)
+        t._reduce_tiers = (tuple(tuple(tier) for tier in reduce_tiers)
+                           if reduce_tiers else None)
+        return t
+
+    def _mesh_kw(self) -> dict:
+        return dict(mesh=self._mesh, client_axes=self._client_axes,
+                    reduce_tiers=self._reduce_tiers)
 
     def init_state(self, params: PyTree):
         """The error-feedback residual: f32 zeros shaped like ``params``
@@ -137,9 +165,12 @@ class Transport:
         new_state = state
         if self.error_feedback:
             w32 = weights.to(torch.float32)
+            true = [torch.tensordot(w32, d, dims=1)
+                    for d in tree_leaves(deltas)]
+            if self._mesh is not None:      # every rank's clients
+                true = [all_reduce_tiers(t, **self._mesh_kw()) for t in true]
             new_state = _unflatten(params, [
-                torch.tensordot(w32, d, dims=1) - h
-                for d, h in zip(tree_leaves(deltas), tree_leaves(hat))])
+                t - h for t, h in zip(true, tree_leaves(hat))])
         return tree_map(_add_to, params, hat), new_state
 
 
@@ -205,18 +236,28 @@ class Int8Transport(Transport):
         out = []
         for pl, leaf in zip(payloads, tree_leaves(like)):
             two = self.levels == 2
-            flat = kops.int8_delta_reduce(
-                pl["q"], w32 * pl["s"][:, 0], pl["qr"] if two else None,
-                w32 * pl["rs"][:, 0] if two else None)
+            args = (pl["q"], w32 * pl["s"][:, 0], pl["qr"] if two else None,
+                    w32 * pl["rs"][:, 0] if two else None)
+            flat = (kops.int8_delta_reduce(*args) if self._mesh is None else
+                    kops.int8_delta_reduce_sharded(*args, **self._mesh_kw()))
             out.append(flat.reshape(leaf.shape))
         return _unflatten(like, out)
 
     def decode_apply(self, payload, ref):
-        return _unflatten(ref, [
-            kops.int8_delta_apply(leaf.reshape(-1), pl["q"], pl["s"],
-                                  pl.get("qr"), pl.get("rs")
-                                  ).reshape(leaf.shape)
-            for pl, leaf in zip(payload, tree_leaves(ref))])
+        size = axes_size(self._mesh, self._client_axes)
+        out = []
+        for pl, leaf in zip(payload, tree_leaves(ref)):
+            args = (leaf.reshape(-1), pl["q"], pl["s"], pl.get("qr"),
+                    pl.get("rs"))
+            # one slice a rank where the ranks divide the vector (the
+            # reference's condition), else the whole vector on every rank
+            if self._mesh is not None and leaf.numel() % size == 0:
+                rec = kops.int8_delta_apply_sharded(
+                    *args, mesh=self._mesh, axes=self._client_axes)
+            else:
+                rec = kops.int8_delta_apply(*args)
+            out.append(rec.reshape(leaf.shape))
+        return _unflatten(ref, out)
 
     def encoded_bits(self, params):
         # int8 planes + one f32 scale per leaf and level
@@ -265,10 +306,13 @@ class TopKTransport(Transport):
 
     def reduce(self, payloads, weights, like):
         w32 = weights.to(torch.float32)
-        return _unflatten(like, [
-            kops.topk_delta_reduce(pl["v"], pl["i"], w32, int(leaf.numel())
-                                   ).reshape(leaf.shape)
-            for pl, leaf in zip(payloads, tree_leaves(like))])
+        out = []
+        for pl, leaf in zip(payloads, tree_leaves(like)):
+            args = (pl["v"], pl["i"], w32, int(leaf.numel()))
+            flat = (kops.topk_delta_reduce(*args) if self._mesh is None else
+                    kops.topk_delta_reduce_sharded(*args, **self._mesh_kw()))
+            out.append(flat.reshape(leaf.shape))
+        return _unflatten(like, out)
 
     def decode_apply(self, payload, ref):
         return _unflatten(ref, [
@@ -332,6 +376,15 @@ class DownlinkCodec:
         self.name = codec.name
         self.error_feedback = bool(codec.error_feedback)
         self.ref_store = ref_store
+
+    def with_mesh(self, mesh, client_axes: Sequence[str],
+                  reduce_tiers=None) -> "DownlinkCodec":
+        """A copy whose codec is bound to ``mesh``: the broadcast's int8
+        decode-apply runs one slice of each leaf a rank (the server
+        encode stays replicated on every rank)."""
+        t = copy.copy(self)
+        t.codec = self.codec.with_mesh(mesh, client_axes, reduce_tiers)
+        return t
 
     # -- quantised ref store ---------------------------------------------
     def store_tree(self, tree: PyTree) -> PyTree:

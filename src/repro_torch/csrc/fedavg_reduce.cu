@@ -24,6 +24,11 @@
 // runs the scalar path, one column per thread, still coalesced across the
 // warp.
 //
+// The output is the input's dtype, or f32 for a bf16 stack: the per-rank
+// partial of the client-sharded reduce (repro/kernels/fedavg_reduce.py::
+// fedavg_reduce_sharded, whose shard body writes f32), which the wrapper
+// all-reduces across ranks before the cast.
+//
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
 
@@ -69,11 +74,6 @@ struct Chunk<float> {
     acc[3] = fmaf(w, v.w, acc[3]);
   }
 
-  __device__ __forceinline__ static void store(float* p,
-                                               const float (&acc)[kVec]) {
-    *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2],
-                                                acc[3]);
-  }
 };
 
 template <>
@@ -91,20 +91,32 @@ struct Chunk<__nv_bfloat16> {
       acc[2 * i + 1] = fmaf(w, f.y, acc[2 * i + 1]);
     }
   }
-
-  __device__ __forceinline__ static void store(__nv_bfloat16* p,
-                                               const float (&acc)[kVec]) {
-    __align__(16) __nv_bfloat16 out[kVec];
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) out[i] = __float2bfloat16_rn(acc[i]);
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(out);
-  }
 };
 
-template <typename T>
+// Store a thread's V sums as 16-byte writes: f32 as V/4 float4, bf16 as
+// one uint4 of 8 values (bf16 output comes only from bf16 input, V = 8).
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&acc)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; i += 4)
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&acc)[V]) {
+  static_assert(V == 8, "bf16 output takes 8 values a thread");
+  __align__(16) __nv_bfloat16 out[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = __float2bfloat16_rn(acc[i]);
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(out);
+}
+
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
     reduce_vec(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ out, int n, int64_t m) {
+               O* __restrict__ out, int n, int64_t m) {
   constexpr int V = Chunk<T>::kVec;
   const int64_t groups = m / V;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -119,14 +131,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < n; ++c) {
       Chunk<T>::fma(col + static_cast<int64_t>(c) * m, __ldg(w + c), acc);
     }
-    Chunk<T>::store(out + g * V, acc);
+    store_vec<V>(out + g * V, acc);
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
     reduce_scalar(const T* __restrict__ x, const float* __restrict__ w,
-                  T* __restrict__ out, int n, int64_t m) {
+                  O* __restrict__ out, int n, int64_t m) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
@@ -150,39 +162,40 @@ unsigned int blocks_for(int64_t work) {
   return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-template <typename T>
+template <typename T, typename O>
 void launch(const void* x, const float* w, void* out, int n, int64_t m,
             cudaStream_t stream) {
   constexpr int V = Chunk<T>::kVec;
   const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
+  O* ot = static_cast<O*>(out);
   if (m % V == 0 && aligned16(x) && aligned16(out)) {
-    reduce_vec<T><<<blocks_for(m / V), kThreads, 0, stream>>>(xt, w, ot, n,
-                                                              m);
+    reduce_vec<T, O><<<blocks_for(m / V), kThreads, 0, stream>>>(xt, w, ot,
+                                                                 n, m);
   } else {
-    reduce_scalar<T><<<blocks_for(m), kThreads, 0, stream>>>(xt, w, ot, n,
-                                                            m);
+    reduce_scalar<T, O><<<blocks_for(m), kThreads, 0, stream>>>(xt, w, ot,
+                                                               n, m);
   }
 }
 
 }  // namespace
 
-// x: (n, m) row-major of dtype `dtype`; w: (n,) f32; out: (m,) of `dtype`.
+// x: (n, m) row-major of dtype `dtype`; w: (n,) f32; out: (m,) of
+// `out_dtype`, which is `dtype` or f32 (the f32 partial a rank of the
+// client-sharded reduce all-reduces, fedavg_reduce_sharded).
 extern "C" int fedavg_reduce_launch(const void* x, const void* w, void* out,
                                     int n, int64_t m, int dtype,
-                                    void* stream) {
+                                    int out_dtype, void* stream) {
   if (n <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const float* wf = static_cast<const float*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      launch<float>(x, wf, out, n, m, s);
-      break;
-    case kBF16:
-      launch<__nv_bfloat16>(x, wf, out, n, m, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kF32 && out_dtype == kF32) {
+    launch<float, float>(x, wf, out, n, m, s);
+  } else if (dtype == kBF16 && out_dtype == kBF16) {
+    launch<__nv_bfloat16, __nv_bfloat16>(x, wf, out, n, m, s);
+  } else if (dtype == kBF16 && out_dtype == kF32) {
+    launch<__nv_bfloat16, float>(x, wf, out, n, m, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

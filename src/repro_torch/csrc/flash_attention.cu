@@ -16,7 +16,9 @@
 //   * running max, denominator and accumulator in f32; the output is
 //     acc / max(l, 1e-30) in q's dtype.
 // Keys past Sk (the ragged last tile) score -inf, so they add exactly 0:
-// the kernel takes any Sq and Sk, where the TPU wrapper padded to 128.
+// the kernel takes any Sq and Sk, where the TPU wrapper padded to 128, and
+// hd 16, 32, 64, 112, 128 or 192 (the configs' head dims), where it padded
+// hd to 128.
 //
 // What bounds it: operations. Each (query, key) pair costs 4*hd flops
 // (q.k and p*v) and the pairs grow as S^2, while the bytes grow as S*hd: at
@@ -127,11 +129,27 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Output columns a thread reads from one V row at a time: the widest of 4,
+// 2, 1 that divides its DPT columns (hd 112 gives DPT 7: one at a time).
+template <int DPT>
+__host__ __device__ constexpr int vec_width() {
+  return DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
+}
+
+// The register budget: hd up to 128 asks for two CTAs an SM (128
+// registers a thread); hd 192 holds 48 accumulators a thread and a CTA
+// takes 171 KB of shared memory, so one CTA an SM and up to 255 registers.
+template <int HD>
+__host__ __device__ constexpr int min_blocks() {
+  return HD <= 128 ? 2 : 1;
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd(Params p) {
+__global__ void __launch_bounds__(kThreads, min_blocks<HD>())
+    flash_fwd(Params p) {
   constexpr int LD = HD + 4;
   constexpr int DPT = HD / 16;              // output columns per thread
-  constexpr int VW = DPT < 4 ? DPT : 4;     // ... read VW at a time
+  constexpr int VW = vec_width<DPT>();      // ... read VW at a time
   constexpr int NV = DPT / VW;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -313,7 +331,9 @@ cudaError_t dispatch_hd(int hd, const Params& p, cudaStream_t stream) {
     case 16: return launch<T, 16>(p, stream);
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 112: return launch<T, 112>(p, stream);   // zamba2-7b's shared block
     case 128: return launch<T, 128>(p, stream);
+    case 192: return launch<T, 192>(p, stream);   // nemotron-4-340b
     default: return cudaErrorInvalidValue;
   }
 }

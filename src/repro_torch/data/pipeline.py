@@ -13,7 +13,8 @@ trainer asks for ONE round per request (``n_rounds=1, pad_to=1``): a CIFAR100
 round at paper width is a 491.5 MB batch, and the reference's default
 8-round bucket would be 3.9 GB of host memory. That does not change the
 stream: ``bucket_batches`` draws exactly what ``n_rounds`` sequential
-per-round draws would, and padding rounds draw nothing.
+per-round draws would, and padding rounds draw nothing. On a mesh every rank
+draws the same cohort and keeps its own client rows (``slice_clients``).
 
 Sampling is with replacement within a client's local dataset.
 """
@@ -83,6 +84,16 @@ class BucketBatch:
     weights: np.ndarray              # (B, N)
     active: np.ndarray               # (B,) bool
     n_rounds: int
+
+
+def slice_clients(bb: BucketBatch, lo: int, hi: int) -> BucketBatch:
+    """The bucket's client rows [lo, hi) (leaves (B, hi - lo, ...)): one
+    rank's block of a mesh round, cut on the host before the copy to its
+    device (``MeshBackend.place_bucket``)."""
+    return BucketBatch(batches={k: v[:, lo:hi] for k, v in
+                                bb.batches.items()},
+                       weights=bb.weights[:, lo:hi], active=bb.active,
+                       n_rounds=bb.n_rounds)
 
 
 def bucket_batches(rng: np.random.Generator, data: FederatedData, *,

@@ -1,9 +1,12 @@
 """The serving steps of ``repro.distributed.strategies``.
 
-On one device a step is the model call itself; the mesh arguments of the
-reference (``act_spec``, ``attn_kv_spec``, ``moe_shards``,
-``moe_spmd_axes``), its ``dispatch_sharded`` MoE path and its federated
-train steps wait for the multi-device slice.
+On one device a step is the model call itself. The reference's federated
+train steps delegate to its MeshBackend; the port's parallel strategy is
+``core.engine.backends.MeshBackend`` (``torch.distributed``), driven by
+``FedAvgTrainer(backend=...)``. Not ported yet: ``make_fed_train_step``,
+the sequential strategy, the mesh arguments (``act_spec``,
+``attn_kv_spec``, ``moe_shards``, ``moe_spmd_axes``), the
+``dispatch_sharded`` MoE path and ``sharding.py``.
 """
 from __future__ import annotations
 

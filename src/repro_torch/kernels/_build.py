@@ -23,10 +23,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures of each library's C entry points
 _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fedavg_reduce": {
-        # (x, w, out, n, m, dtype, stream) -> cudaError_t
+        # (x, w, out, n, m, dtype, out_dtype, stream) -> cudaError_t
         "fedavg_reduce_launch": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p],
             ctypes.c_int),
     },
     "delta_codec": {

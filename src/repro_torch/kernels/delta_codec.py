@@ -12,6 +12,14 @@ For tensors on the CPU each wrapper runs its plain version
 ``launches[name]`` counts kernel launches, and only those: one per call,
 except ``topk_scatter_reduce``, which launches one scatter-add per client
 row (N per call) so that every output is summed in client order.
+
+The ``*_sharded`` wrappers replace the reference's client-sharded variants
+(``int8_decompress_reduce_sharded``, ``int8_decode_apply_sharded``,
+``topk_scatter_reduce_sharded``): each rank runs the kernels above on its
+own client rows (the reduces) or its slice of the vector (decode-apply),
+and a collective of ``kernels.collectives`` outside the kernel sums the
+partials or gathers the slices. ``sharded_launches[name]`` counts their
+launches on this rank the same way.
 """
 from __future__ import annotations
 
@@ -21,10 +29,17 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.collectives import (all_gather_flat,
+                                             all_reduce_tiers, axes_size,
+                                             client_rank)
 
 #: kernel launches made by each wrapper in this process
 launches = dict.fromkeys(("int8_decompress_reduce", "int8_decode_apply",
                           "topk_scatter_reduce", "topk_scatter_apply"), 0)
+#: kernel launches made by each sharded wrapper on this rank
+sharded_launches = dict.fromkeys(("int8_decompress_reduce_sharded",
+                                  "int8_decode_apply_sharded",
+                                  "topk_scatter_reduce_sharded"), 0)
 
 # dtype tags of csrc/delta_codec.cu
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
@@ -211,3 +226,69 @@ def topk_scatter_apply(ref: torch.Tensor, vals: torch.Tensor,
     _raise_on(err, name, f"payload ({s},) into M={m} {ref.dtype}")
     launches[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# client-sharded forms: this rank's rows or slice, then a collective
+# ---------------------------------------------------------------------------
+
+def int8_decompress_reduce_sharded(q: torch.Tensor, w_eff: torch.Tensor,
+                                   qr: Optional[torch.Tensor] = None,
+                                   wr_eff: Optional[torch.Tensor] = None, *,
+                                   mesh, client_axes,
+                                   reduce_tiers=None) -> torch.Tensor:
+    """This rank's int8 rows q (n, M) and w_eff (n,) [and the residual
+    plane] -> (M,) f32, the reduce over every rank's rows: the kernel on
+    this rank's rows (zeros for none), then the partials all-reduced over
+    ``client_axes`` (flat or by ``reduce_tiers``)."""
+    name = "int8_decompress_reduce_sharded"
+    _check(q.dim() == 2, f"{name}: q must be (n, M), got {tuple(q.shape)}")
+    n, m = q.shape
+    if n:
+        partial = int8_decompress_reduce(q, w_eff, qr, wr_eff)
+        if q.is_cuda:
+            sharded_launches[name] += 1
+    else:
+        partial = torch.zeros((m,), dtype=torch.float32, device=q.device)
+    return all_reduce_tiers(partial, mesh, client_axes, reduce_tiers)
+
+
+def int8_decode_apply_sharded(ref: torch.Tensor, q: torch.Tensor,
+                              s: torch.Tensor,
+                              qr: Optional[torch.Tensor] = None,
+                              rs: Optional[torch.Tensor] = None, *, mesh,
+                              axes) -> torch.Tensor:
+    """ref (M,) and the payload, the same on every rank, with M a multiple
+    of the ranks of ``axes`` -> (M,) ``ref + q*s [+ qr*rs]`` on every rank:
+    each rank runs the kernel on its M/W slice (scales whole), and one
+    all-gather rebuilds the vector (the reference keeps the slices where
+    they are and lets GSPMD gather them as they are used)."""
+    name = "int8_decode_apply_sharded"
+    _check(ref.dim() == 1, f"{name}: ref must be (M,), got "
+           f"{tuple(ref.shape)}")
+    m, size = ref.shape[0], axes_size(mesh, axes)
+    _check(m % size == 0, f"{name}: M={m} is not a multiple of the "
+           f"{size} ranks of axes {tuple(axes)}")
+    if m == 0:
+        return ref.clone()
+    lo = client_rank(mesh, axes) * (m // size)
+    cut = lambda t: None if t is None else t[lo:lo + m // size]
+    part = int8_decode_apply(cut(ref), cut(q), s, cut(qr), rs)
+    if ref.is_cuda:
+        sharded_launches[name] += 1
+    return all_gather_flat(part, mesh, axes)
+
+
+def topk_scatter_reduce_sharded(vals: torch.Tensor, idx: torch.Tensor,
+                                weights: torch.Tensor, size: int, *, mesh,
+                                client_axes,
+                                reduce_tiers=None) -> torch.Tensor:
+    """This rank's payload rows vals/idx (n, S) and weights (n,) -> (M,)
+    f32, the scatter-add reduce over every rank's rows: the kernel on this
+    rank's rows (one launch a row, zeros for none), then the partials
+    all-reduced over ``client_axes`` (flat or by ``reduce_tiers``)."""
+    name = "topk_scatter_reduce_sharded"
+    before = launches["topk_scatter_reduce"]
+    partial = topk_scatter_reduce(vals, idx, weights, size)
+    sharded_launches[name] += launches["topk_scatter_reduce"] - before
+    return all_reduce_tiers(partial, mesh, client_axes, reduce_tiers)

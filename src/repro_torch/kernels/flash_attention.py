@@ -27,7 +27,9 @@ launches = 0
 
 # dtype tags of csrc/flash_attention.cu
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# the configs' head dims; 112 is zamba2-7b's shared block, 192 is
+# nemotron-4-340b's (each an instantiation in the source)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:

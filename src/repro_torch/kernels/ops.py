@@ -34,6 +34,34 @@ def fedavg_reduce_tree(client_params: PyTree, weights: torch.Tensor) -> PyTree:
     return fedavg_reduce(flat, weights).reshape(client_params.shape[1:])
 
 
+def fedavg_reduce_sharded(client_rows: torch.Tensor, weights: torch.Tensor,
+                          *, mesh, client_axes,
+                          reduce_tiers=None) -> torch.Tensor:
+    """(n, M) rows of this rank x (n,) -> (M,) over every rank's rows: the
+    kernel on this rank's rows into an f32 partial, then the all-reduce
+    over the client axes (``reduce_tiers``: one group per tier)."""
+    return _fr.fedavg_reduce_sharded(client_rows, weights, mesh=mesh,
+                                     client_axes=client_axes,
+                                     reduce_tiers=reduce_tiers)
+
+
+def fedavg_reduce_tree_sharded(client_params: PyTree, weights: torch.Tensor,
+                               *, mesh, client_axes,
+                               reduce_tiers=None) -> PyTree:
+    """The weighted average of a client-stacked param dict whose client
+    rows are spread over the ranks (``MeshBackend``'s ``kernel``
+    aggregator): one sharded reduce per leaf, (n, ...) -> (...)."""
+    if isinstance(client_params, dict):
+        return {k: fedavg_reduce_tree_sharded(
+            v, weights, mesh=mesh, client_axes=client_axes,
+            reduce_tiers=reduce_tiers) for k, v in client_params.items()}
+    n = client_params.shape[0]
+    flat = client_params.reshape(n, -1).contiguous()
+    return fedavg_reduce_sharded(
+        flat, weights, mesh=mesh, client_axes=client_axes,
+        reduce_tiers=reduce_tiers).reshape(client_params.shape[1:])
+
+
 # ---------------------------------------------------------------------------
 # compressed-delta transport (the wire path)
 # ---------------------------------------------------------------------------
@@ -45,6 +73,30 @@ def int8_delta_reduce(q: torch.Tensor, w_eff: torch.Tensor,
     q (N, M) int8, w_eff (N,) = weights * per-client scales -> (M,) f32.
     The optional residual plane reduces in the same pass."""
     return _dc.int8_decompress_reduce(q, w_eff, qr, wr_eff)
+
+
+def int8_delta_reduce_sharded(q: torch.Tensor, w_eff: torch.Tensor,
+                              qr: Optional[torch.Tensor] = None,
+                              wr_eff: Optional[torch.Tensor] = None, *, mesh,
+                              client_axes, reduce_tiers=None) -> torch.Tensor:
+    """The int8 reduce with the client rows spread over the ranks: the
+    fused kernel on this rank's rows, then the all-reduce of the f32
+    partials."""
+    return _dc.int8_decompress_reduce_sharded(
+        q, w_eff, qr, wr_eff, mesh=mesh, client_axes=client_axes,
+        reduce_tiers=reduce_tiers)
+
+
+def topk_delta_reduce_sharded(vals: torch.Tensor, idx: torch.Tensor,
+                              weights: torch.Tensor, size: int, *, mesh,
+                              client_axes, reduce_tiers=None) -> torch.Tensor:
+    """The top-k reduce with the payload rows spread over the ranks: the
+    scatter-add kernel on this rank's rows, then the all-reduce of the f32
+    partials."""
+    return _dc.topk_scatter_reduce_sharded(vals, idx, weights, size,
+                                           mesh=mesh,
+                                           client_axes=client_axes,
+                                           reduce_tiers=reduce_tiers)
 
 
 def topk_delta_reduce(vals: torch.Tensor, idx: torch.Tensor,
@@ -59,6 +111,18 @@ def int8_delta_apply(ref: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     """Downlink reconstruction ``ref + q*s [+ qr*rs]``: ref (M,) -> (M,) in
     ``ref.dtype``."""
     return _dc.int8_decode_apply(ref, q, s, qr, rs)
+
+
+def int8_delta_apply_sharded(ref: torch.Tensor, q: torch.Tensor,
+                             s: torch.Tensor,
+                             qr: Optional[torch.Tensor] = None,
+                             rs: Optional[torch.Tensor] = None, *, mesh,
+                             axes) -> torch.Tensor:
+    """The downlink reconstruction with the (M,) vector cut into one slice
+    a rank (M a multiple of the ranks): the kernel on each slice, then one
+    all-gather."""
+    return _dc.int8_decode_apply_sharded(ref, q, s, qr, rs, mesh=mesh,
+                                         axes=axes)
 
 
 def topk_delta_apply(ref: torch.Tensor, vals: torch.Tensor,
@@ -102,8 +166,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The attention layer calls this when ``use_kernel=True``. The kernel
     reads the transposed views through their strides, so nothing is
-    copied, and takes any S and hd in (16, 32, 64, 128): the reference's
-    padding to 128 was TPU tiling."""
+    copied, and takes any S and hd in ``flash_attention.HEAD_DIMS`` (16,
+    32, 64, 112, 128, 192): the reference's padding to 128 was TPU
+    tiling."""
     out = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal, window, softcap)
     return out.transpose(1, 2)

@@ -11,14 +11,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.collectives import (all_gather_flat,
+                                             all_reduce_tiers, axes_size,
+                                             client_rank)
 
-def fedavg_reduce_ref(client_params: torch.Tensor,
-                      weights: torch.Tensor) -> torch.Tensor:
+
+def fedavg_reduce_ref(client_params: torch.Tensor, weights: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
     """x: (N, M), w: (N,) -> (M,) = sum_c w_c * x_c, accumulated in f32 and
-    cast to the input dtype."""
+    cast to ``out_dtype`` (default: the input dtype)."""
     x = client_params.to(torch.float32)
     w = weights.to(torch.float32)
-    return (w[:, None] * x).sum(dim=0).to(client_params.dtype)
+    return (w[:, None] * x).sum(dim=0).to(out_dtype or client_params.dtype)
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -114,6 +119,46 @@ def topk_scatter_apply_ref(ref: torch.Tensor, vals: torch.Tensor,
     out.index_add_(0, i, v)
     return out.to(ref.dtype)
 
+
+
+# the client-sharded forms: the plain body on this rank's rows or slice,
+# then the same collectives as the kernels' sharded wrappers
+
+def fedavg_reduce_sharded_ref(client_rows: torch.Tensor,
+                              weights: torch.Tensor, *, mesh, client_axes,
+                              reduce_tiers=None) -> torch.Tensor:
+    """``kernels.fedavg_reduce.fedavg_reduce_sharded`` in plain PyTorch."""
+    partial = fedavg_reduce_ref(client_rows, weights, torch.float32)
+    return all_reduce_tiers(partial, mesh, client_axes,
+                            reduce_tiers).to(client_rows.dtype)
+
+
+def int8_decompress_reduce_sharded_ref(q, w_eff, qr=None, wr_eff=None, *,
+                                       mesh, client_axes,
+                                       reduce_tiers=None) -> torch.Tensor:
+    """``delta_codec.int8_decompress_reduce_sharded`` in plain PyTorch."""
+    return all_reduce_tiers(int8_decompress_reduce_ref(q, w_eff, qr, wr_eff),
+                            mesh, client_axes, reduce_tiers)
+
+
+def int8_decode_apply_sharded_ref(ref, q, s, qr=None, rs=None, *, mesh,
+                                  axes) -> torch.Tensor:
+    """``delta_codec.int8_decode_apply_sharded`` in plain PyTorch."""
+    m, size = ref.shape[0], axes_size(mesh, axes)
+    if m % size:
+        raise ValueError(f"M={m} is not a multiple of {size} ranks")
+    lo = client_rank(mesh, axes) * (m // size)
+    cut = lambda t: None if t is None else t[lo:lo + m // size]
+    return all_gather_flat(int8_decode_apply_ref(cut(ref), cut(q), s,
+                                                 cut(qr), rs), mesh, axes)
+
+
+def topk_scatter_reduce_sharded_ref(vals, idx, weights, size: int, *, mesh,
+                                    client_axes,
+                                    reduce_tiers=None) -> torch.Tensor:
+    """``delta_codec.topk_scatter_reduce_sharded`` in plain PyTorch."""
+    return all_reduce_tiers(topk_scatter_reduce_ref(vals, idx, weights, size),
+                            mesh, client_axes, reduce_tiers)
 
 def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul: x (E, C, d) @ w (E, d, f) -> (E, C, f), in f32 and

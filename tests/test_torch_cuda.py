@@ -61,6 +61,110 @@ def test_fedavg_reduce_kernel_on_offset_view_takes_scalar_path(cuda):
                                tref.fedavg_reduce_ref(x, w), **TOL[torch.float32])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(25, 2097152), (7, 8193), (4, 1000),
+                                 (1, 4096)])
+def test_fedavg_reduce_f32_output_of_a_bf16_stack(cuda, n, m):
+    """The f32 partial a rank of the sharded reduce all-reduces: bf16 in,
+    f32 out, against the plain version at the f32 tolerance; f32 in with
+    out_dtype f32 is the default route bit for bit."""
+    rng = np.random.default_rng(n * m)
+    x = torch.tensor(rng.normal(size=(n, m)).astype(np.float32)).to(cuda)
+    w = torch.softmax(torch.tensor(rng.normal(size=n)), 0).float().to(cuda)
+    xb = x.to(torch.bfloat16)
+    before = tfr.launches
+    got = tfr.fedavg_reduce(xb, w, out_dtype=torch.float32)
+    again = tfr.fedavg_reduce(xb, w, out_dtype=torch.float32)
+    assert torch.equal(tfr.fedavg_reduce(x, w, out_dtype=torch.float32),
+                       tfr.fedavg_reduce(x, w))
+    torch.cuda.synchronize()
+    assert tfr.launches == before + 4
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tref.fedavg_reduce_ref(xb, w, torch.float32),
+        **TOL[torch.float32])
+    with pytest.raises(TypeError):
+        tfr.fedavg_reduce(x, w, out_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the client-sharded wrappers at world 1 over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_meshes(tmp_path_factory):
+    """A one-rank NCCL group on the card and its meshes: (1,) ("data",)
+    and (1, 1) ("pod", "data")."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on the card")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    path = tmp_path_factory.mktemp("nccl") / "init"
+    init_distributed("cuda", init_method=f"file://{path}", rank=0,
+                     world_size=1)
+    yield {"data": (make_mesh((1,), ("data",), "cuda"), ("data",)),
+           "pod_data": (make_mesh((1, 1), ("pod", "data"), "cuda"),
+                        ("pod", "data"))}
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_name,grouped", [("data", False),
+                                               ("pod_data", False),
+                                               ("pod_data", True)])
+def test_sharded_wrappers_at_one_rank_equal_unsharded_kernels(
+        nccl_meshes, mesh_name, grouped):
+    """One rank holds every row, so the sharded wrapper (kernel, then the
+    NCCL collective) gives its unsharded kernel's result bit for bit, and
+    counts one launch (N for the per-row top-k reduce)."""
+    from repro_torch.kernels import collectives
+    mesh, axes = nccl_meshes[mesh_name]
+    tiers = tuple((a,) for a in reversed(axes)) if grouped else None
+    kw = dict(mesh=mesh, client_axes=axes, reduce_tiers=tiers)
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    n, m = 25, 65536
+    x = torch.tensor(rng.normal(size=(n, m)).astype(np.float32)).to(cuda)
+    w = torch.softmax(torch.tensor(rng.normal(size=n)), 0).float().to(cuda)
+    q, qr, we, wr = _planes(rng, n, m, cuda)
+    vals = torch.tensor(rng.normal(size=(n, 600)).astype(np.float32)).to(cuda)
+    idx = torch.tensor(rng.integers(0, m, (n, 600)),
+                       dtype=torch.int32).to(cuda)
+    ref_ = torch.tensor(rng.normal(size=m).astype(np.float32)).to(cuda)
+    s = torch.tensor([0.01], device=cuda)
+    rs = torch.tensor([1e-4], device=cuda)
+    before = (tfr.sharded_launches, dict(tdc.sharded_launches),
+              dict(collectives.counts))
+    pairs = [
+        (tfr.fedavg_reduce_sharded(x, w, **kw), tfr.fedavg_reduce(x, w)),
+        (tfr.fedavg_reduce_sharded(x.to(torch.bfloat16), w, **kw),
+         tfr.fedavg_reduce(x.to(torch.bfloat16), w)),
+        (tdc.int8_decompress_reduce_sharded(q, we, **kw),
+         tdc.int8_decompress_reduce(q, we)),
+        (tdc.int8_decompress_reduce_sharded(q, we, qr, wr, **kw),
+         tdc.int8_decompress_reduce(q, we, qr, wr)),
+        (tdc.topk_scatter_reduce_sharded(vals, idx, w, m, **kw),
+         tdc.topk_scatter_reduce(vals, idx, w, m)),
+        (tdc.int8_decode_apply_sharded(ref_, q[0], s, mesh=mesh, axes=axes),
+         tdc.int8_decode_apply(ref_, q[0], s)),
+        (tdc.int8_decode_apply_sharded(ref_, q[0], s, qr[0], rs, mesh=mesh,
+                                       axes=axes),
+         tdc.int8_decode_apply(ref_, q[0], s, qr[0], rs)),
+    ]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        assert got.dtype == want.dtype and torch.equal(got, want), i
+    tiers_n = len(axes) if grouped else 1
+    assert tfr.sharded_launches == before[0] + 2
+    assert {k: v - before[1][k] for k, v in tdc.sharded_launches.items()} \
+        == {"int8_decompress_reduce_sharded": 2,
+            "int8_decode_apply_sharded": 2,
+            "topk_scatter_reduce_sharded": n}
+    assert collectives.counts["all_reduce"] == \
+        before[2]["all_reduce"] + 5 * tiers_n
+    assert collectives.counts["all_gather"] == before[2]["all_gather"] + 2
+
+
 # ---------------------------------------------------------------------------
 # the wire path's kernels (csrc/delta_codec.cu)
 # ---------------------------------------------------------------------------
@@ -249,6 +353,10 @@ FA_CASES = [
     (1, 4, 2, 200, 200, 64, False, 48, 20.0),       # non-causal + window
     (2, 4, 2, 1, 257, 64, True, None, None),        # Sq = 1 vs Sk = 257
     (2, 4, 2, 1, 257, 64, False, None, None),
+    (2, 32, 32, 4096, 4096, 112, True, None, None),  # zamba2-7b's block
+    (1, 96, 8, 2048, 2048, 192, True, None, None),   # nemotron-4-340b, GQA
+    (1, 8, 2, 300, 300, 112, True, 64, 30.0),        # hd 112: window, cap
+    (1, 4, 2, 200, 200, 192, False, None, None),     # hd 192: non-causal
 ]
 
 

@@ -33,7 +33,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.core.engine.model_store, repro_torch.core.serve, "
             "repro_torch.launch.serve, repro_torch.models.moe, "
             "repro_torch.kernels.moe_gmm, repro_torch.models.ssm, "
-            "repro_torch.kernels.ssd_scan\n"
+            "repro_torch.kernels.ssd_scan, repro_torch.launch.mesh, "
+            "repro_torch.core.engine.backends.base, "
+            "repro_torch.core.engine.backends.mesh, "
+            "repro_torch.kernels.collectives\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
