@@ -41,20 +41,28 @@ exits non-zero without printing a result:
 7. lm       — the dense LM serving path. Phase ``kernel`` rows hold
               ``flash_attention`` against its plain version at the prefill
               shape and edge shapes (GQA, window, softcap, hd 128 and 32,
-              non-causal, bf16, Sq = 1 against Sk = 257) with times, the SDPA
-              time and the flops bound; phase ``parity`` runs reduced
-              qwen1.5-0.5b and gemma2-27b on the card (kernel) against the
-              CPU (plain): prefill logits and states, 8 greedy tokens; then
-              qwen1.5-0.5b at full width (463,987,712 f32 params): prefill
-              B 2 x S 4096 through the kernel (24 launches each; ms and the
-              kernel's share), the same batch through the plain path, and
-              ``ServingLoop`` greedy decode at the launcher's defaults
-              (batch 4, prompt 16, 32 tokens): tokens/s and peak memory;
+              non-causal, Sq = 1 against Sk = 257), in f32 (the FMA kernel)
+              and bf16 (the wgmma kernel; also a ragged 300 x 300 tile, hd
+              16 and phi3.5-moe's attention shape), each row with the path
+              it launched, times, the SDPA time and the flops bound; phase
+              ``parity`` runs reduced qwen1.5-0.5b and gemma2-27b on the
+              card (kernel) against the CPU (plain): prefill logits and
+              states, 8 greedy tokens; then qwen1.5-0.5b at full width
+              (463,987,712 f32 params): prefill B 2 x S 4096 through the
+              kernel (24 launches each; ms and the kernel's share), the same
+              batch through the plain path, and ``ServingLoop`` greedy
+              decode at the launcher's defaults (batch 4, prompt 16, 32
+              tokens): tokens/s and peak memory; then the same prefill in
+              bf16 (the f32 model cast on the card): 24 launches a prefill,
+              all on ``"wgmma"``, and no further from the plain f32 path on
+              the bf16 weights than ``BF16_ANCHOR_FACTOR`` x the plain bf16
+              path is;
 8. moe      — the MoE serving path. Phase ``kernel`` rows hold ``gmm``
               against its plain version (bitwise repeat too) at the
               phi3.5-moe prefill's gate/up and down shapes, the reference
-              sweep's and the decode-dispatch floor C = 8, f32 and bf16,
-              with the ``torch.bmm`` time and the bound; phase ``parity``
+              sweep's and the decode-dispatch floor C = 8, f32 (the FMA
+              kernel) and bf16 (the wgmma kernel), with the path launched,
+              the ``torch.bmm`` time and the bound; phase ``parity``
               adds reduced phi3.5-moe-42b-a6.6b and mixtral-8x22b (routing
               ids too, decode on the serving loop's dense MoE path); then
               phi3.5-moe-42b-a6.6b at full width and 8 of its 32 layers
@@ -62,7 +70,12 @@ exits non-zero without printing a result:
               ``flash_attention`` and ``gmm`` (3 x layers gmm and layers
               flash launches each; ms, each kernel's share), the plain path
               on the same batch (logits, states, routing flips), and
-              ``ServingLoop`` dense-path decode: tokens/s, peak memory;
+              ``ServingLoop`` dense-path decode: tokens/s, peak memory; then
+              the same prefill in bf16 (the f32 model cast on the card to
+              21 GB): 24 gmm and 8 flash launches a prefill, all on
+              ``"wgmma"``, held to the plain f32 path on the bf16 weights
+              as in phase lm (both plain paths with the kernel run's
+              routing ids);
 9. ssm      — the SSM serving path. Phase ``kernel`` rows hold ``ssd_scan``
               against its plain version at the mamba2-780m prefill shape
               first, then the reference sweep, zamba2-7b's widths, the
@@ -92,7 +105,8 @@ exits non-zero without printing a result:
               collective counts exact; ms per round, mesh and local, and
               the all-reduces' device ms per round.
 
-The line before the last is the kernels summary; the last line is
+The line before the last is the kernels summary (``flash_attention`` and
+``gmm`` with their f32 and bf16 rows, paths and launches); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -755,13 +769,23 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
 # tests/test_kernels.py:12
 FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
              "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# bf16 rows, besides FLASH_TOL against the plain version: every output row
+# against the plain version run in f32 on the same inputs, within rtol x
+# |want| + row_atol x the row's RMS (the wgmma kernel rounds P and the
+# output to bf16, 2^-9 relative each), so a row is held to its own scale
+FLASH_BF16_ROW_TOL = dict(rtol=2 ** -7, row_atol=2 ** -6)
+# q and k of this stddev: the scaled scores q.k / sqrt(hd) have stddev
+# ~2.6 and span several units, so the softmax is far from uniform, the
+# running max moves between key tiles (the kernels must rescale O and l)
+# and a softcap of 5 bends the largest scores
+FLASH_QK_STD = 1.6
 # (label, B, H, KV, Sq, Sk, hd, dtype, causal, window, softcap); the first
 # row is the full-width prefill's shape (qwen1.5-0.5b, B 2, S 4096)
 FLASH_SHAPES = [
     ("prefill", 2, 16, 16, 4096, 4096, 64, "float32", True, None, None),
     ("gqa", 1, 8, 2, 300, 300, 64, "float32", True, None, None),
     ("window64", 1, 8, 2, 300, 300, 64, "float32", True, 64, None),
-    ("softcap50", 1, 8, 2, 300, 300, 64, "float32", True, None, 50.0),
+    ("softcap5", 1, 8, 2, 300, 300, 64, "float32", True, None, 5.0),
     ("hd128", 1, 4, 2, 512, 512, 128, "float32", True, None, None),
     ("hd32", 2, 4, 4, 256, 256, 32, "float32", True, None, None),
     ("noncausal", 1, 8, 2, 300, 300, 64, "float32", False, None, None),
@@ -777,6 +801,20 @@ FLASH_SHAPES = [
      None),
     ("nemotron.hd192.bf16", 1, 96, 8, 2048, 2048, 192, "bfloat16", True,
      None, None),
+    # the edge cases in bf16 (the tensor-core kernel), a ragged MHA tile,
+    # hd 16 with a window, and phi3.5-moe's attention at its prefill shape
+    ("gqa.bf16", 1, 8, 2, 300, 300, 64, "bfloat16", True, None, None),
+    ("window64.bf16", 1, 8, 2, 300, 300, 64, "bfloat16", True, 64, None),
+    ("softcap5.bf16", 1, 8, 2, 300, 300, 64, "bfloat16", True, None, 5.0),
+    ("hd128.bf16", 1, 4, 2, 512, 512, 128, "bfloat16", True, None, None),
+    ("hd32.bf16", 2, 4, 4, 256, 256, 32, "bfloat16", True, None, None),
+    ("noncausal.bf16", 1, 8, 2, 300, 300, 64, "bfloat16", False, None,
+     None),
+    ("sq1.bf16", 2, 16, 16, 1, 257, 64, "bfloat16", True, None, None),
+    ("ragged300.bf16", 1, 4, 4, 300, 300, 64, "bfloat16", True, None, None),
+    ("hd16.bf16", 1, 2, 1, 80, 80, 16, "bfloat16", True, 16, None),
+    ("phi3.5-moe.bf16", 2, 32, 8, 4096, 4096, 128, "bfloat16", True, None,
+     None),
 ]
 LM_ARCH = "qwen1.5-0.5b"
 LM_PARAMS = 463_987_712
@@ -799,9 +837,34 @@ def attended_pairs(torch, sq, sk, causal, window) -> int:
     return int(m.sum())
 
 
+def launched_path(mod, call) -> str:
+    """The one path (``mod.PATHS``) whose launch count ``call()`` raised."""
+    before = dict(mod.launches_by_path)
+    call()
+    moved = [p for p in mod.PATHS if mod.launches_by_path[p] != before[p]]
+    if len(moved) != 1 or mod.launches_by_path[moved[0]] != \
+            before[moved[0]] + 1:
+        raise AssertionError(f"one launch on one path expected: "
+                             f"{before} -> {mod.launches_by_path}")
+    return moved[0]
+
+
+def flash_row_err(torch, got, q, k, v, kw) -> float:
+    """The bf16 output ``got`` against the plain version run in f32 on the
+    same inputs, row by row: the largest |error| over its bound under
+    ``FLASH_BF16_ROW_TOL`` (at most 1 passes)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    bound = (FLASH_BF16_ROW_TOL["rtol"] * want.abs()
+             + FLASH_BF16_ROW_TOL["row_atol"] * rms)
+    return float(((got.float() - want).abs() / bound).max())
+
+
 def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
-    """``flash_attention`` against its plain version at ``FLASH_SHAPES``,
-    with device times of the kernel, the plain version and
+    """``flash_attention`` against its plain version at ``FLASH_SHAPES``
+    (bf16 also row by row against the plain version in f32), with device
+    times of the kernel, the plain version and
     ``F.scaled_dot_product_attention`` (the library call, where one computes
     the same function; none for the softcap)."""
     import torch.nn.functional as F
@@ -814,12 +877,16 @@ def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
          softcap) in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q = (torch.randn((B, H, sq, hd), generator=gen, device="cuda")
-             * 0.5).to(dtype)
+             * FLASH_QK_STD).to(dtype)
         k = (torch.randn((B, KV, sk, hd), generator=gen, device="cuda")
-             * 0.5).to(dtype)
+             * FLASH_QK_STD).to(dtype)
         v = torch.randn((B, KV, sk, hd), generator=gen,
                         device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, softcap=softcap)
+        path = launched_path(fa, lambda: fa.flash_attention(q, k, v, **kw))
+        if path != fa.kernel_path(hd, dtype) or \
+                path != ("wgmma" if dt == "bfloat16" else "fma"):
+            raise AssertionError(f"flash {label}: launched {path}")
         got = fa.flash_attention(q, k, v, **kw)
         again = fa.flash_attention(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
@@ -829,6 +896,15 @@ def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
         torch.testing.assert_close(got.float(), want.float(),
                                    **FLASH_TOL[dt])
         err = float((got.float() - want.float()).abs().max())
+        extra = {}
+        if dt == "bfloat16":
+            extra["row_err_over_tol"] = flash_row_err(torch, got, q, k, v,
+                                                      kw)
+            if not extra["row_err_over_tol"] <= 1.0:
+                raise AssertionError(
+                    f"flash {label}: rows off by "
+                    f"{extra['row_err_over_tol']} x {FLASH_BF16_ROW_TOL} "
+                    f"of the plain version in f32")
         del got, again, want
         lib = None
         if softcap is None:
@@ -845,8 +921,9 @@ def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
         rows.append(_row(
             "flash_attention", label,
             {"b": B, "h": H, "kv": KV, "sq": sq, "sk": sk, "hd": hd,
-             "dtype": dt, **{key: val for key, val in kw.items()
-                             if val is not None}}, err, FLASH_TOL[dt],
+             "dtype": dt, "path": path, **extra,
+             **{key: val for key, val in kw.items() if val is not None}},
+            err, FLASH_TOL[dt],
             time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush),
             time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw), flush),
             lib, nbytes, 4 * B * H * hd * pairs, bw,
@@ -910,11 +987,12 @@ class RouteLog:
 ROUTE_TOL = 2 * (PARITY_TOL["atol"] + PARITY_TOL["rtol"])
 
 
-def route_flips(torch, a: RouteLog, b: RouteLog, layers: int):
+def route_flips(torch, a: RouteLog, b: RouteLog, layers: int,
+                tol: float = ROUTE_TOL):
     """Compare two runs' own routing ids, layer by layer: {flipped (token,
     layer) choices, their count per layer, the smallest margin among them,
     the smallest margin of all}. Raises where ids differ though the margin
-    exceeds ROUTE_TOL."""
+    exceeds ``tol``."""
     if len(a.calls) != layers or len(b.calls) != layers:
         raise AssertionError(f"{len(a.calls)} / {len(b.calls)} routed "
                              f"layers, want {layers}")
@@ -925,7 +1003,7 @@ def route_flips(torch, a: RouteLog, b: RouteLog, layers: int):
         per_layer.append(int(diff.sum()))
         if bool(diff.any()):
             flip_margin = min(flip_margin, float(margin[diff].min()))
-            wide = diff & (margin > ROUTE_TOL)
+            wide = diff & (margin > tol)
             if bool(wide.any()):
                 bad.append((layer, int(wide.sum()),
                             float(margin[wide].max())))
@@ -933,10 +1011,10 @@ def route_flips(torch, a: RouteLog, b: RouteLog, layers: int):
     out = {"route_flips": sum(per_layer), "route_flips_per_layer": per_layer,
            "route_flip_min_margin": (flip_margin if sum(per_layer)
                                      else None),
-           "min_route_margin": smallest, "route_tol": ROUTE_TOL}
+           "min_route_margin": smallest, "route_tol": tol}
     if bad:
         raise AssertionError(f"routing differs where the margin exceeds "
-                             f"{ROUTE_TOL}: (layer, tokens, largest margin) "
+                             f"{tol}: (layer, tokens, largest margin) "
                              f"{bad}; {out}")
     return out
 
@@ -1025,6 +1103,69 @@ def layer_count(cfg, ltype: str) -> int:
     return sum(spec[i % len(spec)] == ltype for i in range(cfg.num_layers))
 
 
+def reset_counts(mod) -> None:
+    """Zero a kernel module's launch counts (total and, where the module
+    has two kernels, by path)."""
+    mod.launches = 0
+    if hasattr(mod, "launches_by_path"):
+        mod.launches_by_path = dict.fromkeys(mod.PATHS, 0)
+
+
+def timed_prefills(torch, step, params, batch, kernels, runs: int = 3):
+    """One warm-up and ``runs`` timed calls of ``step(params, batch)``, the
+    kernels' launch counts zeroed first. Instrumentation of this script
+    only: the host clock between synchronisations around each call, CUDA
+    events around each call of the kernels' wrappers (``kernels``: {short
+    name: (module, wrapper name)}), and a ``RouteLog`` of the warm-up (MoE
+    routing ids). Returns the last (logits, states), the times in ms, each
+    kernel's median share of a prefill and the warm-up's ``RouteLog``."""
+    events = {key: [] for key in kernels}
+    saved = {key: getattr(mod, fn) for key, (mod, fn) in kernels.items()}
+
+    def timed(key):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = saved[key](*a, **kw)
+            ev[1].record()
+            events[key].append(ev)
+            return out
+        return call
+
+    for key, (mod, fn) in kernels.items():
+        reset_counts(mod)
+        setattr(mod, fn, timed(key))
+    try:
+        with RouteLog(torch) as routes:
+            out, _ = run_step(torch, step, params, batch)
+        times, shares = [], {key: [] for key in kernels}
+        for _ in range(runs):
+            for evs in events.values():
+                evs.clear()
+            out, ms = run_step(torch, step, params, batch)
+            times.append(ms)
+            for key, evs in events.items():
+                shares[key].append(
+                    sum(a.elapsed_time(b) for a, b in evs) / ms)
+    finally:
+        for key, (mod, fn) in kernels.items():
+            setattr(mod, fn, saved[key])
+    return out, times, {key: statistics.median(v)
+                        for key, v in shares.items()}, routes
+
+
+def run_step(torch, step, params, batch):
+    """``step(params, batch)`` without autograd, and its ms on the host
+    clock between synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        out = step(params, batch)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
              kernels=(FLASH,), seed=7, state_tol=PARITY_TOL, extra=None):
     """One architecture at full width (``arch``, ``n_want`` params): prefill
@@ -1036,7 +1177,7 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     config fields to the prefill line. Phase ``lm``: qwen1.5-0.5b through
     ``flash_attention``; phase ``ssm``: mamba2-780m through ``ssd_scan``;
     phase ``zamba2``: zamba2-7b through both. Returns {module: launches}
-    counted over the four kernel prefills."""
+    counted over the four kernel prefills, and the f32 params."""
     import importlib
     from repro_torch.configs import get_arch
     from repro_torch.core.engine.model_store import GlobalModelStore
@@ -1060,48 +1201,9 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, seed),
                                     device="cuda")}
 
-    # instrumentation of this script only: CUDA events around each kernel
-    # call, host clock around each prefill
-    events = {name: [] for name in mods}
-    wrappers = {name: getattr(mod, name) for name, mod in mods.items()}
-
-    def timed(name):
-        def call(*a, **kw):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = wrappers[name](*a, **kw)
-            ev[1].record()
-            events[name].append(ev)
-            return out
-        return call
-
-    def run(step):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with torch.no_grad():
-            out = step(params, batch)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    prefill = make_prefill_step(cfg, use_kernel=True)
-    for name, mod in mods.items():
-        mod.launches = 0
-        setattr(mod, name, timed(name))
-    try:
-        times, shares = [], {name: [] for name in mods}
-        for i in range(4):                       # one warm-up, three timed
-            for evs in events.values():
-                evs.clear()
-            (logits, states), ms = run(prefill)
-            if i:
-                times.append(ms)
-                for name, evs in events.items():
-                    shares[name].append(
-                        sum(a.elapsed_time(b) for a, b in evs) / ms)
-    finally:
-        for name, mod in mods.items():
-            setattr(mod, name, wrappers[name])
+    (logits, states), times, shares, _ = timed_prefills(
+        torch, make_prefill_step(cfg, use_kernel=True), params, batch,
+        {name: (mod, name) for name, mod in mods.items()})
     launches = {name: mod.launches for name, mod in mods.items()}
     for name, _, ltype in kernels:
         if launches[name] != 4 * layer_count(cfg, ltype):
@@ -1112,8 +1214,8 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} or "
                              f"not finite")
-    (plain_logits, plain_states), plain_ms = run(
-        make_prefill_step(cfg, use_kernel=False))
+    (plain_logits, plain_states), plain_ms = run_step(
+        torch, make_prefill_step(cfg, use_kernel=False), params, batch)
     if {name: mod.launches for name, mod in mods.items()} != launches:
         raise AssertionError("the plain prefill launched a kernel")
     torch.testing.assert_close(logits, plain_logits, rtol=1e-3, atol=1e-3)
@@ -1130,8 +1232,7 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
           "params": n_params, "dtype": "float32", "batch": LM_BATCH,
           "seq": LM_SEQ, "init_s": init_s,
           "ms": order[len(order) // 2], "ms_runs": times,
-          **{f"{short}_share": statistics.median(shares[name])
-             for name, short, _ in kernels},
+          **{f"{short}_share": shares[name] for name, short, _ in kernels},
           **{f"{short}_launches_per_prefill": launches[name] // 4
              for name, short, _ in kernels},
           "plain_ms": plain_ms,
@@ -1153,6 +1254,134 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
           "ms_per_step": dt / SERVE["tokens"] * 1e3,
           "ids": ids.tolist(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, params
+
+
+# the bf16 prefills (phases lm and moe). The bf16 model is the phase's f32
+# model cast to bf16 on the card: registry.init draws every weight in f32
+# and casts it (layers.normal_init), so this is registry.init(0, cfg,
+# dtype=torch.bfloat16) without drawing again (tests/test_torch_bf16.py
+# checks the equality). The kernel path and the plain bf16 path both round
+# to bf16, at other points (flash's P, the order of each sum), so neither
+# is the exact answer. The anchor is the plain path in f32 on the same
+# bf16-valued weights (the f32 model rounded in place) and the kernel run's
+# routing ids. For the logits and every state leaf, the kernel path's
+# relative distance to the anchor (Frobenius) must be at most
+# BF16_ANCHOR_FACTOR x the plain bf16 path's: the kernels may cost no more
+# accuracy than computing in bf16 does. The plain path's own distance must
+# stay under BF16_PLAIN_MAX, far below the ~1.4 of an anchor on other
+# weights or tokens. Routing choices closer than two bf16 tolerances may
+# flip between the kernel and plain paths.
+BF16_ANCHOR_FACTOR = 2.0
+BF16_PLAIN_MAX = 0.25
+BF16_ROUTE_TOL = 2 * (FLASH_TOL["bfloat16"]["atol"]
+                      + FLASH_TOL["bfloat16"]["rtol"])
+
+
+def rel_dist(torch, x, anchor) -> float:
+    """||x - anchor|| / ||anchor|| over the whole tensor, in f32."""
+    x, anchor = x.float(), anchor.float()
+    return float(torch.linalg.vector_norm(x - anchor)
+                 / torch.linalg.vector_norm(anchor))
+
+
+def phase_bf16_prefill(torch, phase, cfg, params, kernels, seed):
+    """``cfg`` at full width in bf16: the phase's f32 ``params`` cast to
+    bf16 on the card, then rounded in place to those bf16 values (the
+    anchor's weights). Prefill B 2 x S 4096 through the kernels
+    (``kernels``: {short name: (module, wrapper name, launches a
+    prefill)}), every launch on the ``"wgmma"`` path, then the plain bf16
+    path on the same batch and, the bf16 model freed, the plain f32 path on
+    the rounded weights (both with the kernel run's routing ids). Returns
+    {short name: launches} over the four kernel prefills."""
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.optim import tree_leaves, tree_map
+    if {t.dtype for t in tree_leaves(params)} != {torch.float32}:
+        raise AssertionError("the bf16 prefill casts an f32 model")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    for t, b in zip(tree_leaves(params), tree_leaves(bf16)):
+        t.copy_(b)
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+    batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, seed),
+                                    device="cuda")}
+    (logits, states), times, shares, kroutes = timed_prefills(
+        torch, make_prefill_step(cfg, use_kernel=True), bf16, batch,
+        {key: (mod, fn) for key, (mod, fn, _) in kernels.items()})
+    launches = {key: mod.launches for key, (mod, _, _) in kernels.items()}
+    by_path = {key: dict(mod.launches_by_path)
+               for key, (mod, _, _) in kernels.items()}
+    for key, (_, _, per) in kernels.items():
+        if by_path[key] != {"wgmma": 4 * per, "fma": 0}:
+            raise AssertionError(f"{key} launches by path in 4 bf16 "
+                                 f"prefills {by_path[key]}, want "
+                                 f"{4 * per} on wgmma")
+    if logits.shape != (LM_BATCH, cfg.vocab_size) or \
+            logits.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bf16 prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype} or not finite")
+    with RouteLog(torch, force=kroutes) as proutes:
+        (plain_logits, plain_states), plain_ms = run_step(
+            torch, make_prefill_step(cfg, use_kernel=False), bf16, batch)
+    n_params = sum(t.numel() for t in tree_leaves(bf16))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del bf16
+    torch.cuda.empty_cache()
+    with RouteLog(torch, force=kroutes):
+        (anchor_logits, anchor_states), _ = run_step(
+            torch, make_prefill_step(cfg, use_kernel=False), params, batch)
+    if {key: mod.launches for key, (mod, _, _) in kernels.items()} \
+            != launches:
+        raise AssertionError("a plain prefill launched a kernel")
+    routing = (route_flips(torch, kroutes, proutes, cfg.num_layers,
+                           BF16_ROUTE_TOL) if cfg.moe is not None else {})
+    outs = [("logits", logits, plain_logits, anchor_logits)] + [
+        (path, a, b, c) for (path, a), (_, b), (_, c) in zip(
+            leaf_items(states, "states"), leaf_items(plain_states, ""),
+            leaf_items(anchor_states, ""))]
+    dist = {key: (rel_dist(torch, got, anchor), rel_dist(torch, plain, anchor))
+            for key, got, plain, anchor in outs}
+    bad = {key: d for key, d in dist.items()
+           if not (d[0] <= BF16_ANCHOR_FACTOR * d[1]
+                   and d[1] <= BF16_PLAIN_MAX)}
+    if bad:
+        raise AssertionError(f"bf16 prefill: (kernel, plain) distances to "
+                             f"the f32 anchor {bad} break the rule "
+                             f"kernel <= {BF16_ANCHOR_FACTOR} x plain <= "
+                             f"{BF16_ANCHOR_FACTOR * BF16_PLAIN_MAX}")
+    states_dist = [d for key, d in dist.items() if key != "logits"]
+    order = sorted(times)
+    emit({"phase": phase, "what": "prefill", "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": "bfloat16", "params": n_params,
+          "weights": "the phase's f32 model cast to bf16 on the card",
+          "batch": LM_BATCH, "seq": LM_SEQ, "cast_s": cast_s,
+          "ms": order[len(order) // 2], "ms_runs": times,
+          **{f"{key}_share": shares[key] for key in kernels},
+          **{f"{key}_launches_per_prefill_by_path":
+             {p: n // 4 for p, n in by_path[key].items()}
+             for key in kernels},
+          "plain_ms": plain_ms,
+          "logits_rel_dist_to_f32": dict(zip(("kernel", "plain"),
+                                             dist["logits"])),
+          "states_rel_dist_to_f32_max": {
+              "kernel": max(d[0] for d in states_dist),
+              "plain": max(d[1] for d in states_dist)},
+          "kernel_over_plain_max": max(d[0] / max(d[1], 1e-30)
+                                        for d in dist.values()),
+          "rule": {"anchor_factor": BF16_ANCHOR_FACTOR,
+                   "plain_max": BF16_PLAIN_MAX},
+          "logits_max_abs_err_vs_plain": float(
+              (logits.float() - plain_logits.float()).abs().max()),
+          "logits_max_abs": float(anchor_logits.abs().max()),
+          "logits_argmax_equal_plain": bool(torch.equal(
+              logits.argmax(-1), plain_logits.argmax(-1))),
+          **routing, "logits_argmax": torch.argmax(logits, -1).tolist(),
+          "peak_mem_gb": peak_gb,
+          "f32_weights_gb_in_peak": 4 * n_params / 1e9})
     return launches
 
 
@@ -1194,6 +1423,10 @@ def phase_gmm_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
             x = torch.randn((E, C, d), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((E, d, f), generator=gen, device="cuda")
                  / math.sqrt(d)).to(dtype)
+            path = launched_path(mg, lambda: mg.gmm(x, w))
+            if path != mg.kernel_path(E, C, d, f, dtype) or \
+                    path != ("wgmma" if dt == "bfloat16" else "fma"):
+                raise AssertionError(f"gmm {label} {dt}: launched {path}")
             got = mg.gmm(x, w)
             again = mg.gmm(x, w)
             want = gmm_ref(x, w)
@@ -1206,7 +1439,8 @@ def phase_gmm_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
             del got, again, want
             es = x.element_size()
             rows.append(_row(
-                "gmm", label, {"e": E, "c": C, "d": d, "f": f, "dtype": dt},
+                "gmm", label, {"e": E, "c": C, "d": d, "f": f, "dtype": dt,
+                               "path": path},
                 err, GMM_TOL[dt],
                 time_ms(torch, lambda: mg.gmm(x, w), flush),
                 time_ms(torch, lambda: gmm_ref(x, w), flush),
@@ -1223,7 +1457,8 @@ def phase_moe(torch):
     """phi3.5-moe-42b-a6.6b at full width, ``MOE_LAYERS`` deep: prefill
     through the kernels, the plain path on the same batch, then
     ``ServingLoop`` greedy decode on the dense MoE path. Returns the
-    kernel launches (gmm, flash) counted over the four kernel prefills."""
+    kernel launches (gmm, flash) counted over the four kernel prefills, and
+    the f32 params."""
     from repro_torch.configs import get_arch
     from repro_torch.core.engine.model_store import GlobalModelStore
     from repro_torch.core.serve import ServingLoop
@@ -1247,50 +1482,9 @@ def phase_moe(torch):
     batch = {"tokens": torch.tensor(_lm_tokens(cfg, MOE_BATCH, MOE_SEQ, 8),
                                     device="cuda")}
 
-    # instrumentation of this script only: CUDA events around each kernel
-    # call, host clock around each prefill
-    events = {"gmm": [], "flash": []}
-    kernels = {"gmm": (mg, "gmm"), "flash": (fa, "flash_attention")}
-    saved = {key: getattr(mod, fn) for key, (mod, fn) in kernels.items()}
-
-    def timed(key):
-        def call(*a, **kw):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = saved[key](*a, **kw)
-            ev[1].record()
-            events[key].append(ev)
-            return out
-        return call
-
-    def run(step):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with torch.no_grad():
-            out = step(params, batch)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    prefill = make_prefill_step(cfg, use_kernel=True)
-    mg.launches, fa.launches = 0, 0
-    for key, (mod, fn) in kernels.items():
-        setattr(mod, fn, timed(key))
-    try:
-        times, shares = [], {"gmm": [], "flash": []}
-        with RouteLog(torch) as kroutes:          # the warm-up run
-            (logits, states), _ = run(prefill)
-        for _ in range(3):
-            for evs in events.values():
-                evs.clear()
-            (logits, states), ms = run(prefill)
-            times.append(ms)
-            for key, evs in events.items():
-                shares[key].append(
-                    sum(a.elapsed_time(b) for a, b in evs) / ms)
-    finally:
-        for key, (mod, fn) in kernels.items():
-            setattr(mod, fn, saved[key])
+    (logits, states), times, shares, kroutes = timed_prefills(
+        torch, make_prefill_step(cfg, use_kernel=True), params, batch,
+        {"gmm": (mg, "gmm"), "flash": (fa, "flash_attention")})
     launches = {"gmm": mg.launches, "flash": fa.launches}
     want = {"gmm": 4 * 3 * cfg.num_layers, "flash": 4 * cfg.num_layers}
     if launches != want:
@@ -1305,8 +1499,8 @@ def phase_moe(torch):
     # a margin under ROUTE_TOL flips; the flips are counted from each run's
     # own ids
     with RouteLog(torch, force=kroutes) as proutes:
-        (plain_logits, plain_states), plain_ms = run(
-            make_prefill_step(cfg, use_kernel=False))
+        (plain_logits, plain_states), plain_ms = run_step(
+            torch, make_prefill_step(cfg, use_kernel=False), params, batch)
     if (mg.launches, fa.launches) != (want["gmm"], want["flash"]):
         raise AssertionError("the plain prefill launched a kernel")
     routing = route_flips(torch, kroutes, proutes, cfg.num_layers)
@@ -1323,8 +1517,7 @@ def phase_moe(torch):
           "active_params": registry.active_param_count(cfg),
           "dtype": "float32", "batch": MOE_BATCH, "seq": MOE_SEQ,
           "init_s": init_s, "ms": order[len(order) // 2], "ms_runs": times,
-          "gmm_share": statistics.median(shares["gmm"]),
-          "flash_share": statistics.median(shares["flash"]),
+          "gmm_share": shares["gmm"], "flash_share": shares["flash"],
           "gmm_launches_per_prefill": launches["gmm"] // 4,
           "flash_launches_per_prefill": launches["flash"] // 4,
           "plain_ms": plain_ms,
@@ -1346,7 +1539,7 @@ def phase_moe(torch):
           "ms_per_step": dt / SERVE["tokens"] * 1e3,
           "ids": ids.tolist(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches
+    return launches, params
 
 
 # ---------------------------------------------------------------------------
@@ -1938,8 +2131,23 @@ def main() -> int:
     phase_mesh_gloo(torch, cifar)
     if not all(mesh_launches.values()):
         raise AssertionError(f"a sharded kernel never ran: {mesh_launches}")
-    flash_launches = phase_lm(torch)["flash_attention"]
-    moe_launches = phase_moe(torch)
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    lm_launches, params = phase_lm(torch)
+    flash_launches = lm_launches["flash_attention"]
+    lm_cfg = get_arch(LM_ARCH)
+    lm_bf16 = phase_bf16_prefill(
+        torch, "lm", lm_cfg, params,
+        {"flash": (fa, "flash_attention", lm_cfg.num_layers)}, 7)
+    del params
+    moe_launches, params = phase_moe(torch)
+    moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    moe_bf16 = phase_bf16_prefill(
+        torch, "moe", moe_cfg, params,
+        {"gmm": (mg, "gmm", 3 * MOE_LAYERS),
+         "flash": (fa, "flash_attention", MOE_LAYERS)}, 8)
+    del params
     ssm_fields = lambda cfg: {
         "layers": cfg.num_layers, "d_model": cfg.d_model,
         "ssm_heads": cfg.ssm.n_heads(cfg.d_model),
@@ -1947,7 +2155,7 @@ def main() -> int:
         "attn_layers": layer_count(cfg, "attn"),
         "head_dim": cfg.head_dim}
     ssd_launches = phase_lm(torch, "ssm", SSM_ARCH, SSM_PARAMS, (SSD,), 9,
-                            SSM_STATE_TOL, ssm_fields)["ssd_scan"]
+                            SSM_STATE_TOL, ssm_fields)[0]["ssd_scan"]
     phase_lm(torch, "zamba2", ZAMBA_ARCH, ZAMBA_PARAMS, (FLASH, SSD), 11,
              SSM_STATE_TOL, ssm_fields)
 
@@ -1986,26 +2194,32 @@ def main() -> int:
                "src/repro_torch/csrc/delta_codec.cu")
         kernels.append(summary(kname, src, replaces, mesh_launches[kname],
                                mine, max(r["max_abs_err"] for r in mine)))
-    # flash_attention: the full-width prefill's shape (one launch of it)
-    top = frows[0]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:114",
-        "launches": flash_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in frows),
-        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}})
-    # gmm: the full-width prefill's gate/up shape in f32 (one launch of it)
-    top = grows[0]
-    kernels.append({
-        "name": "gmm", "route": "cuda",
-        "source": "src/repro_torch/csrc/moe_gmm.cu",
-        "replaces": "src/repro/kernels/moe_gmm.py:61",
-        "launches": moe_launches["gmm"],
-        "max_abs_err": max(r["max_abs_err"] for r in grows),
-        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}})
+    # flash_attention and gmm: the full-width prefill's shape (one launch of
+    # it; gmm at gate/up) in f32 (the FMA kernel), and the same in bf16
+    # (the tensor-core kernel) with the launches of the bf16 prefills
+    def row_of(rows, label, dt):
+        return next(r for r in rows if r["shape"] == label
+                    and r["dtype"] == dt)
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for kname, src, replaces, rows, label, f32_launches, bf16_launches in (
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:114",
+             frows, "prefill", flash_launches,
+             lm_bf16["flash"] + moe_bf16["flash"]),
+            ("gmm", "moe_gmm.cu", "moe_gmm.py:61", grows, "gate_up",
+             moe_launches["gmm"], moe_bf16["gmm"])):
+        f32, bf16 = row_of(rows, label, "float32"), row_of(
+            rows, "bf16" if label == "prefill" else label, "bfloat16")
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": f32_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{key: f32[key] for key in keys}, "path": f32["path"],
+            "bf16_launches": bf16_launches,
+            **{f"bf16_{key}": bf16[key] for key in keys},
+            "bf16_path": bf16["path"]})
     # ssd_scan: the full-width prefill's shape (one launch of it)
     top = srows[0]
     kernels.append({

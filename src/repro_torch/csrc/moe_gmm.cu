@@ -8,41 +8,72 @@
 // d/BD) grid with d innermost and an f32 VMEM accumulator carried from one
 // grid step to the next, and its wrapper padded C to 128. Hopper blocks run
 // in no order and carry nothing between them, so here each CTA owns one
-// (expert, 128 x 128 output tile) and loops over d itself, the sums in
-// registers; ragged edges of C, d and f are masked in the kernel, so any
-// C, d, f >= 1 is taken without padding.
+// (expert, output tile) and loops over d itself, the sums in registers;
+// ragged edges of C, d and f are masked or zero-filled in the kernel, so
+// no padding is needed.
 //
 // What bounds it: operations. At the phi3.5-moe prefill (B 2 x S 4096,
 // top-2 of 16 experts, capacity C = 1280) the gate and up calls are
-// (16, 1280, 4096) @ (16, 4096, 6400): 1.074 TFLOP against 2.54 GB moved,
-// about 420 flops a byte. At the card's f32 rate outside the tensor cores
-// (67 TFLOP/s) that is 16.0 ms; the bytes alone would take 0.76 ms. This
-// first version stays on the FMA units in f32 for f32 and bf16 inputs alike
-// (bf16 is widened as it is staged): TF32 would change the numbers, and
-// wgmma with TMA for bf16 is later work.
+// (16, 1280, 4096) @ (16, 4096, 6400): 1.074 TFLOP against 1.27 GB moved
+// in bf16, about 850 flops a byte, far above the card's ~295 for bf16.
+// The decode-dispatch floor C = 8 is bound by w's 839 MB instead.
 //
-// The design keeps the FMA pipes fed from shared memory:
-//   * one CTA of 256 threads per (f tile, C tile, expert); the grid walks f
-//     tiles fastest, so neighbouring CTAs share their x rows in L2;
-//   * 16-deep slices of x (transposed, rows padded by 4 floats) and of w are
-//     staged in shared memory as f32, with 16-byte loads where the rows
-//     allow; the next slice is loaded into registers while the current one
-//     is multiplied (two shared buffers, one barrier a slice);
-//   * thread (ty, tx) of a 16 x 16 layout owns an 8 x 8 micro-tile of f32
-//     sums: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise
-//     with tx. Each depth step reads 16 floats of shared memory with four
-//     16-byte loads for 64 FMAs; the 16 threads of a half-warp read the
-//     same x words (a broadcast) and neighbouring w words, so shared memory
-//     stays under half busy when the FMA pipes are full.
-// No atomics, and each sum runs over d in one fixed order: a call repeats
-// bit for bit.
+// Two kernels, chosen before launch from dtype and shape alone (the
+// wrapper's kernel_path):
 //
-// The C entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError(); the Python wrapper raises if that is not 0.
+// 1. bf16 with d % 8 == 0 and f % 8 == 0 (TMA's 16-byte strides; every
+//    config's widths qualify): `tc::gmm_wgmma`, on the tensor cores
+//    (989 TFLOP/s dense bf16; bound 1.09 ms at gate/up).
+//    * One CTA per (128-row C tile, 256-column f tile, expert); the grid
+//      walks C tiles fastest, so the CTAs in flight share each w tile in L2
+//      and w streams from device memory about once.
+//    * Warp specialisation, 384 threads: a producer warpgroup (one thread
+//      issues, 40 registers) keeps a ring of 4 stages in flight, each an x
+//      tile (128 x 64 of d, K-major) and a w tile (64 of d x 256, MN-major:
+//      f is contiguous, so wgmma reads B transposed), loaded by TMA with
+//      the 128-byte swizzle and completed on one mbarrier a stage. Two
+//      consumer warpgroups (232 registers) own 64 rows each and run
+//      wgmma m64n256k16 on the stage with their 128 f32 sums in registers;
+//      each hands a stage back (an empty mbarrier) once the next stage's
+//      wgmmas are issued and the stage's own are done, so one group of
+//      wgmmas is always queued behind the running one.
+//    * 3D tensor maps (d, C, E) and (f, d, E): TMA zero-fills the ragged C
+//      and d edges inside one expert, never reading the next.
+//    * The epilogue rounds the f32 sums to bf16 and stores bf16 pairs,
+//      masked to (C, f).
+//    At C = 8 the second warpgroup multiplies zero rows; the tile still
+//    streams w once, which is what bounds that shape.
+//    ptxas (nvcc 12.9): 168 registers, the 384-thread launch bound, of
+//    which setmaxnreg moves the producer to 40 and the consumers to 232;
+//    no spills.
+// 2. f32, and bf16 at other shapes: `gmm_kernel`, plain FMA in f32 on the
+//    CUDA cores (bf16 is widened as it is staged): TF32 would change the
+//    numbers, and f32 has no other tensor-core route. Its ceiling is the
+//    67 TFLOP/s f32 rate (16.0 ms at gate/up). It keeps the FMA pipes fed
+//    from shared memory:
+//    * one CTA of 256 threads per (f tile, C tile, expert), 128 x 128;
+//    * 16-deep slices of x (transposed, rows padded by 4 floats) and of w
+//      staged in shared memory as f32, with 16-byte loads where the rows
+//      allow; the next slice is loaded into registers while the current
+//      one is multiplied (two shared buffers, one barrier a slice);
+//    * thread (ty, tx) of a 16 x 16 layout owns an 8 x 8 micro-tile of f32
+//      sums: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise
+//      with tx; each depth step reads 16 floats of shared memory with four
+//      16-byte loads for 64 FMAs.
+//    ptxas: 128 registers; the f32 instantiation with scalar loads (d or
+//    f not a multiple of 4) spills 72 bytes, the others none.
+// Neither uses atomics or splits d: each sum runs over d in one fixed
+// order, so a call repeats bit for bit.
+//
+// The C entry points launch on the caller's stream, allocate nothing and
+// return cudaGetLastError() (or a tensor-map error, hopper.cuh); the Python
+// wrapper raises if that is not 0.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -259,6 +290,111 @@ cudaError_t dispatch_vec(int vec, const void* x, const void* w, void* out,
              : launch<T, false>(x, w, out, E, C, d, f, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBM = 128;                  // rows of C per CTA (two warpgroups)
+constexpr int kBN = 256;                  // columns of f per CTA
+constexpr int kBK = 64;                   // depth of d per stage: 128-byte rows
+constexpr int kStages = 4;
+constexpr int kABytes = kBM * kBK * 2;    // x tile, K-major, 16 KB
+constexpr int kBChunk = kBK * 64 * 2;     // w tile: 64 columns x 64 deep, 8 KB
+constexpr int kBBytes = (kBN / 64) * kBChunk;
+constexpr int kStageBytes = kABytes + kBBytes;   // 48 KB
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kThreads = 384;             // consumers 0-255, producer 256-383
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_wgmma(const __grid_constant__ CUtensorMap tx,
+          const __grid_constant__ CUtensorMap tw, __nv_bfloat16* out, int C,
+          int d, int f) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int e = blockIdx.z;
+  const int nk = (d + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);            // one arrival per consumer group
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], kStageBytes);
+        uint8_t* a = smem + s * kStageBytes;
+        tma_load_3d(a, &tx, &full[s], kt * kBK, m0, e);
+#pragma unroll
+        for (int c = 0; c < kBN / 64; ++c)
+          tma_load_3d(a + kABytes + c * kBChunk, &tw, &full[s], n0 + c * 64,
+                      kt * kBK, e);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63, all kBN columns
+  setmaxnreg_inc<232>();
+  float acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint32_t a = smem_u32(smem + s * kStageBytes) + wg * 64 * 128;
+    const uint32_t b = smem_u32(smem + s * kStageBytes + kABytes);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kBK / 16; ++k) {
+      // x: 16 more of d inside the 128-byte row; w: 16 more rows of d
+      wgmma_m64n256k16_ss<1>(
+          acc, make_desc(a + k * 32, 16, 1024, kSwizzle128),
+          make_desc(b + k * 16 * 128, kBChunk, 1024, kSwizzle128), 1);
+    }
+    wgmma_commit();
+    // the previous stage's products are done: hand its slot back
+    wgmma_wait<1>();
+    if (kt > 0 && threadIdx.x % 128 == 0)
+      mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+
+  const int lane = threadIdx.x % 32;
+  const int row = m0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  __nv_bfloat16* oe = out + static_cast<int64_t>(e) * C * f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= f) continue;               // f % 8 == 0: pairs stay whole
+    if (row < C)
+      *reinterpret_cast<uint32_t*>(oe + static_cast<int64_t>(row) * f + col) =
+          pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < C)
+      *reinterpret_cast<uint32_t*>(oe + static_cast<int64_t>(row + 8) * f +
+                                   col) =
+          pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (E, C, d), w (E, d, f), out (E, C, f), all contiguous and of one dtype
@@ -275,4 +411,36 @@ extern "C" int gmm_launch(const void* x, const void* w, void* out, int E,
       return dispatch_vec<__nv_bfloat16>(vec, x, w, out, E, C, d, f, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// x (E, C, d), w (E, d, f), out (E, C, f), all contiguous bf16 and
+// 16-byte aligned, d % 8 == 0, f % 8 == 0; E, C, f >= 1, E and
+// ceil(f / 256) at most 65535 (the wrapper checks).
+extern "C" int gmm_wgmma_launch(const void* x, const void* w, void* out,
+                                int E, int C, int d, int f, void* stream) {
+  using namespace hopper;
+  CUtensorMap tx, tw;
+  const uint64_t xdims[3] = {static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(C),
+                             static_cast<uint64_t>(E)};
+  const uint64_t xstrides[2] = {2ull * d, 2ull * C * d};
+  const uint32_t xbox[3] = {tc::kBK, tc::kBM, 1};
+  int err = encode_bf16_map(&tx, x, 3, xdims, xstrides, xbox, kSwizzle128);
+  if (err != 0) return err;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(f),
+                             static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(E)};
+  const uint64_t wstrides[2] = {2ull * f, 2ull * d * f};
+  const uint32_t wbox[3] = {64, tc::kBK, 1};
+  err = encode_bf16_map(&tw, w, 3, wdims, wstrides, wbox, kSwizzle128);
+  if (err != 0) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tc::gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((C + tc::kBM - 1) / tc::kBM, (f + tc::kBN - 1) / tc::kBN,
+                  E);
+  tc::gmm_wgmma<<<grid, tc::kThreads, tc::kSmem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, static_cast<__nv_bfloat16*>(out), C, d, f);
+  return cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>.so`` under the
 repository root (a directory ``.gitignore`` lists): a plain C interface,
-compiled for ``sm_90a`` at first use and rebuilt when its source is newer
-than the library. Nothing here runs at import time: the CPU tests import
-every module on a machine with no ``nvcc``.
+compiled for ``sm_90a`` at first use and rebuilt when its source, or a
+shared header ``csrc/*.cuh``, is newer than the library. Nothing here runs
+at import time: the CPU tests import every module on a machine with no
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -54,17 +55,27 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # (q, k, v, o, dims[6], strides[12], causal, window, softcap, scale,
-        #  dtype, stream); dims and strides are host int64 arrays
+        #  dtype, stream), f32 only; dims and strides are host int64 arrays
         "flash_attention_launch": (
             [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_float,
                                      ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+        # the same without dtype (bf16 only)
+        "flash_attention_wgmma_launch": (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_void_p],
             ctypes.c_int),
     },
     "moe_gmm": {
         # (x, w, out, E, C, d, f, dtype, vec, stream)
         "gmm_launch": (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            ctypes.c_int),
+        # (x, w, out, E, C, d, f, stream), bf16 only
+        "gmm_wgmma_launch": (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
             ctypes.c_int),
     },
     "ssd_scan": {
@@ -97,9 +108,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or than any shared
+    header (``csrc/*.cuh``, which every source may include)."""
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names: Optional[List[str]] = None) -> List[str]:

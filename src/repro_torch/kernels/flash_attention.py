@@ -1,15 +1,18 @@
 """Flash-attention forward: the CUDA kernel's wrapper.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``. It is bound by
+The kernels (``csrc/flash_attention.cu``) replace the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``. They are bound by
 operations (4 hd flops per query-key pair against hd elements per row); the
-source note says how the design serves that.
+source note says how each design serves that. ``kernel_path`` picks one
+before launch, from dtype and head dim alone: ``"wgmma"`` (tensor cores,
+fed by TMA) for bf16, ``"fma"`` (f32 on the CUDA cores) for f32.
 
 Layout (B, H, S, hd) as the reference's kernel, read through strides: the
 model's (B, S, H, hd) tensors pass as transposed views, without a copy.
 For tensors on the CPU the wrapper runs the plain version
 (``ref.flash_attention_ref``); for CUDA tensors it launches the kernel or
-raises. ``launches`` counts kernel launches, and only those.
+raises. ``launches`` counts kernel launches, and only those;
+``launches_by_path`` splits them by path.
 """
 from __future__ import annotations
 
@@ -22,14 +25,28 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
+#: the two kernels of csrc/flash_attention.cu
+PATHS = ("wgmma", "fma")
 #: kernel launches made by ``flash_attention`` in this process
 launches = 0
+#: the same, by path
+launches_by_path = dict.fromkeys(PATHS, 0)
 
 # dtype tags of csrc/flash_attention.cu
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 # the configs' head dims; 112 is zamba2-7b's shared block, 192 is
 # nemotron-4-340b's (each an instantiation in the source)
 HEAD_DIMS = (16, 32, 64, 112, 128, 192)
+
+
+def kernel_path(hd: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of this head dim and dtype launches:
+    ``"wgmma"`` for bf16, ``"fma"`` for f32 (both take every hd in
+    ``HEAD_DIMS``; the wrapper refuses any other)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got {hd}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -68,9 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    softcap=softcap)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    path = kernel_path(hd, q.dtype)
     if Sk == 0:
         raise ValueError("flash_attention needs Sk > 0")
     out = torch.empty_like(q)
@@ -82,19 +97,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dims = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, hd)
     strides = (ctypes.c_int64 * 12)(*[s for t in (q, k, v, out)
                                       for s in t.stride()[:3]])
+    opts = (int(causal), -1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd))
     lib = _build.load("flash_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ctypes.addressof(dims), ctypes.addressof(strides), int(causal),
-            -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap),
-            1.0 / math.sqrt(hd), _DTYPE_TAGS[q.dtype], stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ctypes.addressof(dims), ctypes.addressof(strides))
+        if path == "wgmma":
+            err = lib.flash_attention_wgmma_launch(*ptrs, *opts, stream)
+        else:
+            err = lib.flash_attention_launch(*ptrs, *opts,
+                                             _DTYPE_TAGS[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+        raise RuntimeError(f"flash_attention kernel ({path}) launch failed: "
                            f"error {err} for q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)} {q.dtype}")
     global launches
     launches += 1
+    launches_by_path[path] += 1
     return out

@@ -1,16 +1,19 @@
 """Grouped matmul of the MoE expert FFN: the CUDA kernel's wrapper.
 
-The kernel (``csrc/moe_gmm.cu``) replaces the Pallas TPU kernel
+The kernels (``csrc/moe_gmm.cu``) replace the Pallas TPU kernel
 ``repro/kernels/moe_gmm.py::gmm``: ``out[e] = x[e] @ w[e]`` for x (E, C, d)
-and w (E, d, f), summed in f32 and stored in x's dtype. It is bound by
-operations at the shapes the MoE prefill gives it; the source note says how
-the design serves that.
+and w (E, d, f), summed in f32 and stored in x's dtype. They are bound by
+operations at the shapes the MoE prefill gives them; the source note says
+how each design serves that. ``kernel_path`` picks one before launch, from
+dtype and shape alone: ``"wgmma"`` (tensor cores, fed by TMA) for bf16 with
+d and f multiples of 8, ``"fma"`` (f32 on the CUDA cores) for the rest.
 
 For tensors on the CPU the wrapper runs the plain version
-(``ref.gmm_ref``); for CUDA tensors it launches the kernel or raises.
-``launches`` counts kernel launches, and only those. ``gmm`` is a
-``torch.autograd.Function``: its backward differentiates the plain version,
-as the reference has no backward kernel.
+(``ref.gmm_ref``); for CUDA tensors it launches a kernel or raises.
+``launches`` counts kernel launches, and only those; ``launches_by_path``
+splits them by path. ``gmm`` is a ``torch.autograd.Function``: its
+backward differentiates the plain version, as the reference has no
+backward kernel.
 """
 from __future__ import annotations
 
@@ -19,13 +22,33 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gmm_ref
 
+#: the two kernels of csrc/moe_gmm.cu
+PATHS = ("wgmma", "fma")
 #: kernel launches made by ``gmm`` in this process
 launches = 0
+#: the same, by path
+launches_by_path = dict.fromkeys(PATHS, 0)
 
 # dtype tags of csrc/moe_gmm.cu
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
-_BM = 128                 # rows of C per CTA (csrc/moe_gmm.cu kBM)
+# tiles of each path (csrc/moe_gmm.cu): rows of C, columns of f a CTA
+_TILES = {"wgmma": (128, 256), "fma": (128, 128)}
 _GRID_MAX = 65535         # CUDA's limit on grid.y and grid.z
+
+
+def kernel_path(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with these shapes and dtype launches:
+    ``"wgmma"`` for bf16 whose rows of x and w are whole 16-byte units (d
+    and f multiples of 8: TMA's stride rule), else ``"fma"``. Any E and C
+    take either path."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        return "wgmma"
+    return "fma"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if it starts 16-byte aligned (TMA's rule), else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -49,27 +72,38 @@ def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gmm runs on cuda or cpu, not {dev}")
     E, C, d = x.shape
     f = w.shape[2]
-    if E > _GRID_MAX or -(-C // _BM) > _GRID_MAX \
+    path = kernel_path(E, C, d, f, x.dtype)
+    bm, bn = _TILES[path]
+    grid_y = -(-f // bn) if path == "wgmma" else -(-C // bm)
+    if E > _GRID_MAX or grid_y > _GRID_MAX \
             or max(C * d, d * f, C * f) >= 2 ** 31:
         raise ValueError(f"gmm kernel: shape {(E, C, d, f)} past its grid "
                          f"or 32-bit index limits")
     out = torch.empty((E, C, f), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    vw = 16 // x.element_size()
-    vec = int(d % vw == 0 and f % vw == 0 and x.data_ptr() % 16 == 0
-              and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     lib = _build.load("moe_gmm")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), E,
-                             C, d, f, _DTYPE_TAGS[x.dtype], vec, stream)
+        if path == "wgmma":
+            x, w = _aligned(x), _aligned(w)
+            err = lib.gmm_wgmma_launch(x.data_ptr(), w.data_ptr(),
+                                       out.data_ptr(), E, C, d, f, stream)
+        else:
+            vw = 16 // x.element_size()
+            vec = int(d % vw == 0 and f % vw == 0 and x.data_ptr() % 16 == 0
+                      and w.data_ptr() % 16 == 0
+                      and out.data_ptr() % 16 == 0)
+            err = lib.gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                 E, C, d, f, _DTYPE_TAGS[x.dtype], vec,
+                                 stream)
     if err != 0:
-        raise RuntimeError(f"gmm kernel launch failed: CUDA error {err} for "
-                           f"x {tuple(x.shape)}, w {tuple(w.shape)} "
+        raise RuntimeError(f"gmm kernel ({path}) launch failed: error {err} "
+                           f"for x {tuple(x.shape)}, w {tuple(w.shape)} "
                            f"{x.dtype}")
     global launches
     launches += 1
+    launches_by_path[path] += 1
     return out
 
 

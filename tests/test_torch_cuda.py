@@ -345,7 +345,7 @@ FA_CASES = [
     (2, 16, 16, 512, 512, 64, True, None, None),    # qwen1.5-0.5b heads
     (1, 8, 2, 300, 300, 64, True, None, None),      # GQA, no tile multiple
     (1, 8, 2, 300, 300, 64, True, 64, None),        # window
-    (1, 8, 2, 300, 300, 64, True, None, 50.0),      # softcap
+    (1, 8, 2, 300, 300, 64, True, None, 5.0),       # softcap
     (1, 4, 2, 512, 512, 128, True, 4096, 50.0),     # gemma2 hd 128
     (2, 4, 4, 96, 96, 32, True, None, None),        # reduced configs' hd
     (1, 2, 1, 80, 80, 16, True, 16, None),          # hd 16
@@ -355,18 +355,40 @@ FA_CASES = [
     (2, 4, 2, 1, 257, 64, False, None, None),
     (2, 32, 32, 4096, 4096, 112, True, None, None),  # zamba2-7b's block
     (1, 96, 8, 2048, 2048, 192, True, None, None),   # nemotron-4-340b, GQA
-    (1, 8, 2, 300, 300, 112, True, 64, 30.0),        # hd 112: window, cap
+    (1, 8, 2, 300, 300, 112, True, 64, 5.0),         # hd 112: window, cap
     (1, 4, 2, 200, 200, 192, False, None, None),     # hd 192: non-causal
 ]
+
+
+# q and k of stddev 1.6: the scaled scores q.k / sqrt(hd) have stddev ~2.6
+# and span several units, so the softmax is far from uniform, the running
+# max moves between key tiles (the kernels must rescale O and l) and a
+# softcap of 5 bends the largest scores
+QK_STD = 1.6
+# bf16 outputs row by row against the plain version in f32 on the same
+# inputs: rtol x |want| + row_atol x the row's RMS (the wgmma kernel rounds
+# P and the output to bf16, 2^-9 relative each)
+FA_BF16_ROW_TOL = dict(rtol=2 ** -7, row_atol=2 ** -6)
 
 
 def _fa_inputs(case, dtype, cuda, seed=0):
     B, H, KV, Sq, Sk, hd = case[:6]
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn((B, H, Sq, hd), generator=g) * 0.5
-    k = torch.randn((B, KV, Sk, hd), generator=g) * 0.5
+    q = torch.randn((B, H, Sq, hd), generator=g) * QK_STD
+    k = torch.randn((B, KV, Sk, hd), generator=g) * QK_STD
     v = torch.randn((B, KV, Sk, hd), generator=g)
     return [t.to(cuda, dtype) for t in (q, k, v)]
+
+
+def _assert_bf16_rows_close(got, q, k, v, **kw):
+    """``got`` (bf16) within ``FA_BF16_ROW_TOL`` of the plain version run in
+    f32 on the same inputs, every row held to its own scale."""
+    want = tref.flash_attention_ref(*(t.float() for t in (q, k, v)), **kw)
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    bound = (FA_BF16_ROW_TOL["rtol"] * want.abs()
+             + FA_BF16_ROW_TOL["row_atol"] * rms)
+    ratio = float(((got.float() - want).abs() / bound).max())
+    assert ratio <= 1.0, f"bf16 rows off by {ratio} x the row tolerance"
 
 
 @pytest.mark.cuda
@@ -385,6 +407,8 @@ def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
     assert torch.equal(got, again)               # fixed order: repeatable
     want = tref.flash_attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+    if dtype == torch.bfloat16:
+        _assert_bf16_rows_close(got, q, k, v, **kw)
 
 
 @pytest.mark.cuda
@@ -408,6 +432,114 @@ def test_flash_attention_reads_model_layout_views_and_grads(cuda):
     torch.testing.assert_close(out, want, **FA_TOL[torch.float32])
     for got, ref in zip((q, k, v), refs):
         torch.testing.assert_close(got.grad, ref.grad, **FA_TOL[torch.float32])
+
+
+# the bf16 path (the tensor-core kernel) at every head dim the kernels take:
+# (label, B, H, KV, Sq, Sk, causal, window, softcap)
+FA_WGMMA_VARIANTS = [
+    ("causal", 1, 4, 2, 200, 200, True, None, None),
+    ("noncausal", 1, 4, 4, 200, 200, False, None, None),
+    ("window", 1, 4, 2, 300, 300, True, 64, None),
+    ("softcap", 1, 4, 2, 300, 300, True, None, 5.0),
+    ("gqa_sq_lt_sk", 2, 8, 2, 130, 257, True, None, None),
+    ("sq_gt_sk", 1, 4, 2, 257, 130, False, 200, None),
+    ("ragged", 2, 2, 1, 1, 77, True, None, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", FA_WGMMA_VARIANTS, ids=lambda v: v[0])
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_flash_attention_bf16_runs_the_wgmma_kernel(cuda, hd, variant):
+    B, H, KV, Sq, Sk, causal, window, softcap = variant[1:]
+    case = (B, H, KV, Sq, Sk, hd)
+    q, k, v = _fa_inputs(case, torch.bfloat16, cuda, seed=hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    assert tfa.kernel_path(hd, torch.bfloat16) == "wgmma"
+    before = dict(tfa.launches_by_path)
+    got = tfa.flash_attention(q, k, v, **kw)
+    again = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches_by_path == {"wgmma": before["wgmma"] + 2,
+                                    "fma": before["fma"]}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again)               # fixed order: repeatable
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FA_TOL[torch.bfloat16])
+    _assert_bf16_rows_close(got, q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_flash_attention_bf16_reads_model_layout_views(cuda, hd):
+    """The wgmma kernel's tensor maps take the (B, S, H, hd) tensors'
+    transposed views with their own strides, as ops.flash_attention hands
+    them over."""
+    g = torch.Generator().manual_seed(hd)
+    B, S, H, KV = 2, 130, 8, 2
+    q, k, v = ((torch.randn(shape, generator=g) * std).to(cuda,
+                                                          torch.bfloat16)
+               for shape, std in (((B, S, H, hd), QK_STD),
+                                  ((B, S, KV, hd), QK_STD),
+                                  ((B, S, KV, hd), 1.0)))
+    kw = dict(causal=True, window=40, softcap=5.0)
+    before = dict(tfa.launches_by_path)
+    out = tops.flash_attention(q, k, v, **kw)
+    assert tfa.launches_by_path["wgmma"] == before["wgmma"] + 1
+    assert out.is_contiguous() and out.shape == q.shape
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    want = tref.flash_attention_ref(*views, **kw).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **FA_TOL[torch.bfloat16])
+    _assert_bf16_rows_close(out.transpose(1, 2), *views, **kw)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_fully_masked_rows_match_the_fma_kernel(cuda):
+    """Rows whose window holds no key (Sq > Sk + window - 1; no model path
+    makes them) come out of the wgmma kernel as out of the FMA kernel (and
+    the Pallas kernel): each 64-row group visits the same key tiles, whose
+    masked scores are all equal. The plain version spreads such a row over
+    every key instead (ROADMAP known difference)."""
+    q, k, v = _fa_inputs((1, 4, 2, 257, 130, 64), torch.bfloat16, cuda)
+    kw = dict(causal=False, window=48)
+    got = tfa.flash_attention(q, k, v, **kw)
+    fma = tfa.flash_attention(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), fma, **FA_TOL[torch.bfloat16])
+    rows = torch.arange(257, device=cuda) >= 130 + 48 - 1   # fully masked
+    assert bool(rows.any())
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    assert not torch.allclose(got[:, :, rows].float(),
+                              want[:, :, rows].float(),
+                              **FA_TOL[torch.bfloat16])
+
+@pytest.mark.cuda
+def test_flash_attention_f32_runs_the_fma_kernel(cuda):
+    q, k, v = _fa_inputs((1, 4, 2, 100, 100, 64), torch.float32, cuda)
+    assert tfa.kernel_path(64, torch.float32) == "fma"
+    before = dict(tfa.launches_by_path)
+    tfa.flash_attention(q, k, v)
+    assert tfa.launches_by_path == {"wgmma": before["wgmma"],
+                                    "fma": before["fma"] + 1}
+
+
+@pytest.mark.cuda
+def test_flash_attention_fma_entry_refuses_bf16(cuda):
+    """bf16 has one kernel, the wgmma one: the FMA kernel's C entry point
+    returns an error for the bf16 tag and launches nothing."""
+    import ctypes
+    from repro_torch.kernels import _build
+    q = torch.zeros((1, 2, 64, 64), device=cuda, dtype=torch.bfloat16)
+    out = torch.full_like(q, 7.0)
+    dims = (ctypes.c_int64 * 6)(1, 2, 2, 64, 64, 64)
+    strides = (ctypes.c_int64 * 12)(*(list(q.stride()[:3]) * 4))
+    err = _build.load("flash_attention").flash_attention_launch(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+        ctypes.addressof(dims), ctypes.addressof(strides), 1, -1, 0.0,
+        0.125, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and bool((out == 7.0).all())
 
 
 @pytest.mark.cuda
@@ -463,6 +595,44 @@ def test_gmm_kernel_matches_plain_version(cuda, case, dtype):
     assert torch.equal(got, again)               # fixed order: repeatable
     want = tref.gmm_ref(x, w)
     torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+
+
+# bf16 through the tensor-core kernel at C = 1, 8, 100, 257 and 1280 (E, C,
+# d, f); d or f no multiple of 8 takes the FMA kernel
+GMM_WGMMA_CASES = [(2, 1, 64, 64), (16, 8, 4096, 640), (8, 100, 512, 384),
+                   (2, 257, 320, 640), (2, 1280, 256, 520)]
+GMM_BF16_FMA_CASES = [(2, 64, 100, 96), (2, 64, 96, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_WGMMA_CASES + GMM_BF16_FMA_CASES,
+                         ids=str)
+def test_gmm_bf16_runs_the_kernel_its_path_names(cuda, case):
+    E, C, d, f = case
+    x, w = _gmm_inputs(case, torch.bfloat16, cuda)
+    path = tmg.kernel_path(E, C, d, f, torch.bfloat16)
+    assert path == ("wgmma" if case in GMM_WGMMA_CASES else "fma")
+    before = dict(tmg.launches_by_path)
+    got = tmg.gmm(x, w)
+    again = tmg.gmm(x, w)
+    torch.cuda.synchronize()
+    assert tmg.launches_by_path == {
+        p: before[p] + (2 if p == path else 0) for p in tmg.PATHS}
+    assert got.dtype == torch.bfloat16 and got.shape == (E, C, f)
+    assert torch.equal(got, again)               # fixed order: repeatable
+    want = tref.gmm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_gmm_f32_runs_the_fma_kernel(cuda):
+    x, w = _gmm_inputs((2, 64, 64, 64), torch.float32, cuda)
+    assert tmg.kernel_path(2, 64, 64, 64, torch.float32) == "fma"
+    before = dict(tmg.launches_by_path)
+    tmg.gmm(x, w)
+    assert tmg.launches_by_path == {"wgmma": before["wgmma"],
+                                    "fma": before["fma"] + 1}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,10 @@
 """The port's ``fedavg_reduce``: its plain version and CPU dispatch against the
-reference's Pallas kernel (interpret mode) and oracle. The CUDA kernel
-against its plain version is tests/test_torch_cuda.py."""
+reference's Pallas kernel (interpret mode) and oracle. Also the build's
+staleness rule and the ``kernel_path`` routing of ``gmm`` and
+``flash_attention``, which need no card. The CUDA kernels against their
+plain versions are tests/test_torch_cuda.py."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,3 +104,86 @@ def test_fedavg_reduce_tree_on_cnn_shaped_tree():
 def test_fedavg_reduce_rejects_what_the_kernel_does_not_take(x, w, err):
     with pytest.raises(err):
         tfr.fedavg_reduce(x, w)
+
+
+# ---------------------------------------------------------------------------
+# the build's staleness rule and the kernels' routing (pure: no card)
+# ---------------------------------------------------------------------------
+
+def test_build_is_stale_after_its_source_or_a_shared_header_changes(
+        tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, header, lib = csrc / "k.cu", csrc / "hopper.cuh", build / "libk.so"
+    for p in (src, header):
+        p.write_text("// source\n")
+    assert _build._stale("k")                         # never built
+    lib.write_bytes(b"")
+
+    def touch(path, t):
+        os.utime(path, (t, t))
+
+    for p in (src, header):
+        touch(p, 1000)
+    touch(lib, 2000)
+    assert not _build._stale("k")
+    touch(header, 3000)                               # the header moved on
+    assert _build._stale("k")
+    touch(lib, 4000)
+    assert not _build._stale("k")
+    touch(src, 5000)                                  # the source moved on
+    assert _build._stale("k")
+    touch(src, 1000)
+    (csrc / "other.cuh").write_text("// another header\n")
+    touch(csrc / "other.cuh", 6000)                   # any csrc/*.cuh counts
+    assert _build._stale("k")
+
+
+def _attention_configs():
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models.transformer import cycle_spec
+    cfgs = [get_arch(n) for n in ARCHS] + [get_arch(f"{n}-reduced")
+                                           for n in ARCHS]
+    return [c for c in cfgs if "attn" in cycle_spec(c)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_path_for_every_config(dtype):
+    """bf16 takes the wgmma kernel at every config's head dim, f32 the FMA
+    kernel; a head dim outside ``HEAD_DIMS`` is refused."""
+    from repro_torch.kernels import flash_attention as tfa
+    cfgs = _attention_configs()
+    assert {c.head_dim for c in cfgs} <= set(tfa.HEAD_DIMS)
+    assert {112, 128} <= {c.head_dim for c in cfgs}
+    want = "wgmma" if dtype == "bfloat16" else "fma"
+    for cfg in cfgs:
+        assert tfa.kernel_path(cfg.head_dim, TORCH[dtype]) == want, cfg.name
+    with pytest.raises(ValueError):
+        tfa.kernel_path(48, TORCH[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_kernel_path_for_every_moe_config(dtype):
+    """The gate/up and down calls of every MoE config's prefill (B 2 x S
+    4096 and the reduced configs' B 2 x S 96) take the wgmma kernel in
+    bf16 and the FMA kernel in f32; bf16 rows that are no whole 16-byte
+    units take the FMA kernel."""
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.kernels import moe_gmm as tmg
+    from repro_torch.models.moe import capacity
+    cfgs = [get_arch(n) for n in ARCHS if ARCHS[n].moe is not None]
+    cfgs += [get_arch(f"{c.name}-reduced") for c in cfgs]
+    assert len(cfgs) == 4
+    want = "wgmma" if dtype == "bfloat16" else "fma"
+    for cfg in cfgs:
+        E = cfg.moe.num_experts
+        for tokens in (2 * 4096, 2 * 96):
+            C = capacity(cfg, tokens)
+            for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+                assert tmg.kernel_path(E, C, d, f, TORCH[dtype]) == want
+    for d, f in ((100, 64), (64, 100), (7, 9)):
+        assert tmg.kernel_path(4, 128, d, f, TORCH[dtype]) == "fma"
