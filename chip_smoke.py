@@ -21,8 +21,12 @@ exits non-zero without printing a result:
               and N=1 shapes; the four wire-path kernels at every CIFAR100
               (N=25) and FEMNIST (N=60) leaf, both int8 plane counts, top-k
               at S = ceil(0.1 M), plus the edge shapes (M % 16 != 0, M = 1,
-              an empty payload, -1 padding, a duplicate index, bf16 ref);
-              the top-k reduce must repeat bitwise;
+              an empty payload, -1 padding, a duplicate index, bf16 ref)
+              and a collision-heavy top-k payload (every row the same
+              indices, values of +-1e8 and +-1, at N = 25 and 60, where
+              another order of the rows changes the sum); the top-k kernels
+              must equal their plain versions exactly and repeat bitwise,
+              the apply in bf16 too at every leaf;
 4. parity   — one narrow CIFAR100 round on the card (kernels) against the
               same round on the CPU (plain versions), plain and with the
               int8 uplink and downlink (two rounds, the second from the
@@ -36,8 +40,8 @@ exits non-zero without printing a result:
               each of three codec configurations (int8 up / int8x2 down,
               int8x2 up / int8 down, top-k both ways at 10%); ms per round,
               each kernel's and the encoders' device ms per round, and launch
-              counts that must equal rounds x leaves (x N for the per-row
-              top-k reduce);
+              counts that must equal rounds x leaves (one launch a call
+              for every kernel, the top-k reduce included);
 7. lm       — the dense LM serving path. Phase ``kernel`` rows hold
               ``flash_attention`` against its plain version at the prefill
               shape and edge shapes (GQA, window, softcap, hd 128 and 32,
@@ -360,6 +364,24 @@ def _check(torch, got, want, tol, what):
 REDUCE_TOL = {"rel_max": 1e-5}
 # a duplicate index inside a row: its atomic adds land in any order
 DUP_TOL = {"rel_max": 1e-6}
+# the bf16 apply rounds to bf16 once per add of a duplicate index
+BF16_DUP_TOL = {"rel_max": 2 ** -7}
+# the top-k kernels' design (csrc/delta_codec.cu): one cooperative launch
+# a call, a grid barrier between client rows (one block for short rows)
+TOPK_DESIGN = "grid"
+
+
+def collide_payload(torch, gen, n: int, s: int, m: int):
+    """(N, S) top-k payload on which the order of the rows shows: every
+    row holds the same S indices, each row in its own order, with values of
+    +-1e8 and +-1, so a sum that takes the rows out of order rounds
+    differently."""
+    base = torch.randperm(m, generator=gen, device="cuda")[:s]
+    idx = torch.stack([base[torch.randperm(s, generator=gen, device="cuda")]
+                       for _ in range(n)]).to(torch.int32)
+    mag = torch.tensor([1e8, -1e8, 1.0, -1.0], device="cuda")
+    vals = mag[torch.randint(0, 4, (n, s), generator=gen, device="cuda")]
+    return vals, idx
 
 
 def phase_wire_kernels(torch, bw: float, f32_peak: float):
@@ -427,30 +449,43 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
                         flush), lib,
                 2 * m * es + k * (m + 4), 2 * k * m, bw, f32_peak))
 
-    def topk_rows(label, n, m, ref_dtype=torch.float32, idx=None, tol="exact"):
+    def topk_rows(label, n, m, ref_dtype=torch.float32, idx=None, tol="exact",
+                  vals=None, w=None):
         s = idx.shape[1] if idx is not None else math.ceil(TOPK_FRAC * m)
         idx = distinct_idx(n, s, m) if idx is None else idx
-        vals = torch.randn(idx.shape, generator=gen, device=dev)
-        w = torch.softmax(torch.randn((n,), generator=gen, device=dev), 0)
-        got = dc.topk_scatter_reduce(vals, idx, w, m)
-        again = dc.topk_scatter_reduce(vals, idx, w, m)
-        if not torch.equal(got, again):
+        if vals is None:
+            vals = torch.randn(idx.shape, generator=gen, device=dev)
+        if w is None:
+            w = torch.softmax(torch.randn((n,), generator=gen, device=dev), 0)
+        got = [dc.topk_scatter_reduce(vals, idx, w, m) for _ in range(3)]
+        if not all(torch.equal(got[0], g) for g in got[1:]):
             raise AssertionError(f"{label}: top-k reduce not repeatable")
-        err = _check(torch, got, ref.topk_scatter_reduce_ref(vals, idx, w, m),
-                     tol, f"topk_scatter_reduce {label}")
+        err = _check(torch, got[0],
+                     ref.topk_scatter_reduce_ref(vals, idx, w, m), tol,
+                     f"topk_scatter_reduce {label}")
         flat_idx = idx.reshape(-1)
         lib = (time_ms(torch, lambda: torch.zeros(m, device=dev).index_add_(
             0, flat_idx, (vals * w[:, None]).reshape(-1)), flush)
             if bool((idx >= 0).all()) else None)
         rows.append(_row(
-            "topk_scatter_reduce", label, {"n": n, "m": m, "s": s}, err, tol,
+            "topk_scatter_reduce", label,
+            {"n": n, "m": m, "s": s, "design": TOPK_DESIGN}, err, tol,
             time_ms(torch, lambda: dc.topk_scatter_reduce(vals, idx, w, m),
                     flush),
             time_ms(torch, lambda: ref.topk_scatter_reduce_ref(vals, idx, w,
                                                                m), flush),
             lib, 8 * n * s + 4 * n + 4 * m, 2 * n * s, bw, f32_peak))
-        refv = torch.randn((m,), generator=gen, device=dev).to(ref_dtype)
         v0, i0 = vals[0].contiguous(), idx[0].contiguous()
+        # the apply in bf16 at every shape, checked only; timed in ref_dtype
+        for dt in dict.fromkeys((ref_dtype, torch.bfloat16)):
+            refv = torch.randn((m,), generator=gen, device=dev).to(dt)
+            outs = [dc.topk_scatter_apply(refv, v0, i0) for _ in range(2)]
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{label}: top-k apply not repeatable")
+            _check(torch, outs[0], ref.topk_scatter_apply_ref(refv, v0, i0),
+                   BF16_DUP_TOL if tol != "exact" and dt == torch.bfloat16
+                   else tol, f"topk_scatter_apply {label} {dt}")
+        refv = torch.randn((m,), generator=gen, device=dev).to(ref_dtype)
         err = _check(torch, dc.topk_scatter_apply(refv, v0, i0),
                      ref.topk_scatter_apply_ref(refv, v0, i0), tol,
                      f"topk_scatter_apply {label}")
@@ -461,7 +496,8 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
         es = refv.element_size()
         rows.append(_row(
             "topk_scatter_apply", label,
-            {"m": m, "s": s, "dtype": str(ref_dtype)[6:]}, err, tol,
+            {"m": m, "s": s, "dtype": str(ref_dtype)[6:],
+             "design": TOPK_DESIGN}, err, tol,
             time_ms(torch, lambda: dc.topk_scatter_apply(refv, v0, i0),
                     flush),
             time_ms(torch, lambda: ref.topk_scatter_apply_ref(refv, v0, i0),
@@ -483,6 +519,16 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
     dup = distinct_idx(4, 100, 1000)
     dup[:, 1] = dup[:, 0]                             # a duplicate per row
     topk_rows("dup", 4, 1000, idx=dup, tol=DUP_TOL)
+    # collision-heavy: the sum must follow the client order, which shows
+    for n in (25, 60):
+        vals, idx = collide_payload(torch, gen, n, 100_000, 1_000_000)
+        w = torch.ones(n, device=dev)
+        if torch.equal(ref.topk_scatter_reduce_ref(vals, idx, w, 1_000_000),
+                       ref.topk_scatter_reduce_ref(vals.flip(0), idx.flip(0),
+                                                   w, 1_000_000)):
+            raise AssertionError("collision payload: the row order does "
+                                 "not show")
+        topk_rows(f"collide.n{n}", n, 1_000_000, idx=idx, vals=vals, w=w)
     # an empty payload: zeros and a copy of ref, no kernel launched
     before = dict(dc.launches)
     z = dc.topk_scatter_reduce(torch.zeros((3, 0), device=dev),
@@ -640,8 +686,7 @@ def run_wire(torch, data, up: str, down: str):
     want = {k: 0 for k in launches}
     kind = lambda codec: "int8" if codec.startswith("int8") else "topk"
     want[{"int8": "int8_decompress_reduce",
-          "topk": "topk_scatter_reduce"}[kind(up)]] = rounds * leaves * (
-        n if kind(up) == "topk" else 1)     # one top-k launch per row
+          "topk": "topk_scatter_reduce"}[kind(up)]] = rounds * leaves
     want[{"int8": "int8_decode_apply",
           "topk": "topk_scatter_apply"}[kind(down)]] = rounds * leaves
     if launches != want or fr.launches != 0:
@@ -1755,7 +1800,8 @@ def phase_sharded_kernels(torch, bw: float, f32_peak: float, meshes):
              lambda: dc.topk_scatter_reduce_sharded(vals, idx, w, m, **kw),
              lambda: ref.topk_scatter_reduce_sharded_ref(vals, idx, w, m,
                                                          **kw),
-             "exact", {"n": n, "m": m, "s": k}, 8 * n * k + 4 * n + 4 * m,
+             "exact", {"n": n, "m": m, "s": k, "design": TOPK_DESIGN},
+             8 * n * k + 4 * n + 4 * m,
              2 * n * k),
         ]
         for name, fn, plain, tol, shape, nbytes, flops in cases:
@@ -1838,8 +1884,8 @@ def phase_mesh(torch, data, meshes):
     plain uplink, the three wire pairs, and grouped reduce on the
     ("pod", "data") mesh; each run against the same rounds on
     ``LocalBackend``, params bit for bit. Counts zeroed before each mesh
-    run: launches of each sharded kernel = rounds x leaves (x N for the
-    per-row top-k reduce); all-reduces = rounds x leaves x tiers (x 2 with
+    run: launches of each sharded kernel = rounds x leaves (one a call);
+    all-reduces = rounds x leaves x tiers (x 2 with
     error feedback, whose true sum is all-reduced too); all-gathers =
     rounds x (2 for the losses: their lengths, then the rows; + leaves
     for the int8 downlink's sharded decode-apply). Returns the launches
@@ -1893,7 +1939,7 @@ def _mesh_runs(torch, data, meshes, same):
                     rounds * leaves * (up or "").startswith("int8"),
                 "int8_decode_apply_sharded": rounds * leaves * int8_down,
                 "topk_scatter_reduce_sharded":
-                    rounds * leaves * n * (up == "topk")}
+                    rounds * leaves * (up == "topk")}
         want_counts = {"all_reduce": rounds * leaves * tiers * (1 + ef),
                        "all_gather": rounds * (2 + leaves * int8_down)}
         if launches != want or counts != want_counts:
@@ -2185,6 +2231,8 @@ def main() -> int:
         kernels.append(summary(kname, "src/repro_torch/csrc/delta_codec.cu",
                                replaces, wire_launches[kname], per_round,
                                err))
+        if kname.startswith("topk"):
+            kernels[-1]["design"] = TOPK_DESIGN
     # the sharded kernels: one CIFAR100 round (eight leaves, one plane),
     # each kernel with its NCCL collective at one rank
     for kname, replaces in SHARDED_KERNELS.items():
@@ -2194,6 +2242,8 @@ def main() -> int:
                "src/repro_torch/csrc/delta_codec.cu")
         kernels.append(summary(kname, src, replaces, mesh_launches[kname],
                                mine, max(r["max_abs_err"] for r in mine)))
+        if kname.startswith("topk"):
+            kernels[-1]["design"] = TOPK_DESIGN
     # flash_attention and gmm: the full-width prefill's shape (one launch of
     # it; gmm at gate/up) in f32 (the FMA kernel), and the same in bf16
     # (the tensor-core kernel) with the launches of the bf16 prefills

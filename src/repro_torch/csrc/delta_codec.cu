@@ -11,17 +11,19 @@
 //   topk_reduce  <- topk_scatter_reduce_mosaic (:309, pallas_call at :324);
 //   topk_apply   <- topk_scatter_apply_mosaic (:340, pallas_call at :356).
 //
-// What bounds them: bytes. None does more than two flops per byte it
-// moves, far below the card's balance point, so none needs tensor cores
-// and each design only reads every input byte once and writes every output
-// byte once. At the CIFAR100 `fc` leaf (N = 25 clients, M = 2,097,152),
-// against the data sheet's 3.35 TB/s:
+// What bounds them on the data sheet: bytes. None does more than two flops
+// per byte it moves, far below the card's balance point, so none needs
+// tensor cores and each design reads every input byte once and writes
+// every output byte once. At the CIFAR100 `fc` leaf (N = 25 clients,
+// M = 2,097,152), against the data sheet's 3.35 TB/s:
 //   int8_reduce, one plane: 52.4 MB in + 8.4 MB out -> 18.2 us; two planes
 //     113.2 MB -> 33.8 us;
 //   int8_apply, one plane: 18.9 MB -> 5.6 us; two planes 21.0 MB -> 6.3 us;
 //   topk_reduce: 25 x 209,716 x 8 B payload + 8.4 MB out -> 15.0 us, before
 //     the random 32-byte sectors its scattered adds touch;
 //   topk_apply: 8.4 + 8.4 + 1.7 MB -> 5.5 us.
+// The top-k reduce meets two other bounds first: the order of its adds,
+// and the rate of atomic adds at L2 (PERF.md section 6).
 //
 // int8_reduce keeps fedavg_reduce.cu's shape: each thread owns 16
 // consecutive columns, reads them as one 16-byte load per client row and
@@ -38,29 +40,47 @@
 // the host never waits for them.
 //
 // The top-k kernels drop the TPU's one-hot matmul (its stand-in for a
-// scatter, delta_codec.py:26-42): on Hopper the scatter is a scatter.
-// topk_reduce zeroes the output and then launches one scatter-add kernel
-// per client row, in client order, on one stream. Within a row each entry
-// does atomicAdd(out[idx], w_c * v). lax.top_k and torch.topk return
-// distinct indices within a row, so every add of one launch goes to its
-// own address and each output is summed in client order: the result
-// repeats bitwise from run to run (the port's later C==U and resume
+// scatter, delta_codec.py:26-42): on Hopper the scatter is a scatter, and
+// each kernel is one cooperative launch a call (cudaLaunchCooperativeKernel:
+// every block resident at once, so a grid barrier cannot hang).
+// lax.top_k and torch.topk return distinct indices within a row, so the
+// adds of one row go each to its own address, and what fixes the order of
+// an output's sum is the order of the rows. topk_reduce keeps client order:
+// it zeroes out, then walks the rows, each row's entries split over the
+// grid (kPer a thread a step, loaded a step ahead: loads do not depend on
+// the order, only adds do) and added with atomicAdd, and a grid barrier
+// (cooperative_groups' grid sync: release and acquire at gpu scope) after
+// each row, so every add of row c is performed before any add of row c + 1.
+// So the result repeats bitwise from run to run (the port's C==U and resume
 // contracts need that) and equals the plain version's row-by-row
-// index_add_. A row that does hold a duplicate index (only tests build
-// one) is still summed right, though not in a fixed order. Indices outside
-// [0, M) (the -1 padding) are skipped. topk_apply copies ref into an f32
-// accumulator (the output itself for f32; a scratch buffer, widened, for
-// bf16), runs the same scatter-add with weight 1 and, for bf16, narrows
-// the accumulator into the output.
+// index_add_. A row of at most kOneBlockEntries runs on one block, with
+// block barriers: there a grid barrier costs more than the steps it saves.
+// What bounds it: the atomic adds' rate at L2 on large leaves (index_add_
+// meets the same bound) and a barrier and a step's round trips a row on
+// small ones. (A design that gave each block a tile of the output in shared
+// memory, reading every row whole, lost on the wire path's shapes: shared
+// f32 adds are compare-and-swap loops on Hopper, and a cluster barrier is a
+// gpu-scope fence.) A row that does hold a duplicate index (only tests
+// build one) is still summed right, though not in a fixed order. Indices
+// outside [0, M) (the -1 padding) are skipped. topk_apply copies ref into
+// out (16-byte copies), a grid barrier, then adds each entry in f32:
+// atomicAdd for f32; for bf16 a 16-bit compare-and-swap of
+// bf16(f32(out) + v), which is the plain version's f32 sum rounded once
+// wherever indices are distinct (a duplicate rounds once per add). Neither
+// needs a scratch buffer.
 //
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError(); the Python wrappers raise if that is not 0.
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;
@@ -69,7 +89,7 @@ constexpr int kVec = 16;  // values per thread on the 16-byte paths
 // dtype tags shared with repro_torch/kernels/delta_codec.py
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-bool aligned16(const void* p) {
+__host__ __device__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
@@ -310,38 +330,216 @@ void int8_apply_planes(const void* ref, const int8_t* q, const float* s,
 }
 
 // ---------------------------------------------------------------------------
-// top-k scatter-add: acc[idx[t]] += (w ? *w : 1) * vals[t] for idx in [0, m)
+// top-k scatter-add reduce: out[idx[c, t]] += w[c] * vals[c, t] for idx in
+// [0, m), client rows in order; and apply: out = ref + scatter(vals, idx)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-    scatter_add_row(const float* __restrict__ vals,
-                    const int32_t* __restrict__ idx,
-                    const float* __restrict__ w, float* __restrict__ acc,
-                    int64_t s, int64_t m) {
-  const float wc = w != nullptr ? __ldg(w) : 1.f;
-  for (int64_t t = first_index(); t < s; t += grid_stride()) {
-    const int64_t i = __ldg(idx + t);
-    if (i >= 0 && i < m) {
-      const float v = __ldg(vals + t);
-      atomicAdd(acc + i, w != nullptr ? __fmul_rn(wc, v) : v);
+constexpr int kTopkThreads = 256;  // threads a block
+constexpr int kPer = 4;            // payload entries a thread adds a step
+// A payload row of at most this many entries runs on one block, with block
+// barriers between rows: a grid barrier costs more than the steps it saves.
+constexpr int64_t kOneBlockEntries = 2 * kPer * kTopkThreads;
+
+// The steps of the walk over the payload, in row order: step (c, h) is
+// chunk h of row c. Counted up, never divided: a 64-bit division is a
+// software routine, and a step is a few instructions.
+struct StepCursor {
+  int c = 0;
+  int64_t h = 0;
+  __device__ __forceinline__ void next(int64_t chunks) {
+    if (++h == chunks) {
+      h = 0;
+      ++c;
+    }
+  }
+};
+
+// A thread's share of one step: kPer payload entries of one client row and
+// the row's weight. Index -1 (past the row, or past the last row) matches
+// no output.
+struct Slot {
+  float v[kPer];
+  int32_t i[kPer];
+  float w;
+};
+
+// The thread's entries of step `at` are first + (h * kPer + k) * stride.
+__device__ __forceinline__ void load_step(
+    Slot& sl, const float* __restrict__ vals, const int32_t* __restrict__ idx,
+    const float* __restrict__ w, const StepCursor& at, int n, int64_t s,
+    int64_t first, int64_t stride) {
+  const bool live = at.c < n;
+  const int64_t row = int64_t{at.c} * s;
+  const int64_t t0 = at.h * kPer * stride + first;
+  sl.w = live ? __ldg(w + at.c) : 0.f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t t = t0 + k * stride;
+    sl.i[k] = -1;
+    sl.v[k] = 0.f;
+    if (live && t < s) {
+      sl.i[k] = __ldg(idx + row + t);
+      sl.v[k] = __ldg(vals + row + t);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    widen_bf16(const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
-               int64_t m) {
-  for (int64_t j = first_index(); j < m; j += grid_stride()) {
-    y[j] = load1(x + j);
+// Between two client rows: every add of the row before is performed before
+// any add of the row after (cooperative_groups' grid barrier releases and
+// acquires at gpu scope; a one-block grid needs only the block barrier).
+__device__ __forceinline__ void grid_barrier() {
+  if (gridDim.x == 1) {
+    __syncthreads();
+  } else {
+    cg::this_grid().sync();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    narrow_bf16(const float* __restrict__ x, __nv_bfloat16* __restrict__ y,
-                int64_t m) {
-  for (int64_t j = first_index(); j < m; j += grid_stride()) {
-    store1(y + j, x[j]);
+// One cooperative grid: out = 0, then the rows in client order, each row's
+// entries split over the grid and added with atomicAdd, a grid barrier
+// after each row. A step's loads are issued a step ahead: they do not
+// depend on the order of the adds.
+__global__ void __launch_bounds__(kTopkThreads)
+    topk_reduce_kernel(const float* __restrict__ vals,
+                       const int32_t* __restrict__ idx,
+                       const float* __restrict__ w, float* __restrict__ out,
+                       int n, int64_t s, int64_t m) {
+  const int64_t first = first_index();
+  const int64_t stride = grid_stride();
+  const int64_t chunks = (s + kPer * stride - 1) / (kPer * stride);
+  StepCursor load_at, add_step;
+  Slot next;
+  load_step(next, vals, idx, w, load_at, n, s, first, stride);
+  load_at.next(chunks);
+  const int64_t groups = aligned16(out) ? m / 4 : 0;
+  for (int64_t g = first; g < groups; g += stride) {
+    reinterpret_cast<float4*>(out)[g] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  for (int64_t j = groups * 4 + first; j < m; j += stride) out[j] = 0.f;
+  grid_barrier();
+  while (add_step.c < n) {  // the same for every thread of the grid
+    const Slot cur = next;
+    load_step(next, vals, idx, w, load_at, n, s, first, stride);
+    load_at.next(chunks);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (cur.i[k] >= 0 && cur.i[k] < m) {
+        atomicAdd(out + cur.i[k], __fmul_rn(cur.w, cur.v[k]));
+      }
+    }
+    add_step.next(chunks);
+    if (add_step.h == 0 && add_step.c < n) grid_barrier();
+  }
+}
+
+__device__ __forceinline__ void add_at(float* p, float v) { atomicAdd(p, v); }
+
+// ref's type is bf16: the sum in f32, rounded once, swapped in with a
+// 16-bit compare-and-swap (a duplicate index rounds once per add)
+__device__ __forceinline__ void add_at(__nv_bfloat16* p, float v) {
+  unsigned short* u = reinterpret_cast<unsigned short*>(p);
+  unsigned short old = *u;
+  unsigned short assumed;
+  do {
+    assumed = old;
+    const float sum =
+        __fadd_rn(__bfloat162float(__ushort_as_bfloat16(assumed)), v);
+    old = atomicCAS(u, assumed,
+                    __bfloat16_as_ushort(__float2bfloat16_rn(sum)));
+  } while (old != assumed);
+}
+
+// One cooperative grid: out = ref (16-byte copies where aligned), a grid
+// barrier, then out[idx[t]] += vals[t] in f32.
+template <typename T>
+__global__ void __launch_bounds__(kTopkThreads)
+    topk_apply_kernel(const T* __restrict__ ref,
+                      const float* __restrict__ vals,
+                      const int32_t* __restrict__ idx, T* __restrict__ out,
+                      int64_t s, int64_t m) {
+  const int64_t first = first_index();
+  const int64_t stride = grid_stride();
+  int32_t ii[kPer];
+  float vv[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t t = first + k * stride;
+    ii[k] = -1;
+    vv[k] = 0.f;
+    if (t < s) {
+      ii[k] = __ldg(idx + t);
+      vv[k] = __ldg(vals + t);
+    }
+  }
+  constexpr int kElems = 16 / sizeof(T);
+  const int64_t groups = aligned16(ref) && aligned16(out) ? m / kElems : 0;
+  const uint4* r4 = reinterpret_cast<const uint4*>(ref);
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+#pragma unroll 4
+  for (int64_t g = first; g < groups; g += stride) o4[g] = __ldg(r4 + g);
+  for (int64_t j = groups * kElems + first; j < m; j += stride) {
+    out[j] = ref[j];
+  }
+  grid_barrier();
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (ii[k] >= 0 && ii[k] < m) add_at(out + ii[k], vv[k]);
+  }
+  for (int64_t t = first + kPer * stride; t < s; t += stride) {
+    const int64_t i = __ldg(idx + t);
+    if (i >= 0 && i < m) add_at(out + i, __ldg(vals + t));
+  }
+}
+
+// Blocks of each top-k kernel the current card holds at once (what a
+// cooperative launch may use), found once per device.
+struct CoopLimits {
+  int reduce = 0;
+  int apply[2] = {0, 0};  // by dtype tag
+};
+
+cudaError_t coop_limits(const CoopLimits** out) {
+  static CoopLimits limits[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  CoopLimits& l = limits[dev];
+  if (l.reduce == 0) {
+    int sms = 0, a = 0, b = 0, c = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &a, topk_reduce_kernel, kTopkThreads, 0);
+    }
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &b, topk_apply_kernel<float>, kTopkThreads, 0);
+    }
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &c, topk_apply_kernel<__nv_bfloat16>, kTopkThreads, 0);
+    }
+    if (e != cudaSuccess) return e;
+    l.apply[kF32] = b * sms;
+    l.apply[kBF16] = c * sms;
+    l.reduce = a * sms;
+  }
+  *out = &l;
+  return cudaSuccess;
+}
+
+// blocks for `work` threads' worth, at least 1, at most `limit`
+unsigned int coop_blocks(int64_t work, int limit) {
+  const int64_t b = (work + kTopkThreads - 1) / kTopkThreads;
+  return static_cast<unsigned int>(std::max<int64_t>(1, std::min<int64_t>(
+      b, limit)));
+}
+
+// the reduce's grid for rows of s entries
+unsigned int reduce_blocks(int64_t s, const CoopLimits& lim) {
+  if (s <= kOneBlockEntries) return 1;
+  return coop_blocks((s + kPer - 1) / kPer, lim.reduce);
 }
 
 }  // namespace
@@ -395,65 +593,53 @@ extern "C" int int8_apply_launch(const void* ref, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals: (n, s) f32; idx: (n, s) int32; w: (n,) f32; out: (m,) f32. Zeroes
-// out, then launches one scatter-add per client row, in row order.
+// vals: (n, s) f32; idx: (n, s) int32; w: (n,) f32; out: (m,) f32. One
+// cooperative launch.
 extern "C" int topk_reduce_launch(const void* vals, const void* idx,
                                   const void* w, void* out, int n, int64_t s,
                                   int64_t m, void* stream) {
   if (n <= 0 || s <= 0 || m <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(out);
-  cudaError_t e = cudaMemsetAsync(acc, 0, m * sizeof(float), st);
+  const CoopLimits* lim = nullptr;
+  cudaError_t e = coop_limits(&lim);
   if (e != cudaSuccess) return static_cast<int>(e);
   const float* v = static_cast<const float*>(vals);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const float* wf = static_cast<const float*>(w);
-  for (int c = 0; c < n; ++c) {
-    const int64_t row = static_cast<int64_t>(c) * s;
-    scatter_add_row<<<blocks_for(s), kThreads, 0, st>>>(v + row, ix + row,
-                                                         wf + c, acc, s, m);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  float* o = static_cast<float*>(out);
+  void* args[] = {&v, &ix, &wf, &o, &n, &s, &m};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(topk_reduce_kernel),
+      dim3(reduce_blocks(s, *lim)), dim3(kTopkThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ref, out: (m,) of `dtype`; vals: (s,) f32; idx: (s,) int32; acc: (m,) f32
-// accumulator (the output itself when dtype is f32).
+// ref, out: (m,) of `dtype`; vals: (s,) f32; idx: (s,) int32. One
+// cooperative launch.
 extern "C" int topk_apply_launch(const void* ref, const void* vals,
-                                 const void* idx, void* acc, void* out,
-                                 int64_t s, int64_t m, int dtype,
-                                 void* stream) {
-  if (s <= 0 || m <= 0 || (dtype == kF32 && acc != out)) {
+                                 const void* idx, void* out, int64_t s,
+                                 int64_t m, int dtype, void* stream) {
+  if (s <= 0 || m <= 0 || (dtype != kF32 && dtype != kBF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* a = static_cast<float*>(acc);
-  cudaError_t e = cudaSuccess;
-  switch (dtype) {
-    case kF32:
-      e = cudaMemcpyAsync(a, ref, m * sizeof(float),
-                          cudaMemcpyDeviceToDevice, st);
-      break;
-    case kBF16:
-      widen_bf16<<<blocks_for(m), kThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(ref), a, m);
-      e = cudaGetLastError();
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const CoopLimits* lim = nullptr;
+  cudaError_t e = coop_limits(&lim);
   if (e != cudaSuccess) return static_cast<int>(e);
-  scatter_add_row<<<blocks_for(s), kThreads, 0, st>>>(
-      static_cast<const float*>(vals), static_cast<const int32_t*>(idx),
-      nullptr, a, s, m);
-  e = cudaGetLastError();
+  const int64_t elems = dtype == kF32 ? 4 : 8;  // a 16-byte copy
+  const unsigned int blocks = coop_blocks(
+      std::max((s + kPer - 1) / kPer, m / elems), lim->apply[dtype]);
+  const float* v = static_cast<const float*>(vals);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  void* args[] = {&ref, &v, &ix, &out, &s, &m};
+  const void* fn =
+      dtype == kF32
+          ? reinterpret_cast<const void*>(topk_apply_kernel<float>)
+          : reinterpret_cast<const void*>(topk_apply_kernel<__nv_bfloat16>);
+  e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kTopkThreads), args,
+                                  0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dtype == kBF16) {
-    narrow_bf16<<<blocks_for(m), kThreads, 0, st>>>(
-        a, static_cast<__nv_bfloat16*>(out), m);
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,9 +47,9 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
                                      ctypes.c_int64, ctypes.c_void_p],
             ctypes.c_int),
-        # (ref, vals, idx, acc, out, s, m, dtype, stream)
+        # (ref, vals, idx, out, s, m, dtype, stream)
         "topk_apply_launch": (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
                                      ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
     },

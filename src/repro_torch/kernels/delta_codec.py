@@ -9,9 +9,9 @@ about it.
 
 For tensors on the CPU each wrapper runs its plain version
 (``kernels.ref``); for CUDA tensors it launches the kernel or raises.
-``launches[name]`` counts kernel launches, and only those: one per call,
-except ``topk_scatter_reduce``, which launches one scatter-add per client
-row (N per call) so that every output is summed in client order.
+``launches[name]`` counts kernel launches, and only those: one per call.
+``topk_scatter_reduce``'s one launch is cooperative: it sums every output
+in client order, a grid barrier between client rows.
 
 The ``*_sharded`` wrappers replace the reference's client-sharded variants
 (``int8_decompress_reduce_sharded``, ``int8_decode_apply_sharded``,
@@ -192,7 +192,7 @@ def topk_scatter_reduce(vals: torch.Tensor, idx: torch.Tensor,
                                      weights.data_ptr(), out.data_ptr(), n, s,
                                      size, _stream(dev))
     _raise_on(err, name, f"payload ({n}, {s}) into M={size}")
-    launches[name] += n
+    launches[name] += 1
     return out
 
 
@@ -215,13 +215,10 @@ def topk_scatter_apply(ref: torch.Tensor, vals: torch.Tensor,
     if m == 0 or s == 0:                        # nothing on the wire
         return ref.clone()
     out = torch.empty_like(ref)
-    acc = (out if ref.dtype == torch.float32
-           else torch.empty((m,), dtype=torch.float32, device=dev))
     lib = _build.load("delta_codec")
     with torch.cuda.device(dev):
         err = lib.topk_apply_launch(ref.data_ptr(), vals.data_ptr(),
-                                    idx.data_ptr(), acc.data_ptr(),
-                                    out.data_ptr(), s, m,
+                                    idx.data_ptr(), out.data_ptr(), s, m,
                                     _DTYPE_TAGS[ref.dtype], _stream(dev))
     _raise_on(err, name, f"payload ({s},) into M={m} {ref.dtype}")
     launches[name] += 1
@@ -285,7 +282,7 @@ def topk_scatter_reduce_sharded(vals: torch.Tensor, idx: torch.Tensor,
                                 reduce_tiers=None) -> torch.Tensor:
     """This rank's payload rows vals/idx (n, S) and weights (n,) -> (M,)
     f32, the scatter-add reduce over every rank's rows: the kernel on this
-    rank's rows (one launch a row, zeros for none), then the partials
+    rank's rows (one launch, zeros for none), then the partials
     all-reduced over ``client_axes`` (flat or by ``reduce_tiers``)."""
     name = "topk_scatter_reduce_sharded"
     before = launches["topk_scatter_reduce"]

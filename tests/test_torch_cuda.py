@@ -116,7 +116,7 @@ def test_sharded_wrappers_at_one_rank_equal_unsharded_kernels(
         nccl_meshes, mesh_name, grouped):
     """One rank holds every row, so the sharded wrapper (kernel, then the
     NCCL collective) gives its unsharded kernel's result bit for bit, and
-    counts one launch (N for the per-row top-k reduce)."""
+    counts one launch a call."""
     from repro_torch.kernels import collectives
     mesh, axes = nccl_meshes[mesh_name]
     tiers = tuple((a,) for a in reversed(axes)) if grouped else None
@@ -159,7 +159,7 @@ def test_sharded_wrappers_at_one_rank_equal_unsharded_kernels(
     assert {k: v - before[1][k] for k, v in tdc.sharded_launches.items()} \
         == {"int8_decompress_reduce_sharded": 2,
             "int8_decode_apply_sharded": 2,
-            "topk_scatter_reduce_sharded": n}
+            "topk_scatter_reduce_sharded": 1}
     assert collectives.counts["all_reduce"] == \
         before[2]["all_reduce"] + 5 * tiers_n
     assert collectives.counts["all_gather"] == before[2]["all_gather"] + 2
@@ -248,8 +248,13 @@ def _distinct_payload(rng, n, k, m, cuda):
             torch.tensor(w, dtype=torch.float32, device=cuda))
 
 
+# rows of up to 2,048 entries run on one block (csrc/delta_codec.cu
+# kOneBlockEntries), longer rows on a grid: both sides of the limit
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,m", [(25, 209716, 2097152), (60, 15680, 156800),
+                                   (25, 5120, 51200), (25, 1844, 18432),
+                                   (25, 2048, 20480), (25, 2049, 20490),
+                                   (3, 1200000, 2500000),
                                    (25, 4, 32), (3, 5, 17), (1, 1, 1)])
 def test_topk_scatter_reduce_kernel_matches_plain_version(cuda, n, k, m):
     vals, idx, w = _distinct_payload(np.random.default_rng(n * k), n, k, m,
@@ -258,11 +263,39 @@ def test_topk_scatter_reduce_kernel_matches_plain_version(cuda, n, k, m):
     got = tdc.topk_scatter_reduce(vals, idx, w, m)
     again = tdc.topk_scatter_reduce(vals, idx, w, m)
     torch.cuda.synchronize()
-    assert tdc.launches["topk_scatter_reduce"] == before + 2 * n   # per row
+    assert tdc.launches["topk_scatter_reduce"] == before + 2   # one a call
     # distinct indices in a row: every output summed in client order, in
     # the kernel and in the row-by-row plain version alike
     assert torch.equal(got, again)
     assert torch.equal(got, tref.topk_scatter_reduce_ref(vals, idx, w, m))
+
+
+def _collide_payload(rng, n, k, m, cuda):
+    """(N, S) payload on which the order of the rows shows: every row
+    holds the same S indices, each row in its own order, with values of
+    +-1e8 and +-1 (weights 1), so a sum that takes the rows out of order
+    rounds differently."""
+    base = rng.permutation(m)[:k]
+    idx = np.stack([rng.permutation(base) for _ in range(n)])
+    vals = rng.choice([1e8, -1e8, 1.0, -1.0], size=(n, k))
+    return (torch.tensor(vals, dtype=torch.float32, device=cuda),
+            torch.tensor(idx, dtype=torch.int32, device=cuda),
+            torch.ones(n, dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,m", [(25, 100000, 1000000), (60, 100000, 1000000),
+                                   (25, 2000, 4000), (60, 500, 1000)])
+def test_topk_scatter_reduce_kernel_keeps_client_order(cuda, n, k, m):
+    """Every output takes N adds of +-1e8 and +-1: only the client order
+    gives the plain version's bits, and the kernel repeats them."""
+    vals, idx, w = _collide_payload(np.random.default_rng(n + k), n, k, m,
+                                    cuda)
+    want = tref.topk_scatter_reduce_ref(vals, idx, w, m)
+    assert not torch.equal(want, tref.topk_scatter_reduce_ref(
+        vals.flip(0), idx.flip(0), w, m))           # the order shows
+    for _ in range(3):
+        assert torch.equal(tdc.topk_scatter_reduce(vals, idx, w, m), want)
 
 
 @pytest.mark.cuda
@@ -284,18 +317,35 @@ def test_topk_scatter_reduce_kernel_edge_cases(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,m", [(209716, 2097152), (20, 200), (1, 1),
-                                 (130, 4099)])
+@pytest.mark.parametrize("s,m", [(209716, 2097152), (5120, 51200),
+                                 (1844, 18432), (87, 864), (52, 512),
+                                 (10, 100), (4, 32), (20, 200), (1, 1),
+                                 (130, 4099), (1200000, 2500000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_topk_scatter_apply_kernel_matches_plain_version(cuda, s, m, dtype):
     vals, idx, _ = _distinct_payload(np.random.default_rng(s), 1, s, m, cuda)
     ref = torch.randn(m, device=cuda).to(dtype)
     before = tdc.launches["topk_scatter_apply"]
     got = tdc.topk_scatter_apply(ref, vals[0], idx[0])
+    again = tdc.topk_scatter_apply(ref, vals[0], idx[0])
     torch.cuda.synchronize()
-    assert tdc.launches["topk_scatter_apply"] == before + 1
-    assert got.dtype == dtype
+    assert tdc.launches["topk_scatter_apply"] == before + 2   # one a call
+    assert got.dtype == dtype and torch.equal(got, again)
     assert torch.equal(got, tref.topk_scatter_apply_ref(ref, vals[0], idx[0]))
+
+
+@pytest.mark.cuda
+def test_topk_scatter_apply_bf16_duplicate_rounds_once_per_add(cuda):
+    """A duplicate index in bf16: each add is rounded to bf16, so the
+    result is within one bf16 rounding an add of the plain version's f32
+    sum rounded once."""
+    ref = torch.tensor([1.0, 2.0, 3.0], dtype=torch.bfloat16, device=cuda)
+    vals = torch.tensor([1e-3, 2e-3, 3e-3, 0.5], device=cuda)
+    idx = torch.tensor([0, 0, 0, 2], dtype=torch.int32, device=cuda)
+    got = tdc.topk_scatter_apply(ref, vals, idx).float()
+    want = tref.topk_scatter_apply_ref(ref, vals, idx).float()
+    assert got[1:].tolist() == want[1:].tolist()
+    assert abs(float(got[0] - want[0])) <= 3 * 2 ** -7
 
 
 @pytest.mark.cuda

@@ -192,6 +192,35 @@ def test_topk_scatter_reduce_matches_pallas(n, k, m):
                                atol=1e-6)
 
 
+def _collide_payload(seed, n, k, m):
+    """(N, S) payload on which the order of the rows shows: every row holds
+    the same S indices, each row in its own order, with values of +-1e8 and
+    +-1 (weights 1), so a sum that takes the rows out of order rounds
+    differently."""
+    rng = np.random.default_rng(seed)
+    base = rng.permutation(m)[:k]
+    idx = np.stack([rng.permutation(base) for _ in range(n)]).astype(np.int32)
+    vals = rng.choice([1e8, -1e8, 1.0, -1.0], size=(n, k)).astype(np.float32)
+    return vals, idx, np.ones(n, np.float32)
+
+
+@pytest.mark.parametrize("n,k,m", [(25, 256, 1024), (60, 512, 700)])
+def test_topk_scatter_reduce_keeps_client_order_like_pallas(n, k, m):
+    """S a multiple of the Pallas kernel's payload block (256): each block
+    lies in one row, so its output tile takes the rows in client order, as
+    the plain version (and the CUDA kernel) does; on this payload another
+    order gives another sum."""
+    vals, idx, w = _collide_payload(n * k, n, k, m)
+    want = jdc.topk_scatter_reduce_mosaic(jnp.asarray(vals), jnp.asarray(idx),
+                                          jnp.asarray(w), m, interpret=True)
+    got = tdc.topk_scatter_reduce(_t(vals), _t(idx), _t(w), m)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    flipped = tdc.topk_scatter_reduce(_t(vals[::-1].copy()),
+                                      _t(idx[::-1].copy()), _t(w), m)
+    assert not np.array_equal(flipped.numpy(), got.numpy())
+
+
 def test_topk_scatter_reduce_edge_cases_match_pallas():
     # duplicates within and across rows accumulate
     vals = np.array([[1.0, 2.0, 4.0], [8.0, 16.0, 32.0]], np.float32)
