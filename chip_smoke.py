@@ -18,7 +18,13 @@ exits non-zero without printing a result:
               data-sheet bandwidth and f32 rate give for the same bytes and
               flops. ``fedavg_reduce`` at every parameter leaf of the four
               paper models at its task's clients per round, plus odd, bf16
-              and N=1 shapes; the four wire-path kernels at every CIFAR100
+              and N=1 shapes, then ``fedavg_reduce_tree`` on each task's
+              whole tree as one call (one launch, bitwise the per-leaf
+              calls), beside the per-leaf sums and the call's host time;
+              ``fedavg_reduce`` and ``int8_decode_apply`` rows also carry
+              ``ms_clean`` (and ``library_ms_clean``), timed after a flush
+              that only reads;
+              the four wire-path kernels at every CIFAR100
               (N=25) and FEMNIST (N=60) leaf, both int8 plane counts, top-k
               at S = ceil(0.1 M), plus the edge shapes (M % 16 != 0, M = 1,
               an empty payload, -1 padding, a duplicate index, bf16 ref)
@@ -35,7 +41,8 @@ exits non-zero without printing a result:
               paper width (U=25, b=32, K0=50, eta0=0.01, K_r-rounds) for 4
               rounds plus one eval, then FEMNIST, Sent140 and Shakespeare at
               their paper FedConfigs for 2 rounds each; launch counts are
-              zeroed before each run and must equal rounds x leaves after;
+              zeroed before each run and must equal the rounds after (one
+              ``fedavg_reduce`` launch a round for the whole tree);
 6. wire     — ``FedAvgTrainer`` on CIFAR100 at paper width for 3 rounds in
               each of three codec configurations (int8 up / int8x2 down,
               int8x2 up / int8 down, top-k both ways at 10%); ms per round,
@@ -196,16 +203,22 @@ WIRE_KERNELS = {
 }
 
 
-def time_ms(torch, fn, flush, reps: int = 25) -> float:
+def time_ms(torch, fn, flush, reps: int = 25, clean: bool = False) -> float:
     """Median device time of one call, from CUDA events around it, with the
     L2 cache flushed before each. The host does not wait between calls: it
     enqueues the call while the card still writes the 256 MB flush buffer,
-    so the events see the kernels' time and not the host's launch cost."""
+    so the events see the kernels' time and not the host's launch cost.
+    The flush writes the buffer, which leaves up to 50 MB of dirty lines
+    in L2 for the timed call to write back; ``clean`` flushes by reading
+    the buffer (a sum over it) instead, so the call finds clean lines."""
     for _ in range(3):
         fn()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -214,6 +227,21 @@ def time_ms(torch, fn, flush, reps: int = 25) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def host_ms(torch, fn, reps: int = 25) -> float:
+    """Median host time of one call, from the host clock around it, with
+    the card idle before each."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def phase_device(torch):
@@ -257,6 +285,7 @@ def phase_kernel(torch, bw: float, f32_peak: float):
         w_x = w.to(dtype)           # the library call takes one dtype
         out = fr.fedavg_reduce(x, w)
         again = fr.fedavg_reduce(x, w)
+        path = "vec" if fr.last_plans[0].leaves[0].vec else "scalar"
         want = fedavg_reduce_ref(x, w)
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
@@ -271,12 +300,17 @@ def phase_kernel(torch, bw: float, f32_peak: float):
             "phase": "kernel", "name": "fedavg_reduce", "shape": label,
             "n": n, "m": m, "dtype": dt, "max_abs_err": err,
             "tol": TOL[dt],
-            "path": ("vec" if m % (16 // es) == 0 else "scalar"),
+            "path": path,
             "ms": time_ms(torch, lambda: fr.fedavg_reduce(x, w), flush),
+            "ms_clean": time_ms(torch, lambda: fr.fedavg_reduce(x, w),
+                                flush, clean=True),
             "plain_ms": time_ms(torch, lambda: fedavg_reduce_ref(x, w),
                                 flush),
             "library_ms": time_ms(
                 torch, lambda: torch.einsum("c,cm->m", w_x, x), flush),
+            "library_ms_clean": time_ms(
+                torch, lambda: torch.einsum("c,cm->m", w_x, x), flush,
+                clean=True),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes}
@@ -285,7 +319,74 @@ def phase_kernel(torch, bw: float, f32_peak: float):
         rows.append(row)
         max_err = max(max_err, err)
         del x, w_x, want, out, again
+    for task in MAIN_TASKS:
+        row = tree_row(torch, task, rows, gen, flush, bw, f32_peak)
+        rows.append(row)
+        max_err = max(max_err, row["max_abs_err"])
     return rows, max_err
+
+
+def tree_row(torch, task, leaf_rows, gen, flush, bw: float, f32_peak: float):
+    """``fedavg_reduce_tree`` on the task's own leaves at paper N, timed as
+    one call (one launch), against the per-leaf kernel calls (bitwise) and
+    the plain tree (per leaf, at TOL); beside it the plain tree as one
+    call, the sums of the per-leaf rows' kernel and ``torch.einsum``
+    times, ``torch.einsum`` over the leaves timed as one call
+    (``library_tree_ms``), the bound of the whole round's bytes, and
+    ``host_ms``, the host's time for the call with the card idle: where
+    it outlasts the flush, the events around a call see it."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fedavg_reduce_ref
+    from repro_torch.models import small
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = get_paper_task(task)
+    n = cfg.fed.clients_per_round
+    params = small.init_task_model(0, cfg, device="cpu")
+    tree = tree_map(lambda p: torch.randn((n,) + tuple(p.shape),
+                                          generator=gen, device="cuda"),
+                    params)
+    w = torch.softmax(torch.randn((n,), generator=gen, device="cuda"), 0)
+    flats = [x.reshape(n, -1) for x in tree_leaves(tree)]
+    before = fr.launches
+    got = tree_leaves(ops.fedavg_reduce_tree(tree, w))
+    launches = fr.launches - before
+    err = 0.0
+    for x, g in zip(flats, got):
+        if not torch.equal(g.reshape(-1), fr.fedavg_reduce(x, w)):
+            raise AssertionError(f"{task} tree: not bitwise the per-leaf "
+                                 f"kernel")
+        want = fedavg_reduce_ref(x, w)
+        torch.testing.assert_close(g.reshape(-1), want, **TOL["float32"])
+        err = max(err, float((g.reshape(-1) - want).abs().max()))
+    if launches != 1:
+        raise AssertionError(f"{task} tree: {launches} launches, want 1")
+    mine = [r for r in leaf_rows if r["shape"].startswith(f"{task}.")]
+    total = lambda key: sum(r[key] for r in mine)
+    nbytes = sum(r["bytes"] for r in mine)
+    t_bytes, t_ops = nbytes / bw * 1e3, 2 * n * sum(
+        r["m"] for r in mine) / f32_peak * 1e3
+    call = lambda: ops.fedavg_reduce_tree(tree, w)
+    row = {"phase": "kernel", "name": "fedavg_reduce_tree",
+           "shape": f"{task}.tree", "n": n, "leaves": len(flats),
+           "launches": launches, "dtype": "float32", "max_abs_err": err,
+           "tol": TOL["float32"], "bitwise_per_leaf": True,
+           "ms": time_ms(torch, call, flush),
+           "ms_clean": time_ms(torch, call, flush, clean=True),
+           "plain_ms": time_ms(torch, lambda: [fedavg_reduce_ref(x, w)
+                                               for x in flats], flush),
+           "host_ms": host_ms(torch, call),
+           "per_leaf_ms": total("ms"), "library_ms": total("library_ms"),
+           "library_ms_clean": total("library_ms_clean"),
+           "library_tree_ms": time_ms(torch, lambda: [
+               torch.einsum("c,cm->m", w, x) for x in flats], flush),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit(row)
+    return row
 
 
 def phase_parity(torch):
@@ -330,12 +431,13 @@ def wire_leaf_shapes():
 
 
 def _row(name, label, shape, err, tol, t, plain, lib, nbytes, flops, bw,
-         peak):
-    """One kernel row; ``peak`` is the flop rate of the inputs' type."""
+         peak, **extra):
+    """One kernel row; ``peak`` is the flop rate of the inputs' type;
+    ``extra``: more times of the same row (``ms_clean``)."""
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
     row = {"phase": "kernel", "name": name, "shape": label, **shape,
            "max_abs_err": err, "tol": tol, "ms": t, "plain_ms": plain,
-           "library_ms": lib, "bound_ms": max(t_bytes, t_ops),
+           "library_ms": lib, **extra, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "flops": flops, "bytes_bound_ms": t_bytes,
            "flops_bound_ms": t_ops}
@@ -436,9 +538,8 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
             err = _check(torch, dc.int8_decode_apply(*args),
                          ref.int8_decode_apply_ref(*args), "exact",
                          f"int8_decode_apply {label}")
-            lib = (time_ms(torch, lambda: torch.add(refv, q[0],
-                                                    alpha=s_host), flush)
-                   if not two and ref_dtype == torch.float32 else None)
+            library = lambda: torch.add(refv, q[0], alpha=s_host)
+            one_f32 = not two and ref_dtype == torch.float32
             k = 2 if two else 1
             rows.append(_row(
                 "int8_decode_apply", label,
@@ -446,8 +547,14 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
                 "exact",
                 time_ms(torch, lambda: dc.int8_decode_apply(*args), flush),
                 time_ms(torch, lambda: ref.int8_decode_apply_ref(*args),
-                        flush), lib,
-                2 * m * es + k * (m + 4), 2 * k * m, bw, f32_peak))
+                        flush),
+                time_ms(torch, library, flush) if one_f32
+                else None,
+                2 * m * es + k * (m + 4), 2 * k * m, bw, f32_peak,
+                ms_clean=time_ms(torch, lambda: dc.int8_decode_apply(*args),
+                                 flush, clean=True),
+                library_ms_clean=(time_ms(torch, library, flush, clean=True)
+                                  if one_f32 else None)))
 
     def topk_rows(label, n, m, ref_dtype=torch.float32, idx=None, tol="exact",
                   vals=None, w=None):
@@ -746,9 +853,10 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
         make_eval_fn(loss_fn, data))
 
     # instrumentation of this script only: each engine dispatch is one
-    # round (host clock between synchronisations), and the aggregation's
-    # device time comes from CUDA events around the tree reduce
-    round_ms, reduce_events = [], []
+    # round (host clock between synchronisations); CUDA events around the
+    # tree reduce, which span the card's wait for the host's enqueue when
+    # the card is idle, and the host clock around the same call
+    round_ms, reduce_events, reduce_host_ms = [], [], []
     run_bucket, reduce_tree = trainer.engine.run_bucket, \
         ops.fedavg_reduce_tree
 
@@ -764,7 +872,9 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
+        t = time.perf_counter()
         out = reduce_tree(*a)
+        reduce_host_ms.append((time.perf_counter() - t) * 1e3)
         ev[1].record()
         reduce_events.append(ev)
         return out
@@ -781,6 +891,9 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
     finally:
         ops.fedavg_reduce_tree = reduce_tree
     launches = fr.launches
+    if len(reduce_events) != rounds:
+        raise AssertionError(f"{name}: {len(reduce_events)} tree reduces "
+                             f"timed, want one a round")
     reduce_ms = [a.elapsed_time(b) for a, b in reduce_events]
     want_k = [min(max(math.ceil(fed.k0 / r ** (1.0 / 3.0)), fed.k_min),
                   fed.k0) for r in range(1, rounds + 1)]
@@ -788,13 +901,14 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
         raise AssertionError(f"{name}: K {h.k} != {want_k}")
     if not all(math.isfinite(v) for v in h.train_loss + h.val_error):
         raise AssertionError(f"{name}: non-finite loss {h.train_loss}")
-    if launches != rounds * leaves:
+    want = rounds * math.ceil(leaves / fr.MAX_LEAVES)
+    if launches != want:
         raise AssertionError(f"{name}: {launches} kernel launches, want "
-                             f"{rounds} rounds x {leaves} leaves")
+                             f"{want}: one a round for {leaves} leaves")
     for i in range(rounds):
         emit({"phase": "main", "task": name, "round": h.rounds[i],
               "k": h.k[i], "loss": h.train_loss[i], "ms": round_ms[i],
-              "reduce_ms": reduce_ms[i],
+              "reduce_ms": reduce_ms[i], "reduce_host_ms": reduce_host_ms[i],
               "reduce_share": reduce_ms[i] / round_ms[i]})
     emit({"phase": "main", "task": name, "summary": True,
           "clients_per_round": fed.clients_per_round,
@@ -2220,10 +2334,15 @@ def main() -> int:
                 "library_ms": (sum(libs) if all(v is not None for v in libs)
                                else None)}
 
-    kernels = [summary("fedavg_reduce",
-                       "src/repro_torch/csrc/fedavg_reduce.cu",
-                       "src/repro/kernels/fedavg_reduce.py:81", launches,
-                       rows, max_err)]
+    # fedavg_reduce: one CIFAR100 round, the tree as one launch
+    cifar_tree = next(r for r in rows if r["shape"] == "cifar100.tree")
+    kernels = [{"name": "fedavg_reduce", "route": "cuda",
+                "source": "src/repro_torch/csrc/fedavg_reduce.cu",
+                "replaces": "src/repro/kernels/fedavg_reduce.py:81",
+                "launches": launches, "max_abs_err": max_err,
+                **{key: cifar_tree[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "ms_clean", "library_ms_clean")}}]
     for kname, replaces in WIRE_KERNELS.items():
         mine = [r for r in wrows if r["name"] == kname]
         err = max(r["max_abs_err"] for r in mine)

@@ -33,11 +33,21 @@
 // path takes rows that are not 16-byte aligned (M % 16 != 0, offset
 // views).
 //
-// int8_apply is elementwise: 16 values a thread (one 16-byte int8 load per
-// plane, 16-byte loads and stores of ref and out), `ref + q*s [+ qr*rs]`
-// with separately rounded multiplies and adds, so it repeats the plain
-// PyTorch version bit for bit. The scales are read from device memory, so
-// the host never waits for them.
+// int8_apply is elementwise, `ref + q*s [+ qr*rs]` with separately rounded
+// multiplies and adds, so it repeats the plain PyTorch version bit for bit.
+// Its layout keeps every load and store instruction of a warp on
+// contiguous bytes: a lane's unit is 16 bytes of ref and of out (4 f32 or
+// 8 bf16 values, a warp covering 512 B) and the int8 under them (a 4-byte
+// word a lane in f32, 128 B a warp; 8 bytes in bf16). A warp step takes 4
+// units a lane (16 f32 or 32 bf16 values), the units of one instruction
+// side by side; the warps stride over the steps, and the loads of a
+// warp's next step are issued before the stores of the current one. The
+// last step checks each unit against M. An earlier layout gave each thread
+// 16 consecutive values, so each instruction of a warp spread over 2 KB
+// and used half of every 32-byte sector it touched. The path needs ref
+// and out 16-byte aligned, the planes aligned to their unit and M a
+// multiple of the unit; a scalar path takes any other view. The scales
+// are read from device memory, so the host never waits for them.
 //
 // The top-k kernels drop the TPU's one-hot matmul (its stand-in for a
 // scatter, delta_codec.py:26-42): on Hopper the scatter is a scatter, and
@@ -93,6 +103,10 @@ __host__ __device__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+bool aligned_to(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 unsigned int blocks_for(int64_t work) {
   const int64_t b = (work + kThreads - 1) / kThreads;
   if (b < 1) return 1;
@@ -107,17 +121,20 @@ __device__ __forceinline__ int64_t grid_stride() {
   return static_cast<int64_t>(gridDim.x) * blockDim.x;
 }
 
+// the 4 int8 of a 32-bit word, as floats
+__device__ __forceinline__ void unpack4(unsigned int word, float* f) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j] = static_cast<float>(static_cast<int8_t>(word >> (8 * j)));
+  }
+}
+
 // 16 int8 values of one 16-byte load, as floats
 __device__ __forceinline__ void unpack16(const int4 raw, float (&f)[kVec]) {
-  const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[4 * k + j] = static_cast<float>(static_cast<int8_t>(
-          static_cast<unsigned int>(words[k]) >> (8 * j)));
-    }
-  }
+  unpack4(raw.x, f);
+  unpack4(raw.y, f + 4);
+  unpack4(raw.z, f + 8);
+  unpack4(raw.w, f + 12);
 }
 
 __device__ __forceinline__ int4 load_i8x16(const int8_t* p) {
@@ -137,50 +154,12 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void load16(const float* p, float (&v)[kVec]) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 t = __ldg(p4 + i);
-    v[4 * i] = t.x;
-    v[4 * i + 1] = t.y;
-    v[4 * i + 2] = t.z;
-    v[4 * i + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p,
-                                       float (&v)[kVec]) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint4 raw = __ldg(p4 + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      v[8 * i + 2 * j] = f.x;
-      v[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
 __device__ __forceinline__ void store16(float* p, const float (&v)[kVec]) {
   float4* p4 = reinterpret_cast<float4*>(p);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     p4[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
   }
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p,
-                                        const float (&v)[kVec]) {
-  __align__(16) __nv_bfloat16 o[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) o[i] = __float2bfloat16_rn(v[i]);
-  uint4* p4 = reinterpret_cast<uint4*>(p);
-  p4[0] = reinterpret_cast<const uint4*>(o)[0];
-  p4[1] = reinterpret_cast<const uint4*>(o)[1];
 }
 
 // ---------------------------------------------------------------------------
@@ -258,29 +237,169 @@ void int8_reduce(const int8_t* q, const float* w, const int8_t* qr,
 // int8 decode-apply: out = ref + q*s (+ qr*rs), in f32, stored as ref's type
 // ---------------------------------------------------------------------------
 
+// One lane's unit on the 16-byte path: 16 bytes of ref and out (kVals
+// values) and the kVals int8 of each plane under them (4 bytes in f32, 8 in
+// bf16).
+template <typename T>
+struct ApplyUnit;
+
+template <>
+struct ApplyUnit<float> {
+  static constexpr int kVals = 4;
+  using Ref = float4;
+  using Q = unsigned int;
+  __device__ __forceinline__ static Ref load_ref(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ static Q load_q(const int8_t* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ __forceinline__ static void unpack_ref(const Ref& r,
+                                                    float (&v)[4]) {
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+  __device__ __forceinline__ static void unpack_q(const Q& q, float (&f)[4]) {
+    unpack4(q, f);
+  }
+  __device__ __forceinline__ static void store(float* p,
+                                               const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct ApplyUnit<__nv_bfloat16> {
+  static constexpr int kVals = 8;
+  using Ref = uint4;
+  using Q = uint2;
+  __device__ __forceinline__ static Ref load_ref(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static Q load_q(const int8_t* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ static void unpack_ref(const Ref& r,
+                                                    float (&v)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = __bfloat1622float2(h[j]);
+      v[2 * j] = t.x;
+      v[2 * j + 1] = t.y;
+    }
+  }
+  __device__ __forceinline__ static void unpack_q(const Q& q, float (&f)[8]) {
+    unpack4(q.x, f);
+    unpack4(q.y, f + 4);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(v[j]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(o);
+  }
+};
+
+constexpr int kApplyUnits = 4;  // 16-byte units a lane a step
+
+// One step's registers: kApplyUnits units a lane.
+template <typename T, bool kTwo>
+struct ApplyStep {
+  typename ApplyUnit<T>::Ref r[kApplyUnits];
+  typename ApplyUnit<T>::Q q[kApplyUnits];
+  typename ApplyUnit<T>::Q qr[kTwo ? kApplyUnits : 1];
+};
+
+// Unit k of a lane's step starts at base + k * 32 * kVals: each load and
+// store instruction of the warp covers contiguous bytes. A unit at or past
+// m is skipped (m is a multiple of kVals, so a unit is whole or absent).
+template <typename T, bool kTwo>
+__device__ __forceinline__ void apply_load(const T* ref, const int8_t* q,
+                                           const int8_t* qr, int64_t base,
+                                           int64_t m,
+                                           ApplyStep<T, kTwo>& st) {
+  using U = ApplyUnit<T>;
+#pragma unroll
+  for (int k = 0; k < kApplyUnits; ++k) {
+    const int64_t u = base + k * 32 * U::kVals;
+    if (u < m) {
+      st.r[k] = U::load_ref(ref + u);
+      st.q[k] = U::load_q(q + u);
+      if constexpr (kTwo) st.qr[k] = U::load_q(qr + u);
+    }
+  }
+}
+
+template <typename T, bool kTwo>
+__device__ __forceinline__ void apply_store(T* out, int64_t base, int64_t m,
+                                            float sc, float rsc,
+                                            const ApplyStep<T, kTwo>& st) {
+  using U = ApplyUnit<T>;
+#pragma unroll
+  for (int k = 0; k < kApplyUnits; ++k) {
+    const int64_t u = base + k * 32 * U::kVals;
+    if (u < m) {
+      float v[U::kVals], f[U::kVals];
+      U::unpack_ref(st.r[k], v);
+      U::unpack_q(st.q[k], f);
+#pragma unroll
+      for (int i = 0; i < U::kVals; ++i) {
+        v[i] = __fadd_rn(v[i], __fmul_rn(f[i], sc));
+      }
+      if constexpr (kTwo) {
+        U::unpack_q(st.qr[k], f);
+#pragma unroll
+        for (int i = 0; i < U::kVals; ++i) {
+          v[i] = __fadd_rn(v[i], __fmul_rn(f[i], rsc));
+        }
+      }
+      U::store(out + u, v);
+    }
+  }
+}
+
+// values a warp covers in one step
+template <typename T>
+constexpr int64_t kApplyTile = 32 * ApplyUnit<T>::kVals * kApplyUnits;
+
+// Each warp walks the steps (tiles of kApplyTile values) t = warp, warp +
+// warps, ...; the loads of its next step are issued before the stores of
+// the current one, from two register buffers.
 template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kThreads)
     int8_apply_vec(const T* __restrict__ ref, const int8_t* __restrict__ q,
                    const float* __restrict__ s, const int8_t* __restrict__ qr,
                    const float* __restrict__ rs, T* __restrict__ out,
                    int64_t m) {
+  constexpr int64_t kTile = kApplyTile<T>;
   const float sc = __ldg(s);
   const float rsc = kTwo ? __ldg(rs) : 0.f;
-  const int64_t groups = m / kVec;
-  for (int64_t g = first_index(); g < groups; g += grid_stride()) {
-    float r[kVec], f[kVec];
-    load16(ref + g * kVec, r);
-    unpack16(load_i8x16(q + g * kVec), f);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) r[i] = __fadd_rn(r[i], __fmul_rn(f[i], sc));
-    if (kTwo) {
-      unpack16(load_i8x16(qr + g * kVec), f);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        r[i] = __fadd_rn(r[i], __fmul_rn(f[i], rsc));
-      }
+  const int64_t off = (threadIdx.x & 31) * ApplyUnit<T>::kVals;
+  const int64_t warps = grid_stride() / 32;
+  const int64_t tiles = (m + kTile - 1) / kTile;
+  int64_t t = first_index() / 32;
+  if (t >= tiles) return;
+  ApplyStep<T, kTwo> a, b;
+  apply_load<T, kTwo>(ref, q, qr, t * kTile + off, m, a);
+  for (;;) {
+    int64_t next = t + warps;
+    if (next < tiles) {
+      apply_load<T, kTwo>(ref, q, qr, next * kTile + off, m, b);
     }
-    store16(out + g * kVec, r);
+    apply_store<T, kTwo>(out, t * kTile + off, m, sc, rsc, a);
+    t = next;
+    if (t >= tiles) break;
+    next = t + warps;
+    if (next < tiles) {
+      apply_load<T, kTwo>(ref, q, qr, next * kTile + off, m, a);
+    }
+    apply_store<T, kTwo>(out, t * kTile + off, m, sc, rsc, b);
+    t = next;
+    if (t >= tiles) break;
   }
 }
 
@@ -307,10 +426,12 @@ void int8_apply(const void* ref, const int8_t* q, const float* s,
                 cudaStream_t st) {
   const T* rt = static_cast<const T*>(ref);
   T* ot = static_cast<T*>(out);
-  const bool vec = m % kVec == 0 && aligned16(ref) && aligned16(q) &&
-                   aligned16(out) && (!kTwo || aligned16(qr));
+  constexpr int V = ApplyUnit<T>::kVals;
+  const bool vec = m % V == 0 && aligned16(ref) && aligned16(out) &&
+                   aligned_to(q, V) && (!kTwo || aligned_to(qr, V));
   if (vec) {
-    int8_apply_vec<T, kTwo><<<blocks_for(m / kVec), kThreads, 0, st>>>(
+    const int64_t tiles = (m + kApplyTile<T> - 1) / kApplyTile<T>;
+    int8_apply_vec<T, kTwo><<<blocks_for(tiles * 32), kThreads, 0, st>>>(
         rt, q, s, qr, rs, ot, m);
   } else {
     int8_apply_scalar<T, kTwo><<<blocks_for(m), kThreads, 0, st>>>(

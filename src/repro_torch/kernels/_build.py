@@ -24,12 +24,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures of each library's C entry points
 _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fedavg_reduce": {
-        # (x, w, out, n, m, dtype, out_dtype, stream) -> cudaError_t
-        "fedavg_reduce_launch": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p],
+        # (leaves, count, w, n, dtype, out_dtype, blocks, stream) ->
+        # cudaError_t; leaves: the launch's table, packed on the host
+        "fedavg_reduce_tree_launch": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
+        # (int out[4]) -> void: threads, max leaves, rows a chunk (two paths)
+        "fedavg_reduce_layout": ([ctypes.c_void_p], None),
     },
     "delta_codec": {
         # (q, w, qr, wr, out, n, m, stream); qr = wr = None for one plane

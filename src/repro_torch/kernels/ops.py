@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _mg
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+from repro_torch.optim import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -24,14 +25,14 @@ def fedavg_reduce(client_stack: torch.Tensor,
 
 
 def fedavg_reduce_tree(client_params: PyTree, weights: torch.Tensor) -> PyTree:
-    """Weighted-average every leaf of a client-stacked param dict, one
-    launch per leaf: (N, ...) -> (...)."""
-    if isinstance(client_params, dict):
-        return {k: fedavg_reduce_tree(v, weights)
-                for k, v in client_params.items()}
-    n = client_params.shape[0]
-    flat = client_params.reshape(n, -1).contiguous()
-    return fedavg_reduce(flat, weights).reshape(client_params.shape[1:])
+    """Weighted-average every leaf of a client-stacked param dict: (N, ...)
+    -> (...). On CUDA, one launch for all leaves of one dtype (up to
+    ``fedavg_reduce.MAX_LEAVES`` a launch); a contiguous leaf is read in
+    place, and each output equals ``fedavg_reduce`` on its leaf bitwise."""
+    leaves = tree_leaves(client_params)
+    outs = iter(_fr.fedavg_reduce_stacks(
+        [x.reshape(x.shape[0], -1).contiguous() for x in leaves], weights))
+    return tree_map(lambda x: next(outs).reshape(x.shape[1:]), client_params)
 
 
 def fedavg_reduce_sharded(client_rows: torch.Tensor, weights: torch.Tensor,

@@ -87,6 +87,157 @@ def test_fedavg_reduce_f32_output_of_a_bf16_stack(cuda, n, m):
         tfr.fedavg_reduce(x, w, out_dtype=torch.bfloat16)
 
 
+# the chunk sizes of csrc/fedavg_reduce.cu (8 rows on the 16-byte path, 16
+# on one column a thread; ``test_fedavg_reduce_layout`` holds them to the
+# library's) on both sides, and the paper tasks' N
+ORDER_N = [1, 7, 8, 9, 16, 17, 25, 60]
+ORDER_M = [1, 62, 200, 8193, 2097152]
+# (input dtype, out_dtype argument): the default route, the sharded
+# reduce's f32 partial of a bf16 stack, and bf16 end to end
+ORDER_DTYPES = [(torch.float32, None), (torch.bfloat16, torch.float32),
+                (torch.bfloat16, None)]
+
+
+@pytest.mark.cuda
+def test_fedavg_reduce_layout(cuda):
+    """The library launches the layout the wrapper plans with, and the
+    client-order test takes N on both sides of each chunk size."""
+    layout = tfr.kernel_layout()
+    assert (layout["threads"], layout["max_leaves"]) == (tfr.THREADS,
+                                                         tfr.MAX_LEAVES)
+    for r in (layout["rows_vec"], layout["rows_scalar"]):
+        assert r in ORDER_N and r + 1 in ORDER_N
+
+
+@pytest.mark.cuda
+def test_fedavg_reduce_plans_each_layout_of_its_arguments(cuda):
+    """A call with the shapes, dtypes and alignments of an earlier call
+    reuses its plan; an offset view of the same shape is planned anew on
+    the one-column path, and a stack that is not contiguous still raises."""
+    n, m = 3, 4 * tfr.VEC_MIN_GROUPS
+    base = torch.randn((n * m + 4,), device=cuda)
+    w = torch.softmax(torch.randn((n,), device=cuda), 0)
+    aligned, offset = base[:n * m].view(n, m), base[1:n * m + 1].view(n, m)
+    for x, vec in ((aligned, True), (offset, False), (aligned, True)):
+        got = tfr.fedavg_reduce(x, w)
+        assert [r.vec for r in tfr.last_plans[0].leaves] == [vec]
+        torch.testing.assert_close(got, tref.fedavg_reduce_ref(x, w),
+                                   **TOL[torch.float32])
+    with pytest.raises(ValueError):
+        tfr.fedavg_reduce(torch.randn((m, n), device=cuda).t(), w)
+
+
+def _order_inputs(rng, n, m, dtype):
+    """Rows mixing +-1e8 and +-1 (as ``dtype`` holds them) and weights that
+    are powers of two: every w*x is exact in f32, and another order of the
+    clients, or a split of N, rounds the sum differently."""
+    vals = np.array([1e8, -1e8, 1.0, -1.0], np.float32)
+    x = torch.tensor(vals[rng.integers(0, 4, (n, m), dtype=np.int8)])
+    x = x.to(dtype)
+    w = (np.float32(2.0) ** -rng.integers(0, 4, n)).astype(np.float32)
+    return x, w
+
+
+def _in_order(x, w):
+    """The f32 sum over the clients in order, as numpy runs it."""
+    acc = np.zeros(x.shape[1], np.float32)
+    for c in range(x.shape[0]):
+        acc = acc + np.float32(w[c]) * x[c]
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ORDER_M)
+@pytest.mark.parametrize("n", ORDER_N)
+@pytest.mark.parametrize("dtype,out_dtype", ORDER_DTYPES)
+def test_fedavg_reduce_follows_the_client_order_exactly(cuda, n, m, dtype,
+                                                        out_dtype):
+    """Both entry points equal the in-order f32 chain bit for bit, on rows
+    where the order shows (checked on the host for N >= 7 and M from 62 to
+    8193)."""
+    rng = np.random.default_rng(1000 * n + m)
+    x, w = _order_inputs(rng, n, m, dtype)
+    xf = x.float().numpy()
+    want = _in_order(xf, w)
+    if n >= 7 and 62 <= m <= 8193:
+        assert not np.array_equal(want, _in_order(xf[::-1], w[::-1]))
+    want = torch.tensor(want).to(out_dtype or dtype)
+    xc, wc = x.to(cuda), torch.tensor(w, device=cuda)
+    before = tfr.launches
+    one = tfr.fedavg_reduce(xc, wc, out_dtype)
+    tree = (tops.fedavg_reduce_tree({"leaf": xc}, wc)["leaf"]
+            if out_dtype is None else one)
+    torch.cuda.synchronize()
+    assert tfr.launches == before + (2 if out_dtype is None else 1)
+    assert one.dtype == want.dtype and torch.equal(one.cpu(), want)
+    assert torch.equal(tree.cpu(), want)
+
+
+def _tree_case(case, rng, cuda):
+    """A client-stacked tree on the card and its weights: a paper task's
+    model at its paper N; ``mixed``: the CIFAR100 tree with every other
+    leaf in bf16; ``many``: 2 * MAX_LEAVES + 5 leaves; ``offset``: a leaf
+    that is a contiguous view 4 bytes off 16-byte alignment."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.models import small
+    from repro_torch.optim import tree_map
+    name = case if case in ("femnist", "sent140", "shakespeare") \
+        else "cifar100"
+    task = get_paper_task(name)
+    n = task.fed.clients_per_round
+    params = small.init_task_model(0, task, device="cpu")
+    draw = lambda shape: torch.tensor(
+        rng.normal(size=shape).astype(np.float32), device=cuda)
+    tree = tree_map(lambda p: draw((n,) + tuple(p.shape)), params)
+    if case == "mixed":
+        for i, sub in enumerate(tree.values()):
+            for k in list(sub)[i % 2::2]:
+                sub[k] = sub[k].to(torch.bfloat16)
+    elif case == "many":
+        tree = {f"l{i}": draw((n, 1 + 37 * i))
+                for i in range(2 * tfr.MAX_LEAVES + 5)}
+        tree["big"] = draw((n, 2 ** 21))
+    elif case == "offset":
+        m = 2 ** 21
+        base = draw((n * m + 1,))
+        tree["view"] = {"kernel": base[1:].view(n, 512, m // 512)}
+    w = torch.softmax(torch.tensor(rng.normal(size=n)), 0).float().to(cuda)
+    return tree, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cifar100", "femnist", "sent140",
+                                  "shakespeare", "mixed", "many", "offset"])
+def test_fedavg_reduce_tree_equals_the_per_leaf_calls(cuda, case):
+    """One launch for each dtype group of up to MAX_LEAVES leaves, and
+    every output bitwise ``fedavg_reduce`` on its leaf."""
+    import math
+    from repro_torch.optim import tree_leaves
+    tree, w = _tree_case(case, np.random.default_rng(len(case)), cuda)
+    leaves = tree_leaves(tree)
+    n = w.shape[0]
+    groups = {}
+    for x in leaves:
+        groups[x.dtype] = groups.get(x.dtype, 0) + 1
+    if case == "offset":
+        assert leaves[-1].data_ptr() % 16 == 4
+    before = tfr.launches
+    got = tree_leaves(tops.fedavg_reduce_tree(tree, w))
+    torch.cuda.synchronize()
+    assert tfr.launches - before == sum(
+        math.ceil(c / tfr.MAX_LEAVES) for c in groups.values())
+    assert len(groups) == (2 if case == "mixed" else 1)
+    before = tfr.launches
+    for x, g in zip(leaves, got):
+        one = tfr.fedavg_reduce(x.reshape(n, -1), w).reshape(x.shape[1:])
+        assert g.dtype == x.dtype and torch.equal(g, one)
+        torch.testing.assert_close(
+            g.float(), tref.fedavg_reduce_ref(x.reshape(n, -1), w)
+            .reshape(x.shape[1:]).float(), **TOL[x.dtype])
+    torch.cuda.synchronize()
+    assert tfr.launches - before == len(leaves)
+
+
 # ---------------------------------------------------------------------------
 # the client-sharded wrappers at world 1 over NCCL
 # ---------------------------------------------------------------------------
@@ -204,7 +355,10 @@ def test_int8_decompress_reduce_kernel_matches_plain_version(cuda, n, m,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [2097152, 156800, 200, 8193, 1])
+# the paths' leaves, and M around a warp step (512 f32 / 1,024 bf16
+# values) and a partial last step on the 16-byte path (16 * 1024 + 16)
+@pytest.mark.parametrize("m", [2097152, 156800, 200, 8193, 1, 511, 512, 513,
+                               16 * 1024 + 16])
 @pytest.mark.parametrize("planes", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_decode_apply_kernel_matches_plain_version(cuda, m, planes,
@@ -235,6 +389,39 @@ def test_int8_decode_apply_kernel_on_offset_view_takes_scalar_path(cuda):
     torch.testing.assert_close(tdc.int8_decode_apply(ref, q, s),
                                tref.int8_decode_apply_ref(ref, q, s),
                                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [513, 16 * 1024 + 16, 16 * 1024 + 520])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_apply_kernel_writes_nothing_past_m(cuda, m, dtype):
+    """The C entry point on views of larger buffers: out[:m] is the plain
+    version's, and the sentinel after it is untouched, on the last,
+    partial step of the 16-byte path (and the scalar path at 513)."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(m)
+    pad = 4096
+    q, qr, _, _ = _planes(rng, 1, m + pad, cuda)
+    ref = torch.tensor(rng.normal(size=m + pad), dtype=torch.float32)
+    ref = ref.to(cuda, dtype)
+    s = torch.tensor([3e-3], device=cuda)
+    rs = torch.tensor([2e-5], device=cuda)
+    out = torch.full((m + pad,), 7.0, dtype=dtype, device=cuda)
+    lib = _build.load("delta_codec")
+    for planes in (1, 2):
+        two = planes == 2
+        err = lib.int8_apply_launch(
+            ref.data_ptr(), q.data_ptr(), s.data_ptr(),
+            qr.data_ptr() if two else None, rs.data_ptr() if two else None,
+            out.data_ptr(), m, tdc._DTYPE_TAGS[dtype],
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        want = tref.int8_decode_apply_ref(ref[:m], q[0, :m], s,
+                                          qr[0, :m] if two else None,
+                                          rs if two else None)
+        assert torch.equal(out[:m], want)
+        assert bool((out[m:] == 7.0).all())
 
 
 def _distinct_payload(rng, n, k, m, cuda):

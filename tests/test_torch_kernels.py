@@ -91,6 +91,144 @@ def test_fedavg_reduce_tree_on_cnn_shaped_tree():
                                        **TOL["float32"])
 
 
+def _stack_tree(name, n, rng):
+    """A task's paper model, client-stacked to N rows of numpy f32."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.models import small
+    from repro_torch.optim import tree_map
+    params = small.init_task_model(0, get_paper_task(name), device="cpu")
+    return tree_map(lambda p: rng.normal(size=(n,) + tuple(p.shape))
+                    .astype(np.float32), params)
+
+
+@pytest.mark.parametrize("name,n", [("femnist", 3), ("sent140", 4),
+                                    ("shakespeare", 2)])
+def test_fedavg_reduce_tree_on_paper_task_trees(name, n):
+    """The port's tree reduce (the plain version on the CPU) against the
+    reference's (the Pallas kernel in interpret mode) on the other paper
+    models, leaf by leaf, beside the CNN-shaped case above."""
+    from repro_torch.optim import tree_map
+    rng = np.random.default_rng(len(name) + n)
+    stack = _stack_tree(name, n, rng)
+    w = rng.dirichlet(np.ones(n)).astype(np.float32)
+    want = jops.fedavg_reduce_tree(jax.tree.map(jnp.asarray, stack),
+                                   jnp.asarray(w))
+    got = tops.fedavg_reduce_tree(tree_map(torch.tensor, stack),
+                                  torch.tensor(w))
+    assert got.keys() == want.keys()
+    for k, sub in stack.items():
+        assert got[k].keys() == want[k].keys() == sub.keys()
+        for kk, s in sub.items():
+            assert tuple(got[k][kk].shape) == s.shape[1:]
+            np.testing.assert_allclose(got[k][kk].numpy(),
+                                       np.asarray(want[k][kk]),
+                                       **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# the tree launch's table (csrc/fedavg_reduce.cu), planned in plain Python
+# ---------------------------------------------------------------------------
+
+# the leaves of each paper task that take the 16-byte path at paper N: the
+# only ones with a block of threads for every SM at 4 columns a thread
+PAPER_VEC_LEAVES = {"cifar100": {"fc.kernel"}, "femnist": {"fc1.kernel"},
+                    "sent140": set(), "shakespeare": set()}
+
+
+def _blocks(work):
+    return min(-(-work // tfr.THREADS), tfr.MAX_BLOCKS)
+
+
+def _check_plan(plan, leaves):
+    """What every launch of a plan must hold: leaves of its dtype pair in
+    the caller's order, blocks laid end to end from 0, each leaf's blocks
+    covering its work."""
+    firsts = 0
+    for row in plan.leaves:
+        m, dtype, out_dtype, _, _ = leaves[row.index]
+        assert (dtype, out_dtype) == (plan.dtype, plan.out_dtype)
+        assert row.m == m and row.first_block == firsts
+        width = 16 // dtype.itemsize
+        assert row.blocks == _blocks(m // width if row.vec else m)
+        firsts += row.blocks
+    assert plan.blocks == firsts
+    assert [r.index for r in plan.leaves] == sorted(r.index
+                                                    for r in plan.leaves)
+
+
+@pytest.mark.parametrize("name", ["cifar100", "femnist", "sent140",
+                                  "shakespeare"])
+def test_plan_launches_one_launch_for_a_paper_tree(name):
+    from repro_torch.configs import get_paper_task
+    from repro_torch.models import small
+    params = small.init_task_model(0, get_paper_task(name), device="cpu")
+    paths = [(f"{k}.{kk}", v.numel()) for k, sub in params.items()
+             for kk, v in sub.items()]
+    leaves = [(m, torch.float32, torch.float32, 4096 * (i + 1), 512 * i)
+              for i, (_, m) in enumerate(paths)]
+    plans = tfr.plan_launches(leaves)
+    assert len(plans) == 1 and len(plans[0].leaves) == len(paths)
+    _check_plan(plans[0], leaves)
+    assert {paths[r.index][0] for r in plans[0].leaves if r.vec} == \
+        PAPER_VEC_LEAVES[name]
+
+
+def test_plan_launches_groups_by_dtype_pair_in_order():
+    f32, bf16 = torch.float32, torch.bfloat16
+    pairs = [(f32, f32), (bf16, bf16), (f32, f32), (bf16, f32),
+             (bf16, bf16), (bf16, f32)]
+    leaves = [(2 ** 20, a, b, 0, 0) for a, b in pairs]
+    plans = tfr.plan_launches(leaves)
+    assert [(p.dtype, p.out_dtype) for p in plans] == [
+        (f32, f32), (bf16, bf16), (bf16, f32)]
+    assert [[r.index for r in p.leaves] for p in plans] == [
+        [0, 2], [1, 4], [3, 5]]
+    for p in plans:
+        _check_plan(p, leaves)
+        assert all(r.vec for r in p.leaves)      # 2^20 / 8 >= 132 x 256
+
+
+def test_plan_launches_splits_a_group_of_more_than_max_leaves():
+    count = 2 * tfr.MAX_LEAVES + 5
+    leaves = [(100 + i, torch.float32, torch.float32, 0, 0)
+              for i in range(count)]
+    plans = tfr.plan_launches(leaves)
+    assert [len(p.leaves) for p in plans] == [tfr.MAX_LEAVES,
+                                              tfr.MAX_LEAVES, 5]
+    assert [r.index for p in plans for r in p.leaves] == list(range(count))
+    for p in plans:
+        _check_plan(p, leaves)
+
+
+def test_plan_launches_takes_the_one_column_path_off_the_16_byte_grid():
+    """An offset view, an unaligned output or M off the 16-byte width runs
+    one column a thread; so does a leaf too small to give every SM a block
+    of threads at 4 columns a thread."""
+    n, m = 3, 4 * tfr.VEC_MIN_GROUPS
+    base = torch.zeros(n * m + 1)
+    view = base[1:].view(n, m)                 # contiguous, 4 bytes off
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    aligned = torch.zeros(n, m)
+    f32 = torch.float32
+    cases = [((m, f32, f32, aligned.data_ptr(), 0), True),
+             ((m, f32, f32, view.data_ptr(), 0), False),
+             ((m, f32, f32, aligned.data_ptr(), 8), False),
+             ((m + 2, f32, f32, aligned.data_ptr(), 0), False),
+             ((m - 4, f32, f32, aligned.data_ptr(), 0), False),
+             ((2 * m, torch.bfloat16, f32, 0, 0), True),
+             ((2 * m - 8, torch.bfloat16, f32, 0, 0), False)]
+    leaves = [leaf for leaf, _ in cases]
+    plans = tfr.plan_launches(leaves)
+    got = {r.index: r.vec for p in plans for r in p.leaves}
+    assert got == {i: vec for i, (_, vec) in enumerate(cases)}
+    for p in plans:
+        _check_plan(p, leaves)
+    # the CPU tree reads the offset view as it is, through the plain version
+    w = torch.tensor([0.25, 0.25, 0.5])
+    torch.testing.assert_close(tops.fedavg_reduce_tree({"v": view}, w)["v"],
+                               tref.fedavg_reduce_ref(view, w))
+
+
 @pytest.mark.parametrize("x,w,err", [
     (torch.zeros(4), torch.ones(4), ValueError),               # rank
     (torch.zeros(3, 8), torch.ones(4), ValueError),            # weights
