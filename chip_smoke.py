@@ -21,9 +21,9 @@ exits non-zero without printing a result:
               and N=1 shapes, then ``fedavg_reduce_tree`` on each task's
               whole tree as one call (one launch, bitwise the per-leaf
               calls), beside the per-leaf sums and the call's host time;
-              ``fedavg_reduce`` and ``int8_decode_apply`` rows also carry
-              ``ms_clean`` (and ``library_ms_clean``), timed after a flush
-              that only reads;
+              ``fedavg_reduce``, ``int8_decompress_reduce`` and
+              ``int8_decode_apply`` rows also carry ``ms_clean`` (and
+              ``library_ms_clean``), timed after a flush that only reads;
               the four wire-path kernels at every CIFAR100
               (N=25) and FEMNIST (N=60) leaf, both int8 plane counts, top-k
               at S = ceil(0.1 M), plus the edge shapes (M % 16 != 0, M = 1,
@@ -90,17 +90,22 @@ exits non-zero without printing a result:
 9. ssm      — the SSM serving path. Phase ``kernel`` rows hold ``ssd_scan``
               against its plain version at the mamba2-780m prefill shape
               first, then the reference sweep, zamba2-7b's widths, the
-              reduced configs' chunk 32, a ragged S, S < chunk and bf16, with
-              times and the bound (no single library call computes the
-              scan); phase ``parity`` adds reduced mamba2-780m, zamba2-7b and
-              a 5-layer hybrid with the shared attention block (prefill
-              logits, SSM and conv states, 8 greedy tokens); then
+              reduced configs' chunk 32, a ragged S, S < chunk and bf16, each
+              row with the path it launched (f32 ``"fma"``, bf16
+              ``"wgmma"``), times and the bound (no single library call
+              computes the scan); phase ``parity`` adds reduced
+              mamba2-780m, zamba2-7b and a 5-layer hybrid with the shared
+              attention block (prefill logits, SSM and conv states, 8
+              greedy tokens); then
               mamba2-780m at full width and depth (48 layers, 857,379,072
               f32 params from seed 0): prefill B 2 x S 4096 through
               ``ssd_scan`` (48 launches each; ms, the kernel's share), the
               plain path on the same batch, and ``ServingLoop`` greedy
               decode through the SSM and conv states: tokens/s, peak memory;
-              then zamba2-7b at full width (81 layers, 5,737,416,000 f32
+              then the same prefill in bf16 (the f32 model cast on the
+              card): 48 launches a prefill, all on ``"wgmma"``, held to the
+              plain f32 path on the bf16 weights as in phase lm; then
+              zamba2-7b at full width (81 layers, 5,737,416,000 f32
               params): the same through ``ssd_scan`` (68 mamba layers) and
               ``flash_attention`` at head_dim 112 (13 shared-block layers),
               whose rows at hd 112 and 192 (nemotron-4-340b) phase
@@ -116,8 +121,9 @@ exits non-zero without printing a result:
               collective counts exact; ms per round, mesh and local, and
               the all-reduces' device ms per round.
 
-The line before the last is the kernels summary (``flash_attention`` and
-``gmm`` with their f32 and bf16 rows, paths and launches); the last line is
+The line before the last is the kernels summary (``flash_attention``,
+``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches);
+the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -526,7 +532,10 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
                         flush),
                 time_ms(torch, lambda: ref.int8_decompress_reduce_ref(*args),
                         flush), None,
-                k * (n * m + 4 * n) + 4 * m, 2 * k * n * m, bw, f32_peak))
+                k * (n * m + 4 * n) + 4 * m, 2 * k * n * m, bw, f32_peak,
+                ms_clean=time_ms(
+                    torch, lambda: dc.int8_decompress_reduce(*args), flush,
+                    clean=True)))
         refv = torch.randn((m,), generator=gen, device=dev).to(ref_dtype)
         s = torch.full((1,), 3e-3, device=dev)
         rs = torch.full((1,), 2e-5, device=dev)
@@ -1787,7 +1796,8 @@ def ssd_inputs(torch, gen, B, S, H, P, N, dtype):
 def phase_ssd_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
     """``ssd_scan`` against its plain version at ``SSD_SHAPES``, with device
     times of the kernel and the plain version (no single PyTorch call
-    computes the scan: library time null)."""
+    computes the scan: library time null). Each row names the path it
+    launched (f32 ``"fma"``, bf16 at the prefill shape ``"wgmma"``)."""
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import ssd_scan_ref
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1796,6 +1806,11 @@ def phase_ssd_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
     for label, B, S, H, P, N, Q, dt_name in SSD_SHAPES:
         dtype = getattr(torch, dt_name)
         args = ssd_inputs(torch, gen, B, S, H, P, N, dtype)
+        path = launched_path(ss, lambda: ss.ssd_scan(*args, chunk=Q))
+        if path != ss.kernel_path(B, S, H, P, N, Q, dtype) or (
+                dt_name == "float32" and path != "fma") or (
+                label == "bf16" and path != "wgmma"):
+            raise AssertionError(f"ssd_scan {label}: launched {path}")
         got = ss.ssd_scan(*args, chunk=Q)
         again = ss.ssd_scan(*args, chunk=Q)
         want = ssd_scan_ref(*args, chunk=Q)
@@ -1814,7 +1829,7 @@ def phase_ssd_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
         rows.append(_row(
             "ssd_scan", label,
             {"b": B, "s": S, "h": H, "p": P, "n": N, "chunk": Q,
-             "dtype": dt_name}, err, SSD_TOL[dt_name],
+             "dtype": dt_name, "path": path}, err, SSD_TOL[dt_name],
             time_ms(torch, lambda: ss.ssd_scan(*args, chunk=Q), flush),
             time_ms(torch, lambda: ssd_scan_ref(*args, chunk=Q), flush),
             None, nbytes, flops, bw,
@@ -2314,8 +2329,15 @@ def main() -> int:
         "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk_size,
         "attn_layers": layer_count(cfg, "attn"),
         "head_dim": cfg.head_dim}
-    ssd_launches = phase_lm(torch, "ssm", SSM_ARCH, SSM_PARAMS, (SSD,), 9,
-                            SSM_STATE_TOL, ssm_fields)[0]["ssd_scan"]
+    from repro_torch.kernels import ssd_scan as ss
+    ssm_launches, params = phase_lm(torch, "ssm", SSM_ARCH, SSM_PARAMS,
+                                    (SSD,), 9, SSM_STATE_TOL, ssm_fields)
+    ssd_launches = ssm_launches["ssd_scan"]
+    ssm_cfg = get_arch(SSM_ARCH)
+    ssm_bf16 = phase_bf16_prefill(
+        torch, "ssm", ssm_cfg, params,
+        {"ssd": (ss, "ssd_scan", ssm_cfg.num_layers)}, 9)
+    del params
     phase_lm(torch, "zamba2", ZAMBA_ARCH, ZAMBA_PARAMS, (FLASH, SSD), 11,
              SSM_STATE_TOL, ssm_fields)
 
@@ -2389,16 +2411,21 @@ def main() -> int:
             "bf16_launches": bf16_launches,
             **{f"bf16_{key}": bf16[key] for key in keys},
             "bf16_path": bf16["path"]})
-    # ssd_scan: the full-width prefill's shape (one launch of it)
-    top = srows[0]
+    # ssd_scan: the full-width prefill's shape (one launch of it) in f32
+    # (the FMA path) and in bf16 (the tensor-core path) with the launches
+    # of the bf16 prefill
+    f32, bf16 = row_of(srows, "prefill", "float32"), row_of(
+        srows, "bf16", "bfloat16")
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:87",
         "launches": ssd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in srows),
-        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}})
+        **{key: f32[key] for key in keys}, "path": f32["path"],
+        "bf16_launches": ssm_bf16["ssd"],
+        **{f"bf16_{key}": bf16[key] for key in keys},
+        "bf16_path": bf16["path"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -25,13 +25,22 @@
 // The top-k reduce meets two other bounds first: the order of its adds,
 // and the rate of atomic adds at L2 (PERF.md section 6).
 //
-// int8_reduce keeps fedavg_reduce.cu's shape: each thread owns 16
-// consecutive columns, reads them as one 16-byte load per client row and
-// plane, walks the clients in order with f32 sums in registers (one set
-// per plane, added at the end as the reference adds its two sums), and
-// grid-strides over M. No atomics, so results repeat bitwise. A scalar
-// path takes rows that are not 16-byte aligned (M % 16 != 0, offset
-// views).
+// int8_reduce keeps fedavg_reduce.cu's order and its rows in flight: each
+// output is acc = fmaf(w[c], q[c, m], acc) for c = 0 .. N-1 in f32, one sum
+// a plane, the two added at the end as the reference adds its two sums; no
+// atomics, so results repeat bitwise. A thread loads a chunk of R client
+// rows of its columns into registers and issues the next chunk's loads
+// before the current chunk's fmafs. A lane's unit is one 4-byte word of q
+// (4 columns) and 16 bytes of out, so each load instruction of a warp
+// covers 128 contiguous bytes of a row and each store 512 bytes; a leaf
+// too small to give every SM a block at that width (or not 4-byte
+// aligned) runs one column a thread, still coalesced. The bytes become
+// floats by a byte permute into a float's mantissa and one exact subtract
+// (unpack4), not by the conversion unit, which runs at a quarter of the
+// fmaf rate and would take ~13 us of the 18 us bound at `fc`. (An earlier
+// layout gave each thread 16 consecutive columns, so each float4 store of
+// a warp spanned 2 KB, walked the clients four at a time, and left
+// femnist's fc2 10 blocks.)
 //
 // int8_apply is elementwise, `ref + q*s [+ qr*rs]` with separately rounded
 // multiplies and adds, so it repeats the plain PyTorch version bit for bit.
@@ -94,7 +103,6 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;
-constexpr int kVec = 16;  // values per thread on the 16-byte paths
 
 // dtype tags shared with repro_torch/kernels/delta_codec.py
 enum DType : int { kF32 = 0, kBF16 = 1 };
@@ -121,24 +129,17 @@ __device__ __forceinline__ int64_t grid_stride() {
   return static_cast<int64_t>(gridDim.x) * blockDim.x;
 }
 
-// the 4 int8 of a 32-bit word, as floats
+// The 4 int8 of a 32-bit word, as floats. Each byte, biased by 128 to
+// 0..255, is permuted into the low mantissa byte of 2^23 (0x4B000000), and
+// 2^23 + 128 is subtracted: exact, the same floats as a conversion, but a
+// permute and an add where the conversion unit runs at quarter rate.
 __device__ __forceinline__ void unpack4(unsigned int word, float* f) {
+  const unsigned int biased = word ^ 0x80808080u;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    f[j] = static_cast<float>(static_cast<int8_t>(word >> (8 * j)));
+    f[j] = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + j)) -
+           8388736.0f;
   }
-}
-
-// 16 int8 values of one 16-byte load, as floats
-__device__ __forceinline__ void unpack16(const int4 raw, float (&f)[kVec]) {
-  unpack4(raw.x, f);
-  unpack4(raw.y, f + 4);
-  unpack4(raw.z, f + 8);
-  unpack4(raw.w, f + 12);
-}
-
-__device__ __forceinline__ int4 load_i8x16(const int8_t* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
 }
 
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
@@ -154,82 +155,155 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void store16(float* p, const float (&v)[kVec]) {
-  float4* p4 = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    p4[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // int8 decompress-reduce: out[m] = sum_c w[c] q[c, m] (+ sum_c wr[c] qr[c, m])
 // ---------------------------------------------------------------------------
 
-template <bool kTwo>
-__global__ void __launch_bounds__(kThreads)
-    int8_reduce_vec(const int8_t* __restrict__ q, const float* __restrict__ w,
-                    const int8_t* __restrict__ qr,
-                    const float* __restrict__ wr, float* __restrict__ out,
-                    int n, int64_t m) {
-  const int64_t groups = m / kVec;
-  for (int64_t g = first_index(); g < groups; g += grid_stride()) {
-    float acc[kVec], accr[kVec], f[kVec];
+// Client rows a chunk: 8 at 4 columns a lane, 16 at one column a thread
+// (8 with two planes: 16 loads in flight either way, and the two register
+// buffers stay at 64 words).
+template <int V, bool kTwo>
+constexpr int kReduceRows = V == 4 || kTwo ? 8 : 16;
+
+// V int8 columns of one client row: the raw registers of one load, and the
+// fmaf of the weighted row into the V sums.
+template <int V>
+struct I8Cols;
+
+template <>
+struct I8Cols<4> {
+  using Raw = unsigned int;
+  __device__ __forceinline__ static Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ __forceinline__ static void fma(float w, Raw v,
+                                             float (&acc)[4]) {
+    float f[4];
+    unpack4(v, f);
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[i] = accr[i] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < n; ++c) {
-      const int64_t off = static_cast<int64_t>(c) * m + g * kVec;
-      const float wc = __ldg(w + c);
-      unpack16(load_i8x16(q + off), f);
+    for (int i = 0; i < 4; ++i) acc[i] = fmaf(w, f[i], acc[i]);
+  }
+};
+
+template <>
+struct I8Cols<1> {
+  using Raw = signed char;
+  __device__ __forceinline__ static Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const signed char*>(p));
+  }
+  __device__ __forceinline__ static void fma(float w, Raw v,
+                                             float (&acc)[1]) {
+    acc[0] = fmaf(w, static_cast<float>(v), acc[0]);
+  }
+};
+
+// R client rows of one unit of V columns, and their weights, per plane.
+template <int V, int R, bool kTwo>
+struct ReduceChunk {
+  typename I8Cols<V>::Raw q[R];
+  typename I8Cols<V>::Raw qr[kTwo ? R : 1];
+  float w[R];
+  float wr[kTwo ? R : 1];
+};
+
+// Issue the loads of rows c0 .. c0+R-1 (those below n) at column col.
+// Nothing waits on them here.
+template <int V, int R, bool kTwo>
+__device__ __forceinline__ void reduce_load(
+    const int8_t* __restrict__ q, const float* __restrict__ w,
+    const int8_t* __restrict__ qr, const float* __restrict__ wr,
+    int64_t col, int64_t m, int c0, int n, ReduceChunk<V, R, kTwo>& ch) {
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(wc, f[i], acc[i]);
-      if (kTwo) {
-        const float wrc = __ldg(wr + c);
-        unpack16(load_i8x16(qr + off), f);
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) accr[i] = fmaf(wrc, f[i], accr[i]);
+  for (int r = 0; r < R; ++r) {
+    if (c0 + r < n) {
+      const int64_t off = static_cast<int64_t>(c0 + r) * m + col;
+      ch.q[r] = I8Cols<V>::load(q + off);
+      ch.w[r] = __ldg(w + c0 + r);
+      if constexpr (kTwo) {
+        ch.qr[r] = I8Cols<V>::load(qr + off);
+        ch.wr[r] = __ldg(wr + c0 + r);
       }
     }
-    if (kTwo) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] += accr[i];
-    }
-    store16(out + g * kVec, acc);
   }
 }
 
-template <bool kTwo>
+// The chains: rows c0 .. c0+R-1 (those below n) into each plane's sums,
+// in client order.
+template <int V, int R, bool kTwo>
+__device__ __forceinline__ void reduce_fma(const ReduceChunk<V, R, kTwo>& ch,
+                                           int c0, int n, float (&acc)[V],
+                                           float (&accr)[V]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (c0 + r < n) {
+      I8Cols<V>::fma(ch.w[r], ch.q[r], acc);
+      if constexpr (kTwo) I8Cols<V>::fma(ch.wr[r], ch.qr[r], accr);
+    }
+  }
+}
+
+// V columns a lane (a warp's load instruction covers 32 V contiguous bytes
+// of a client row and its store 128 V bytes of out), R rows a chunk, two
+// chunks in registers: the next chunk's loads go out before the current
+// chunk's fmafs.
+template <int V, int R, bool kTwo>
 __global__ void __launch_bounds__(kThreads)
-    int8_reduce_scalar(const int8_t* __restrict__ q,
+    int8_reduce_kernel(const int8_t* __restrict__ q,
                        const float* __restrict__ w,
                        const int8_t* __restrict__ qr,
                        const float* __restrict__ wr, float* __restrict__ out,
                        int n, int64_t m) {
-  for (int64_t j = first_index(); j < m; j += grid_stride()) {
-    float acc = 0.f, accr = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < n; ++c) {
-      const int64_t off = static_cast<int64_t>(c) * m + j;
-      acc = fmaf(__ldg(w + c), static_cast<float>(q[off]), acc);
-      if (kTwo) accr = fmaf(__ldg(wr + c), static_cast<float>(qr[off]), accr);
+  const int64_t units = m / V;
+  for (int64_t u = first_index(); u < units; u += grid_stride()) {
+    const int64_t col = u * V;
+    ReduceChunk<V, R, kTwo> a, b;
+    float acc[V], accr[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = accr[i] = 0.f;
+    reduce_load<V, R, kTwo>(q, w, qr, wr, col, m, 0, n, a);
+    for (int c0 = 0;;) {
+      if (c0 + R < n) reduce_load<V, R, kTwo>(q, w, qr, wr, col, m, c0 + R,
+                                              n, b);
+      reduce_fma<V, R, kTwo>(a, c0, n, acc, accr);
+      c0 += R;
+      if (c0 >= n) break;
+      if (c0 + R < n) reduce_load<V, R, kTwo>(q, w, qr, wr, col, m, c0 + R,
+                                              n, a);
+      reduce_fma<V, R, kTwo>(b, c0, n, acc, accr);
+      c0 += R;
+      if (c0 >= n) break;
     }
-    out[j] = kTwo ? acc + accr : acc;
+    if constexpr (kTwo) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] += accr[i];
+    }
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(out + col) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      out[col] = acc[0];
+    }
   }
 }
 
+// A leaf takes 4 columns a lane when its rows are 4-byte aligned and out
+// 16-byte aligned, and it has a block of threads for every SM at that
+// width; any other leaf runs one column a thread, with four times the
+// threads (femnist's fc2, M = 40,000, gets 157 blocks, where 16 columns a
+// thread gave it 10).
 template <bool kTwo>
 void int8_reduce(const int8_t* q, const float* w, const int8_t* qr,
                  const float* wr, float* out, int n, int64_t m,
                  cudaStream_t s) {
-  const bool vec = m % kVec == 0 && aligned16(q) && aligned16(out) &&
-                   (!kTwo || aligned16(qr));
+  const bool vec = m % 4 == 0 && aligned_to(q, 4) && aligned16(out) &&
+                   (!kTwo || aligned_to(qr, 4)) &&
+                   m / 4 >= static_cast<int64_t>(132) * kThreads;
   if (vec) {
-    int8_reduce_vec<kTwo><<<blocks_for(m / kVec), kThreads, 0, s>>>(
-        q, w, qr, wr, out, n, m);
+    int8_reduce_kernel<4, kReduceRows<4, kTwo>, kTwo>
+        <<<blocks_for(m / 4), kThreads, 0, s>>>(q, w, qr, wr, out, n, m);
   } else {
-    int8_reduce_scalar<kTwo><<<blocks_for(m), kThreads, 0, s>>>(
-        q, w, qr, wr, out, n, m);
+    int8_reduce_kernel<1, kReduceRows<1, kTwo>, kTwo>
+        <<<blocks_for(m), kThreads, 0, s>>>(q, w, qr, wr, out, n, m);
   }
 }
 

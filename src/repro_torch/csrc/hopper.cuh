@@ -1,16 +1,19 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (moe_gmm.cu and flash_attention.cu, their bf16 paths): inline PTX for
-// mbarriers, TMA tile loads, the wgmma shared-memory descriptor and the
-// bf16 -> f32 wgmma instructions the two kernels issue, plus the host-side
-// tensor-map encoder. sm_90a only (wgmma and setmaxnreg exist for no other
-// target); CUDA headers only, no CUTLASS.
+// Hopper building blocks shared by the port's tensor-core kernels (the
+// bf16 paths of moe_gmm.cu, flash_attention.cu and ssd_scan.cu): inline
+// PTX for mbarriers, TMA tile loads, cp.async copies, the 128-byte swizzle
+// and the proxy fence for tiles the threads write, the wgmma
+// shared-memory descriptor and the bf16 -> f32 wgmma instructions the
+// kernels issue, plus the host-side tensor-map encoder. sm_90a only (wgmma
+// and setmaxnreg exist for no other target); CUDA headers only, no
+// CUTLASS.
 //
 // Conventions:
 //   * an mbarrier is a uint64_t in shared memory; a wait names the parity
 //     of the phase it waits for (a producer's first wait on an empty slot
 //     passes with parity 1);
 //   * TMA coordinates are element indices, innermost dimension first;
-//   * a wgmma descriptor points at a tile that TMA wrote with the same
+//   * a wgmma descriptor points at a tile that TMA (or the threads, at
+//     swizzle128 offsets, then fence_proxy_async) wrote with the same
 //     swizzle, its base aligned to 1024 bytes; K-major tiles advance along
 //     K by moving the start address 32 bytes (16 bf16) inside the swizzled
 //     row, MN-major tiles by whole 8-row groups.
@@ -86,6 +89,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
+// cp.async: 16-byte copies from device to shared memory that the issuing
+// thread waits for by commit group (tiles whose layout the threads pick)
+// ---------------------------------------------------------------------------
+
+// Copies 16 bytes, or writes 16 zeros and reads nothing when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's committed groups are still
+// in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // TMA: tile loads from a tensor map into shared memory, completing on an
 // mbarrier (elements past the map's bounds arrive as zeros)
 // ---------------------------------------------------------------------------
@@ -153,6 +180,20 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr,
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
   d |= static_cast<uint64_t>(swizzle) << 62;
   return d;
+}
+
+// Makes this thread's ordinary stores to shared memory visible to the
+// async proxy that wgmma reads its shared operands through (tiles written
+// by threads, not by TMA); follow with a barrier before the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a tile of
+// 128-byte rows under the 128-byte swizzle, as TMA would write it (the
+// tile's base aligned to 1024 bytes).
+__host__ __device__ constexpr uint32_t swizzle128(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
 // Orders this thread's register writes (accumulators, A fragments) before

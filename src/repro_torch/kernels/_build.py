@@ -81,10 +81,11 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int),
     },
     "ssd_scan": {
-        # (x, dt, A, b, c, D, y, final_state, cs, states, dims[6],
-        #  strides[6], dtype, stream); dims and strides are host int64 arrays
+        # (x, dt, A, b, c, D, y, final_state, cs, states, cb, sprev,
+        #  dims[6], strides[6], dtype, path, stream); dims and strides are
+        #  host int64 arrays
         "ssd_scan_launch": (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p],
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
             ctypes.c_int),
     },
 }

@@ -105,9 +105,16 @@ def ssm_forward(p, cfg: ArchConfig, u, *,
     C_ = xBC[..., d_inner + s.d_state:]
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
     A = -torch.exp(p["A_log"].to(f32))
-    scan = ops.ssd_scan if use_kernel else ssd_chunked
-    y, final_state = scan(x.to(f32), dt, A, B_.to(f32), C_.to(f32),
-                          p["D"].to(f32), chunk=s.chunk_size)
+    if use_kernel:
+        # x, B and C in their own dtype: the kernel reads the projection's
+        # slices in place and widens bf16 to f32 exactly, so a bf16 model
+        # takes the tensor-core path and computes what ssd_chunked does
+        y, final_state = ops.ssd_scan(x, dt, A, B_, C_, p["D"].to(f32),
+                                      chunk=s.chunk_size)
+    else:
+        y, final_state = ssd_chunked(x.to(f32), dt, A, B_.to(f32),
+                                     C_.to(f32), p["D"].to(f32),
+                                     chunk=s.chunk_size)
     y = y.reshape(Bsz, S, d_inner).to(u.dtype)
     y = layers.rmsnorm_apply(p["norm"], y * F.silu(z))
     out = layers.dense_apply(p["out_proj"], y)

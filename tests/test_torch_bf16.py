@@ -2,12 +2,12 @@
 
 The reference builds its LMs in bf16 at production scale
 (``registry.init(key, cfg, jnp.bfloat16)``); on the card the port's bf16
-prefill runs the tensor-core kernels of ``gmm`` and ``flash_attention``,
-here their plain versions (``use_kernel=True`` on CPU tensors). Both
-packages get the same weights, drawn by the reference in f32 and cast to
-bf16 on each side (both round to nearest even), and the same tokens drawn
-with numpy; the reference's Pallas kernels run in interpret mode, as its
-own tests run them.
+prefill runs the tensor-core kernels of ``gmm``, ``flash_attention`` and
+``ssd_scan``, here their plain versions (``use_kernel=True`` on CPU
+tensors). Both packages get the same weights, drawn by the reference in f32
+and cast to bf16 on each side (both round to nearest even), and the same
+tokens drawn with numpy; the reference's Pallas kernels run in interpret
+mode, as its own tests run them.
 
 Tolerance. Each framework rounds the activations to bf16 at its own
 points, and the differences pass through every layer, so neither bf16
@@ -46,7 +46,8 @@ from test_torch_parity_helpers import flat
 ANCHOR_FACTOR = 2.0
 PLAIN_MAX = 0.25
 ROUTE_TOL = 2 * (3e-2 + 3e-2)
-NAMES = ["qwen1.5-0.5b-reduced", "phi3.5-moe-42b-a6.6b-reduced"]
+NAMES = ["qwen1.5-0.5b-reduced", "phi3.5-moe-42b-a6.6b-reduced",
+         "mamba2-780m-reduced"]
 
 
 def _bf16_models(name):
@@ -121,7 +122,8 @@ def test_bf16_prefill_matches_reference(name, monkeypatch):
     assert log.dtype == torch.bfloat16 and jlog.dtype == jnp.bfloat16
     assert log.shape == (2, tcfg.vocab_size)
     _close(log.float().numpy(), jlog.astype(jnp.float32), alog)
-    assert set(st["stack"]["b0"]) == {"k", "v"}
+    assert set(st["stack"]["b0"]) == ({"ssm", "conv"} if tcfg.ssm
+                                      else {"k", "v"})
     assert {t.dtype for t in tree_leaves(st["stack"])} == {torch.bfloat16}
     got = flat(tree_map(lambda t: t.float(), st["stack"]))
     want = flat(jax.tree.map(lambda a: a.astype(jnp.float32), jst["stack"]))

@@ -354,6 +354,61 @@ def test_int8_decompress_reduce_kernel_matches_plain_version(cuda, n, m,
     _close_to_max(got, tref.int8_decompress_reduce_ref(*args))
 
 
+def _in_order_planes(q, w, qr, wr):
+    """Each plane's f32 sum over the clients in order, as numpy runs it,
+    the two sums added at the end."""
+    acc = _in_order(q.float().numpy(), w)
+    if qr is None:
+        return acc
+    return acc + _in_order(qr.float().numpy(), wr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 511, 512, 513, 8193, 12400, 40000, 156800,
+                               2 ** 21])
+@pytest.mark.parametrize("n", [3, 25, 60])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_int8_decompress_reduce_follows_the_client_order_exactly(
+        cuda, n, m, planes):
+    """Weights that are powers of two from 1 to 2**-29 make every w*q exact
+    in f32 and the sums round, so only the order of the adds shows (checked
+    on the host for N >= 25, M >= 511): the kernel equals the in-order
+    chain of each plane, the two added at the end, bit for bit, on both
+    layouts (4 columns a lane from 2**21 on, one column a thread below)
+    and on an offset view (one column a thread)."""
+    rng = np.random.default_rng(7 * n + m)
+    q = torch.tensor(rng.integers(-127, 128, size=(n, m)), dtype=torch.int8)
+    qr = torch.tensor(rng.integers(-127, 128, size=(n, m)), dtype=torch.int8)
+    w = (np.float32(2.0) ** -rng.integers(0, 30, n)).astype(np.float32)
+    wr = (np.float32(2.0) ** -rng.integers(0, 30, n)).astype(np.float32)
+    if planes == 1:
+        qr, wr = None, None
+    want = _in_order_planes(q, w, qr, wr)
+    if n >= 25 and m >= 511:
+        assert not np.array_equal(
+            want, _in_order_planes(q.flip(0), w[::-1],
+                                   None if qr is None else qr.flip(0),
+                                   None if wr is None else wr[::-1]))
+    wc = torch.tensor(w, device=cuda)
+    wrc = None if wr is None else torch.tensor(wr, device=cuda)
+    before = tdc.launches["int8_decompress_reduce"]
+    got = tdc.int8_decompress_reduce(q.to(cuda), wc,
+                                     None if qr is None else qr.to(cuda), wrc)
+    # the same rows one byte into a buffer: no row is 4-byte aligned
+    base = torch.zeros(2 * n * m + 1, dtype=torch.int8, device=cuda)
+    qo = base[1:n * m + 1].view(n, m)
+    qo.copy_(q)
+    qro = None
+    if qr is not None:
+        qro = base[n * m + 1:].view(n, m)
+        qro.copy_(qr)
+    offset = tdc.int8_decompress_reduce(qo, wc, qro, wrc)
+    torch.cuda.synchronize()
+    assert tdc.launches["int8_decompress_reduce"] == before + 2
+    assert torch.equal(got.cpu(), torch.tensor(want))
+    assert torch.equal(offset.cpu(), torch.tensor(want))
+
+
 @pytest.mark.cuda
 # the paths' leaves, and M around a warp step (512 f32 / 1,024 bf16
 # values) and a partial last step on the 16-byte path (16 * 1024 + 16)
@@ -1025,6 +1080,100 @@ def test_ops_ssd_scan_grads_through_plain_version(cuda):
     for got, ref in zip(args, refs):
         torch.testing.assert_close(got.grad, ref.grad,
                                    **SSD_TOL[torch.float32])
+
+
+# the model paths' shapes (chip_smoke.py's SSD_SHAPES): the mamba2-780m
+# prefill, zamba2-7b's widths, a ragged S and S < chunk
+SSD_MODEL_CASES = {
+    "prefill": (2, 4096, 48, 64, 128, 256),
+    "zamba2": (1, 4096, 112, 64, 64, 256),
+    "ragged": (2, 4000, 48, 64, 128, 256),
+    "short": (2, 100, 48, 64, 128, 256),
+}
+
+
+def _launched_path(call):
+    """(result, the one path whose launch count ``call()`` raised)."""
+    before = dict(tss.launches_by_path)
+    out = call()
+    moved = {p: tss.launches_by_path[p] - before[p] for p in tss.PATHS}
+    assert sorted(moved.values()) == [0, 1], moved
+    return out, max(moved, key=moved.get)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(SSD_MODEL_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_paths_at_the_model_shapes(cuda, label, dtype):
+    """Both paths (f32 on the FMA path, bf16 on the wgmma path at these
+    shapes) against the plain version, each result repeating bitwise."""
+    case = SSD_MODEL_CASES[label]
+    args = _ssd_inputs(case, cuda, dtype)
+    chunk = case[-1]
+    (y, st), path = _launched_path(
+        lambda: tss.ssd_scan(*args, chunk=chunk))
+    assert path == tss.kernel_path(*case, dtype)
+    assert path == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    y2, st2 = tss.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    want_y, want_st = tref.ssd_scan_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(st, want_st, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_launches_by_path_match_kernel_path(cuda, case, dtype):
+    args = _ssd_inputs(case, cuda, dtype)
+    _, path = _launched_path(lambda: tss.ssd_scan(*args, chunk=case[-1]))
+    assert path == tss.kernel_path(*case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_heads_share_c_b_but_not_the_gate(cuda, dtype):
+    """Four heads with their own A and dt: the kernel matches the plain
+    version, and the plain version with head 0's gate on every head is far
+    outside the tolerance, so a kernel that shared the gate would fail."""
+    case = (1, 512, 4, 64, 64, 256)
+    x, dt, A, b, c, D = _ssd_inputs(case, cuda, dtype, seed=5)
+    A = torch.tensor([-0.2, -1.0, -2.5, -0.05], device=cuda)
+    dt = dt * torch.tensor([0.5, 1.0, 2.0, 4.0], device=cuda)
+    assert len(set(A.tolist())) == 4
+    (y, st), path = _launched_path(
+        lambda: tss.ssd_scan(x, dt, A, b, c, D, chunk=256))
+    assert path == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    want_y, want_st = tref.ssd_scan_ref(x, dt, A, b, c, D, chunk=256)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(st, want_st, **SSD_TOL[torch.float32])
+    shared_y, _ = tref.ssd_scan_ref(x, dt[..., :1].expand_as(dt),
+                                    A[:1].expand_as(A), b, c, D, chunk=256)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(shared_y.float(), want_y.float(),
+                                   **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_reads_model_layout_views(cuda):
+    """The wgmma path reads x, b and c as slices of one bf16 projection
+    through their strides, as the f32 path does."""
+    B, S, H, P, N = 2, 300, 4, 64, 32
+    g = torch.Generator().manual_seed(2)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g).to(cuda,
+                                                             torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not x.is_contiguous() and x.data_ptr() == xbc.data_ptr()
+    _, dt, A, _, _, D = _ssd_inputs((B, S, H, P, N, 64), cuda)
+    got, path = _launched_path(
+        lambda: tss.ssd_scan(x, dt, A, b, c, D, chunk=64))
+    assert path == "wgmma"
+    same = tss.ssd_scan(x.contiguous(), dt, A, b.contiguous(),
+                        c.contiguous(), D, chunk=64)
+    for a, e in zip(got, same):
+        assert torch.equal(a, e)
 
 
 @pytest.mark.cuda

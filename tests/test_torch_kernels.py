@@ -325,3 +325,36 @@ def test_gmm_kernel_path_for_every_moe_config(dtype):
                 assert tmg.kernel_path(E, C, d, f, TORCH[dtype]) == want
     for d, f in ((100, 64), (64, 100), (7, 9)):
         assert tmg.kernel_path(4, 128, d, f, TORCH[dtype]) == "fma"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_path_for_every_ssm_config(dtype):
+    """The scan of every SSM config's prefill (B 2 x S 4096) takes the wgmma
+    path in bf16 and the FMA path in f32; the reduced configs (chunk 32),
+    S < 64 and widths off the 16-element grid take the FMA path; shapes
+    that no path takes are refused."""
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.kernels import ssd_scan as tss
+    full = [get_arch(n) for n in ARCHS if ARCHS[n].ssm is not None]
+    assert {c.name for c in full} >= {"mamba2-780m", "zamba2-7b"}
+    dt = TORCH[dtype]
+    for cfg in full + [get_arch(f"{c.name}-reduced") for c in full]:
+        s = cfg.ssm
+        H = s.n_heads(cfg.d_model)
+        P = s.d_inner(cfg.d_model) // H
+        want = ("wgmma" if dtype == "bfloat16" and s.chunk_size % 64 == 0
+                else "fma")
+        assert tss.kernel_path(2, 4096, H, P, s.d_state, s.chunk_size,
+                               dt) == want, cfg.name
+        if cfg in full:
+            assert want == ("wgmma" if dtype == "bfloat16" else "fma")
+        else:
+            assert want == "fma"
+    for shape in ((2, 63, 48, 64, 128, 256), (1, 4096, 4, 40, 128, 256),
+                  (1, 4096, 4, 64, 24, 256), (1, 4096, 4, 64, 128, 96)):
+        assert tss.kernel_path(*shape, dt) == "fma"
+    for shape in ((1, 64, 2, 65, 16, 64), (1, 64, 2, 64, 257, 64),
+                  (1, 64, 2, 64, 16, 8192), (1, 64, 2, 64, 16, 0),
+                  (1, 64, 70000, 64, 16, 64)):
+        with pytest.raises(ValueError):
+            tss.kernel_path(*shape, dt)
