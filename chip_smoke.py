@@ -52,15 +52,18 @@ exits non-zero without printing a result:
 7. lm       — the dense LM serving path. Phase ``kernel`` rows hold
               ``flash_attention`` against its plain version at the prefill
               shape and edge shapes (GQA, window, softcap, hd 128 and 32,
-              non-causal, Sq = 1 against Sk = 257), in f32 (the FMA kernel)
-              and bf16 (the wgmma kernel; also a ragged 300 x 300 tile, hd
-              16 and phi3.5-moe's attention shape), each row with the path
-              it launched, times, the SDPA time and the flops bound; phase
+              non-causal, Sq = 1 against Sk = 257), in f32 (the
+              ``"wgmma_split"`` path: bf16 hi + lo planes, three products)
+              and bf16 (``"wgmma"``; also a ragged 300 x 300 tile, hd 16 and
+              phi3.5-moe's attention shape), each row with the path it
+              launched, times, the SDPA time and the bound (f32 rows: three
+              bf16 products at the bf16 rate); phase
               ``parity`` runs reduced qwen1.5-0.5b and gemma2-27b on the
               card (kernel) against the CPU (plain): prefill logits and
               states, 8 greedy tokens; then qwen1.5-0.5b at full width
               (463,987,712 f32 params): prefill B 2 x S 4096 through the
-              kernel (24 launches each; ms and the kernel's share), the same
+              kernel (24 launches each, all on ``"wgmma_split"``; ms and
+              the kernel's share), the same
               batch through the plain path, and ``ServingLoop`` greedy
               decode at the launcher's defaults (batch 4, prompt 16, 32
               tokens): tokens/s and peak memory; then the same prefill in
@@ -71,15 +74,18 @@ exits non-zero without printing a result:
 8. moe      — the MoE serving path. Phase ``kernel`` rows hold ``gmm``
               against its plain version (bitwise repeat too) at the
               phi3.5-moe prefill's gate/up and down shapes, the reference
-              sweep's and the decode-dispatch floor C = 8, f32 (the FMA
-              kernel) and bf16 (the wgmma kernel), with the path launched,
-              the ``torch.bmm`` time and the bound; phase ``parity``
+              sweep's, the decode-dispatch floor C = 8 and one row of widths
+              no multiple of 8, f32 (``"wgmma_split"``; ``"fma"`` for the
+              unaligned row) and bf16 (``"wgmma"``; ``"fma"`` unaligned),
+              with the path launched, the ``torch.bmm`` time and the bound;
+              phase ``parity``
               adds reduced phi3.5-moe-42b-a6.6b and mixtral-8x22b (routing
               ids too, decode on the serving loop's dense MoE path); then
               phi3.5-moe-42b-a6.6b at full width and 8 of its 32 layers
               (10.7 B f32 params from seed 0): prefill B 2 x S 4096 through
               ``flash_attention`` and ``gmm`` (3 x layers gmm and layers
-              flash launches each; ms, each kernel's share), the plain path
+              flash launches each, all on ``"wgmma_split"``; ms, each
+              kernel's share), the plain path
               on the same batch (logits, states, routing flips), and
               ``ServingLoop`` dense-path decode: tokens/s, peak memory; then
               the same prefill in bf16 (the f32 model cast on the card to
@@ -107,7 +113,8 @@ exits non-zero without printing a result:
               plain f32 path on the bf16 weights as in phase lm; then
               zamba2-7b at full width (81 layers, 5,737,416,000 f32
               params): the same through ``ssd_scan`` (68 mamba layers) and
-              ``flash_attention`` at head_dim 112 (13 shared-block layers),
+              ``flash_attention`` at head_dim 112 (13 shared-block layers,
+              on ``"wgmma_split"``),
               whose rows at hd 112 and 192 (nemotron-4-340b) phase
               ``kernel`` holds too;
 10. mesh    — the multi-device round at one rank over NCCL: the four
@@ -450,6 +457,15 @@ def _row(name, label, shape, err, tol, t, plain, lib, nbytes, flops, bw,
     row["bound_share"] = row["bound_ms"] / row["ms"] if t else None
     emit(row)
     return row
+
+
+def path_peak(path: str, f32_peak: float, bf16_peak: float) -> float:
+    """The flop rate a kernel path computes the function's flops at:
+    ``"fma"`` f32 on the CUDA cores; ``"wgmma"`` bf16 on the tensor cores;
+    ``"wgmma_split"`` three bf16 products for each f32 product, so a
+    third of the bf16 rate."""
+    return {"fma": f32_peak, "wgmma": bf16_peak,
+            "wgmma_split": bf16_peak / 3}[path]
 
 
 def _check(torch, got, want, tol, what):
@@ -1053,7 +1069,7 @@ def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
         kw = dict(causal=causal, window=window, softcap=softcap)
         path = launched_path(fa, lambda: fa.flash_attention(q, k, v, **kw))
         if path != fa.kernel_path(hd, dtype) or \
-                path != ("wgmma" if dt == "bfloat16" else "fma"):
+                path != ("wgmma" if dt == "bfloat16" else "wgmma_split"):
             raise AssertionError(f"flash {label}: launched {path}")
         got = fa.flash_attention(q, k, v, **kw)
         again = fa.flash_attention(q, k, v, **kw)
@@ -1095,7 +1111,7 @@ def phase_flash_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
             time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush),
             time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw), flush),
             lib, nbytes, 4 * B * H * hd * pairs, bw,
-            f32_peak if dt == "float32" else bf16_peak))
+            path_peak(path, f32_peak, bf16_peak)))
         del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -1261,6 +1277,25 @@ def phase_parity_lm(torch, names=PARITY_ARCHS):
 
 FLASH = ("flash_attention", "flash", "attn")
 SSD = ("ssd_scan", "ssd", "mamba")
+# the path of every launch in an f32 prefill, by kernel module
+F32_PREFILL_PATHS = {"flash_attention": "wgmma_split",
+                     "moe_gmm": "wgmma_split", "ssd_scan": "fma"}
+
+
+def f32_prefill_paths(mods, per_prefill):
+    """Each module's launches by path over four f32 prefills, checked:
+    ``per_prefill[name]`` launches a prefill, all on the module's
+    ``F32_PREFILL_PATHS`` path. Returns them a prefill."""
+    out = {}
+    for name, mod in mods.items():
+        got = dict(mod.launches_by_path)
+        want = {p: 4 * per_prefill[name] if p == F32_PREFILL_PATHS[name]
+                else 0 for p in mod.PATHS}
+        if got != want:
+            raise AssertionError(f"{name} launches by path in 4 f32 "
+                                 f"prefills {got}, want {want}")
+        out[name] = {p: n // 4 for p, n in got.items()}
+    return out
 
 
 def layer_count(cfg, ltype: str) -> int:
@@ -1378,6 +1413,8 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
             raise AssertionError(
                 f"{launches[name]} {name} launches in 4 prefills, want "
                 f"{4 * layer_count(cfg, ltype)}")
+    by_path = f32_prefill_paths(
+        mods, {name: layer_count(cfg, ltype) for name, _, ltype in kernels})
     if logits.shape != (LM_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} or "
@@ -1402,6 +1439,8 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
           "ms": order[len(order) // 2], "ms_runs": times,
           **{f"{short}_share": shares[name] for name, short, _ in kernels},
           **{f"{short}_launches_per_prefill": launches[name] // 4
+             for name, short, _ in kernels},
+          **{f"{short}_launches_per_prefill_by_path": by_path[name]
              for name, short, _ in kernels},
           "plain_ms": plain_ms,
           "logits_max_abs_err_vs_plain": float(
@@ -1483,7 +1522,8 @@ def phase_bf16_prefill(torch, phase, cfg, params, kernels, seed):
     by_path = {key: dict(mod.launches_by_path)
                for key, (mod, _, _) in kernels.items()}
     for key, (_, _, per) in kernels.items():
-        if by_path[key] != {"wgmma": 4 * per, "fma": 0}:
+        if by_path[key] != {p: 4 * per if p == "wgmma" else 0
+                            for p in by_path[key]}:
             raise AssertionError(f"{key} launches by path in 4 bf16 "
                                  f"prefills {by_path[key]}, want "
                                  f"{4 * per} on wgmma")
@@ -1568,7 +1608,9 @@ GMM_SHAPES = [("gate_up", 16, 1280, 4096, 6400),
               ("sweep", 4, 128, 256, 512),
               ("sweep", 8, 100, 512, 384),
               ("sweep", 2, 257, 320, 640),
-              ("decode_c8", 16, 8, 4096, 6400)]
+              ("decode_c8", 16, 8, 4096, 6400),
+              # widths no multiple of 8: the FMA kernel, in both dtypes
+              ("unaligned", 2, 100, 252, 260)]
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 # 8 of its 32 layers: all 32 hold 168 GB in f32, past the card's 80 GB
 MOE_LAYERS = 8
@@ -1592,8 +1634,10 @@ def phase_gmm_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
             w = (torch.randn((E, d, f), generator=gen, device="cuda")
                  / math.sqrt(d)).to(dtype)
             path = launched_path(mg, lambda: mg.gmm(x, w))
+            want_path = ("fma" if d % 8 or f % 8 else
+                         "wgmma" if dt == "bfloat16" else "wgmma_split")
             if path != mg.kernel_path(E, C, d, f, dtype) or \
-                    path != ("wgmma" if dt == "bfloat16" else "fma"):
+                    path != want_path:
                 raise AssertionError(f"gmm {label} {dt}: launched {path}")
             got = mg.gmm(x, w)
             again = mg.gmm(x, w)
@@ -1614,7 +1658,7 @@ def phase_gmm_kernel(torch, bw: float, f32_peak: float, bf16_peak: float):
                 time_ms(torch, lambda: gmm_ref(x, w), flush),
                 time_ms(torch, lambda: torch.bmm(x, w), flush),
                 es * (E * C * d + E * d * f + E * C * f), 2 * E * C * d * f,
-                bw, f32_peak if dt == "float32" else bf16_peak))
+                bw, path_peak(path, f32_peak, bf16_peak)))
             del x, w
     del flush
     torch.cuda.empty_cache()
@@ -1658,6 +1702,9 @@ def phase_moe(torch):
     if launches != want:
         raise AssertionError(f"launches in 4 prefills {launches}, want "
                              f"{want}")
+    by_path = f32_prefill_paths(
+        {"moe_gmm": mg, "flash_attention": fa},
+        {"moe_gmm": 3 * cfg.num_layers, "flash_attention": cfg.num_layers})
     if logits.shape != (MOE_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} or "
@@ -1688,6 +1735,8 @@ def phase_moe(torch):
           "gmm_share": shares["gmm"], "flash_share": shares["flash"],
           "gmm_launches_per_prefill": launches["gmm"] // 4,
           "flash_launches_per_prefill": launches["flash"] // 4,
+          "gmm_launches_per_prefill_by_path": by_path["moe_gmm"],
+          "flash_launches_per_prefill_by_path": by_path["flash_attention"],
           "plain_ms": plain_ms,
           "logits_max_abs_err_vs_plain": float(
               (logits - plain_logits).abs().max()),
@@ -2386,8 +2435,8 @@ def main() -> int:
         if kname.startswith("topk"):
             kernels[-1]["design"] = TOPK_DESIGN
     # flash_attention and gmm: the full-width prefill's shape (one launch of
-    # it; gmm at gate/up) in f32 (the FMA kernel), and the same in bf16
-    # (the tensor-core kernel) with the launches of the bf16 prefills
+    # it; gmm at gate/up) in f32 (the "wgmma_split" path), and the same in
+    # bf16 ("wgmma") with the launches of the bf16 prefills
     def row_of(rows, label, dt):
         return next(r for r in rows if r["shape"] == label
                     and r["dtype"] == dt)

@@ -25,58 +25,85 @@
 // the qwen1.5-0.5b prefill shape (B 2, H 16, S 4096, hd 64, causal) one
 // launch needs 68.7 GFLOP against 67 MB in bf16, about 1,000 flops a byte.
 //
-// Two kernels, chosen before launch from dtype alone (the wrapper's
-// kernel_path):
+// Two paths, chosen before launch from dtype alone (the wrapper's
+// kernel_path), both one kernel template on the tensor cores,
+// `tc::flash_wgmma<HD, kSplit>` (989 TFLOP/s dense bf16):
 //
-// 1. bf16: `tc::flash_wgmma`, on the tensor cores (989 TFLOP/s dense
-//    bf16; bound 0.069 ms at the qwen shape).
-//    * One CTA per (head, batch, 128-query tile), the longest query tiles
-//      first (the causal frontier makes late tiles the heaviest).
-//    * Warp specialisation, 384 threads: a producer warpgroup (one thread
-//      issues, 40 registers) loads the Q tile once and 64-key K and V tiles
-//      into a two-stage ring, by TMA on 4D tensor maps over (hd, S, heads,
-//      B) with the tensors' own strides (the model's (B, S, H, hd) tensors
-//      pass as transposed views), one mbarrier a stage. Rows are cut into
-//      chunks of the swizzle width: 64 columns with the 128-byte swizzle
-//      (hd 112 is laid out as 128, TMA zero-filling the pad; hd 192 as
-//      three chunks), hd 32 and 16 whole with the 64- and 32-byte swizzles.
-//    * Two consumer warpgroups (232 registers) own 64 query rows each:
-//      S = Q.K^T by wgmma m64n64k16 from shared memory (both K-major), then
-//      scale, softcap, mask, row max and row sum on the accumulator's own
-//      fragments in registers (a row lives in the four threads of a quad:
-//      two shuffles), scores kept in the log2 domain so exp2 gives exp;
-//      P is rounded to bf16 in registers and is the register A operand of
-//      O += P.V (wgmma m64nNk16, N the padded hd; V is MN-major, hd
-//      contiguous). O (up to 96 f32 a thread at hd 192) stays in registers
-//      and is stored as bf16 pairs, masked to (Sq, hd).
-//    * Each warpgroup skips the compute of key tiles outside its own 64
-//      rows' range but still waits for and releases every stage.
-//    P in bf16 is the one numerical difference from the TPU kernel, which
-//    multiplies V by p in f32; it stays well inside the bf16 tolerance.
-//    ptxas (nvcc 12.9): 168 registers at every hd (the 384-thread launch
-//    bound; setmaxnreg: producer 40, consumers 232), no spills.
-// 2. f32: `flash_fwd`, plain FMA on the CUDA cores (its ceiling is the
-//    67 TFLOP/s f32 rate; TF32 would change the numbers). It keeps the FMA
-//    pipes fed from shared memory:
-//    * one CTA of 256 threads per (head, batch, 64-query tile); the query
-//      tile is staged once, then 64-key K and V tiles in turn, all as f32
-//      rows padded by 4 floats so the 16-byte reads below are conflict-free;
-//    * thread (ty, tx) of a 16 x 16 layout owns query rows ty + 16 i and
-//      keys tx + 16 j (i, j < 4): each 16-byte read of Q and of K feeds 16
-//      FMAs of its 4 x 4 score block; the 16 threads of a row sit in one
-//      half-warp, so the row max is four shuffles;
-//    * P goes through shared memory, and the same thread computes P.V for
-//      its 4 rows over hd/16 output columns, one 16-byte read of P per 4
-//      keys and row;
-//    * the grid runs the longest query tiles first.
-//    ptxas (nvcc 12.9): 116-158 registers, no spills.
-//    It takes f32 only: flash_attention_launch refuses the bf16 tag.
+// * One CTA per (head, batch, 128-query tile), the longest query tiles
+//   first (the causal frontier makes late tiles the heaviest).
+// * Warp specialisation, 384 threads: a producer warpgroup (one thread
+//   issues, 40 registers) loads the Q tile once and 64-key K and V tiles
+//   into a ring of stages, by TMA on 4D tensor maps over (hd, S, heads, B),
+//   one mbarrier a stage. Rows are cut into chunks of the swizzle width:
+//   64 columns with the 128-byte swizzle (hd 112 is laid out as 128, TMA
+//   zero-filling the pad; hd 192 as three chunks), hd 32 and 16 whole with
+//   the 64- and 32-byte swizzles.
+// * Two consumer warpgroups (232 registers) own 64 query rows each:
+//   S = Q.K^T by wgmma m64n64k16 from shared memory (both K-major), then
+//   scale, softcap, mask, row max and row sum on the accumulator's own
+//   fragments in registers (a row lives in the four threads of a quad: two
+//   shuffles), scores kept in the log2 domain so exp2 gives exp; P is the
+//   register A operand of O += P.V (wgmma m64nNk16, N the padded hd; V is
+//   MN-major, hd contiguous: the transpose bit). O (up to 96 f32 a thread
+//   at hd 192) stays in registers and is stored masked to (Sq, hd).
+// * Each warpgroup skips the compute of key tiles outside its own 64
+//   rows' range but still waits for and releases every stage. The ranges
+//   are those of 64-row query groups, so a fully masked row (a window with
+//   no key in it) averages V over the same keys as the Pallas kernel and
+//   the port's earlier FMA kernel did.
+//
+// 1. bf16, "wgmma": Q, K and V are the caller's tensors, read in place
+//    through their strides (the model's (B, S, H, hd) tensors pass as
+//    transposed views). P is rounded to bf16 in registers: the one
+//    numerical difference from the TPU kernel, which multiplies V by p in
+//    f32; it stays well inside the bf16 tolerance. O is stored as bf16
+//    pairs. Two stages of K and V.
+// 2. f32, "wgmma_split": every f32 operand v is split into bf16 hi =
+//    bf16(v) and lo = bf16(v - hi) (hopper.cuh, |v - hi - lo| <= 2^-18
+//    |v|) and each product runs as three, in this order, into one f32
+//    accumulator: S = Q_hi.K_hi^T + Q_hi.K_lo^T + Q_lo.K_hi^T, O += P_hi.V_hi
+//    + P_lo.V_hi + P_hi.V_lo (lo.lo is below f32's rounding). That is f32
+//    accuracy at a third of the bf16 rate (bound 0.21 ms at the qwen shape,
+//    where the CUDA cores' 67 TFLOP/s give 1.03 ms), and P is not rounded:
+//    it is split in registers like the rest. TF32 would not do: 10 bits,
+//    and its wgmma takes no MN-major B, which V is.
+//    * The tensor cores round their f32 sums toward zero, and O collects
+//      12 wgmmas a key tile over every key tile. At hd <= 64 (qwen's
+//      prefill) P.V goes into a fresh partial (the first product
+//      overwrites it), and O = fma(alpha, O, partial) on the CUDA cores
+//      rounds to nearest: that took the qwen1.5-0.5b f32 prefill's K/V
+//      states from 1.75e-4 to 7.0e-5 off the plain path (tolerance 2e-4).
+//      At hd 112, 128 and 192, O holds 64 or 96 registers and a partial
+//      beside it spilled (96-116 bytes; hd 112 1.85-1.94 ms against 1.68
+//      without), so O keeps the tensor cores' sum there, 7.6e-5 off the
+//      plain version at zamba2's hd 112 (tolerance 2e-4). S (12 to 36
+//      products into a fresh tile each time) keeps the tensor cores' sum.
+//    * q, k and v are split by a first pass, `split_qkv` (one launch for
+//      the three, 16-byte loads and stores), into bf16 hi and lo planes,
+//      each a contiguous (2B, heads, S, hd) scratch tensor from the
+//      wrapper: hi at batches 0..B-1, lo at B..2B-1, so one tensor map
+//      reads both. The pass moves the f32 bytes twice (read, write: ~0.2
+//      GB, ~0.06 ms at the qwen shape) once a call, where a split in the
+//      attention kernel would redo it for every query tile that reads a
+//      K or V tile (S / 128 of them), and would need f32 staging tiles
+//      beside the bf16 ones, which do not fit shared memory at hd >= 112.
+//    * Shared memory holds Q hi and lo and, a stage, K hi, K lo, V hi and
+//      V lo: 32 + 2 x 32 KB at hd 64, 64 + 2 x 64 KB at hd 112 and 128;
+//      at hd 192, 96 KB of Q and a stage of 96 KB allow one stage only
+//      (two would need 288 KB of the 227): the producer loads a tile while
+//      the consumers run nothing else, so hd 192 waits for every load.
+//    * O is stored as f32 pairs.
+// ptxas (nvcc 12.9): 168 registers for both paths at every hd (the
+// 384-thread launch bound caps what ptxas allocates; setmaxnreg: producer
+// 40, consumers 232), no spills; split_qkv 28.
 // No atomics and a fixed order of every sum: results repeat bitwise.
 //
-// The C entry points launch on the caller's stream, allocate nothing and
-// return cudaGetLastError() (or a tensor-map error, hopper.cuh); the Python
-// wrapper raises if that is not 0.
+// The C entry points launch on the caller's stream, allocate nothing (the
+// split path's planes come from the wrapper) and return cudaGetLastError()
+// (or a tensor-map error, hopper.cuh); the Python wrapper raises if that is
+// not 0.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,274 +113,59 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per CTA
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kLDP = kBK + 16;   // P row stride: the two half-warps' rows
-                                 // land 16 banks apart
 constexpr float kMasked = -1e30f;
 
-// dtype tags shared with repro_torch/kernels/flash_attention.py; bf16
-// goes to flash_attention_wgmma_launch
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// ---------------------------------------------------------------------------
+// the f32 path's first pass: q, k, v into bf16 hi and lo planes
+// ---------------------------------------------------------------------------
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, H, KV, Sq, Sk;
-  int64_t qs[3], ks[3], vs[3], os[3];  // element strides of b, h, s
-  int causal;
-  int window;      // <= 0: no window
-  float softcap;   // <= 0: no softcap
-  float scale;
+constexpr int kSplitThreads = 256;
+
+struct SplitArgs {
+  const float* src[3];             // q, k, v: (B, heads, S, hd) views
+  __nv_bfloat16* dst[3];           // each (2B, heads, S, hd) contiguous
+  int64_t st[3][3];                // element strides of src's b, h, s
+  int heads[3];
+  int S[3];
+  int B, hd;
 };
 
-template <int HD>
-constexpr int smem_floats() {
-  return 3 * kBQ * (HD + 4) + kBQ * kLDP;
-}
-
-// Stage rows [row0, row0 + 64) of one (b, h) slice into dst as f32 rows of
-// stride HD + 4; rows at or past `limit` are zeros. One shared-memory store
-// per chunk, the load predicated: written as a branch with a store on each
-// side, nvcc 12.9 keeps both stores and the kernel runs slower (PERF.md,
-// PR 17).
-template <int HD>
-__device__ __forceinline__ void stage(float* dst, const float* base,
-                                      int64_t row_stride, int row0,
-                                      int limit) {
-  constexpr int LD = HD + 4;
-  // 16-byte chunks of a row: 4 f32
-  constexpr int kPer = 4;
-  constexpr int kChunks = HD / kPer;
-  for (int c = threadIdx.x; c < kBQ * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * kPer;
-    float* d = dst + r * LD + col;
-    const int row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < limit)
-      val = __ldg(reinterpret_cast<const float4*>(base + row * row_stride +
-                                                  col));
-    *reinterpret_cast<float4*>(d) = val;
-  }
-}
-
-// Output columns a thread reads from one V row at a time: the widest of 4,
-// 2, 1 that divides its DPT columns (hd 112 gives DPT 7: one at a time).
-template <int DPT>
-__host__ __device__ constexpr int vec_width() {
-  return DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
-}
-
-// The register budget: hd up to 128 asks for two CTAs an SM (128
-// registers a thread); hd 192 holds 48 accumulators a thread and a CTA
-// takes 171 KB of shared memory, so one CTA an SM and up to 255 registers.
-template <int HD>
-__host__ __device__ constexpr int min_blocks() {
-  return HD <= 128 ? 2 : 1;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, min_blocks<HD>())
-    flash_fwd(Params p) {
-  constexpr int LD = HD + 4;
-  constexpr int DPT = HD / 16;              // output columns per thread
-  constexpr int VW = vec_width<DPT>();      // ... read VW at a time
-  constexpr int NV = DPT / VW;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // longest tiles first
-  const int kvh = h / (p.H / p.KV);
-
-  const float* qb = static_cast<const float*>(p.q) + b * p.qs[0] +
-                    h * p.qs[1];
-  const float* kb = static_cast<const float*>(p.k) + b * p.ks[0] +
-                    kvh * p.ks[1];
-  const float* vb = static_cast<const float*>(p.v) + b * p.vs[0] +
-                    kvh * p.vs[1];
-  float* ob = static_cast<float*>(p.o) + b * p.os[0] + h * p.os[1];
-
-  stage<HD>(Qs, qb, p.qs[2], q0, p.Sq);
-
-  // key tiles that hold an unmasked key for some row of this query tile
-  const int q_last = min(q0 + kBQ, p.Sq) - 1;
-  const int nk = (p.Sk + kBK - 1) / kBK;
-  const int kt_end = p.causal ? min(nk, q_last / kBK + 1) : nk;
-  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / kBK : 0;
-
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile's K, V and P are consumed
-    stage<HD>(Ks, kb, p.ks[2], k0, p.Sk);
-    stage<HD>(Vs, vb, p.vs[2], k0, p.Sk);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = kMasked;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool keep = true;
-        if (p.causal) keep = kj <= qi;
-        if (p.window > 0) keep = keep && (kj > qi - p.window);
-        x = keep ? x : kMasked;
-        if (kj >= p.Sk) x = -INFINITY;    // past the keys: adds exactly 0
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kLDP + tx + 16 * j] = e;
-        rs += e;
-      }
-      // this thread's share of the row's denominator: alpha is the same
-      // in all 16 threads of the row, so the shares add up at the end
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLDP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = Vs + (j + jj) * LD;
-        float vals[DPT];
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const float* src = vrow + (tx + 16 * n) * VW;
-          if constexpr (VW == 4) {
-            const float4 t = *reinterpret_cast<const float4*>(src);
-            vals[n * 4] = t.x;
-            vals[n * 4 + 1] = t.y;
-            vals[n * 4 + 2] = t.z;
-            vals[n * 4 + 3] = t.w;
-          } else if constexpr (VW == 2) {
-            const float2 t = *reinterpret_cast<const float2*>(src);
-            vals[n * 2] = t.x;
-            vals[n * 2 + 1] = t.y;
-          } else {
-            vals[n] = src[0];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pj = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
-                         : jj == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-          for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(pj, vals[c], acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= p.Sq) continue;
-    const float inv = 1.f / fmaxf(li, 1e-30f);
-    float* orow = ob + qi * p.os[2];
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-#pragma unroll
-      for (int e = 0; e < VW; ++e)
-        orow[(tx + 16 * n) * VW + e] = acc[i][n * VW + e] * inv;
-  }
-}
-
-template <int HD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.H, p.B, (p.Sq + kBQ - 1) / kBQ);
-  flash_fwd<HD><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_hd(int hd, const Params& p, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<16>(p, stream);
-    case 32: return launch<32>(p, stream);
-    case 64: return launch<64>(p, stream);
-    case 112: return launch<112>(p, stream);   // zamba2-7b's shared block
-    case 128: return launch<128>(p, stream);
-    case 192: return launch<192>(p, stream);   // nemotron-4-340b
-    default: return cudaErrorInvalidValue;
+// blockIdx.y picks q, k or v; a thread takes 8 f32 of a row at a time
+// (hd % 8 == 0, rows 16-byte aligned) and writes 16 bytes of hi and of lo.
+__global__ void __launch_bounds__(kSplitThreads)
+split_qkv(SplitArgs a) {
+  const int t = blockIdx.y;
+  const int per_row = a.hd / 8;
+  const int S = a.S[t];
+  const int heads = a.heads[t];
+  const int rows = a.B * heads * S;
+  const int n = rows * per_row;
+  const float* src = a.src[t];
+  __nv_bfloat16* hi_plane = a.dst[t];
+  __nv_bfloat16* lo_plane = hi_plane + static_cast<int64_t>(rows) * a.hd;
+  for (int i = blockIdx.x * kSplitThreads + threadIdx.x; i < n;
+       i += gridDim.x * kSplitThreads) {
+    const int row = i / per_row;
+    const int col = (i - row * per_row) * 8;
+    const int s = row % S;
+    const int bh = row / S;
+    const int hh = bh % heads;
+    const int bb = bh / heads;
+    const float* from = src + bb * a.st[t][0] + hh * a.st[t][1] +
+                        s * a.st[t][2] + col;
+    const float4 v0 = __ldg(reinterpret_cast<const float4*>(from));
+    const float4 v1 = __ldg(reinterpret_cast<const float4*>(from + 4));
+    const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    uint4 vh, vl;
+    hopper::split8(v, vh, vl);
+    const int64_t to = static_cast<int64_t>(row) * a.hd + col;
+    *reinterpret_cast<uint4*>(hi_plane + to) = vh;
+    *reinterpret_cast<uint4*>(lo_plane + to) = vl;
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: wgmma fed by TMA
+// the attention kernel: wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -364,8 +176,10 @@ constexpr int kThreads = 384;      // consumers 0-255, producer 256-383
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
-  __nv_bfloat16* o;
+  void* o;                         // bf16 or f32, as the path
   int64_t os[3];                   // element strides of o's b, h, s
+  int B;                           // batch; the split path's lo planes
+                                   // start at batch B
   int H, KV, Sq, Sk;
   int causal;
   int window;                      // <= 0: no window
@@ -373,40 +187,69 @@ struct Args {
   float scale;
 };
 
-// Shared-memory geometry of one head dim. A tile's rows are cut into
-// chunks of the swizzle width (64 columns, 128 bytes; hd 32 and 16 take
-// the 64- and 32-byte swizzles whole); hd 112 is laid out as 128 columns,
-// the last 16 zero-filled by TMA (the map's hd is 112).
-template <int HD>
+// Shared-memory geometry of one head dim and path. A tile's rows are cut
+// into chunks of the swizzle width (64 columns, 128 bytes; hd 32 and 16
+// take the 64- and 32-byte swizzles whole); hd 112 is laid out as 128
+// columns, the last 16 zero-filled by TMA (the map's hd is 112). The split
+// path keeps two bf16 planes (hi, lo) of every tile.
+template <int HD, bool kSplit>
 struct Geo {
   static constexpr int kHDP = HD == 112 ? 128 : HD;
   static constexpr int kCol = kHDP < 64 ? kHDP : 64;   // one TMA box wide
   static constexpr int kChunks = kHDP / kCol;
   static constexpr int kRow = 2 * kCol;                // bytes: the swizzle
   static constexpr hopper::Swizzle kSwz = hopper::swizzle_for_row(kRow);
+  static constexpr int kParts = kSplit ? 2 : 1;
   static constexpr int kQChunk = kBQ * kRow;
   static constexpr int kKVChunk = kBKV * kRow;
-  static constexpr int kQBytes = kChunks * kQChunk;
-  static constexpr int kKVBytes = kChunks * kKVChunk;  // one K or V tile
-  static constexpr int kStageBytes = 2 * kKVBytes;     // K then V
-  static constexpr int kSmem = kQBytes + 2 * kStageBytes + 5 * 8 + 1024;
+  static constexpr int kQBytes = kChunks * kQChunk;    // one plane
+  static constexpr int kKVBytes = kChunks * kKVChunk;  // one plane of K or V
+  static constexpr int kStageBytes = 2 * kParts * kKVBytes;  // K, then V
+  static constexpr int kStages = kSplit && HD == 192 ? 1 : 2;
+  static constexpr int kSmem = kParts * kQBytes + kStages * kStageBytes +
+                               (1 + 2 * kStages) * 8 + 1024;
 };
 
-// O (m64 x N) += P (registers) . V (MN-major smem), N = the padded hd
+// O (m64 x N) += P (registers) . V (MN-major smem), N columns of V
+// (scale_d = 0: O = P . V)
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
-                                         const uint32_t (&p)[4], uint64_t v) {
+                                         const uint32_t (&p)[4], uint64_t v,
+                                         int scale_d = 1) {
   using namespace hopper;
-  if constexpr (N == 16) wgmma_m64n16k16_rs<1>(o, p, v, 1);
-  else if constexpr (N == 32) wgmma_m64n32k16_rs<1>(o, p, v, 1);
-  else if constexpr (N == 64) wgmma_m64n64k16_rs<1>(o, p, v, 1);
-  else if constexpr (N == 128) wgmma_m64n128k16_rs<1>(o, p, v, 1);
-  else wgmma_m64n192k16_rs<1>(o, p, v, 1);
+  if constexpr (N == 16) wgmma_m64n16k16_rs<1>(o, p, v, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k16_rs<1>(o, p, v, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16_rs<1>(o, p, v, scale_d);
+  else if constexpr (N == 128) wgmma_m64n128k16_rs<1>(o, p, v, scale_d);
+  else wgmma_m64n192k16_rs<1>(o, p, v, scale_d);
+}
+
+// The split path's O (m64 x N) += P_hi.V_hi + P_lo.V_hi + P_hi.V_lo over
+// a 64-key tile, V's hi and lo planes at va and va + kKVBytes; scale0 = 0:
+// the first product overwrites acc.
+template <typename G, int N>
+__device__ __forceinline__ void pv_split(float (&acc)[N / 2],
+                                         const uint32_t (&ph)[4][4],
+                                         const uint32_t (&pl)[4][4],
+                                         uint32_t va, int scale0) {
+  using namespace hopper;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t at = va + kk * 16 * G::kRow;
+    const uint64_t vh = make_desc(at, G::kKVChunk, 8 * G::kRow, G::kSwz);
+    const uint64_t vl =
+        make_desc(at + G::kKVBytes, G::kKVChunk, 8 * G::kRow, G::kSwz);
+    wgmma_pv<N>(acc, ph[kk], vh, kk > 0 || scale0);
+    wgmma_pv<N>(acc, pl[kk], vh);
+    wgmma_pv<N>(acc, ph[kk], vl);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
 }
 
 // Key tiles [lo, hi) that hold an unmasked key for some of the 64 query
-// rows from r0 (the FMA kernel's rule for its 64-row query tiles, so a
-// fully masked row comes out as it does there); lo == hi: none.
+// rows from r0; lo == hi: none.
 __device__ __forceinline__ void key_tiles(const Args& p, int r0, int nk,
                                           int& lo, int& hi) {
   if (r0 >= p.Sq) {
@@ -419,21 +262,26 @@ __device__ __forceinline__ void key_tiles(const Args& p, int r0, int nk,
   if (lo > hi) lo = hi;
 }
 
-template <int HD>
+template <int HD, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, Args p) {
   using namespace hopper;
-  using G = Geo<HD>;
+  using G = Geo<HD, kSplit>;
   constexpr int N = G::kHDP;
+  constexpr int kStages = G::kStages;
+  // the split path promotes P.V's sums where a partial fits beside O (the
+  // source note says why and where)
+  constexpr bool kPromote = kSplit && N <= 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  uint8_t* qs = smem;
-  uint8_t* kv = smem + G::kQBytes;   // stage s: K at s * kStageBytes, then V
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(kv + 2 * G::kStageBytes);
+  uint8_t* qs = smem;                 // plane part at part * kQBytes
+  // stage s at s * kStageBytes: the K planes, then the V planes
+  uint8_t* kv = smem + G::kParts * G::kQBytes;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(kv + kStages * G::kStageBytes);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = qbar + 3;
+  uint64_t* empty = full + kStages;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -458,7 +306,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);         // one arrival per consumer group
     }
@@ -467,26 +315,33 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // producer: Q once, then K and V tiles through a two-stage ring
+    // producer: Q once, then K and V tiles through the ring
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(qbar, G::kQBytes);
+      mbar_arrive_expect_tx(qbar, G::kParts * G::kQBytes);
 #pragma unroll
-      for (int c = 0; c < G::kChunks; ++c)
-        tma_load_4d(qs + c * G::kQChunk, &tq, qbar, c * G::kCol, q0, h, b);
+      for (int part = 0; part < G::kParts; ++part)
+#pragma unroll
+        for (int c = 0; c < G::kChunks; ++c)
+          tma_load_4d(qs + part * G::kQBytes + c * G::kQChunk, &tq, qbar,
+                      c * G::kCol, q0, h, b + part * p.B);
       for (int it = 0; it < n; ++it) {
-        const int s = it & 1;
+        const int s = it % kStages;
         const int k0 = (first + it) * kBKV;
-        mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], G::kStageBytes);
         uint8_t* ks = kv + s * G::kStageBytes;
 #pragma unroll
-        for (int c = 0; c < G::kChunks; ++c) {
-          tma_load_4d(ks + c * G::kKVChunk, &tk, &full[s], c * G::kCol, k0,
-                      kvh, b);
-          tma_load_4d(ks + G::kKVBytes + c * G::kKVChunk, &tv, &full[s],
-                      c * G::kCol, k0, kvh, b);
-        }
+        for (int part = 0; part < G::kParts; ++part)
+#pragma unroll
+          for (int c = 0; c < G::kChunks; ++c) {
+            tma_load_4d(ks + part * G::kKVBytes + c * G::kKVChunk, &tk,
+                        &full[s], c * G::kCol, k0, kvh, b + part * p.B);
+            tma_load_4d(ks + (G::kParts + part) * G::kKVBytes +
+                            c * G::kKVChunk,
+                        &tv, &full[s], c * G::kCol, k0, kvh,
+                        b + part * p.B);
+          }
       }
     }
     return;
@@ -517,22 +372,32 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 
   mbar_wait(qbar, 0);
   for (int it = 0; it < n; ++it) {
-    const int st = it & 1;
+    const int st = it % kStages;
     const int kt = first + it;
-    mbar_wait(&full[st], (it >> 1) & 1);
+    mbar_wait(&full[st], (it / kStages) & 1);
     if (kt >= my_lo && kt < my_hi) {
       const uint32_t ka = smem_u32(kv + st * G::kStageBytes);
-      const uint32_t va = ka + G::kKVBytes;
-      // S = Q . K^T, both K-major
+      const uint32_t va = ka + G::kParts * G::kKVBytes;
+      // S = Q . K^T, both K-major (split: Q_hi.K_hi, Q_hi.K_lo, Q_lo.K_hi)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < N / 16; ++kk) {
         const int c = kk / (G::kCol / 16);
         const int off = (kk % (G::kCol / 16)) * 32;
-        wgmma_m64n64k16_ss<0>(
-            s, make_desc(qa + c * G::kQChunk + off, 16, 8 * G::kRow, G::kSwz),
-            make_desc(ka + c * G::kKVChunk + off, 16, 8 * G::kRow, G::kSwz),
-            kk > 0);
+        const uint32_t qoff = c * G::kQChunk + off;
+        const uint32_t koff = c * G::kKVChunk + off;
+        const uint64_t qd = make_desc(qa + qoff, 16, 8 * G::kRow, G::kSwz);
+        const uint64_t kd = make_desc(ka + koff, 16, 8 * G::kRow, G::kSwz);
+        wgmma_m64n64k16_ss<0>(s, qd, kd, kk > 0);
+        if constexpr (kSplit) {
+          wgmma_m64n64k16_ss<0>(
+              s, qd,
+              make_desc(ka + G::kKVBytes + koff, 16, 8 * G::kRow, G::kSwz),
+              1);
+          wgmma_m64n64k16_ss<0>(
+              s, make_desc(qa + G::kQBytes + qoff, 16, 8 * G::kRow, G::kSwz),
+              kd, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -601,32 +466,55 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       // in the four threads of a row, so the shares add up at the end
       l0 = l0 * a0 + rs0;
       l1 = l1 * a1 + rs1;
+      if constexpr (!kPromote) {
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        o[4 * j] *= a0;
-        o[4 * j + 1] *= a0;
-        o[4 * j + 2] *= a1;
-        o[4 * j + 3] *= a1;
+        for (int j = 0; j < N / 8; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
       }
 
-      // O += P . V: P in bf16 as the register A operand (keys 16 kk ..),
-      // V MN-major (hd contiguous)
-      uint32_t pa[4][4];
+      // O += P . V: P as the register A operand (keys 16 kk ..), V
+      // MN-major (hd contiguous); bf16: P rounded; split: P_hi.V_hi,
+      // P_lo.V_hi, P_hi.V_lo, and where kPromote, into a fresh `part`
+      // that then gives O = fma(alpha, O, part) on the CUDA cores
+      if constexpr (kSplit) {
+        uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], ph[kk][i],
+                   pl[kk][i]);
+        if constexpr (kPromote) {
+          float part[N / 2];
+          pv_split<G, N>(part, ph, pl, va, 0);
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i)
+            o[i] = fmaf(i % 4 < 2 ? a0 : a1, o[i], part[i]);
+        } else {
+          pv_split<G, N>(o, ph, pl, va, 1);
+        }
+      } else {
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pa[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_pv<N>(o, pa[kk],
+                      make_desc(va + kk * 16 * G::kRow, G::kKVChunk,
+                                8 * G::kRow, G::kSwz));
+        wgmma_commit();
+        wgmma_wait<0>();
       }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<N>(o, pa[kk],
-                    make_desc(va + kk * 16 * G::kRow, G::kKVChunk,
-                              8 * G::kRow, G::kSwz));
-      wgmma_commit();
-      wgmma_wait<0>();
     }
     if (t == 0) mbar_arrive(&empty[st]);   // every tile, used or skipped
   }
@@ -638,27 +526,41 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = p.o + b * p.os[0] + h * p.os[1];
+  const int64_t base = b * p.os[0] + h * p.os[1];
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int col = 8 * j + cq;
     if (col >= HD) continue;             // hd % 8 == 0: pairs stay whole
-    if (r0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * p.os[2] + col) =
-          pack_bf16x2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    if (r1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * p.os[2] + col) =
-          pack_bf16x2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    if constexpr (kSplit) {
+      float* ob = static_cast<float*>(p.o) + base;
+      if (r0 < p.Sq)
+        *reinterpret_cast<float2*>(ob + r0 * p.os[2] + col) =
+            make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < p.Sq)
+        *reinterpret_cast<float2*>(ob + r1 * p.os[2] + col) =
+            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    } else {
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + base;
+      if (r0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * p.os[2] + col) =
+            pack_bf16x2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < p.Sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * p.os[2] + col) =
+            pack_bf16x2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
   }
 }
 
-template <int HD>
+// dims: the maps' batch (B, or 2B for the split path's planes), H, KV, Sq,
+// Sk, hd; strides: element strides of (b, h, s) of the bf16 q, k, v the
+// maps read.
+template <int HD, bool kSplit>
 int launch(const void* q, const void* k, const void* v, const int64_t* dims,
            const int64_t* strides, const Args& args, cudaStream_t stream) {
   using namespace hopper;
-  using G = Geo<HD>;
-  // 4D maps over (hd, S, heads, B) with the tensors' own strides, so the
-  // model's (B, S, H, hd) tensors pass as transposed views
+  using G = Geo<HD, kSplit>;
+  // 4D maps over (hd, S, heads, batch) with the tensors' own strides, so
+  // the model's (B, S, H, hd) tensors pass as transposed views
   auto map = [&](CUtensorMap* m, const void* base, int64_t S, int64_t heads,
                  const int64_t* st, uint32_t rows) {
     const uint64_t d[4] = {static_cast<uint64_t>(HD),
@@ -677,70 +579,37 @@ int launch(const void* q, const void* k, const void* v, const int64_t* dims,
   if (err == 0) err = map(&tv, v, dims[4], dims[2], strides + 6, kBKV);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<HD, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::kSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(args.H, static_cast<unsigned>(dims[0]),
+  const dim3 grid(args.H, static_cast<unsigned>(args.B),
                   (args.Sq + kBQ - 1) / kBQ);
-  flash_wgmma<HD><<<grid, kThreads, G::kSmem, stream>>>(tq, tk, tv, args);
+  flash_wgmma<HD, kSplit><<<grid, kThreads, G::kSmem, stream>>>(tq, tk, tv,
+                                                                args);
   return cudaGetLastError();
 }
 
-}  // namespace tc
-
-}  // namespace
-
-// dims: B, H, KV, Sq, Sk, hd. strides: element strides of (b, h, s) for q,
-// k, v and o in that order; the last dim is contiguous and every row starts
-// 16-byte aligned (the wrapper checks). window <= 0 and softcap <= 0 mean
-// none. dtype: kF32 only; any other tag returns cudaErrorInvalidValue.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
-                                      const int64_t* dims,
-                                      const int64_t* strides, int causal,
-                                      int window, float softcap, float scale,
-                                      int dtype, void* stream) {
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.B = static_cast<int>(dims[0]);
-  p.H = static_cast<int>(dims[1]);
-  p.KV = static_cast<int>(dims[2]);
-  p.Sq = static_cast<int>(dims[3]);
-  p.Sk = static_cast<int>(dims[4]);
-  for (int i = 0; i < 3; ++i) {
-    p.qs[i] = strides[i];
-    p.ks[i] = strides[3 + i];
-    p.vs[i] = strides[6 + i];
-    p.os[i] = strides[9 + i];
-  }
-  p.causal = causal;
-  p.window = window;
-  p.softcap = softcap;
-  p.scale = scale;
-  const int hd = static_cast<int>(dims[5]);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return dispatch_hd(hd, p, s);
-    default: return cudaErrorInvalidValue;   // bf16 takes the wgmma entry
+template <bool kSplit>
+int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
+                const int64_t* dims, const int64_t* strides, const Args& a,
+                cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16, kSplit>(q, k, v, dims, strides, a, s);
+    case 32: return launch<32, kSplit>(q, k, v, dims, strides, a, s);
+    case 64: return launch<64, kSplit>(q, k, v, dims, strides, a, s);
+    case 112: return launch<112, kSplit>(q, k, v, dims, strides, a, s);
+    case 128: return launch<128, kSplit>(q, k, v, dims, strides, a, s);
+    case 192: return launch<192, kSplit>(q, k, v, dims, strides, a, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// bf16 q, k, v, o; dims, strides, causal, window, softcap and scale as for
-// flash_attention_launch, and every stride but the last a multiple of 8
-// elements (16 bytes, TMA's rule; the wrapper checks).
-extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
-                                            const void* v, void* o,
-                                            const int64_t* dims,
-                                            const int64_t* strides,
-                                            int causal, int window,
-                                            float softcap, float scale,
-                                            void* stream) {
-  tc::Args a;
-  a.o = static_cast<__nv_bfloat16*>(o);
+Args make_args(void* o, const int64_t* dims, const int64_t* strides,
+               int causal, int window, float softcap, float scale) {
+  Args a;
+  a.o = o;
   for (int i = 0; i < 3; ++i) a.os[i] = strides[9 + i];
+  a.B = static_cast<int>(dims[0]);
   a.H = static_cast<int>(dims[1]);
   a.KV = static_cast<int>(dims[2]);
   a.Sq = static_cast<int>(dims[3]);
@@ -749,14 +618,76 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   a.window = window;
   a.softcap = softcap;
   a.scale = scale;
+  return a;
+}
+
+}  // namespace tc
+
+}  // namespace
+
+// bf16 q, k, v, o. dims: B, H, KV, Sq, Sk, hd (hd in 16, 32, 64, 112, 128,
+// 192). strides: element strides of (b, h, s) for q, k, v and o in that
+// order; the last dim is contiguous and every stride but the last a
+// multiple of 8 elements (16 bytes, TMA's rule; the wrapper checks).
+// window <= 0 and softcap <= 0 mean none.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            const int64_t* dims,
+                                            const int64_t* strides,
+                                            int causal, int window,
+                                            float softcap, float scale,
+                                            void* stream) {
+  const tc::Args a =
+      tc::make_args(o, dims, strides, causal, window, softcap, scale);
+  return tc::dispatch_hd<false>(dims[5], q, k, v, dims, strides, a,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// f32 q, k, v, o, dims and strides as above, every row 16-byte aligned and
+// B * heads * S * hd below 2^31 for each of q, k and v; qs, ks, vs: bf16
+// scratch of 2 * q.numel(), 2 * k.numel(), 2 * v.numel() elements, 16-byte
+// aligned (the split pass writes them, the attention kernel reads them).
+extern "C" int flash_attention_split_launch(const void* q, const void* k,
+                                            const void* v, void* o, void* qs,
+                                            void* ks, void* vs,
+                                            const int64_t* dims,
+                                            const int64_t* strides,
+                                            int causal, int window,
+                                            float softcap, float scale,
+                                            void* stream) {
+  const int64_t B = dims[0], H = dims[1], KV = dims[2], Sq = dims[3],
+                Sk = dims[4], hd = dims[5];
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 112 && hd != 128 &&
+      hd != 192)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dims[5]) {
-    case 16: return tc::launch<16>(q, k, v, dims, strides, a, s);
-    case 32: return tc::launch<32>(q, k, v, dims, strides, a, s);
-    case 64: return tc::launch<64>(q, k, v, dims, strides, a, s);
-    case 112: return tc::launch<112>(q, k, v, dims, strides, a, s);
-    case 128: return tc::launch<128>(q, k, v, dims, strides, a, s);
-    case 192: return tc::launch<192>(q, k, v, dims, strides, a, s);
-    default: return cudaErrorInvalidValue;
+  SplitArgs sa;
+  const void* src[3] = {q, k, v};
+  void* dst[3] = {qs, ks, vs};
+  const int64_t heads[3] = {H, KV, KV};
+  const int64_t len[3] = {Sq, Sk, Sk};
+  int64_t most = 0;
+  for (int i = 0; i < 3; ++i) {
+    sa.src[i] = static_cast<const float*>(src[i]);
+    sa.dst[i] = static_cast<__nv_bfloat16*>(dst[i]);
+    for (int j = 0; j < 3; ++j) sa.st[i][j] = strides[3 * i + j];
+    sa.heads[i] = static_cast<int>(heads[i]);
+    sa.S[i] = static_cast<int>(len[i]);
+    most = std::max(most, B * heads[i] * len[i] * (hd / 8));
   }
+  sa.B = static_cast<int>(B);
+  sa.hd = static_cast<int>(hd);
+  const int64_t blocks = (most + kSplitThreads - 1) / kSplitThreads;
+  split_qkv<<<dim3(static_cast<unsigned>(std::min<int64_t>(blocks, 4096)), 3),
+              kSplitThreads, 0, s>>>(sa);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the planes: contiguous (2B, heads, S, hd), hi at batches 0..B-1
+  const int64_t pdims[6] = {2 * B, H, KV, Sq, Sk, hd};
+  const int64_t pstrides[9] = {H * Sq * hd, Sq * hd, hd,
+                               KV * Sk * hd, Sk * hd, hd,
+                               KV * Sk * hd, Sk * hd, hd};
+  const tc::Args a =
+      tc::make_args(o, dims, strides, causal, window, softcap, scale);
+  return tc::dispatch_hd<true>(hd, qs, ks, vs, pdims, pstrides, a, s);
 }

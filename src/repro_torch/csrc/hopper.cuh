@@ -1,11 +1,12 @@
 // Hopper building blocks shared by the port's tensor-core kernels (the
-// bf16 paths of moe_gmm.cu, flash_attention.cu and ssd_scan.cu): inline
-// PTX for mbarriers, TMA tile loads, cp.async copies, the 128-byte swizzle
-// and the proxy fence for tiles the threads write, the wgmma
-// shared-memory descriptor and the bf16 -> f32 wgmma instructions the
-// kernels issue, plus the host-side tensor-map encoder. sm_90a only (wgmma
-// and setmaxnreg exist for no other target); CUDA headers only, no
-// CUTLASS.
+// bf16 paths of moe_gmm.cu, flash_attention.cu and ssd_scan.cu, and the
+// f32 paths of moe_gmm.cu and flash_attention.cu that split each operand
+// into bf16 hi + lo): inline PTX for mbarriers, TMA tile loads, cp.async
+// copies, the 128-byte swizzle and the proxy fence for tiles the threads
+// write, the wgmma shared-memory descriptor and the bf16 -> f32 wgmma
+// instructions the kernels issue, the hi/lo split, plus the host-side
+// tensor-map encoder. sm_90a only (wgmma and setmaxnreg exist for no other
+// target); CUDA headers only, no CUTLASS.
 //
 // Conventions:
 //   * an mbarrier is a uint64_t in shared memory; a wait names the parity
@@ -157,8 +158,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // wgmma
 // ---------------------------------------------------------------------------
 
-// Swizzle of a tile: the row width in bytes that TMA and wgmma agree on.
-enum Swizzle : int { kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3 };
+// Swizzle of a tile: the row width in bytes that TMA and wgmma agree on
+// (kSwizzleNone: a TMA staging tile that only the threads read).
+enum Swizzle : int {
+  kSwizzleNone = 0, kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3
+};
 
 __host__ __device__ constexpr Swizzle swizzle_for_row(int row_bytes) {
   return row_bytes == 128 ? kSwizzle128
@@ -218,6 +222,34 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The hi/lo split of the f32 paths: v = hi + lo + r with hi = bf16(v), lo
+// = bf16(v - hi) and |r| <= 2^-18 |v| (v - hi is exact in f32). A product
+// of two bf16 values is exact in f32, so hi.hi + hi.lo + lo.hi, summed in
+// f32, misses the f32 product by the dropped lo.lo and the r terms, about
+// 2^-17 of it, where bf16 alone (2^-9) or TF32 (2^-11) would not keep the
+// f32 tolerance.
+
+// Two f32 as the bf16 pairs hi and lo, the first value in the low half
+// (an A fragment register each).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(hv);
+  const __nv_bfloat162 lv = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&hv);
+  lo = *reinterpret_cast<const uint32_t*>(&lv);
+}
+
+// 8 f32 values as 8 bf16 hi and 8 bf16 lo, each a 16-byte chunk, the first
+// value in the low half of the first word.
+__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
+                                       uint4& lo) {
+  split2(v[0], v[1], hi.x, lo.x);
+  split2(v[2], v[3], hi.y, lo.y);
+  split2(v[4], v[5], hi.z, lo.z);
+  split2(v[6], v[7], hi.w, lo.w);
 }
 
 // m64nNk16, bf16 inputs, f32 accumulators in the fragment layout of the
@@ -462,27 +494,44 @@ inline EncodeTiledFn encode_tiled() {
 constexpr int kNoEncoder = -1;
 constexpr int kMapRefused = -1000;
 
-// A bf16 tensor map of `rank` dims (innermost first): dims in elements,
-// strides in bytes of dims 1.. (dim 0 is contiguous), box in elements;
-// zeros past the bounds. Returns 0 or kMapRefused - CUresult.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const uint64_t* dims, const uint64_t* strides,
-                           const uint32_t* box, Swizzle swizzle) {
+// A tensor map of `rank` dims (innermost first) over bf16 or f32
+// elements: dims in elements, strides in bytes of dims 1.. (dim 0 is
+// contiguous), box in elements; zeros past the bounds. Returns 0 or
+// kMapRefused - CUresult.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box,
+                      Swizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kNoEncoder;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle sw =
       swizzle == kSwizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : swizzle == kSwizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                              : CU_TENSOR_MAP_SWIZZLE_32B;
+      : swizzle == kSwizzle32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                              : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      map, type, static_cast<cuuint32_t>(rank),
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapRefused - static_cast<int>(r);
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                           const uint64_t* dims, const uint64_t* strides,
+                           const uint32_t* box, Swizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box, swizzle);
+}
+
+inline int encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box, Swizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                    strides, box, swizzle);
 }
 
 // Rounds a dynamic shared-memory pointer up to the 1024 bytes a 128-byte

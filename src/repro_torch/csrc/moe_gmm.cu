@@ -18,7 +18,7 @@
 // in bf16, about 850 flops a byte, far above the card's ~295 for bf16.
 // The decode-dispatch floor C = 8 is bound by w's 839 MB instead.
 //
-// Two kernels, chosen before launch from dtype and shape alone (the
+// Three kernels, chosen before launch from dtype and shape alone (the
 // wrapper's kernel_path):
 //
 // 1. bf16 with d % 8 == 0 and f % 8 == 0 (TMA's 16-byte strides; every
@@ -46,11 +46,54 @@
 //    ptxas (nvcc 12.9): 168 registers, the 384-thread launch bound, of
 //    which setmaxnreg moves the producer to 40 and the consumers to 232;
 //    no spills.
-// 2. f32, and bf16 at other shapes: `gmm_kernel`, plain FMA in f32 on the
-//    CUDA cores (bf16 is widened as it is staged): TF32 would change the
-//    numbers, and f32 has no other tensor-core route. Its ceiling is the
-//    67 TFLOP/s f32 rate (16.0 ms at gate/up). It keeps the FMA pipes fed
-//    from shared memory:
+// 2. f32 with d % 8 == 0 and f % 8 == 0: `split::gmm_wgmma_split`, on the
+//    same tensor cores. Each f32 operand v is split into bf16 hi = bf16(v)
+//    and lo = bf16(v - hi) (hopper.cuh, |v - hi - lo| <= 2^-18 |v|), and
+//    each k16 step issues three products, in this order: x_hi.w_hi,
+//    x_hi.w_lo, x_lo.w_hi (lo.lo is below f32's rounding). That is f32
+//    accuracy at a third of the bf16 rate: bound 3.26 ms at gate/up, where
+//    the CUDA cores' 67 TFLOP/s give 16.0 ms. TF32 would not do: it keeps
+//    10 bits, and its wgmma takes no MN-major (transposed) B, which w is.
+//    * The tensor cores round their f32 sums toward zero, and with three
+//      products a k16 step that alone put gate/up 1.0e-4 off the exact
+//      product (the split itself: 2e-5), enough to push the phi3.5-moe
+//      prefill's K/V states past the f32 tolerance. So every two stages
+//      (64 of d) sum into a fresh register partial (the first product
+//      overwrites it), which the consumer then adds into its f32 sums on
+//      the CUDA cores, rounding to nearest: 2.7e-5 off at gate/up.
+//    * The split happens in the kernel, on tiles that TMA landed as f32:
+//      a split pass before the GEMM would read and write w's 1.68 GB again
+//      at gate/up (~1.0 ms), and at C = 8, where w's bytes are the whole
+//      bound, it would double them.
+//    * 128 x 128 per CTA, C tiles fastest, a producer warpgroup (40
+//      registers) and two consumer warpgroups (232) of 64 rows each. A
+//      stage is 32 of d: the x tile (128 x 32 f32, one 128-byte swizzled
+//      row a C row, 16 KB) and the w tile (32 x 128 f32, unswizzled rows,
+//      16 KB), four stages in a ring. ptxas caps a 384-thread kernel at
+//      168 registers whatever setmaxnreg grants, so a consumer holds 64
+//      sums, a 64-register partial and 16 registers of A fragments; a
+//      128 x 256 tile (128 sums) spilled without the partial and could
+//      not hold one.
+//    * x is the register A operand: each consumer thread reads its
+//      fragment pairs from the swizzled f32 tile (two wavefronts a warp,
+//      the fewest for 256 bytes) and splits them in registers. w is the
+//      MN-major B operand from shared memory, split by warps 1-3 of the
+//      producer warpgroup (one thread of warp 0 issues the TMA loads) into
+//      bf16 hi and lo planes at swizzle-128 offsets (each warp reads a
+//      whole 512-byte row), fenced to the async proxy, in a ring of three
+//      hi/lo buffers of 16 KB: the splitters run up to two stages ahead of
+//      the products and the consumers never wait on each other. mbarriers: full and
+//      empty for the f32 ring (empty counts the 256 consumer and 96
+//      splitter threads), wfull and wempty for the w buffers. Shared
+//      memory: 4 x 32 + 3 x 16 KB + barriers = 181,360 bytes.
+//    * A warpgroup whose 64 rows all lie past C skips its products (C = 8
+//      issues half the tensor work of path 1 there).
+//    * The epilogue stores f32 pairs, masked to (C, f).
+//    ptxas (nvcc 12.9): 168 registers, no spills.
+// 3. f32 and bf16 at other widths (d or f not a multiple of 8):
+//    `gmm_kernel`, plain FMA in f32 on the CUDA cores (bf16 is widened as
+//    it is staged). Its ceiling is the 67 TFLOP/s f32 rate. It keeps the
+//    FMA pipes fed from shared memory:
 //    * one CTA of 256 threads per (f tile, C tile, expert), 128 x 128;
 //    * 16-deep slices of x (transposed, rows padded by 4 floats) and of w
 //      staged in shared memory as f32, with 16-byte loads where the rows
@@ -62,8 +105,8 @@
 //      16-byte loads for 64 FMAs.
 //    ptxas: 128 registers; the f32 instantiation with scalar loads (d or
 //    f not a multiple of 4) spills 72 bytes, the others none.
-// Neither uses atomics or splits d: each sum runs over d in one fixed
-// order, so a call repeats bit for bit.
+// None uses atomics or splits d: each sum runs over d in one fixed order,
+// so a call repeats bit for bit.
 //
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError() (or a tensor-map error, hopper.cuh); the Python
@@ -395,6 +438,198 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tx,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores: each operand split into bf16 hi + lo in the
+// kernel, three wgmma products
+// ---------------------------------------------------------------------------
+
+namespace split {
+
+constexpr int kBM = 128;                  // rows of C per CTA (two warpgroups)
+constexpr int kBN = 128;                  // columns of f per CTA
+constexpr int kBK = 32;                   // depth of d per stage: 128-byte x rows
+constexpr int kStages = 4;
+constexpr int kXBytes = kBM * kBK * 4;    // f32 x tile, 128-byte swizzle, 16 KB
+constexpr int kWRow = kBN * 4;            // f32 w tile row: 512 bytes, unswizzled
+constexpr int kWBytes = kBK * kWRow;      // 16 KB
+constexpr int kStageBytes = kXBytes + kWBytes;   // 32 KB
+constexpr int kWChunk = kBK * 128;        // bf16 w: 64 columns x 32 deep, 4 KB
+constexpr int kWPlane = (kBN / 64) * kWChunk;    // one of hi, lo: 8 KB
+constexpr int kWBuf = 2 * kWPlane;        // hi then lo
+constexpr int kWBufs = 3;                 // bf16 w buffers in a ring
+constexpr int kBars = 2 * kStages + 2 * kWBufs;  // full, empty; wfull, wempty
+constexpr int kSmem = kStages * kStageBytes + kWBufs * kWBuf + kBars * 8 +
+                      1024;               // 181,360 bytes
+constexpr int kThreads = 384;             // consumers 0-255, producer 256-383
+constexpr int kConsumers = 256;
+constexpr int kSplitters = 96;            // producer warps 1-3 (threads 288-)
+
+// The f32 pair at (row, col), col even, of the x tile (128-byte rows of 32
+// f32 under the 128-byte swizzle, as TMA wrote it).
+__device__ __forceinline__ float2 x_pair(const uint8_t* xs, int row,
+                                         int col) {
+  return *reinterpret_cast<const float2*>(
+      xs + hopper::swizzle128(row, col / 4) + (col % 4) * 4);
+}
+
+// Splits the landed f32 w tile of a stage (32 rows of d, 128 f32 each)
+// into the bf16 hi and lo planes of one buffer, MN-major as the bf16
+// kernel's w tiles: two 64-column chunk tiles of 32 rows of 128 bytes,
+// 128-byte swizzle. Thread st of kSplitters takes 4 f32 at a time, a warp
+// a whole 512-byte row (conflict-free reads; each chunk tile's row
+// written whole).
+__device__ __forceinline__ void split_w(const uint8_t* ws, uint8_t* hi,
+                                        int st) {
+  uint8_t* lo = hi + kWPlane;
+#pragma unroll 2
+  for (int u = st; u < kBK * kBN / 4; u += kSplitters) {
+    const int k = u / (kBN / 4), c4 = u % (kBN / 4);
+    const float4 v = *reinterpret_cast<const float4*>(ws + k * kWRow +
+                                                      c4 * 16);
+    uint2 h, l;
+    hopper::split2(v.x, v.y, h.x, l.x);
+    hopper::split2(v.z, v.w, h.y, l.y);
+    const uint32_t off = (c4 / 16) * kWChunk +
+                         hopper::swizzle128(k, (c4 % 16) / 2) + (c4 % 2) * 8;
+    *reinterpret_cast<uint2*>(hi + off) = h;
+    *reinterpret_cast<uint2*>(lo + off) = l;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_wgmma_split(const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tw, float* out, int C,
+                int d, int f) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* wbuf = smem + kStages * kStageBytes;   // [kWBufs][hi, lo]
+  uint64_t* full = reinterpret_cast<uint64_t*>(wbuf + kWBufs * kWBuf);
+  uint64_t* empty = full + kStages;
+  uint64_t* wfull = empty + kStages;
+  uint64_t* wempty = wfull + kWBufs;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int e = blockIdx.z;
+  const int nk = (d + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      // the consumers read x, the splitters w
+      mbar_init(&empty[s], kConsumers + kSplitters);
+    }
+    for (int b = 0; b < kWBufs; ++b) {
+      mbar_init(&wfull[b], kSplitters);
+      mbar_init(&wempty[b], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer warpgroup: one thread keeps the ring of f32 tiles full,
+    // warps 1-3 split each stage's w into a bf16 hi/lo buffer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], kStageBytes);
+        uint8_t* a = smem + s * kStageBytes;
+        tma_load_3d(a, &tx, &full[s], kt * kBK, m0, e);
+        tma_load_3d(a + kXBytes, &tw, &full[s], n0, kt * kBK, e);
+      }
+    } else if (threadIdx.x >= 256 + 32) {
+      const int st = threadIdx.x - 256 - 32;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages, b = kt % kWBufs;
+        mbar_wait(&wempty[b], ((kt / kWBufs) & 1) ^ 1);
+        mbar_wait(&full[s], (kt / kStages) & 1);
+        split_w(smem + s * kStageBytes + kXBytes, wbuf + b * kWBuf, st);
+        fence_proxy_async();     // the planes, to wgmma's async proxy
+        mbar_arrive(&empty[s]);
+        mbar_arrive(&wfull[b]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63, all kBN columns
+  setmaxnreg_inc<232>();
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int r0 = wg * 64 + (t / 32) * 16 + lane / 4;   // tile row
+  const int cq = 2 * (lane % 4);
+  // a warpgroup whose rows all lie past C issues no products (C = 8)
+  const bool active = m0 + wg * 64 < C;
+  // acc: the f32 sums; part: two stages' products (64 of d), added into
+  // acc on the CUDA cores (the tensor cores' own f32 accumulation rounds
+  // toward zero, and three products a k16 step triple those roundings)
+  float acc[kBN / 2], part[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = part[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages, b = kt % kWBufs;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    // x: this thread's A fragments of both k16 steps, split in registers
+    // (a[0] row r0, d 2q..; a[1] row r0 + 8; a[2], a[3] the same 8 deeper)
+    const uint8_t* xs = smem + s * kStageBytes;
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 v = x_pair(xs, r0 + 8 * (i & 1), 16 * kk + cq +
+                                                          8 * (i >> 1));
+        split2(v.x, v.y, ahi[kk][i], alo[kk][i]);
+      }
+    }
+    mbar_arrive(&empty[s]);      // this thread's x is in registers
+    mbar_wait(&wfull[b], (kt / kWBufs) & 1);
+    if (active) {
+      const uint8_t* hi = wbuf + b * kWBuf;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t bh = make_desc(smem_u32(hi + kk * 16 * 128), kWChunk,
+                                      1024, kSwizzle128);
+        const uint64_t bl = make_desc(smem_u32(hi + kWPlane + kk * 16 * 128),
+                                      kWChunk, 1024, kSwizzle128);
+        wgmma_m64n128k16_rs<1>(part, ahi[kk], bh, kk > 0 || kt % 2);
+        wgmma_m64n128k16_rs<1>(part, ahi[kk], bl, 1);
+        wgmma_m64n128k16_rs<1>(part, alo[kk], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (kt % 2 || kt + 1 == nk) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+      }
+    }
+    mbar_arrive(&wempty[b]);     // this thread's products on b are done
+  }
+
+  const int row = m0 + r0;
+  float* oe = out + static_cast<int64_t>(e) * C * f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + cq;
+    if (col >= f) continue;               // f % 8 == 0: pairs stay whole
+    if (row < C)
+      *reinterpret_cast<float2*>(oe + static_cast<int64_t>(row) * f + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < C)
+      *reinterpret_cast<float2*>(oe + static_cast<int64_t>(row + 8) * f +
+                                 col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+}  // namespace split
+
 }  // namespace
 
 // x (E, C, d), w (E, d, f), out (E, C, f), all contiguous and of one dtype
@@ -442,5 +677,39 @@ extern "C" int gmm_wgmma_launch(const void* x, const void* w, void* out,
   tc::gmm_wgmma<<<grid, tc::kThreads, tc::kSmem,
                   static_cast<cudaStream_t>(stream)>>>(
       tx, tw, static_cast<__nv_bfloat16*>(out), C, d, f);
+  return cudaGetLastError();
+}
+
+// x (E, C, d), w (E, d, f), out (E, C, f), all contiguous f32 and 16-byte
+// aligned, d % 8 == 0, f % 8 == 0; E, C, f >= 1, E and ceil(f / 128) at
+// most 65535 (the wrapper checks).
+extern "C" int gmm_wgmma_split_launch(const void* x, const void* w,
+                                      void* out, int E, int C, int d, int f,
+                                      void* stream) {
+  using namespace hopper;
+  CUtensorMap tx, tw;
+  const uint64_t xdims[3] = {static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(C),
+                             static_cast<uint64_t>(E)};
+  const uint64_t xstrides[2] = {4ull * d, 4ull * C * d};
+  const uint32_t xbox[3] = {split::kBK, split::kBM, 1};
+  int err = encode_f32_map(&tx, x, 3, xdims, xstrides, xbox, kSwizzle128);
+  if (err != 0) return err;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(f),
+                             static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(E)};
+  const uint64_t wstrides[2] = {4ull * f, 4ull * d * f};
+  const uint32_t wbox[3] = {split::kBN, split::kBK, 1};
+  err = encode_f32_map(&tw, w, 3, wdims, wstrides, wbox, kSwizzleNone);
+  if (err != 0) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      split::gmm_wgmma_split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      split::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((C + split::kBM - 1) / split::kBM,
+                  (f + split::kBN - 1) / split::kBN, E);
+  split::gmm_wgmma_split<<<grid, split::kThreads, split::kSmem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, static_cast<float*>(out), C, d, f);
   return cudaGetLastError();
 }

@@ -123,16 +123,10 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Two f32 as the bf16 pairs hi = bf16(v) and lo = bf16(v - hi), the first
-// value in the low half (an A fragment register each).
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(hv);
-  const __nv_bfloat162 lv = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&hv);
-  lo = *reinterpret_cast<const uint32_t*>(&lv);
-}
+// the hi/lo split of f32 operands (hopper.cuh), shared with the f32 paths
+// of moe_gmm.cu and flash_attention.cu
+using hopper::split2;
+using hopper::split8;
 
 struct Params {
   const void* x;         // (B, S, H, P), strides (x_sb, x_ss, P, 1)
@@ -556,24 +550,6 @@ __device__ __forceinline__ void copies_landed() {
   hopper::cp_async_wait<0>();
   hopper::fence_proxy_async();
   __syncthreads();
-}
-
-// 8 f32 values as 8 bf16 hi = bf16(v) and 8 bf16 lo = bf16(v - hi), each a
-// 16-byte chunk, the first value in the low half of the first word.
-__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
-                                       uint4& lo) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 hv = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    const float2 hf = __bfloat1622float2(hv);
-    const __nv_bfloat162 lv =
-        __floats2bfloat162_rn(v[2 * i] - hf.x, v[2 * i + 1] - hf.y);
-    h[i] = *reinterpret_cast<const uint32_t*>(&hv);
-    l[i] = *reinterpret_cast<const uint32_t*>(&lv);
-  }
-  hi = make_uint4(h[0], h[1], h[2], h[3]);
-  lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
 // The bf16 at (row, col) of a swizzled tile of 128-byte rows, as f32.

@@ -57,15 +57,16 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # (q, k, v, o, dims[6], strides[12], causal, window, softcap, scale,
-        #  dtype, stream), f32 only; dims and strides are host int64 arrays
-        "flash_attention_launch": (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_float,
-                                     ctypes.c_int, ctypes.c_void_p],
-            ctypes.c_int),
-        # the same without dtype (bf16 only)
+        #  stream), bf16; dims and strides are host int64 arrays
         "flash_attention_wgmma_launch": (
             [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_void_p],
+            ctypes.c_int),
+        # (q, k, v, o, qs, ks, vs, dims[6], strides[12], causal, window,
+        #  softcap, scale, stream), f32; qs, ks, vs the bf16 plane scratch
+        "flash_attention_split_launch": (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_float,
                                      ctypes.c_void_p],
             ctypes.c_int),
@@ -77,6 +78,10 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int),
         # (x, w, out, E, C, d, f, stream), bf16 only
         "gmm_wgmma_launch": (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            ctypes.c_int),
+        # the same, f32 only (each operand split into bf16 hi + lo)
+        "gmm_wgmma_split_launch": (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
             ctypes.c_int),
     },

@@ -1,11 +1,14 @@
 """Flash-attention forward: the CUDA kernel's wrapper.
 
-The kernels (``csrc/flash_attention.cu``) replace the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``. They are bound by
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``. It is bound by
 operations (4 hd flops per query-key pair against hd elements per row); the
-source note says how each design serves that. ``kernel_path`` picks one
-before launch, from dtype and head dim alone: ``"wgmma"`` (tensor cores,
-fed by TMA) for bf16, ``"fma"`` (f32 on the CUDA cores) for f32.
+source note says how its design serves that. ``kernel_path`` picks a path
+before launch, from dtype and head dim alone; both run on the tensor cores,
+fed by TMA: ``"wgmma"`` for bf16, ``"wgmma_split"`` for f32 (a first pass
+splits q, k and v into bf16 hi + lo planes, scratch that the wrapper
+allocates; each product then runs as three). A call of either path counts
+one launch of ``flash_attention``.
 
 Layout (B, H, S, hd) as the reference's kernel, read through strides: the
 model's (B, S, H, hd) tensors pass as transposed views, without a copy.
@@ -25,28 +28,27 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-#: the two kernels of csrc/flash_attention.cu
-PATHS = ("wgmma", "fma")
+#: the two paths of csrc/flash_attention.cu
+PATHS = ("wgmma", "wgmma_split")
 #: kernel launches made by ``flash_attention`` in this process
 launches = 0
 #: the same, by path
 launches_by_path = dict.fromkeys(PATHS, 0)
 
-# dtype tags of csrc/flash_attention.cu
-_DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 # the configs' head dims; 112 is zamba2-7b's shared block, 192 is
 # nemotron-4-340b's (each an instantiation in the source)
 HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 
 
 def kernel_path(hd: int, dtype: torch.dtype) -> str:
-    """The kernel a CUDA call of this head dim and dtype launches:
-    ``"wgmma"`` for bf16, ``"fma"`` for f32 (both take every hd in
+    """The path a CUDA call of this head dim and dtype launches:
+    ``"wgmma"`` for bf16, ``"wgmma_split"`` for f32 (both take every hd in
     ``HEAD_DIMS``; the wrapper refuses any other)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
                          f"got {hd}")
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+    return "wgmma" if dtype == torch.bfloat16 else "wgmma_split"
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -70,7 +72,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV, Sk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_TAGS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16, one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -88,6 +90,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     path = kernel_path(hd, q.dtype)
     if Sk == 0:
         raise ValueError("flash_attention needs Sk > 0")
+    if path == "wgmma_split" and max(q.numel(), k.numel()) >= 2 ** 31:
+        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} or k "
+                         f"{tuple(k.shape)} past its split pass's 32-bit "
+                         f"index limits")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -107,8 +113,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if path == "wgmma":
             err = lib.flash_attention_wgmma_launch(*ptrs, *opts, stream)
         else:
-            err = lib.flash_attention_launch(*ptrs, *opts,
-                                             _DTYPE_TAGS[q.dtype], stream)
+            # the bf16 hi and lo planes of q, k and v, each (2B, heads, S,
+            # hd), in one buffer (hd % 8 == 0: each starts 16-byte aligned)
+            sizes = [2 * t.numel() for t in (q, k, v)]
+            planes = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+            at = planes.data_ptr()
+            starts = [at, at + 2 * sizes[0], at + 2 * (sizes[0] + sizes[1])]
+            err = lib.flash_attention_split_launch(*ptrs[:4], *starts,
+                                                   *ptrs[4:], *opts, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({path}) launch failed: "
                            f"error {err} for q {tuple(q.shape)}, k "

@@ -5,8 +5,10 @@ The kernels (``csrc/moe_gmm.cu``) replace the Pallas TPU kernel
 and w (E, d, f), summed in f32 and stored in x's dtype. They are bound by
 operations at the shapes the MoE prefill gives them; the source note says
 how each design serves that. ``kernel_path`` picks one before launch, from
-dtype and shape alone: ``"wgmma"`` (tensor cores, fed by TMA) for bf16 with
-d and f multiples of 8, ``"fma"`` (f32 on the CUDA cores) for the rest.
+dtype and shape alone. With d and f multiples of 8, both run on the tensor
+cores, fed by TMA: ``"wgmma"`` for bf16 and ``"wgmma_split"`` for f32 (each
+f32 operand split in the kernel into bf16 hi + lo, three products). Other
+widths take ``"fma"`` (f32 sums on the CUDA cores).
 
 For tensors on the CPU the wrapper runs the plain version
 (``ref.gmm_ref``); for CUDA tensors it launches a kernel or raises.
@@ -22,8 +24,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gmm_ref
 
-#: the two kernels of csrc/moe_gmm.cu
-PATHS = ("wgmma", "fma")
+#: the three kernels of csrc/moe_gmm.cu
+PATHS = ("wgmma", "wgmma_split", "fma")
 #: kernel launches made by ``gmm`` in this process
 launches = 0
 #: the same, by path
@@ -32,17 +34,20 @@ launches_by_path = dict.fromkeys(PATHS, 0)
 # dtype tags of csrc/moe_gmm.cu
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 # tiles of each path (csrc/moe_gmm.cu): rows of C, columns of f a CTA
-_TILES = {"wgmma": (128, 256), "fma": (128, 128)}
+_TILES = {"wgmma": (128, 256), "wgmma_split": (128, 128), "fma": (128, 128)}
 _GRID_MAX = 65535         # CUDA's limit on grid.y and grid.z
 
 
 def kernel_path(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> str:
-    """The kernel a CUDA call with these shapes and dtype launches:
-    ``"wgmma"`` for bf16 whose rows of x and w are whole 16-byte units (d
-    and f multiples of 8: TMA's stride rule), else ``"fma"``. Any E and C
-    take either path."""
-    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
-        return "wgmma"
+    """The kernel a CUDA call with these shapes and dtype launches. With
+    d and f multiples of 8 (TMA's 16-byte stride rule, and whole 16-byte
+    units of the bf16 planes): ``"wgmma"`` for bf16, ``"wgmma_split"`` for
+    f32. Else ``"fma"``. Any E and C take every path."""
+    if d % 8 == 0 and f % 8 == 0:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "wgmma_split"
     return "fma"
 
 
@@ -74,7 +79,7 @@ def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     f = w.shape[2]
     path = kernel_path(E, C, d, f, x.dtype)
     bm, bn = _TILES[path]
-    grid_y = -(-f // bn) if path == "wgmma" else -(-C // bm)
+    grid_y = -(-C // bm) if path == "fma" else -(-f // bn)
     if E > _GRID_MAX or grid_y > _GRID_MAX \
             or max(C * d, d * f, C * f) >= 2 ** 31:
         raise ValueError(f"gmm kernel: shape {(E, C, d, f)} past its grid "
@@ -85,10 +90,12 @@ def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _build.load("moe_gmm")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if path == "wgmma":
+        if path != "fma":
             x, w = _aligned(x), _aligned(w)
-            err = lib.gmm_wgmma_launch(x.data_ptr(), w.data_ptr(),
-                                       out.data_ptr(), E, C, d, f, stream)
+            launch = (lib.gmm_wgmma_launch if path == "wgmma"
+                      else lib.gmm_wgmma_split_launch)
+            err = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d,
+                         f, stream)
         else:
             vw = 16 // x.element_size()
             vec = int(d % vw == 0 and f % vw == 0 and x.data_ptr() % 16 == 0

@@ -5,6 +5,8 @@ Imports only torch and the port, so it runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Every test skips without a CUDA card (the kernels have no CPU mode)."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -752,8 +754,8 @@ def test_flash_attention_bf16_runs_the_wgmma_kernel(cuda, hd, variant):
     got = tfa.flash_attention(q, k, v, **kw)
     again = tfa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert tfa.launches_by_path == {"wgmma": before["wgmma"] + 2,
-                                    "fma": before["fma"]}
+    assert tfa.launches_by_path == {
+        p: before[p] + (2 if p == "wgmma" else 0) for p in tfa.PATHS}
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert torch.equal(got, again)               # fixed order: repeatable
     want = tref.flash_attention_ref(q, k, v, **kw)
@@ -787,18 +789,57 @@ def test_flash_attention_bf16_reads_model_layout_views(cuda, hd):
     _assert_bf16_rows_close(out.transpose(1, 2), *views, **kw)
 
 
+def _fully_masked_rows_want(v, sq, window, G):
+    """What a row whose window holds no key (non-causal, Sq > Sk + window
+    - 1; no model path makes them) comes out as from the kernel, as from
+    the Pallas kernel and the port's earlier FMA kernel: the mean of V
+    over the keys of the tiles its 64-row group visits (the masked scores
+    are all equal there), zero where the group visits none."""
+    B, KV, sk, hd = v.shape
+    nk = -(-sk // 64)
+    out = torch.zeros((B, KV * G, sq, hd), dtype=torch.float32,
+                      device=v.device)
+    for r in range(sq):
+        r0 = r // 64 * 64
+        lo = min(max(0, r0 - window + 1) // 64, nk)
+        keys = v[:, :, lo * 64:nk * 64].float()
+        if keys.shape[2]:
+            out[:, :, r] = keys.mean(2).repeat_interleave(G, dim=1)
+    return out
+
+
 @pytest.mark.cuda
-def test_flash_attention_bf16_fully_masked_rows_match_the_fma_kernel(cuda):
-    """Rows whose window holds no key (Sq > Sk + window - 1; no model path
-    makes them) come out of the wgmma kernel as out of the FMA kernel (and
-    the Pallas kernel): each 64-row group visits the same key tiles, whose
-    masked scores are all equal. The plain version spreads such a row over
-    every key instead (ROADMAP known difference)."""
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_flash_attention_f32_fully_masked_rows_average_the_visited_keys(
+        cuda, hd):
+    """Fully masked rows come out of the f32 path as they did out of the
+    FMA kernel it replaces (``_fully_masked_rows_want``); the plain
+    version spreads such a row over every key instead (ROADMAP known
+    difference)."""
+    q, k, v = _fa_inputs((1, 4, 2, 257, 130, hd), torch.float32, cuda)
+    kw = dict(causal=False, window=48)
+    got = tfa.flash_attention(q, k, v, **kw)
+    rows = torch.arange(257, device=cuda) >= 130 + 48 - 1   # fully masked
+    want = _fully_masked_rows_want(v, 257, 48, 2)
+    torch.testing.assert_close(got[:, :, rows], want[:, :, rows],
+                               **FA_TOL[torch.float32])
+    ref = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got[:, :, ~rows], ref[:, :, ~rows],
+                               **FA_TOL[torch.float32])
+    assert not torch.allclose(got[:, :, rows], ref[:, :, rows],
+                              **FA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_fully_masked_rows_match_the_f32_path(cuda):
+    """The bf16 wgmma kernel visits the same key tiles as the f32 path, so
+    its fully masked rows are the same averages, within bf16's
+    tolerance."""
     q, k, v = _fa_inputs((1, 4, 2, 257, 130, 64), torch.bfloat16, cuda)
     kw = dict(causal=False, window=48)
     got = tfa.flash_attention(q, k, v, **kw)
-    fma = tfa.flash_attention(q.float(), k.float(), v.float(), **kw)
-    torch.testing.assert_close(got.float(), fma, **FA_TOL[torch.bfloat16])
+    f32 = tfa.flash_attention(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), f32, **FA_TOL[torch.bfloat16])
     rows = torch.arange(257, device=cuda) >= 130 + 48 - 1   # fully masked
     assert bool(rows.any())
     want = tref.flash_attention_ref(q, k, v, **kw)
@@ -806,32 +847,77 @@ def test_flash_attention_bf16_fully_masked_rows_match_the_fma_kernel(cuda):
                               want[:, :, rows].float(),
                               **FA_TOL[torch.bfloat16])
 
+
 @pytest.mark.cuda
-def test_flash_attention_f32_runs_the_fma_kernel(cuda):
-    q, k, v = _fa_inputs((1, 4, 2, 100, 100, 64), torch.float32, cuda)
-    assert tfa.kernel_path(64, torch.float32) == "fma"
+@pytest.mark.parametrize("variant", FA_WGMMA_VARIANTS, ids=lambda v: v[0])
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_flash_attention_f32_runs_the_wgmma_split_kernel(cuda, hd, variant):
+    """f32 through the tensor-core kernel on bf16 hi + lo planes (three
+    products each): one launch a call on ``"wgmma_split"``, the f32
+    tolerance, bitwise repeats."""
+    B, H, KV, Sq, Sk, causal, window, softcap = variant[1:]
+    q, k, v = _fa_inputs((B, H, KV, Sq, Sk, hd), torch.float32, cuda,
+                         seed=hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    assert tfa.kernel_path(hd, torch.float32) == "wgmma_split"
     before = dict(tfa.launches_by_path)
-    tfa.flash_attention(q, k, v)
-    assert tfa.launches_by_path == {"wgmma": before["wgmma"],
-                                    "fma": before["fma"] + 1}
+    got = tfa.flash_attention(q, k, v, **kw)
+    again = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches_by_path == {
+        p: before[p] + (2 if p == "wgmma_split" else 0) for p in tfa.PATHS}
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, again)               # fixed order: repeatable
+    rows = torch.ones(Sq, dtype=torch.bool, device=cuda)
+    if window is not None and not causal:        # no fully masked rows
+        rows = torch.arange(Sq, device=cuda) < Sk + window - 1
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got[:, :, rows], want[:, :, rows],
+                               **FA_TOL[torch.float32])
 
 
 @pytest.mark.cuda
-def test_flash_attention_fma_entry_refuses_bf16(cuda):
-    """bf16 has one kernel, the wgmma one: the FMA kernel's C entry point
-    returns an error for the bf16 tag and launches nothing."""
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_flash_attention_f32_reads_model_layout_views(cuda, hd):
+    """The f32 path's split pass reads the (B, S, H, hd) tensors'
+    transposed views through their strides, as ops.flash_attention hands
+    them over, and writes O through the output's strides."""
+    g = torch.Generator().manual_seed(hd)
+    B, S, H, KV = 2, 130, 8, 2
+    q, k, v = ((torch.randn(shape, generator=g) * std).to(cuda)
+               for shape, std in (((B, S, H, hd), QK_STD),
+                                  ((B, S, KV, hd), QK_STD),
+                                  ((B, S, KV, hd), 1.0)))
+    kw = dict(causal=True, window=40, softcap=5.0)
+    before = dict(tfa.launches_by_path)
+    out = tops.flash_attention(q, k, v, **kw)
+    assert tfa.launches_by_path["wgmma_split"] == before["wgmma_split"] + 1
+    assert out.is_contiguous() and out.shape == q.shape
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    want = tref.flash_attention_ref(*views, **kw).transpose(1, 2)
+    torch.testing.assert_close(out, want, **FA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_attention_split_entry_refuses_an_unknown_head_dim(cuda):
+    """The f32 path's C entry point returns an error for a head dim it has
+    no kernel for and launches nothing (not even the split pass)."""
     import ctypes
     from repro_torch.kernels import _build
-    q = torch.zeros((1, 2, 64, 64), device=cuda, dtype=torch.bfloat16)
+    q = torch.ones((1, 2, 64, 48), device=cuda)
     out = torch.full_like(q, 7.0)
-    dims = (ctypes.c_int64 * 6)(1, 2, 2, 64, 64, 64)
+    planes = torch.full((2,) + q.shape, 3.0, device=cuda,
+                        dtype=torch.bfloat16)
+    dims = (ctypes.c_int64 * 6)(1, 2, 2, 64, 64, 48)
     strides = (ctypes.c_int64 * 12)(*(list(q.stride()[:3]) * 4))
-    err = _build.load("flash_attention").flash_attention_launch(
+    err = _build.load("flash_attention").flash_attention_split_launch(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
-        ctypes.addressof(dims), ctypes.addressof(strides), 1, -1, 0.0,
-        0.125, 1, torch.cuda.current_stream().cuda_stream)
+        *(planes.data_ptr(),) * 3, ctypes.addressof(dims),
+        ctypes.addressof(strides), 1, -1, 0.0, 0.125,
+        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err != 0 and bool((out == 7.0).all())
+    assert bool((planes == 3.0).all())
 
 
 @pytest.mark.cuda
@@ -917,14 +1003,36 @@ def test_gmm_bf16_runs_the_kernel_its_path_names(cuda, case):
                                **FA_TOL[torch.bfloat16])
 
 
+# f32 through the tensor-core kernel (each operand split into bf16 hi + lo)
+# at C = 1, 8, 100, 130, 257 and 1280, d ragged against the 32-deep stage
+# (264) and f against the 256-wide tile (520, 136); widths no multiple of 8
+# take the FMA kernel (E, C, d, f)
+GMM_SPLIT_CASES = GMM_WGMMA_CASES + [(2, 130, 264, 136), (4, 128, 256, 512)]
+GMM_F32_FMA_CASES = [(2, 64, 100, 96), (2, 64, 96, 100), (2, 100, 252, 260)]
+
+
 @pytest.mark.cuda
-def test_gmm_f32_runs_the_fma_kernel(cuda):
-    x, w = _gmm_inputs((2, 64, 64, 64), torch.float32, cuda)
-    assert tmg.kernel_path(2, 64, 64, 64, torch.float32) == "fma"
+@pytest.mark.parametrize("case", GMM_SPLIT_CASES + GMM_F32_FMA_CASES,
+                         ids=str)
+def test_gmm_f32_runs_the_kernel_its_path_names(cuda, case):
+    """f32 at model scales (unit x, w of stddev d^-0.5): the path
+    ``kernel_path`` names, the f32 tolerance, bitwise repeats."""
+    E, C, d, f = case
+    g = torch.Generator().manual_seed(C + d)
+    x = torch.randn((E, C, d), generator=g).to(cuda)
+    w = (torch.randn((E, d, f), generator=g) / math.sqrt(d)).to(cuda)
+    path = tmg.kernel_path(E, C, d, f, torch.float32)
+    assert path == ("wgmma_split" if case in GMM_SPLIT_CASES else "fma")
     before = dict(tmg.launches_by_path)
-    tmg.gmm(x, w)
-    assert tmg.launches_by_path == {"wgmma": before["wgmma"],
-                                    "fma": before["fma"] + 1}
+    got = tmg.gmm(x, w)
+    again = tmg.gmm(x, w)
+    torch.cuda.synchronize()
+    assert tmg.launches_by_path == {
+        p: before[p] + (2 if p == path else 0) for p in tmg.PATHS}
+    assert got.dtype == torch.float32 and got.shape == (E, C, f)
+    assert torch.equal(got, again)               # fixed order: repeatable
+    torch.testing.assert_close(got, tref.gmm_ref(x, w),
+                               **FA_TOL[torch.float32])
 
 
 @pytest.mark.cuda

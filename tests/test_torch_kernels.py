@@ -1,8 +1,10 @@
 """The port's ``fedavg_reduce``: its plain version and CPU dispatch against the
 reference's Pallas kernel (interpret mode) and oracle. Also the build's
-staleness rule and the ``kernel_path`` routing of ``gmm`` and
-``flash_attention``, which need no card. The CUDA kernels against their
+staleness rule, the ``kernel_path`` routing of ``gmm`` and
+``flash_attention``, and a plain emulation of the f32 tensor-core paths'
+three-product bf16 split, which need no card. The CUDA kernels against their
 plain versions are tests/test_torch_cuda.py."""
+import math
 import os
 
 import jax
@@ -291,13 +293,15 @@ def _attention_configs():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_path_for_every_config(dtype):
-    """bf16 takes the wgmma kernel at every config's head dim, f32 the FMA
-    kernel; a head dim outside ``HEAD_DIMS`` is refused."""
+    """bf16 takes the wgmma path at every config's head dim, f32 the
+    wgmma_split path (bf16 hi + lo planes, three products); a head dim
+    outside ``HEAD_DIMS`` is refused."""
     from repro_torch.kernels import flash_attention as tfa
     cfgs = _attention_configs()
     assert {c.head_dim for c in cfgs} <= set(tfa.HEAD_DIMS)
     assert {112, 128} <= {c.head_dim for c in cfgs}
-    want = "wgmma" if dtype == "bfloat16" else "fma"
+    assert tfa.PATHS == ("wgmma", "wgmma_split")
+    want = "wgmma" if dtype == "bfloat16" else "wgmma_split"
     for cfg in cfgs:
         assert tfa.kernel_path(cfg.head_dim, TORCH[dtype]) == want, cfg.name
     with pytest.raises(ValueError):
@@ -308,22 +312,22 @@ def test_flash_kernel_path_for_every_config(dtype):
 def test_gmm_kernel_path_for_every_moe_config(dtype):
     """The gate/up and down calls of every MoE config's prefill (B 2 x S
     4096 and the reduced configs' B 2 x S 96) take the wgmma kernel in
-    bf16 and the FMA kernel in f32; bf16 rows that are no whole 16-byte
-    units take the FMA kernel."""
+    bf16 and the wgmma_split kernel in f32; widths that are no multiple of
+    8 take the FMA kernel in either dtype."""
     from repro_torch.configs import ARCHS, get_arch
     from repro_torch.kernels import moe_gmm as tmg
     from repro_torch.models.moe import capacity
     cfgs = [get_arch(n) for n in ARCHS if ARCHS[n].moe is not None]
     cfgs += [get_arch(f"{c.name}-reduced") for c in cfgs]
     assert len(cfgs) == 4
-    want = "wgmma" if dtype == "bfloat16" else "fma"
+    want = "wgmma" if dtype == "bfloat16" else "wgmma_split"
     for cfg in cfgs:
         E = cfg.moe.num_experts
         for tokens in (2 * 4096, 2 * 96):
             C = capacity(cfg, tokens)
             for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
                 assert tmg.kernel_path(E, C, d, f, TORCH[dtype]) == want
-    for d, f in ((100, 64), (64, 100), (7, 9)):
+    for d, f in ((100, 64), (64, 100), (7, 9), (252, 260)):
         assert tmg.kernel_path(4, 128, d, f, TORCH[dtype]) == "fma"
 
 
@@ -358,3 +362,137 @@ def test_ssd_kernel_path_for_every_ssm_config(dtype):
                   (1, 64, 70000, 64, 16, 64)):
         with pytest.raises(ValueError):
             tss.kernel_path(*shape, dt)
+
+
+# ---------------------------------------------------------------------------
+# the f32 tensor-core paths' split, emulated: each f32 operand v as bf16
+# hi = bf16(v) and lo = bf16(v - hi), each product as hi.hi + hi.lo + lo.hi
+# (csrc/hopper.cuh); products of bf16 values are exact, so f64 sums show
+# what the split itself costs. It must sit within the unchanged f32
+# tolerance with SPLIT_SPARE x to spare, where bf16 alone misses it.
+# ---------------------------------------------------------------------------
+
+SPLIT_SPARE = 5
+# chip_smoke.py FLASH_QK_STD: scores span several units
+FLASH_QK_STD = 1.6
+
+
+def _split(t):
+    """f32 t as its bf16 hi and lo, both widened to f64."""
+    hi = t.to(torch.bfloat16)
+    lo = (t - hi.float()).to(torch.bfloat16)
+    return hi.double(), lo.double()
+
+
+def _split_mm(a, b):
+    """a @ b as the three products of the split, summed in f64."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _over_tol(got, want):
+    """The largest |got - want| over the f32 tolerance, elementwise."""
+    tol = TOL["float32"]
+    bound = tol["atol"] + tol["rtol"] * want.abs()
+    return float(((got.double() - want.double()).abs() / bound).max())
+
+
+@pytest.mark.parametrize("d", [4096, 6400])
+def test_three_product_split_keeps_gmm_within_f32_tolerance(d):
+    """``gmm`` at gate/up and down depth (unit x, w of stddev d^-0.5, as
+    the model's weights): the split's three products within a fifth of
+    the f32 tolerance of ``gmm_ref``; hi.hi alone is not within it."""
+    rng = np.random.default_rng(d)
+    E, C, f = 2, 128, 512
+    x = torch.from_numpy(rng.standard_normal((E, C, d), np.float32))
+    w = torch.from_numpy(
+        (rng.standard_normal((E, d, f)) / np.sqrt(d)).astype(np.float32))
+    want = tref.gmm_ref(x, w)
+    assert _over_tol(_split_mm(x, w), want) <= 1 / SPLIT_SPARE
+    hi_only = x.to(torch.bfloat16).double() @ w.to(torch.bfloat16).double()
+    assert _over_tol(hi_only, want) > 1
+
+
+def _trunc32(t):
+    """f64 t rounded toward zero to f32 (as the tensor cores round the f32
+    sum of a wgmma), back in f64."""
+    f = t.float()
+    toward0 = torch.nextafter(f, torch.zeros_like(f))
+    return torch.where(f.double().abs() > t.abs(), toward0, f).double()
+
+
+@pytest.mark.parametrize("d", [4096, 6400])
+def test_promoted_accumulation_keeps_gmm_within_f32_tolerance(d):
+    """The ``"wgmma_split"`` gmm's sums as the card forms them: each k16
+    step's three products added to a partial that is rounded toward zero
+    to f32 after every product, and each 64-deep partial added into the
+    f32 sum with rounding to nearest. That stays within a fifth of the
+    f32 tolerance; one accumulator rounded toward zero over all of d (no
+    promotion) is several times further off."""
+    rng = np.random.default_rng(d)
+    E, C, f = 2, 128, 512
+    x = torch.from_numpy(rng.standard_normal((E, C, d), np.float32))
+    w = torch.from_numpy(
+        (rng.standard_normal((E, d, f)) / np.sqrt(d)).astype(np.float32))
+    want = tref.gmm_ref(x, w)
+    xh, xl = _split(x)
+    wh, wl = _split(w)
+    acc = torch.zeros((E, C, f))
+    flat = torch.zeros((E, C, f), dtype=torch.float64)
+    for s0 in range(0, d, 64):
+        part = torch.zeros((E, C, f), dtype=torch.float64)
+        for k0 in range(s0, s0 + 64, 16):
+            for a, b in ((xh, wh), (xh, wl), (xl, wh)):
+                prod = a[..., k0:k0 + 16] @ b[:, k0:k0 + 16]
+                part = _trunc32(part + prod)
+                flat = _trunc32(flat + prod)
+        acc = acc + part.float()
+    assert _over_tol(acc, want) <= 1 / SPLIT_SPARE
+    err = lambda t: float((t.double() - want.double()).abs().max())
+    assert err(flat) > 3 * err(acc)
+
+
+def _split_attention(q, k, v, causal, window, softcap):
+    """The f32 wgmma_split path's arithmetic: S from three products,
+    scale, softcap and mask in f32, p = exp(s - max) split again for
+    P.V's three products, the sum of p from the unsplit p."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    s = (_split_mm(q, k.transpose(-1, -2)).float()) / math.sqrt(hd)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~tref.attention_mask(S, S, causal, window, "cpu"),
+                      -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    ph, pl = _split(p)
+    vh, vl = _split(v)
+    o = ph @ vh + pl @ vh + ph @ vl
+    return o / p.double().sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("variant", [("causal", None, None),
+                                     ("window", 128, None),
+                                     ("softcap", None, 5.0)],
+                         ids=lambda v: v[0])
+@pytest.mark.parametrize("hd", [64, 112, 192])
+def test_three_product_split_keeps_flash_within_f32_tolerance(hd, variant):
+    """Causal GQA attention at the configs' head dims 64, 112 (zamba2-7b)
+    and 192 (nemotron-4-340b), q and k at stddev 1.6: the split path's
+    arithmetic within a fifth of the f32 tolerance of
+    ``flash_attention_ref``; bf16 alone is not within it."""
+    _, window, softcap = variant
+    rng = np.random.default_rng(hd)
+    B, H, KV, S = 1, 4, 2, 512
+    q, k, v = (torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32))
+        for shape, std in (((B, H, S, hd), FLASH_QK_STD),
+                           ((B, KV, S, hd), FLASH_QK_STD),
+                           ((B, KV, S, hd), 1.0)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    assert _over_tol(_split_attention(q, k, v, True, window, softcap),
+                     want) <= 1 / SPLIT_SPARE
+    rounded = [t.to(torch.bfloat16).float() for t in (q, k, v)]
+    assert _over_tol(tref.flash_attention_ref(*rounded, **kw), want) > 1
