@@ -26,7 +26,9 @@ exits non-zero without printing a result:
               ``library_ms_clean``), timed after a flush that only reads;
               the four wire-path kernels at every CIFAR100
               (N=25) and FEMNIST (N=60) leaf, both int8 plane counts, top-k
-              at S = ceil(0.1 M), plus the edge shapes (M % 16 != 0, M = 1,
+              at S = ceil(0.1 M), at qwen1.5-0.5b's embedding leaf (N 4, M
+              155,582,464; top-k at S = ceil(0.25 M)) beside
+              ``fedavg_reduce``'s row there, plus the edge shapes (M % 16 != 0, M = 1,
               an empty payload, -1 padding, a duplicate index, bf16 ref)
               and a collision-heavy top-k payload (every row the same
               indices, values of +-1e8 and +-1, at N = 25 and 60, where
@@ -36,7 +38,9 @@ exits non-zero without printing a result:
 4. parity   — one narrow CIFAR100 round on the card (kernels) against the
               same round on the CPU (plain versions), plain and with the
               int8 uplink and downlink (two rounds, the second from the
-              CPU's state);
+              CPU's state); one ``FedAvgTrainer`` round of reduced
+              qwen1.5-0.5b (int8 uplink) and of reduced phi3.5-moe
+              (dispatch path, kernel aggregator), card against CPU;
 5. main     — ``FedAvgTrainer`` with ``aggregator="kernel"`` on CIFAR100 at
               paper width (U=25, b=32, K0=50, eta0=0.01, K_r-rounds) for 4
               rounds plus one eval, then FEMNIST, Sent140 and Shakespeare at
@@ -126,16 +130,35 @@ exits non-zero without printing a result:
               reduce on a (1, 1) ("pod", "data") mesh, each bitwise
               against the same rounds on ``LocalBackend``; launch and
               collective counts exact; ms per round, mesh and local, and
-              the all-reduces' device ms per round.
+              the all-reduces' device ms per round;
+11. lm_train — federated LM training at full width: ``FedAvgTrainer`` on
+              qwen1.5-0.5b (phase lm's f32 params) over
+              ``make_lm_clients`` data at the LM specs' traffic (12
+              clients, 4 a round, b 4, seq 32, K_r-rounds, beta 0.05 s),
+              3 rounds each of (a) int8 uplink, (b) int8 both ways, (c) a
+              fixed cohort [0, 3, 5, 9] with top-k 0.25 and per-client
+              error feedback, (d) no codec, the kernel aggregator; ms per
+              round, ms per local step (CUDA events around the vmapped
+              client update), each kernel's and encoder's device ms,
+              launches (rounds x leaves for the wire kernels, rounds for the
+              tree reduce), peak memory; K_r, sgd_steps, wall_clock_s and
+              the wire Mbit exact against the RuntimeModel formula; losses
+              finite. Then one round more, not counted or timed, whose
+              every kernel call (each of the tree's 14 leaf sizes) is held
+              against its plain version on the same inputs. Runs after
+              phase lm.
 
 The line before the last is the kernels summary (``flash_attention``,
-``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches);
+``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
+the wire kernels and ``fedavg_reduce`` with their launches in phase
+lm_train and their row at qwen's embedding leaf);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -167,8 +190,10 @@ def leaf_items(tree, prefix: str):
 
 def kernel_shapes():
     """Every leaf the main path reduces, (clients_per_round, leaf size) for
-    each task's paper model, then ``EXTRA_SHAPES``; CIFAR100's eight leaves
-    come first and make up one round of its aggregation."""
+    each task's paper model, then ``EXTRA_SHAPES`` and qwen1.5-0.5b's
+    embedding leaf at 4 clients (``LM_LEAF``, phase ``lm_train``);
+    CIFAR100's eight leaves come first and make up one round of its
+    aggregation."""
     from repro_torch.configs import get_paper_task
     from repro_torch.models import small
     shapes = []
@@ -177,7 +202,7 @@ def kernel_shapes():
         params = small.init_task_model(0, task, device="cpu")
         shapes += [(path, task.fed.clients_per_round, leaf.numel(),
                     "float32") for path, leaf in leaf_items(params, name)]
-    return shapes + EXTRA_SHAPES
+    return shapes + EXTRA_SHAPES + [(*LM_LEAF, "float32")]
 
 
 # rounds of the main path: CIFAR100 shows K = 50, 40, 35, 32; the other
@@ -510,7 +535,8 @@ def collide_payload(torch, gen, n: int, s: int, m: int):
 
 def phase_wire_kernels(torch, bw: float, f32_peak: float):
     """The four wire-path kernels against their plain versions, with
-    times, at every wire leaf shape and the edge shapes."""
+    times, at every wire leaf shape, qwen1.5-0.5b's embedding leaf
+    (``LM_LEAF``; top-k at ``LM_TOPK_FRAC``) and the edge shapes."""
     from repro_torch.kernels import delta_codec as dc
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -582,8 +608,8 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
                                   if one_f32 else None)))
 
     def topk_rows(label, n, m, ref_dtype=torch.float32, idx=None, tol="exact",
-                  vals=None, w=None):
-        s = idx.shape[1] if idx is not None else math.ceil(TOPK_FRAC * m)
+                  vals=None, w=None, frac=TOPK_FRAC):
+        s = idx.shape[1] if idx is not None else math.ceil(frac * m)
         idx = distinct_idx(n, s, m) if idx is None else idx
         if vals is None:
             vals = torch.randn(idx.shape, generator=gen, device=dev)
@@ -638,6 +664,9 @@ def phase_wire_kernels(torch, bw: float, f32_peak: float):
     for label, n, m in wire_leaf_shapes():
         int8_rows(label, n, m)
         topk_rows(label, n, m)
+    # qwen1.5-0.5b's embedding leaf, the largest of phase lm_train
+    int8_rows(*LM_LEAF)
+    topk_rows(*LM_LEAF, frac=LM_TOPK_FRAC)
     # edge shapes
     int8_rows("odd", 7, 8193)
     int8_rows("m1", 3, 1)
@@ -1155,8 +1184,7 @@ class RouteLog:
             w = torch.gather(probs, -1, ids)
             w = w / torch.sum(w, dim=-1, keepdim=True)
             E = cfg.moe.num_experts
-            f_e = torch.mean(torch.nn.functional.one_hot(ids[:, 0], E)
-                             .to(torch.float32), dim=0)
+            f_e = torch.mean(self.mod._one_hot(ids[:, 0], E), dim=0)
             aux = E * torch.sum(f_e * torch.mean(probs, dim=0))
             return w.to(xf.dtype), ids, aux
         self.mod._route = recording
@@ -2309,6 +2337,405 @@ def phase_mesh_gloo(torch, data):
     del local
 
 
+# ---------------------------------------------------------------------------
+# federated LM training (phase 11)
+# ---------------------------------------------------------------------------
+
+# the configurations of phase lm_train, each a key of
+# ``launch/lm_train_timing.py``'s ``CONFIGS`` (the LM specs' traffic
+# there: 12 clients, 4 a round, b 4, seq 32, K_r-rounds, eta0 0.05, beta
+# 0.05 s a local step), and where each comes from
+LM_TRAIN_SOURCES = {
+    "a": "examples/specs/local-int8-decayK.json",
+    "b": "examples/specs/local-int8-downlink.json",
+    "c": "examples/specs/fixed-cohort-topk.json",
+    "d": "local-int8-decayK's traffic, no transport, aggregator kernel"}
+LM_TRAIN_ROUNDS = 3
+# the wire path's kernel entry points in kernels.ops
+WIRE_ENTRIES = {"int8_decompress_reduce": "int8_delta_reduce",
+                "int8_decode_apply": "int8_delta_apply",
+                "topk_scatter_reduce": "topk_delta_reduce",
+                "topk_scatter_apply": "topk_delta_apply"}
+# the embedding leaf of qwen1.5-0.5b (151,936 x 1,024) at the specs' 4
+# clients a round, and the top-k fraction of fixed-cohort-topk
+LM_LEAF = ("qwen1.5-0.5b.embed", 4, 155_582_464)
+LM_TOPK_FRAC = 0.25
+
+
+def lm_train_want(fed, sizes, rounds: int):
+    """K_r and the cumulative History counters the RuntimeModel formula
+    (Eq. 3, homogeneous clients, the default 20 / 5 Mbit/s links) gives,
+    computed here from the leaf sizes: |x| is the params at 4 bytes, and
+    each leg's Mbit is |x| over the codec's ratio (full bits over the
+    encoded bits: int8 a byte a value and a scale a leaf, top-k a value
+    and an index a kept coordinate)."""
+    from repro_torch.launch.lm_train_timing import BETA
+    ks = [min(max(math.ceil(fed.k0 / r ** (1.0 / 3.0)), fed.k_min), fed.k0)
+          for r in range(1, rounds + 1)]
+    size = sum(sizes) * 4 * 8 / 1e6
+
+    def ratio(codec):
+        if codec in (None, "none"):
+            return 1.0
+        if codec == "int8":
+            bits = sum(8 * m + 32 for m in sizes)
+        else:
+            bits = sum(64 * min(m, max(1, math.ceil(fed.topk_frac * m)))
+                       for m in sizes)
+        return 32 * sum(sizes) / float(bits)
+
+    up, down = size / ratio(fed.transport), size / ratio(fed.downlink)
+    n = fed.clients_per_round
+    want = {"k": ks, "sgd_steps": [], "wall_clock_s": [], "uplink_mbit": [],
+            "downlink_mbit": []}
+    wall, steps, up_t, down_t = 0.0, 0, 0.0, 0.0
+    for k in ks:
+        wall += down / 20.0 + k * BETA + up / 5.0
+        steps += k * n
+        up_t += up * n
+        down_t += down * n
+        for key, v in (("sgd_steps", steps), ("wall_clock_s", wall),
+                       ("uplink_mbit", up_t), ("downlink_mbit", down_t)):
+            want[key].append(v)
+    return want
+
+
+def record_ids(trainer):
+    """Instrumentation of this script only: the client ids of every round
+    the trainer's sampler draws."""
+    ids, sample = [], trainer.sampler.round
+
+    def round_(*a, **kw):
+        out = sample(*a, **kw)
+        ids.append([int(c) for c in out[0]])
+        return out
+
+    trainer.sampler.round = round_
+    return ids
+
+
+def check_lm_round(torch, trainer, label):
+    """One round more of ``trainer``, after its counts were read: each call
+    of a wire entry point and of the tree reduce is held against its plain
+    version (``kernels.ref``) on the same inputs, at every leaf size of the
+    model. Returns, for each kernel that ran, its calls, leaf sizes, max
+    abs error and tolerance."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import tree_leaves
+    plain = {"int8_decompress_reduce": (ref.int8_decompress_reduce_ref,
+                                        REDUCE_TOL),
+             "int8_decode_apply": (ref.int8_decode_apply_ref, "exact"),
+             "topk_scatter_reduce": (ref.topk_scatter_reduce_ref, "exact"),
+             "topk_scatter_apply": (ref.topk_scatter_apply_ref, "exact")}
+    seen = {}
+
+    def note(key, ms, err, tol):
+        r = seen.setdefault(key, {"calls": 0, "m": [], "max_abs_err": 0.0,
+                                  "tol": tol})
+        r["calls"] += 1
+        r["m"] += ms
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def checked(key, fn):
+        want_fn, tol = plain[key]
+
+        def call(*a):
+            out = fn(*a)
+            err = _check(torch, out, want_fn(*a), tol,
+                         f"lm_train ({label}) {key} at M {out.numel()}")
+            note(key, [out.numel()], err, tol)
+            return out
+        return call
+
+    def checked_tree(fn):
+        def call(tree, w):
+            out = fn(tree, w)
+            ms, err = [], 0.0
+            for x, g in zip(tree_leaves(tree), tree_leaves(out)):
+                want = ref.fedavg_reduce_ref(x.reshape(x.shape[0], -1), w)
+                torch.testing.assert_close(
+                    g.reshape(-1), want, **TOL["float32"],
+                    msg=lambda m: f"lm_train ({label}) fedavg_reduce_tree "
+                    f"at M {g.numel()}: {m}")
+                ms.append(g.numel())
+                err = max(err, float((g.reshape(-1) - want).abs().max()))
+            note("fedavg_reduce", ms, err, TOL["float32"])
+            return out
+        return call
+
+    saved = {fn: getattr(ops, fn) for fn in WIRE_ENTRIES.values()}
+    saved["fedavg_reduce_tree"] = ops.fedavg_reduce_tree
+    for key, fn in WIRE_ENTRIES.items():
+        setattr(ops, fn, checked(key, saved[fn]))
+    ops.fedavg_reduce_tree = checked_tree(saved["fedavg_reduce_tree"])
+    try:
+        h = trainer.run(1)
+        torch.cuda.synchronize()
+    finally:
+        for fn, f in saved.items():
+            setattr(ops, fn, f)
+    if not math.isfinite(h.train_loss[-1]):
+        raise AssertionError(f"lm_train ({label}): checked round's loss "
+                             f"{h.train_loss[-1]}")
+    return seen
+
+
+def run_lm_train(torch, label, cfg, params, data):
+    """``FedAvgTrainer`` on qwen1.5-0.5b at full width for
+    ``LM_TRAIN_ROUNDS`` rounds in configuration ``label`` of
+    ``LM_TRAIN_SOURCES``; every count zeroed just before the run. Returns
+    the launches of the four wire kernels and of ``fedavg_reduce``."""
+    from repro_torch.core.engine.backends import local
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lm_train_timing import SEQ, BETA, make_trainer
+    from repro_torch.optim import tree_leaves
+    rounds = LM_TRAIN_ROUNDS
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    sizes = [int(t.numel()) for t in leaves]
+
+    # instrumentation of this script only: host clock around each round,
+    # CUDA events around the vmapped client update (its K local steps),
+    # each kernel entry point, each encoder and the tree reduce
+    round_ms, events = [], {}
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            events.setdefault(key, []).append(ev)
+            return out
+        return call
+
+    make_update = local.make_client_update
+    local.make_client_update = lambda fn: timed("client_update",
+                                                make_update(fn))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = make_trainer(label, rounds, cfg, params, data)
+    finally:
+        local.make_client_update = make_update
+    fed = trainer.fed
+    ids = record_ids(trainer)
+    run_bucket = trainer.engine.run_bucket
+
+    def timed_bucket(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_bucket(*a)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer.engine.run_bucket = timed_bucket
+    entries = {**WIRE_ENTRIES, "fedavg_reduce": "fedavg_reduce_tree"}
+    saved = {fn: getattr(ops, fn) for fn in entries.values()}
+    for key, fn in entries.items():
+        setattr(ops, fn, timed(key, saved[fn]))
+    codecs = {"encode_up": trainer.engine.transport,
+              "encode_down": getattr(trainer.engine.downlink, "codec",
+                                     None)}
+    for key, codec in codecs.items():
+        if codec is not None:
+            codec.encode = timed(key, codec.encode)
+    for k in dc.launches:
+        dc.launches[k] = 0
+    fr.launches = 0
+    try:
+        t0 = time.perf_counter()
+        h = trainer.run(rounds)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        for fn, f in saved.items():
+            setattr(ops, fn, f)
+    launches = {**dc.launches, "fedavg_reduce": fr.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    up, down = fed.transport, fed.downlink
+    want = dict.fromkeys(launches, 0)
+    if up == "int8":
+        want["int8_decompress_reduce"] = rounds * len(leaves)
+    if up == "topk":
+        want["topk_scatter_reduce"] = rounds * len(leaves)
+    if down == "int8":
+        want["int8_decode_apply"] = rounds * len(leaves)
+    if fed.aggregator == "kernel" and up == "none":
+        want["fedavg_reduce"] = rounds * math.ceil(len(leaves)
+                                                   / fr.MAX_LEAVES)
+    if launches != want:
+        raise AssertionError(f"lm_train ({label}): launches {launches}, "
+                             f"want {want}")
+    counters = lm_train_want(fed, sizes, rounds)
+    got = {key: getattr(h, key) for key in counters}
+    if got != counters:
+        raise AssertionError(f"lm_train ({label}): counters {got} != the "
+                             f"RuntimeModel formula's {counters}")
+    want_ids = ([list(fed.cohort)] * rounds if fed.sampler == "fixed_cohort"
+                else None)
+    if len(ids) != rounds or (want_ids and ids != want_ids):
+        raise AssertionError(f"lm_train ({label}): client ids {ids}")
+    if not all(math.isfinite(v) for v in h.train_loss):
+        raise AssertionError(f"lm_train ({label}): loss {h.train_loss}")
+    ef = trainer.engine.transport_state
+    ef_shape = (list(tree_leaves(ef)[0].shape[:1])
+                if tree_leaves(ef) else None)
+    if fed.sampler == "fixed_cohort" and (
+            trainer.engine.transport.ef_slots != fed.clients_per_round
+            or ef_shape != [fed.clients_per_round]):
+        raise AssertionError(f"lm_train ({label}): residual slots "
+                             f"{ef_shape}, want {fed.clients_per_round}")
+    dev_ms = {key: [a.elapsed_time(b) for a, b in evs]
+              for key, evs in events.items()}
+    client_ms = dev_ms.pop("client_update")
+    # each key's calls are the same number a round, in round order
+    per_round = {key: [sum(v[i * len(v) // rounds:(i + 1) * len(v)
+                             // rounds]) for i in range(rounds)]
+                 for key, v in dev_ms.items()}
+    kernel_keys = [k for k in per_round if k in entries]
+    for i in range(rounds):
+        emit({"phase": "lm_train", "config": label, "round": h.rounds[i],
+              "k": h.k[i], "ids": ids[i], "loss": h.train_loss[i],
+              "ms": round_ms[i], "client_update_ms": client_ms[i],
+              "ms_per_local_step": client_ms[i] / h.k[i],
+              "device_ms": {key: v[i] for key, v in per_round.items()},
+              "wire_kernel_share": sum(per_round[k][i]
+                                       for k in kernel_keys) / round_ms[i],
+              "sgd_steps": h.sgd_steps[i],
+              "wall_clock_s": h.wall_clock_s[i],
+              "uplink_mbit": h.uplink_mbit[i],
+              "downlink_mbit": h.downlink_mbit[i]})
+    emit({"phase": "lm_train", "config": label, "summary": True,
+          "source": LM_TRAIN_SOURCES[label], "arch": cfg.name,
+          "params": n_params,
+          "leaves": len(leaves), "dtype": "float32",
+          "fed": {k: getattr(fed, k) for k in (
+              "total_clients", "clients_per_round", "batch_size", "k0",
+              "eta0", "k_schedule", "transport", "downlink", "topk_frac",
+              "sampler", "cohort", "aggregator")},
+          "seq": SEQ, "beta_seconds": BETA,
+          "ef_slots": trainer.engine.transport.ef_slots
+          if trainer.engine.transport is not None else None,
+          "k": h.k, "loss": h.train_loss, "counters_exact": True,
+          "launches": launches, "ms_per_round": sum(round_ms) / rounds,
+          "ms_per_local_step": sum(client_ms) / sum(h.k),
+          "device_ms_per_round": {key: sum(v) / rounds
+                                  for key, v in per_round.items()},
+          "wire_kernel_share": sum(sum(per_round[k]) for k in kernel_keys)
+          / sum(round_ms),
+          "run_s": run_s, "peak_mem_gb": peak})
+    # after the timed rounds were read (the timing wrappers stay on)
+    checked = check_lm_round(torch, trainer, label)
+    want_checked = {k: v // rounds for k, v in want.items() if v}
+    if {k: v["calls"] for k, v in checked.items()} != want_checked \
+            or any(v["m"] != sizes for v in checked.values()):
+        raise AssertionError(f"lm_train ({label}): checked round ran "
+                             f"{checked}, want {want_checked} at {sizes}")
+    emit({"phase": "lm_train", "config": label, "checked_round": {
+        k: {"calls": v["calls"], "leaves": len(v["m"]),
+            "max_abs_err": v["max_abs_err"], "tol": v["tol"]}
+        for k, v in checked.items()}})
+    return launches
+
+
+def phase_lm_train(torch, params):
+    """qwen1.5-0.5b at full width (phase ``lm``'s f32 params, not drawn
+    again) trained for ``LM_TRAIN_ROUNDS`` rounds in each configuration of
+    ``LM_TRAIN_SOURCES``, on ``make_lm_clients(default_rng(0), 12,
+    vocab=151936, seq_len=32)``. The params are read, never written: each
+    configuration starts from them. Returns each kernel's launches summed
+    over the configurations."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.lm_train_timing import SEQ, lm_data
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"lm_train: {n_params} params, want "
+                             f"{LM_PARAMS}")
+    t0 = time.perf_counter()
+    data = lm_data(cfg)
+    emit({"phase": "lm_train", "what": "data", "clients": data.num_clients,
+          "vocab": cfg.vocab_size, "seq": SEQ,
+          "build_s": time.perf_counter() - t0})
+    digest = [float(t.double().sum()) for t in tree_leaves(params)]
+    total = {}
+    for label in LM_TRAIN_SOURCES:
+        for k, v in run_lm_train(torch, label, cfg, params, data).items():
+            total[k] = total.get(k, 0) + v
+        # the timing wrappers hold the trainer in reference cycles: free its
+        # params and codec state (up to ~10 GB) before the next phase
+        gc.collect()
+        torch.cuda.empty_cache()
+        if [float(t.double().sum()) for t in tree_leaves(params)] != digest:
+            raise AssertionError(f"lm_train ({label}) wrote the initial "
+                                 f"params")
+    return total
+
+
+def phase_parity_lm_train(torch):
+    """One ``FedAvgTrainer`` round on the card (kernels) against the same
+    round on the CPU (plain versions), same data and weights: reduced
+    qwen1.5-0.5b on spec (a) (int8 uplink), and reduced phi3.5-moe on the
+    dispatch path through the kernel aggregator. Counters and client ids
+    exact; losses within the CIFAR100 parity tolerance (1e-4); parameters
+    within it too, plus one quantisation step of the round's movement of
+    each leaf (/127) for the int8 round, as phase ``parity``'s wire
+    round."""
+    import numpy as np
+    from repro_torch.launch.lm_train_timing import lm_data, make_trainer
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_map
+    tol = dict(rtol=1e-4, atol=1e-4)
+    # (reduced arch, configuration): (a) and (d) of LM_TRAIN_SOURCES
+    for name, label in (("qwen1.5-0.5b-reduced", "a"),
+                        ("phi3.5-moe-42b-a6.6b-reduced", "d")):
+        cfg = lm_config(name)
+        data = lm_data(cfg)
+        params = registry.init(0, cfg, device="cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tr = make_trainer(label, 1, cfg, tree_map(lambda t: t.to(dev),
+                                                      params), data,
+                              device=dev)
+            ids = record_ids(tr)
+            out[dev] = (tr.run(1), ids, tr.params)
+        fed = tr.fed
+        (hc, ic, pc), (hg, ig, pg) = out["cpu"], out["cuda"]
+        keys = ("rounds", "k", "eta", "sgd_steps", "wall_clock_s",
+                "uplink_mbit", "downlink_mbit")
+        if ic != ig or any(getattr(hc, k) != getattr(hg, k) for k in keys):
+            raise AssertionError(f"{name} round: ids {ig} vs {ic} or "
+                                 f"counters differ")
+        np.testing.assert_allclose(hg.train_loss, hc.train_loss, **tol)
+        err, worst = 0.0, 0.0
+        int8 = fed.transport == "int8"
+        for (path, old), (_, a), (_, b) in zip(leaf_items(params, ""),
+                                                leaf_items(pc, ""),
+                                                leaf_items(pg, "")):
+            step = float((a - old).abs().max()) / 127.0 if int8 else 0.0
+            torch.testing.assert_close(b.cpu(), a, rtol=tol["rtol"],
+                                       atol=tol["atol"] + step,
+                                       msg=lambda m: f"{name} {path}: {m}")
+            d = (b.cpu() - a).abs()
+            err = max(err, float(d.max()))
+            worst = max(worst, float((d / (tol["atol"] + step + tol["rtol"]
+                                           * a.abs())).max()))
+        emit({"phase": "parity", "what": f"{name}: one FedAvgTrainer round "
+              f"(k0 {fed.k0}, transport {fed.transport}, aggregator "
+              f"{fed.aggregator}), cuda vs cpu",
+              "ids": ig, "k": hg.k, "loss_cuda": hg.train_loss,
+              "loss_cpu": hc.train_loss, "params_max_abs_err": err,
+              "tol": {**tol, "int8_step": int8},
+              "worst_share_of_tol": worst})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2328,6 +2755,11 @@ def main() -> int:
     phase_build()
     rows, max_err = phase_kernel(torch, bw, f32_peak)
     wrows = phase_wire_kernels(torch, bw, f32_peak)
+    # each kernel's row at qwen's embedding leaf (fedavg_reduce from phase
+    # kernel's rows, the wire kernels' one-plane and top-k 0.25 rows)
+    lm_rows = {r["name"]: r for r in rows + wrows
+               if r["shape"] == LM_LEAF[0] and r.get("planes", 1) == 1
+               and r.get("dtype", "float32") == "float32"}
     frows = phase_flash_kernel(torch, bw, f32_peak, bf16_peak)
     grows = phase_gmm_kernel(torch, bw, f32_peak, bf16_peak)
     srows = phase_ssd_kernel(torch, bw, f32_peak, bf16_peak)
@@ -2335,6 +2767,7 @@ def main() -> int:
     phase_parity_wire(torch)
     phase_parity_lm(torch)
     phase_parity_lm(torch, SSM_PARITY)
+    phase_parity_lm_train(torch)
     cifar, cifar_s = paper_data("cifar100")
     launches = run_task(torch, "cifar100", CIFAR_ROUNDS, cifar, cifar_s)
     for task in MAIN_TASKS[1:]:
@@ -2364,6 +2797,13 @@ def main() -> int:
     lm_bf16 = phase_bf16_prefill(
         torch, "lm", lm_cfg, params,
         {"flash": (fa, "flash_attention", lm_cfg.num_layers)}, 7)
+    train_launches = phase_lm_train(torch, params)
+    if not all(train_launches[k] for k in ("int8_decompress_reduce",
+                                           "int8_decode_apply",
+                                           "topk_scatter_reduce",
+                                           "fedavg_reduce")):
+        raise AssertionError(f"a kernel of lm_train never ran: "
+                             f"{train_launches}")
     del params
     moe_launches, params = phase_moe(torch)
     moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
@@ -2475,6 +2915,16 @@ def main() -> int:
         "bf16_launches": ssm_bf16["ssd"],
         **{f"bf16_{key}": bf16[key] for key in keys},
         "bf16_path": bf16["path"]})
+    # the LM path: launches in phase lm_train and each row at qwen's
+    # embedding leaf
+    for entry in kernels:
+        if entry["name"] in train_launches:
+            entry["lm_train_launches"] = train_launches[entry["name"]]
+        if entry["name"] in lm_rows:
+            r = lm_rows[entry["name"]]
+            entry["lm_leaf"] = {key: r.get(key) for key in (
+                "n", "m", "s", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -36,7 +36,8 @@ divide among the shards through the unsharded kernel (``mesh.py:227-229``,
 agree within the 1e-6 the reference allows between groupings. Not ported,
 and refused by name: ``strategy="sequential"``, streaming cohorts
 (``make_slab_cores``), fleet sub-meshes (``fleet_slices``,
-``carve_submeshes``), ``param_specs`` and a ``"model"`` axis above 1.
+``carve_submeshes``), ``param_specs``, a ``"model"`` axis above 1 and
+per-client error feedback (``Transport.ef_slots``).
 """
 from __future__ import annotations
 
@@ -106,6 +107,11 @@ class MeshBackend(ExecutionBackend):
                         trim_fraction: float = 0.1, server=None,
                         server_lr: float = 1.0, transport=None,
                         downlink=None):
+        if transport is not None and transport.ef_slots:
+            raise ValueError(
+                f"transport.ef_slots={transport.ef_slots} (per-client error "
+                f"feedback of a fixed cohort) is not ported to the "
+                f"MeshBackend yet: each rank would hold its rows' slots")
         if transport is not None:
             # a bound copy: reduce() runs the client-sharded kernels
             transport = transport.with_mesh(self.mesh, self.client_axes,

@@ -16,7 +16,11 @@ executes one round, and the trainer calls it once per round of a bucket.
 
 With a transport or downlink codec (``engine.transport``) the engine owns
 the codec state (``transport_state``, ``downlink_state``) and threads it
-through every ``run_bucket``.
+through every ``run_bucket``. A codec bound to a fixed cohort
+(``Transport.with_ef_slots``) holds one residual a cohort slot, leaves
+``(ef_slots, ...)``; the engine threads it the same way, and slot j meets
+client cohort[j] in every round (reference ``round.py:313-364``, :503,
+:553).
 """
 from __future__ import annotations
 

@@ -2,9 +2,12 @@
 with a ``MeshBackend``, with the cohort's clients spread over the ranks of
 a mesh (one trainer a rank; every rank keeps the same History).
 
-RoundScheduler (K-bucket plan) -> BatchPrefetcher (host tensors for the
-next round, built and copied to the device on a background thread) ->
-RoundEngine (the rounds of a bucket) -> DecayController feedback.
+ClientSampler (who runs, with what weights) -> RoundScheduler (K-bucket
+plan) -> BatchPrefetcher (host tensors for the next round, built and
+copied to the device on a background thread) -> RoundEngine (the rounds of
+a bucket) -> DecayController feedback. A sampler with a ``stateful_cohort``
+(``fixed_cohort``) gives a codec with error feedback one residual slot a
+client (``Transport.with_ef_slots``).
 
 Synchronisation policy, as in ``repro.core.engine.trainer``:
   * loss-free schedules (fixed/dsgd/rounds/cosine x fixed/rounds) never
@@ -30,9 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
+from repro_torch.core.engine.aggregators import LINEAR_AGGREGATORS
 from repro_torch.core.engine.round import LossFn, RoundEngine
 from repro_torch.core.engine.sampling import make_sampler
 from repro_torch.core.engine.scheduler import Bucket, RoundScheduler
+from repro_torch.core.engine.transport import get_transport
 from repro_torch.core.runtime_model import RuntimeModel
 from repro_torch.core.schedules import DecayController
 from repro_torch.data import pipeline
@@ -87,11 +92,26 @@ class FedAvgTrainer:
         seed and ``init_params``, and it brings its own device."""
         _refuse_unported(fed)
         self.sampler = make_sampler(fed)
+        if (self.sampler.needs_weighted_aggregation
+                and fed.aggregator not in LINEAR_AGGREGATORS):
+            # an availability shortfall pads the cohort at weight 0, which
+            # median/trimmed_mean would aggregate as full participants
+            # (reference trainer.py:142)
+            raise ValueError(
+                f"sampler {self.sampler.name!r} encodes participation in "
+                f"the aggregation weights and needs a weight-respecting "
+                f"aggregator {LINEAR_AGGREGATORS}, got {fed.aggregator!r}")
+        transport = get_transport(fed.transport, topk_frac=fed.topk_frac)
+        if (transport is not None and transport.error_feedback
+                and self.sampler.stateful_cohort):
+            # a fixed cohort: slot j is the same client every round, so the
+            # codec keeps one residual a client (reference trainer.py:153)
+            transport = transport.with_ef_slots(fed.clients_per_round)
         self.engine = RoundEngine(loss_fn, aggregator=fed.aggregator,
                                   trim_fraction=fed.trim_fraction,
                                   server=fed.server_optimizer,
                                   server_lr=fed.server_lr,
-                                  transport=fed.transport,
+                                  transport=transport,
                                   topk_frac=fed.topk_frac,
                                   downlink=fed.downlink,
                                   downlink_ref=fed.downlink_ref,
@@ -271,8 +291,9 @@ def make_eval_fn(loss_fn: LossFn, data: FederatedData, batch_size: int = 128,
                  device: DeviceLike = None):
     """Validation accuracy/error over the global validation split, with
     per-batch means weighted by batch size (the ragged tail batch counts
-    exactly its share). ``device``: where the batches go (default
-    ``cuda``)."""
+    exactly its share). A loss without an ``acc`` metric (the LMs') counts
+    accuracy 0, as ``repro.core.engine.trainer.make_eval_fn`` (:503) does.
+    ``device``: where the batches go (default ``cuda``)."""
     dev = resolve_device(device)
     batches = pipeline.val_batches(data, batch_size)
 
@@ -285,7 +306,7 @@ def make_eval_fn(loss_fn: LossFn, data: FederatedData, batch_size: int = 128,
                 l, metrics = loss_fn(params, {k: torch.as_tensor(v, device=dev)
                                               for k, v in b.items()})
                 loss_sum += float(l) * n
-                acc_sum += float(metrics["acc"]) * n
+                acc_sum += float(metrics.get("acc", 0.0)) * n
                 n_tot += n
         acc = acc_sum / max(n_tot, 1)
         return {"loss": loss_sum / max(n_tot, 1), "acc": acc,

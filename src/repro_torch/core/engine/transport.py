@@ -20,8 +20,13 @@ Uplink codecs:
 
 Error feedback lives at the server, at the aggregate level (clients are
 stateless and resampled): each client encodes ``delta_c + residual``; the
-new residual is ``sum_c w_c (delta_c + residual) - hat``. Compressed
-codecs need a linear aggregator (``LINEAR_AGGREGATORS``).
+new residual is ``sum_c w_c (delta_c + residual) - hat``. With a fixed
+cohort (``FixedCohortSampler``, whose slot j is always cohort[j]) the
+trainer binds the codec with ``with_ef_slots(n)``: the residual becomes
+``(n, ...)`` per leaf, slot j encodes ``delta_j + residual_j`` and keeps its
+own compression error ``delta_j + residual_j - decode_j`` (reference
+:93-111, :191-253). Compressed codecs need a linear aggregator
+(``LINEAR_AGGREGATORS``).
 
 Downlink (``DownlinkCodec``): the server keeps the last broadcast
 reference ``params_ref`` and encodes ``params - params_ref [+ residual]``;
@@ -41,7 +46,8 @@ the vector into one slice a rank where the ranks divide it.
 Payloads are lists with one dict per parameter leaf, in ``tree_leaves``
 order. ``encode(..., stacked=True)`` takes leaves with a leading client
 axis and works on the (N, M) rows directly (per-row amax for int8,
-``torch.topk`` per row for top-k). ``torch.topk`` promises no order among
+``torch.topk`` per row for top-k); ``decode(..., stacked=True)`` turns such
+payloads back into (N, ...) leaves. ``torch.topk`` promises no order among
 ties, where ``lax.top_k`` prefers the lower index: compare decoded deltas,
 never raw indices.
 """
@@ -87,16 +93,39 @@ def _add_to(ref: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
     return (ref.to(torch.float32) + dec).to(ref.dtype)
 
 
+def _shape(x: torch.Tensor, leaf: torch.Tensor, stacked: bool) -> tuple:
+    """A decoded leaf's shape: ``leaf``'s, after the client axis of ``x``
+    when ``stacked``."""
+    return (x.shape[0],) + tuple(leaf.shape) if stacked else leaf.shape
+
+
 class Transport:
     """Protocol. ``encode`` maps a delta tree to a payload list, ``reduce``
     consumes the stacked payloads of the round's clients."""
 
     name: str = "base"
     error_feedback: bool = False
+    #: None: one server-aggregate residual; an int n: one residual slot a
+    #: client of an n-client fixed cohort (``with_ef_slots``)
+    ef_slots: Optional[int] = None
     # the mesh a bound copy reduces over (``with_mesh``); None: one device
     _mesh = None
     _client_axes: Optional[tuple] = None
     _reduce_tiers: Optional[tuple] = None
+
+    def signature(self) -> tuple:
+        """What tells two codec configurations apart (the reference keys its
+        compile cache on it)."""
+        return (self.name, self.error_feedback, self.ef_slots)
+
+    def with_ef_slots(self, n: int) -> "Transport":
+        """A copy with per-client error feedback for an ``n``-client fixed
+        cohort; the codec itself for codecs without feedback state."""
+        if not self.error_feedback:
+            return self
+        t = copy.copy(self)
+        t.ef_slots = int(n)
+        return t
 
     def with_mesh(self, mesh, client_axes: Sequence[str],
                   reduce_tiers=None) -> "Transport":
@@ -115,17 +144,22 @@ class Transport:
                     reduce_tiers=self._reduce_tiers)
 
     def init_state(self, params: PyTree):
-        """The error-feedback residual: f32 zeros shaped like ``params``
-        (``()`` for codecs without feedback)."""
+        """The error-feedback residual: f32 zeros shaped like ``params``, with
+        a leading ``ef_slots`` axis for per-client feedback (``()`` for codecs
+        without feedback)."""
         if not self.error_feedback:
             return ()
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+        lead = (self.ef_slots,) if self.ef_slots else ()
+        return tree_map(lambda p: torch.zeros(lead + tuple(p.shape),
+                                              dtype=torch.float32,
                                               device=p.device), params)
 
     def encode(self, delta: PyTree, stacked: bool = False):
         raise NotImplementedError
 
-    def decode(self, payload, like: PyTree) -> PyTree:
+    def decode(self, payload, like: PyTree, stacked: bool = False) -> PyTree:
+        """Payloads -> the delta tree shaped like ``like``; ``stacked``:
+        payloads of ``encode(..., stacked=True)``, leaves (N, ...)."""
         raise NotImplementedError
 
     def reduce(self, payloads, weights: torch.Tensor, like: PyTree) -> PyTree:
@@ -159,11 +193,21 @@ class Transport:
         deltas = tree_map(lambda cp, p: cp.to(torch.float32)
                           - p.to(torch.float32)[None], client_stack, params)
         if self.error_feedback:
-            deltas = tree_map(lambda d, r: d + r[None], deltas, state)
+            # per-client slots add their own residual; the aggregate
+            # residual goes to every client
+            deltas = (tree_map(torch.add, deltas, state) if self.ef_slots
+                      else tree_map(lambda d, r: d + r[None], deltas, state))
         payloads = self.encode(deltas, stacked=True)
         hat = self.reduce(payloads, weights, like=params)
         new_state = state
-        if self.error_feedback:
+        if self.error_feedback and self.ef_slots:
+            # each slot keeps its own compression error; hat stays on the
+            # fused reduce, so the aggregate is the same program in both
+            # feedback modes (reference :236-249)
+            new_state = tree_map(torch.sub, deltas,
+                                 self.decode(payloads, like=params,
+                                             stacked=True))
+        elif self.error_feedback:
             w32 = weights.to(torch.float32)
             true = [torch.tensordot(w32, d, dims=1)
                     for d in tree_leaves(deltas)]
@@ -183,7 +227,7 @@ class IdentityTransport(Transport):
     def encode(self, delta, stacked=False):
         return tree_leaves(delta)
 
-    def decode(self, payload, like):
+    def decode(self, payload, like, stacked=False):
         return _unflatten(like, payload)
 
     def encoded_bits(self, params):
@@ -222,13 +266,16 @@ class Int8Transport(Transport):
                 out.append({"q": q, "s": s, "qr": qr, "rs": rs})
         return out
 
-    def decode(self, payload, like):
+    def signature(self):
+        return (self.name, self.levels, self.error_feedback, self.ef_slots)
+
+    def decode(self, payload, like, stacked=False):
         dec = []
         for pl, leaf in zip(payload, tree_leaves(like)):
             x = pl["q"].to(torch.float32) * pl["s"]
             if self.levels == 2:
                 x = x + pl["qr"].to(torch.float32) * pl["rs"]
-            dec.append(x.reshape(leaf.shape))
+            dec.append(x.reshape(_shape(x, leaf, stacked)))
         return _unflatten(like, dec)
 
     def reduce(self, payloads, weights, like):
@@ -295,13 +342,17 @@ class TopKTransport(Transport):
                         "i": idx.to(torch.int32)})
         return out
 
-    def decode(self, payload, like):
+    def signature(self):
+        return (self.name, self.frac, self.error_feedback, self.ef_slots)
+
+    def decode(self, payload, like, stacked=False):
         dec = []
         for pl, leaf in zip(payload, tree_leaves(like)):
-            flat = torch.zeros((int(leaf.numel()),), dtype=torch.float32,
-                               device=pl["v"].device)
-            dec.append(flat.scatter(0, pl["i"].to(torch.int64), pl["v"])
-                       .reshape(leaf.shape))
+            v = pl["v"]
+            flat = torch.zeros(v.shape[:-1] + (int(leaf.numel()),),
+                               dtype=torch.float32, device=v.device)
+            x = flat.scatter(-1, pl["i"].to(torch.int64), v)
+            dec.append(x.reshape(_shape(x, leaf, stacked)))
         return _unflatten(like, dec)
 
     def reduce(self, payloads, weights, like):
@@ -564,12 +615,11 @@ def get_downlink(name: Optional[str], *, topk_frac: float = 0.1,
     return DownlinkCodec(codec, ref_store=ref_store)
 
 
-def get_transport(name: Optional[str], *,
-                  topk_frac: float = 0.1) -> Optional[Transport]:
-    """The uplink codec. ``None``/``"none"`` -> None; downlink-only codecs
-    are refused."""
-    if name is None:
-        return None
+def get_transport(name, *, topk_frac: float = 0.1) -> Optional[Transport]:
+    """The uplink codec: a name, or a ``Transport`` (which passes through).
+    ``None``/``"none"`` -> None; downlink-only codecs are refused."""
+    if name is None or isinstance(name, Transport):
+        return name
     codec = _make(name, topk_frac=topk_frac)
     if isinstance(codec, DownlinkCodec):
         raise ValueError(f"{codec.name!r} is a downlink-only codec; it is "

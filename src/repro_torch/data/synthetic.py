@@ -1,8 +1,7 @@
 """Synthetic same-shape stand-ins for the paper's four LEAF benchmark tasks.
 
-A copy of ``repro.data.synthetic`` (the LM token stream waits for the LM
-slice of the port): the generators draw the same numpy stream, so one seed
-gives both packages identical datasets.
+A copy of ``repro.data.synthetic``: the generators draw the same numpy
+stream, so one seed gives both packages identical datasets.
 
 Each generator produces class/cluster structure so that (a) models can
 actually learn (loss decreases, validation accuracy rises above chance) and
@@ -152,3 +151,27 @@ def make_paper_task(name: str, rng: np.random.Generator, *,
     if samples_per_client is not None:
         kw["samples_per_client"] = samples_per_client
     return PAPER_GENERATORS[name](rng, **kw)
+
+
+# ---------------------------------------------------------------------------
+# federated LM tokens (``repro.data.synthetic.make_lm_clients``, :158-172)
+# ---------------------------------------------------------------------------
+
+def make_lm_clients(rng: np.random.Generator, num_clients: int, vocab: int,
+                    seq_len: int, samples_per_client: int = 64,
+                    num_styles: int = 8) -> FederatedData:
+    """Client-specific unigram-biased token streams: each client draws its
+    tokens from one of ``num_styles`` Dirichlet(0.1) unigram styles. ``x``
+    is a window of ``seq_len`` tokens and ``y`` the same window shifted by
+    one, int32; 64 validation windows from style 0."""
+    styles = rng.dirichlet(np.full(vocab, 0.1), size=num_styles)
+    clusters = partition.cluster_assignments(rng, num_clients, num_styles)
+    cx, cy = [], []
+    for c in range(num_clients):
+        p = styles[clusters[c]]
+        toks = rng.choice(vocab, size=(samples_per_client, seq_len + 1), p=p)
+        cx.append(toks[:, :-1].astype(np.int32))
+        cy.append(toks[:, 1:].astype(np.int32))
+    vt = rng.choice(vocab, size=(64, seq_len + 1), p=styles[0])
+    return FederatedData(cx, cy, vt[:, :-1].astype(np.int32),
+                         vt[:, 1:].astype(np.int32), vocab)

@@ -45,6 +45,14 @@ def moe_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu"):
     }
 
 
+def _one_hot(ids, E: int) -> torch.Tensor:
+    """f32 one-hot rows of ``ids`` (T,) over ``E`` classes, as a comparison
+    against ``arange(E)``: ``F.one_hot`` reads its class count off the data
+    (``.item()``), which ``torch.func.vmap`` refuses."""
+    return (ids[:, None] == torch.arange(E, device=ids.device)).to(
+        torch.float32)
+
+
 def _route(p, cfg: ArchConfig, xf):
     """xf: (T, d) -> (weights (T, k) in xf's dtype, ids (T, k), aux)."""
     m = cfg.moe
@@ -54,7 +62,7 @@ def _route(p, cfg: ArchConfig, xf):
     w = w / torch.sum(w, dim=-1, keepdim=True)
     # load-balance aux: E * sum_e (fraction routed to e) * (mean prob of e)
     E = m.num_experts
-    f_e = torch.mean(F.one_hot(ids[:, 0], E).to(torch.float32), dim=0)
+    f_e = torch.mean(_one_hot(ids[:, 0], E), dim=0)
     P_e = torch.mean(probs, dim=0)
     aux = E * torch.sum(f_e * P_e)
     return w.to(xf.dtype), ids, aux
@@ -118,8 +126,10 @@ def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False):
 
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
-    # rank within expert = position - start offset of that expert
-    counts = torch.bincount(sorted_ids, minlength=E)
+    # rank within expert = position - start offset of that expert; the
+    # counts as a sum over tokens, which vmap batches (bincount it loops)
+    counts = torch.sum(sorted_ids[:, None] == torch.arange(E, device=dev),
+                       dim=0)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * k, device=dev) - starts[sorted_ids]
     keep = rank < cap

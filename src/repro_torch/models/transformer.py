@@ -30,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.optim import tree_map
+from repro_torch.optim import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -83,6 +83,16 @@ def _layer_window(cfg: ArchConfig, ltype: str,
 def _index(tree: PyTree, i: int) -> PyTree:
     """One cycle's slice of a stacked tree (views, no copies)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _unbind(tree: PyTree) -> list:
+    """Every cycle's slice of a stacked tree (views), from one
+    ``torch.unbind`` a leaf: its backward stacks the cycles' gradients
+    once, where ``_index`` a cycle gives each cycle a zero-filled gradient
+    of the whole stack to add up (O(cycles²) traffic in training)."""
+    parts = tree_map(lambda t: torch.unbind(t, 0), tree)
+    return [tree_map(lambda u: u[c], parts)
+            for c in range(len(tree_leaves(parts)[0]))]
 
 
 def _stack(trees) -> PyTree:
@@ -266,10 +276,8 @@ def forward_lm(params, cfg: ArchConfig, tokens, *,
     shared = params.get("shared")
     stack_states = None
     if "stack" in params:
-        n_cycles = cycle_counts(cfg)[0]
         per_cycle, auxs = [], []
-        for c in range(n_cycles):
-            cparams = _index(params["stack"], c)
+        for cparams in _unbind(params["stack"]):
             if remat and torch.is_grad_enabled():
                 x, st, a = torch.utils.checkpoint.checkpoint(
                     _cycle_apply, cparams, shared, cfg, x, positions, kw,

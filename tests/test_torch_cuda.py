@@ -1306,3 +1306,67 @@ def test_ssd_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
                          chunk=16)
     assert y.shape == (1, 0, 2, 32) and not st.any()
     assert tss.launches == before                   # S = 0: nothing to run
+
+
+# ---------------------------------------------------------------------------
+# federated LM training: one reduced round on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _lm_trainer(dev, config, rounds):
+    """``FedAvgTrainer`` on reduced qwen1.5-0.5b at the LM specs' traffic
+    (``launch/lm_train_timing.py``: 12 clients, 4 a round, b 4, seq 32,
+    K_r-rounds) in its configuration ``config``, weights from seed 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.lm_train_timing import lm_data, make_trainer
+    from repro_torch.models import registry
+    cfg = get_arch("qwen1.5-0.5b-reduced")
+    return make_trainer(config, rounds, cfg,
+                        registry.init(0, cfg, device=dev), lm_data(cfg),
+                        device=dev)
+
+
+@pytest.mark.cuda
+def test_reduced_lm_round_on_the_card_matches_the_cpu(cuda):
+    """One round with the int8 uplink (configuration a): the card runs
+    ``int8_decompress_reduce`` (one launch a leaf), the CPU its plain
+    version. Counters exact; losses within 1e-4; each parameter within
+    1e-4 plus one quantisation step of its leaf's movement (/127)."""
+    from repro_torch.optim import tree_leaves
+    trainers = {dev: _lm_trainer(dev, "a", 1) for dev in ("cpu", "cuda")}
+    init = [t.clone() for t in tree_leaves(trainers["cpu"].params)]
+    before = tdc.launches["int8_decompress_reduce"]
+    hs = {dev: tr.run(1) for dev, tr in trainers.items()}
+    assert tdc.launches["int8_decompress_reduce"] == before + len(init)
+    h, hc = hs["cuda"], hs["cpu"]
+    for key in ("rounds", "k", "eta", "sgd_steps", "wall_clock_s",
+                "uplink_mbit", "downlink_mbit"):
+        assert getattr(h, key) == getattr(hc, key), key
+    np.testing.assert_allclose(h.train_loss, hc.train_loss, rtol=1e-4,
+                               atol=1e-4)
+    for old, a, b in zip(init, tree_leaves(trainers["cpu"].params),
+                         tree_leaves(trainers["cuda"].params)):
+        step = float((a - old).abs().max()) / 127.0
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4 + step)
+
+
+@pytest.mark.cuda
+def test_fixed_cohort_topk_rounds_repeat_bitwise(cuda):
+    """fixed-cohort-topk's codec (cohort [0, 3, 5, 9], top-k 0.25, one
+    residual slot a client) for 2 rounds, twice: params, residual slots and
+    losses bit for bit, one ``topk_scatter_reduce`` launch a leaf."""
+    from repro_torch.optim import tree_leaves
+    runs = []
+    for _ in range(2):
+        tr = _lm_trainer(cuda, "c", 2)
+        assert tr.engine.transport.ef_slots == 4
+        before = tdc.launches["topk_scatter_reduce"]
+        h = tr.run(2)
+        leaves = tree_leaves(tr.params)
+        assert tdc.launches["topk_scatter_reduce"] == before + 2 * len(leaves)
+        runs.append((h.train_loss, leaves,
+                     tree_leaves(tr.engine.transport_state)))
+    (la, pa, sa), (lb, pb, sb) = runs
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert all(a.shape[0] == 4 and torch.equal(a, b)
+               for a, b in zip(sa, sb))

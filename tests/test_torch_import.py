@@ -36,7 +36,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.kernels.ssd_scan, repro_torch.launch.mesh, "
             "repro_torch.core.engine.backends.base, "
             "repro_torch.core.engine.backends.mesh, "
-            "repro_torch.kernels.collectives\n"
+            "repro_torch.kernels.collectives, "
+            "repro_torch.core.engine.sampling, repro_torch.data.population, "
+            "repro_torch.launch.train_federated_lm\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -89,7 +91,6 @@ REFUSED = [
     ("downlink", "int8", {"downlink_ref": "q4"}),         # unknown store
     ("downlink_ref", "q8", {}),                           # needs a downlink
     ("cohort_chunk", 2, {}), ("aggregation", "async", {}),
-    ("sampler", "fixed_cohort", {}),
 ]
 
 

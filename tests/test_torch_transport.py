@@ -39,7 +39,8 @@ from repro_torch.kernels import delta_codec as tdc
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tatt
 from repro_torch.models import small
-from test_torch_parity_helpers import TOL, _np, _torch, flat
+from test_torch_parity_helpers import (TOL, _np, _torch, drift_in_steps, flat,
+                                       record_ids, to_port_state)
 
 RTOL = 1e-5          # reduces: f32 sums of <= 25 terms in another order
 # trainer losses after 3 rounds of wire quantisation (see DRIFT_LIMITS)
@@ -582,33 +583,6 @@ def femnist_setup():
     return _femnist_setup()
 
 
-def _record_ids(trainer):
-    ids, sample = [], trainer.sampler.round
-
-    def round_(*a, **kw):
-        out = sample(*a, **kw)
-        ids.append(np.asarray(out[0]).tolist())
-        return out
-
-    trainer.sampler.round = round_
-    return ids
-
-
-def _drift_in_steps(got, want, init):
-    """Worst element and worst leaf mean of ``|got - want|`` beyond the
-    slice-1 tolerance, in quantisation steps (the leaf's movement over the
-    run / 127)."""
-    fg, fw, f0 = flat(got), flat(want), flat(init)
-    assert sorted(fg) == sorted(fw)
-    worst, mean = 0.0, 0.0
-    for k in fw:
-        step = float(np.max(np.abs(fw[k] - f0[k]))) / 127.0
-        diff = np.abs(fg[k] - fw[k])
-        worst = max(worst, max(diff.max() - TOL["atol"], 0.0) / step)
-        mean = max(mean, max(diff.mean() - TOL["atol"] / 10, 0.0) / step)
-    return worst, mean
-
-
 # A value within ~1e-9 of a rounding boundary quantises one step apart in
 # the two packages; that step feeds the next rounds, and a one-step
 # difference in the broadcast moves every client. One round is held within
@@ -644,7 +618,7 @@ def _run_pair(setup, up, down, ref_store, rounds=3):
     jrt = JRuntime(task.model_size_mb, task.runtime, **rt_kw)
     jtr = JTrainer(lambda p, b: jsmall.task_loss(p, task, b),
                    jax.tree.map(jnp.asarray, params), data, JFed(**kw), jrt)
-    jids = _record_ids(jtr)
+    jids = record_ids(jtr)
     jh = jtr.run(rounds)
     ttask = get_paper_task("femnist")
     rt = RuntimeModel(ttask.model_size_mb, ttask.runtime, **rt_kw)
@@ -652,7 +626,7 @@ def _run_pair(setup, up, down, ref_store, rounds=3):
     tr = FedAvgTrainer(lambda p, b: small.task_loss(p, ttask, b),
                        _torch(params), data, FedConfig(**kw), rt,
                        device="cpu")
-    ids = _record_ids(tr)
+    ids = record_ids(tr)
     h = tr.run(rounds)
     return (h, jh, ids, jids, tr, jtr,
             rt._rng.bit_generator.state == rng_before)
@@ -676,18 +650,8 @@ def test_trainer_wire_path_matches_reference(femnist_setup, up, down,
              if (up, down, ref_store) == ("int8", "adaptive", "q8")
              else DRIFT_LIMITS)
     np.testing.assert_allclose(h.train_loss, jh.train_loss, rtol=limit[2])
-    worst, mean = _drift_in_steps(tr.params, jtr.params, femnist_setup[2])
+    worst, mean = drift_in_steps(tr.params, jtr.params, femnist_setup[2])
     assert worst <= limit[0] and mean <= limit[1], (worst, mean, limit)
-
-
-def _to_port(tree):
-    """A reference state tree (dicts of jax arrays, ``()`` for none) as
-    tensors on the CPU."""
-    if isinstance(tree, dict):
-        return {k: _to_port(v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_to_port(v) for v in tree)
-    return torch.tensor(np.asarray(tree))
 
 
 ROUND_PAIRS = [("int8", "int8", "f32"), ("int8x2", "topk", "f32"),
@@ -721,8 +685,8 @@ def test_engine_round_from_reference_state_matches_reference(
         jp, jf, _, _ = jeng.run_bucket(jp, bb.batches, bb.weights,
                                        np.full(1, 0.3, np.float32),
                                        np.ones(1, bool), ())
-        teng.transport_state = _to_port(before[1])
-        teng.downlink_state = _to_port(before[2])
+        teng.transport_state = to_port_state(before[1])
+        teng.downlink_state = to_port_state(before[2])
         tp, tf, _, _ = teng.run_bucket(
             _torch(before[0]), {k: v[0] for k, v in bb.batches.items()},
             bb.weights[0], 0.3, ())
@@ -766,7 +730,7 @@ if __name__ == "__main__":
     setup = _femnist_setup()
     for up, down, ref_store in PAIRS:
         h, jh, _, _, tr, jtr, _ = _run_pair(setup, up, down, ref_store)
-        worst, mean = _drift_in_steps(tr.params, jtr.params, setup[2])
+        worst, mean = drift_in_steps(tr.params, jtr.params, setup[2])
         loss = np.max(np.abs(np.subtract(h.train_loss, jh.train_loss))
                       / np.abs(jh.train_loss))
         print(f"{up:7s} {down:9s} {ref_store:4s} worst {worst:8.3f} steps"
