@@ -146,12 +146,34 @@ exits non-zero without printing a result:
               finite. Then one round more, not counted or timed, whose
               every kernel call (each of the tree's 14 leaf sizes) is held
               against its plain version on the same inputs. Runs after
-              phase lm.
+              phase lm;
+12. spec    — the spec-driven entry point (``repro_torch.api``, the
+              launchers): (i) ``local-int8-decayK`` with
+              ``model.reduced=false`` (qwen1.5-0.5b at full width) through
+              ``launch.train`` for 2 rounds with ``--checkpoint``, then
+              ``FederatedExperiment.restore`` and a resume to round 4, held
+              against two uninterrupted ``build(spec).run(4)``: counters and
+              client ids exact, params and losses bitwise when the two
+              uninterrupted runs are, else within their difference
+              (``repeat_max_abs_diff``); 14 ``int8_decompress_reduce``
+              launches a round; ms a round, checkpoint bytes, save and
+              restore seconds, peak memory; (ii) ``launch.serve
+              --checkpoint`` on that checkpoint: the served params bitwise
+              the saved ones, tokens/s at batch 4; (iii) reduced
+              ``fixed-cohort-topk`` through ``build``, saved after 2 of 3
+              rounds, its residual slots (leading axis 4) restored, held by
+              the same rule, ``topk_scatter_reduce`` launches; (iv) a
+              CIFAR100 spec with ``fed.aggregator=kernel`` at its paper
+              FedConfig through ``launch.train`` for 2 rounds, one
+              ``fedavg_reduce`` launch a round; (v) ``launch.quickstart
+              --rounds 10``. Checkpoints live in a temporary directory the
+              phase removes.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
 the wire kernels and ``fedavg_reduce`` with their launches in phase
-lm_train and their row at qwen's embedding leaf);
+lm_train and their row at qwen's embedding leaf; every entry with its
+launches in phase spec, ``spec_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -2736,6 +2758,456 @@ def phase_parity_lm_train(torch):
               "worst_share_of_tol": worst})
 
 
+# ---------------------------------------------------------------------------
+# the spec-driven entry point (phase 12)
+# ---------------------------------------------------------------------------
+
+SPEC_DIR = Path(__file__).resolve().parent / "examples" / "specs"
+# (i): rounds through the launcher before the checkpoint, and the round the
+# restored run continues to
+SPEC_SAVE_AT, SPEC_RESUME_TO = 2, 4
+# (iii): fixed-cohort-topk, reduced, saved after 2 of 3 rounds
+TOPK_SAVE_AT, TOPK_ROUNDS = 2, 3
+# (iv): CIFAR100 at its paper FedConfig (phase main's), as a spec
+CIFAR_SPEC = {
+    "data": {"kind": "paper", "task": "cifar100", "clients": 100,
+             "samples_per_client": 100, "seed": 0},
+    "fed": {"rounds": 2, "clients_per_round": 25, "k0": 50, "eta0": 0.01,
+            "batch_size": 32, "k_schedule": "rounds",
+            "aggregator": "kernel"},
+    "runtime": {"beta_seconds": 0.31}}
+SPEC_COUNTERS = ("rounds", "k", "eta", "sgd_steps", "wall_clock_s",
+                 "uplink_mbit", "downlink_mbit")
+
+
+def _quiet(fn, *a):
+    """``fn(*a)`` with its standard output kept: (result, text)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*a)
+    return res, out.getvalue()
+
+
+def _host(tree):
+    """{checkpoint key: numpy array} of a tensor tree, copied to the
+    host."""
+    return {k.lstrip(".").replace(".", "/"): t.detach().cpu().numpy()
+            for k, t in leaf_items(tree, "")}
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"trees differ in keys: {sorted(a)[:3]} vs "
+                             f"{sorted(b)[:3]}")
+    return max(float(np.max(np.abs(a[k] - b[k]))) if a[k].size else 0.0
+               for k in a)
+
+
+def _recorded_ids():
+    """Instrumentation of this script only: every trainer built until
+    ``undo()`` records the client ids its sampler draws, in one list."""
+    from repro_torch.core.engine import trainer as trainer_mod
+    ids, make = [], trainer_mod.make_sampler
+
+    def make_recorded(fed):
+        sampler = make(fed)
+        draw = sampler.round
+
+        def round_(*a, **kw):
+            out = draw(*a, **kw)
+            ids.append([int(c) for c in out[0]])
+            return out
+
+        sampler.round = round_
+        return sampler
+
+    trainer_mod.make_sampler = make_recorded
+    return ids, lambda: setattr(trainer_mod, "make_sampler", make)
+
+
+def _split_vs_straight(torch, label, spec, save_at, total, tmp, launcher,
+                       check=False):
+    """Run ``spec`` to ``save_at`` and save (through ``launch.train`` when
+    ``launcher``, else ``build``), restore and resume to ``total``; then
+    ``build(spec).run(total)`` twice. One trainer lives at a time; the
+    params go to the host between runs. With ``check``, the resumed
+    trainer runs one round more after its counts and params were read,
+    each kernel call held against its plain version (``check_lm_round``).
+    Returns the runs' histories, ids, host params, per-run launch counts,
+    timings, the checked round and the checkpoint path."""
+    from repro_torch.api import FederatedExperiment, build
+    from repro_torch.core.engine import round as round_mod
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.launch import train
+    ckpt = os.path.join(tmp, label)
+    ids, undo = _recorded_ids()
+    # instrumentation of this script only: host clock around each round
+    # (synchronised), and around the save and the restore
+    round_ms, run_bucket = [], round_mod.RoundEngine.run_bucket
+
+    def timed_bucket(self, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_bucket(self, *a)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    from repro_torch.core.engine.trainer import FedAvgTrainer
+    save, save_s = FederatedExperiment.save, []
+    restore_state, load_s = FedAvgTrainer.restore_state, []
+
+    def timed(fn, out):
+        def call(self, path):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(self, path)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return call
+
+    round_mod.RoundEngine.run_bucket = timed_bucket
+    FederatedExperiment.save = timed(save, save_s)
+    FedAvgTrainer.restore_state = timed(restore_state, load_s)
+    runs, counts = {}, {}
+
+    def count():
+        return {**dc.launches, "fedavg_reduce": fr.launches}
+
+    def zero():
+        for k in dc.launches:
+            dc.launches[k] = 0
+        fr.launches = 0
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        if launcher:
+            spec_path = os.path.join(tmp, f"{label}.json")
+            spec.with_overrides(f"fed.rounds={save_at}").save(spec_path)
+            exp, out = _quiet(train.main, ["--spec", spec_path,
+                                           "--checkpoint", ckpt])
+            if f"[train] checkpoint (spec embedded) -> {ckpt}" not in out:
+                raise AssertionError(f"spec ({label}): the launcher did not "
+                                     f"report its checkpoint:\n{out}")
+        else:
+            exp = build(spec.with_overrides(f"fed.rounds={save_at}"))
+            exp.run()
+            exp.save(ckpt)
+        counts["first"] = count()
+        first_h = exp.history.as_dict()
+        first_ms = list(round_ms)
+        del exp
+        _free(torch)
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exp = FederatedExperiment.restore(ckpt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        exp.trainer.run(total, resume=True)
+        counts["resumed"] = count()
+        slots = [list(t.shape) for _, t in leaf_items(
+            exp.trainer.engine.transport_state, "")
+            if isinstance(t, torch.Tensor)]
+        runs["resumed"] = (exp.history.as_dict(), _host(exp.params),
+                           {"slots": slots, "fed": exp.trainer.fed})
+        checked, n_ids, n_ms = None, len(ids), len(round_ms)
+        if check:
+            checked = check_lm_round(torch, exp.trainer, f"spec {label}")
+            del ids[n_ids:], round_ms[n_ms:]
+        del exp
+        _free(torch)
+        for rep in ("straight", "repeat"):
+            zero()
+            exp = build(spec.with_overrides(f"fed.rounds={total}"))
+            exp.run()
+            counts[rep] = count()
+            runs[rep] = (exp.history.as_dict(), _host(exp.params), None)
+            del exp
+            _free(torch)
+    finally:
+        undo()
+        round_mod.RoundEngine.run_bucket = run_bucket
+        FederatedExperiment.save = save
+        FedAvgTrainer.restore_state = restore_state
+    return {"runs": runs, "ids": ids, "counts": counts, "checked": checked,
+            "first": first_h,
+            "first_ms": first_ms, "round_ms": round_ms[len(first_ms):],
+            "save_s": save_s[0], "load_s": load_s[0],
+            "restore_s": restore_s, "ckpt": ckpt,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _hold_resume(label, r, save_at, total):
+    """The repeat rule: if two uninterrupted runs are bitwise equal, the
+    resumed run must equal them bitwise; else it must lie within the
+    repeat's difference. Counters and client ids exact either way."""
+    (rh, rp, _), (sh, sp, _), (ph, pp, _) = (
+        r["runs"]["resumed"], r["runs"]["straight"], r["runs"]["repeat"])
+    ids = r["ids"]
+    # ids: first run, resumed rounds, straight, repeat
+    n_first, n_res = save_at, total - save_at
+    first, resumed = ids[:n_first], ids[n_first:n_first + n_res]
+    straight = ids[n_first + n_res:n_first + n_res + total]
+    repeat = ids[n_first + n_res + total:]
+    if first + resumed != straight or straight != repeat:
+        raise AssertionError(f"spec ({label}): client ids {ids}")
+    for key in SPEC_COUNTERS:
+        if not (rh[key] == sh[key] == ph[key]):
+            raise AssertionError(f"spec ({label}): {key} {rh[key]} vs "
+                                 f"{sh[key]} vs {ph[key]}")
+    if rh["rounds"] != list(range(1, total + 1)) or \
+            r["first"]["rounds"] != list(range(1, save_at + 1)):
+        raise AssertionError(f"spec ({label}): rounds {rh['rounds']}")
+    repeat_diff = _max_diff(sp, pp)
+    resume_diff = _max_diff(rp, sp)
+    loss_repeat = max(abs(a - b) for a, b in zip(sh["train_loss"],
+                                                 ph["train_loss"]))
+    loss_resume = max(abs(a - b) for a, b in zip(rh["train_loss"],
+                                                 sh["train_loss"]))
+    bitwise = repeat_diff == 0.0 and loss_repeat == 0.0
+    if bitwise and (resume_diff != 0.0 or loss_resume != 0.0):
+        raise AssertionError(f"spec ({label}): the repeat is bitwise but "
+                             f"the resume is {resume_diff} (params), "
+                             f"{loss_resume} (loss) off")
+    if resume_diff > repeat_diff or loss_resume > loss_repeat:
+        raise AssertionError(f"spec ({label}): resume {resume_diff} "
+                             f"(params), {loss_resume} (loss) off, beyond "
+                             f"the repeat's {repeat_diff}, {loss_repeat}")
+    if not all(math.isfinite(v) for v in rh["train_loss"]):
+        raise AssertionError(f"spec ({label}): loss {rh['train_loss']}")
+    return {"repeat_bitwise": bitwise,
+            "repeat_max_abs_diff": repeat_diff,
+            "resume_max_abs_diff": resume_diff,
+            "repeat_loss_diff": loss_repeat,
+            "resume_loss_diff": loss_resume}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_spec(torch):
+    """The spec-driven entry point (``repro_torch.api``, the launchers):
+    (i) ``local-int8-decayK`` at full width through ``launch.train``,
+    checkpointed after 2 rounds, restored and resumed to 4, held to two
+    uninterrupted runs; (ii) ``launch.serve --checkpoint`` on that
+    checkpoint; (iii) reduced ``fixed-cohort-topk`` through ``build``,
+    saved after 2 of 3 rounds (its per-client residual slots restored);
+    (iv) a CIFAR100 spec with the kernel aggregator through the launcher;
+    (v) the quickstart. Returns each kernel's launches over the phase."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.launch import quickstart, serve, train
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves
+    total = dict.fromkeys(list(dc.launches) + ["fedavg_reduce"], 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (i) qwen1.5-0.5b at full width through the launcher
+        spec = ExperimentSpec.load(str(SPEC_DIR / "local-int8-decayK.json")
+                                   ).with_overrides("model.reduced=false")
+        from repro_torch.configs import get_arch
+        cfg = get_arch(spec.model.arch)
+        n_params = registry.param_count(cfg)
+        if n_params != LM_PARAMS:
+            raise AssertionError(f"spec (i): {n_params} params, want "
+                                 f"{LM_PARAMS}")
+        t0 = time.perf_counter()
+        r = _split_vs_straight(torch, "i", spec, SPEC_SAVE_AT,
+                               SPEC_RESUME_TO, tmp, launcher=True)
+        held = _hold_resume("i", r, SPEC_SAVE_AT, SPEC_RESUME_TO)
+        leaves = len(r["runs"]["straight"][1])
+        want = {"first": SPEC_SAVE_AT, "resumed": SPEC_RESUME_TO
+                - SPEC_SAVE_AT, "straight": SPEC_RESUME_TO,
+                "repeat": SPEC_RESUME_TO}
+        for run, n in want.items():
+            got = r["counts"][run]
+            if got["int8_decompress_reduce"] != n * leaves or any(
+                    v for k, v in got.items()
+                    if k != "int8_decompress_reduce"):
+                raise AssertionError(f"spec (i) {run}: launches {got}, want "
+                                     f"{n * leaves} int8_decompress_reduce")
+            add(got)
+        sizes = [int(a.size) for a in r["runs"]["straight"][1].values()]
+        fed = r["runs"]["resumed"][2]["fed"]
+        formula = lm_train_want(fed, sizes, SPEC_RESUME_TO)
+        got = {k: r["runs"]["resumed"][0][k] for k in formula}
+        if got != formula:
+            raise AssertionError(f"spec (i): counters {got} != the "
+                                 f"RuntimeModel formula's {formula}")
+        ckpt_bytes = _dir_bytes(r["ckpt"])
+        emit({"phase": "spec", "what": "(i) local-int8-decayK, full width, "
+              "launch.train -> checkpoint -> restore -> resume",
+              "arch": cfg.name, "params": n_params, "leaves": leaves,
+              "saved_after": SPEC_SAVE_AT, "resumed_to": SPEC_RESUME_TO,
+              "k": r["runs"]["resumed"][0]["k"],
+              "loss": r["runs"]["resumed"][0]["train_loss"],
+              "ids": r["ids"][:SPEC_RESUME_TO],
+              "counters_exact": True, **held,
+              "ms_per_round": sum(r["round_ms"]) / len(r["round_ms"]),
+              "ms_launcher_rounds": r["first_ms"],
+              "checkpoint_bytes": ckpt_bytes, "save_s": r["save_s"],
+              "restore_state_s": r["load_s"],
+              "restore_with_build_s": r["restore_s"],
+              "peak_mem_gb": r["peak_mem_gb"],
+              "int8_decompress_reduce_launches": {
+                  k: v["int8_decompress_reduce"]
+                  for k, v in r["counts"].items()},
+              "s": time.perf_counter() - t0})
+        del r
+        _free(torch)
+
+        # (ii) serve that checkpoint: the served params are the saved ones
+        ckpt = os.path.join(tmp, "i")
+        t0 = time.perf_counter()
+        res, out = _quiet(serve.main, ["--checkpoint", ckpt])
+        served = _host(res["params"])
+        with np.load(os.path.join(ckpt, "arrays.npz")) as data:
+            saved_keys = sorted(k[len("params/"):] for k in data
+                                if k.startswith("params/"))
+            if sorted(served) != saved_keys:
+                raise AssertionError(f"spec (ii): served keys "
+                                     f"{sorted(served)[:4]} vs "
+                                     f"{saved_keys[:4]}")
+            for k, v in served.items():
+                if not np.array_equal(v, data["params/" + k]):
+                    raise AssertionError(f"spec (ii): served {k} differs "
+                                         f"from the checkpoint")
+        ids = res["ids"]
+        if tuple(ids.shape) != (SERVE["batch"], SERVE["tokens"]):
+            raise AssertionError(f"spec (ii): ids {tuple(ids.shape)}")
+        emit({"phase": "spec", "what": "(ii) launch.serve --checkpoint",
+              "arch": res["cfg"].name, "params_bitwise": True,
+              "batch": SERVE["batch"], "tokens": SERVE["tokens"],
+              "tokens_per_s": res["tokens_per_s"],
+              "ids0": [int(x) for x in ids[0][:8]],
+              "s": time.perf_counter() - t0})
+        del res, served
+        _free(torch)
+
+        # (iii) reduced fixed-cohort-topk: the residual slots survive
+        t0 = time.perf_counter()
+        spec = ExperimentSpec.load(str(SPEC_DIR / "fixed-cohort-topk.json"))
+        r = _split_vs_straight(torch, "iii", spec, TOPK_SAVE_AT, TOPK_ROUNDS,
+                               tmp, launcher=False, check=True)
+        held = _hold_resume("iii", r, TOPK_SAVE_AT, TOPK_ROUNDS)
+        slots = r["runs"]["resumed"][2]["slots"]
+        if not slots or any(s[0] != spec.fed.clients_per_round
+                            for s in slots):
+            raise AssertionError(f"spec (iii): residual slots {slots}")
+        leaves = len(r["runs"]["straight"][1])
+        want = {"first": TOPK_SAVE_AT, "resumed": TOPK_ROUNDS - TOPK_SAVE_AT,
+                "straight": TOPK_ROUNDS, "repeat": TOPK_ROUNDS}
+        for run, n in want.items():
+            got = r["counts"][run]
+            if got["topk_scatter_reduce"] != n * leaves or any(
+                    v for k, v in got.items() if k != "topk_scatter_reduce"):
+                raise AssertionError(f"spec (iii) {run}: launches {got}")
+            add(got)
+        # the resumed trainer's checked round: each leaf's top-k reduce at
+        # the reduced sizes equals its plain version exactly
+        sizes = sorted(int(a.size) for a in r["runs"]["straight"][1].values())
+        checked = r["checked"]
+        if set(checked) != {"topk_scatter_reduce"} or sorted(
+                checked["topk_scatter_reduce"]["m"]) != sizes:
+            raise AssertionError(f"spec (iii): checked round ran {checked}, "
+                                 f"want topk_scatter_reduce at {sizes}")
+        emit({"phase": "spec", "what": "(iii) fixed-cohort-topk, reduced, "
+              "build -> checkpoint -> restore -> resume",
+              "ef_slots": slots[0][0], "leaves": leaves,
+              "k": r["runs"]["resumed"][0]["k"],
+              "ids": r["ids"][:TOPK_ROUNDS], **held,
+              "checked_round": {k: {"calls": v["calls"],
+                                    "leaves": len(v["m"]),
+                                    "max_abs_err": v["max_abs_err"],
+                                    "tol": v["tol"]}
+                                for k, v in checked.items()},
+              "checkpoint_bytes": _dir_bytes(r["ckpt"]),
+              "topk_scatter_reduce_launches": {
+                  k: v["topk_scatter_reduce"]
+                  for k, v in r["counts"].items()},
+              "s": time.perf_counter() - t0})
+        del r
+        _free(torch)
+
+        # (iv) CIFAR100 at paper width through the launcher
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "cifar100.json")
+        with open(path, "w") as f:
+            json.dump(CIFAR_SPEC, f)
+        for k in dc.launches:
+            dc.launches[k] = 0
+        fr.launches = 0
+        exp, out = _quiet(train.main, ["--spec", path])
+        counts = {**dc.launches, "fedavg_reduce": fr.launches}
+        h = exp.history
+        rounds = CIFAR_SPEC["fed"]["rounds"]
+        if counts["fedavg_reduce"] != rounds or any(
+                v for k, v in counts.items() if k != "fedavg_reduce"):
+            raise AssertionError(f"spec (iv): launches {counts}, want "
+                                 f"{rounds} fedavg_reduce")
+        want_k = [min(max(math.ceil(50 / r_ ** (1.0 / 3.0)), 1), 50)
+                  for r_ in range(1, rounds + 1)]
+        if h.k != want_k or not all(math.isfinite(v)
+                                     for v in h.train_loss):
+            raise AssertionError(f"spec (iv): K {h.k}, loss "
+                                 f"{h.train_loss}")
+        add(counts)
+        emit({"phase": "spec", "what": "(iv) CIFAR100 spec, kernel "
+              "aggregator, launch.train", "k": h.k, "loss": h.train_loss,
+              "params": sum(t.numel() for t in tree_leaves(exp.params)),
+              "launches": counts["fedavg_reduce"],
+              "sgd_steps": h.sgd_steps, "wall_clock_s": h.wall_clock_s,
+              "s": time.perf_counter() - t0})
+        del exp
+        _free(torch)
+
+    # (v) the quickstart
+    t0 = time.perf_counter()
+    for k in dc.launches:
+        dc.launches[k] = 0
+    fr.launches = 0
+    res, out = _quiet(quickstart.main, ["--rounds", "10"])
+    f, d = res["fixed"], res["rounds"]
+    want_k = [min(max(math.ceil(16 / r_ ** (1.0 / 3.0)), 1), 16)
+              for r_ in range(1, 11)]
+    if f.k != [16] * 10 or d.k != want_k or f.sgd_steps[-1] != 1600 \
+            or d.sgd_steps[-1] != 10 * sum(want_k):
+        raise AssertionError(f"spec (v): K {f.k}, {d.k}")
+    if not all(math.isfinite(v) for v in f.train_loss + d.train_loss):
+        raise AssertionError("spec (v): non-finite loss")
+    summary = [ln for ln in out.splitlines()
+               if ln.startswith(("fixed-K", "K-decay", "compute saved"))]
+    emit({"phase": "spec", "what": "(v) launch.quickstart --rounds 10",
+          "summary": summary, "k_decay": d.k,
+          "wall_clock_s": [f.wall_clock_s[-1], d.wall_clock_s[-1]],
+          "s": time.perf_counter() - t0})
+    emit({"phase": "spec", "summary": True, "launches": total,
+          "s": time.perf_counter() - t_phase})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2805,6 +3277,13 @@ def main() -> int:
         raise AssertionError(f"a kernel of lm_train never ran: "
                              f"{train_launches}")
     del params
+    _free(torch)
+    spec_launches = phase_spec(torch)
+    if not all(spec_launches[k] for k in ("int8_decompress_reduce",
+                                          "topk_scatter_reduce",
+                                          "fedavg_reduce")):
+        raise AssertionError(f"a kernel of phase spec never ran: "
+                             f"{spec_launches}")
     moe_launches, params = phase_moe(torch)
     moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
     moe_bf16 = phase_bf16_prefill(
@@ -2915,11 +3394,12 @@ def main() -> int:
         "bf16_launches": ssm_bf16["ssd"],
         **{f"bf16_{key}": bf16[key] for key in keys},
         "bf16_path": bf16["path"]})
-    # the LM path: launches in phase lm_train and each row at qwen's
-    # embedding leaf
+    # the LM path: launches in phases lm_train and spec, and each row at
+    # qwen's embedding leaf
     for entry in kernels:
         if entry["name"] in train_launches:
             entry["lm_train_launches"] = train_launches[entry["name"]]
+        entry["spec_launches"] = spec_launches.get(entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -1,4 +1,5 @@
 """The paper's primary contribution: FedAvg with decaying local SGD steps."""
+from repro_torch.core import theory
 from repro_torch.core.engine import (RoundEngine, RoundScheduler,
                                      get_aggregator, get_server_optimizer)
 from repro_torch.core.fedavg import (FedAvgTrainer, History, ReferenceRun,
@@ -10,7 +11,7 @@ from repro_torch.core.schedules import (DecayController, ETA_SCHEDULES,
                                         K_SCHEDULES, quantize_k,
                                         schedule_preview)
 
-__all__ = ["FedAvgTrainer", "History", "ReferenceRun", "make_eval_fn",
+__all__ = ["theory", "FedAvgTrainer", "History", "ReferenceRun", "make_eval_fn",
            "make_round_fn", "run_reference_rounds", "RoundEngine",
            "RoundScheduler", "get_aggregator", "get_server_optimizer",
            "LossTracker", "PlateauDetector", "RoundCost", "RuntimeModel",

@@ -10,10 +10,12 @@ per-client weights ``(N,)`` to the aggregated dict (leaves ``(...)``):
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.api.registries import (AGGREGATOR_REGISTRY,
+                                        register_aggregator)
 from repro_torch.kernels import ops as kops
 from repro_torch.optim import tree_map
 
@@ -72,24 +74,25 @@ def trimmed_mean(client_params: PyTree, weights: torch.Tensor,
     return tree_map(one, client_params)
 
 
-_FACTORIES: Dict[str, Callable[..., Aggregator]] = {
-    "mean": lambda **kw: weighted_mean,
-    "kernel": lambda **kw: kernel_mean,
-    "median": lambda **kw: coordinate_median,
-    "trimmed_mean": lambda *, trim_fraction=0.1, **kw: (
-        lambda cp, w: trimmed_mean(cp, w, trim_fraction)),
-}
-AGGREGATORS = tuple(_FACTORIES)
+AGGREGATORS = ("mean", "kernel", "median", "trimmed_mean")   # builtins
 #: aggregators the weighted sum distributes over, so a compressed codec can
 #: aggregate decoded payloads in their place
 LINEAR_AGGREGATORS = ("mean", "kernel")
 
 
 def get_aggregator(name, *, trim_fraction: float = 0.1) -> Aggregator:
-    """Resolve an aggregator by name; a callable passes through."""
+    """Resolve an aggregator through ``AGGREGATOR_REGISTRY``; a callable
+    passes through."""
     if callable(name):
         return name
-    if name not in _FACTORIES:
-        raise ValueError(f"unknown aggregator {name!r}; known: "
-                         f"{AGGREGATORS}")
-    return _FACTORIES[name](trim_fraction=trim_fraction)
+    return AGGREGATOR_REGISTRY.get(name)(trim_fraction=trim_fraction)
+
+
+# builtin registrations: factory(*, trim_fraction, **kw)
+register_aggregator("mean", lambda **kw: weighted_mean)
+register_aggregator("kernel", lambda **kw: kernel_mean)
+register_aggregator("median", lambda **kw: coordinate_median)
+register_aggregator(
+    "trimmed_mean",
+    lambda *, trim_fraction=0.1, **kw: (
+        lambda cp, w: trimmed_mean(cp, w, trim_fraction)))

@@ -2,7 +2,9 @@
 
 ``local``: the whole cohort on one device. ``mesh``: the cohort's rows
 spread over the ranks of a DeviceMesh (``torch.distributed``), parallel
-strategy."""
+strategy. Both register in ``repro_torch.api.registries.BACKEND_REGISTRY``.
+"""
+from repro_torch.api.registries import BACKEND_REGISTRY, register_backend
 from repro_torch.core.engine.backends.base import (ExecutionBackend,
                                                    LINEAR_AGGREGATORS,
                                                    axes_size)
@@ -29,19 +31,17 @@ def _mesh_factory(*, mesh=None, strategy: str = "parallel",
     return MeshBackend(mesh, strategy=strategy, reduce=reduce)
 
 
-#: name -> factory(**kw)
-BACKENDS = {"local": _local_factory, "mesh": _mesh_factory}
+register_backend("local", _local_factory)
+register_backend("mesh", _mesh_factory)
+BACKENDS = ("local", "mesh")   # builtins
 
 
 def get_backend(name, **kw) -> ExecutionBackend:
-    """A backend by name; an ``ExecutionBackend`` instance passes
-    through."""
+    """A backend through ``BACKEND_REGISTRY``; an ``ExecutionBackend``
+    instance passes through."""
     if isinstance(name, ExecutionBackend):
         return name
-    if name not in BACKENDS:
-        raise ValueError(f"unknown backend {name!r}; known: "
-                         f"{tuple(BACKENDS)}")
-    return BACKENDS[name](**kw)
+    return BACKEND_REGISTRY.get(name)(**kw)
 
 
 __all__ = ["ExecutionBackend", "LINEAR_AGGREGATORS", "LocalBackend",

@@ -14,9 +14,10 @@ executes one round, and the trainer calls it once per round of a bucket.
 ``dispatch_count`` counts ``run_bucket`` calls. The reference's
 ``compile_count`` has no counterpart yet.
 
-With a transport or downlink codec (``engine.transport``) the engine owns
-the codec state (``transport_state``, ``downlink_state``) and threads it
-through every ``run_bucket``. A codec bound to a fixed cohort
+With a transport or downlink codec (``engine.transport``) the engine threads
+the codec state (``transport_state``, ``downlink_state``) through every
+``run_bucket``; the state lives in a ``GlobalModelStore`` (the engine's own,
+or the trainer's after ``bind_store``). A codec bound to a fixed cohort
 (``Transport.with_ef_slots``) holds one residual a cohort slot, leaves
 ``(ef_slots, ...)``; the engine threads it the same way, and slot j meets
 client cohort[j] in every round (reference ``round.py:313-364``, :503,
@@ -34,6 +35,7 @@ from repro_torch.core.engine.aggregators import (LINEAR_AGGREGATORS,
 from repro_torch.core.engine.backends import (ExecutionBackend,
                                               LocalBackend,
                                               make_parallel_round_core)
+from repro_torch.core.engine.model_store import GlobalModelStore
 from repro_torch.core.engine.server import get_server_optimizer
 from repro_torch.core.engine.transport import get_downlink, get_transport
 from repro_torch.data.pipeline import BucketBatch
@@ -94,11 +96,29 @@ class RoundEngine:
             server=self.server, server_lr=server_lr,
             transport=self.transport, downlink=self.downlink)
         self.dispatch_count = 0
-        self.transport_state: Any = None
-        self.downlink_state: Any = None
+        # the codec state lives in a store: this private one until a
+        # trainer binds its own (``bind_store``)
+        self._store = GlobalModelStore(downlink=self.downlink)
         #: the int32 adaptive downlink level of the most recent round, on
         #: the device (-1 for fixed-rate codecs); None without a downlink
         self.last_downlink_levels = None
+
+    def bind_store(self, store: GlobalModelStore) -> GlobalModelStore:
+        """Adopt a trainer-owned store as the owner of the codec state;
+        state the private store holds moves over, and so does the codec
+        binding, so ``store.snapshot()`` loads through this downlink."""
+        store.downlink = self.downlink
+        store.transport_state = self._store.transport_state
+        store.downlink_state = self._store.downlink_state
+        self._store = store
+        return store
+
+    transport_state = property(
+        lambda self: self._store.transport_state,
+        lambda self, v: setattr(self._store, "transport_state", v))
+    downlink_state = property(
+        lambda self: self._store.downlink_state,
+        lambda self, v: setattr(self._store, "downlink_state", v))
 
     def to_device(self, x) -> torch.Tensor:
         return self.backend.to_device(x)

@@ -18,9 +18,8 @@ seed draws the same ids and weights in both packages:
     id's timezone phase is a splitmix64 hash of the id, and a round's
     availability follows a cosine day curve between ``base`` and ``peak``.
 
-The reference registers samplers through ``repro.api.registries``; until
-the API is ported, ``SAMPLER_FACTORIES`` is the port's name-to-factory
-table.
+Samplers register in ``repro_torch.api.registries.SAMPLER_REGISTRY``;
+``get_sampler`` resolves names there.
 """
 from __future__ import annotations
 
@@ -28,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.api.registries import SAMPLER_REGISTRY, register_sampler
 from repro_torch.data.pipeline import client_weights as _size_weights
 from repro_torch.data.pipeline import sample_clients
 from repro_torch.data.synthetic import FederatedData
@@ -282,32 +282,36 @@ class PopulationSampler(ClientSampler):
         return self.round(rng, data, n, round_idx)[0]
 
 
-#: name -> factory(*, fed): ``fed`` (a FedConfig) supplies the cohort and
-#: the availability settings
-SAMPLER_FACTORIES = {
-    "uniform": lambda *, fed=None: UniformSampler(),
-    "weighted": lambda *, fed=None: WeightedSampler(),
-    "fixed_cohort": lambda *, fed=None: FixedCohortSampler(
-        cohort=getattr(fed, "cohort", None)),
-    "availability": lambda *, fed=None: AvailabilitySampler(
-        prob=getattr(fed, "availability", 0.9)),
-    "population": lambda *, fed=None: PopulationSampler(
+# builtin registrations: factory(*, fed, **kw); ``fed`` (a FedConfig)
+# supplies the cohort and the availability settings
+register_sampler("uniform", lambda *, fed=None, **kw: UniformSampler())
+register_sampler("weighted", lambda *, fed=None, **kw: WeightedSampler())
+register_sampler(
+    "fixed_cohort",
+    lambda *, fed=None, **kw: FixedCohortSampler(
+        cohort=getattr(fed, "cohort", None)))
+register_sampler(
+    "availability",
+    lambda *, fed=None, **kw: AvailabilitySampler(
+        prob=getattr(fed, "availability", 0.9)))
+register_sampler(
+    "population",
+    lambda *, fed=None, **kw: PopulationSampler(
         population=getattr(fed, "population", 0),
         peak=getattr(fed, "availability", 0.9),
         base=getattr(fed, "base_availability", 0.05),
-        day_rounds=getattr(fed, "day_rounds", 24)),
-}
-SAMPLERS = tuple(SAMPLER_FACTORIES)
+        day_rounds=getattr(fed, "day_rounds", 24)))
+
+SAMPLERS = ("uniform", "weighted", "fixed_cohort", "availability",
+            "population")
 
 
-def get_sampler(name, *, fed=None) -> ClientSampler:
-    """A sampler by name (a ``ClientSampler`` instance passes through);
-    ``fed`` supplies its configuration."""
+def get_sampler(name, *, fed=None, **kw) -> ClientSampler:
+    """A sampler through ``SAMPLER_REGISTRY`` (a ``ClientSampler`` instance
+    passes through); ``fed`` supplies its configuration."""
     if isinstance(name, ClientSampler):
         return name
-    if name not in SAMPLER_FACTORIES:
-        raise ValueError(f"unknown sampler {name!r}; known: {SAMPLERS}")
-    return SAMPLER_FACTORIES[name](fed=fed)
+    return SAMPLER_REGISTRY.get(name)(fed=fed, **kw)
 
 
 def make_sampler(fed) -> ClientSampler:

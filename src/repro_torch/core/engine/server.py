@@ -12,10 +12,12 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Tuple
 
 from repro_torch import optim
+from repro_torch.api.registries import (SERVER_OPTIMIZER_REGISTRY,
+                                        register_server_optimizer)
 
 PyTree = Any
 
-SERVER_OPTIMIZERS = ("avg", "fedadam", "fedavgm", "fedyogi")
+SERVER_OPTIMIZERS = ("avg", "fedadam", "fedavgm", "fedyogi")   # builtins
 
 
 class ServerOptimizer(NamedTuple):
@@ -47,19 +49,19 @@ def _from_optim(pair) -> ServerOptimizer:
     return ServerOptimizer(opt_init, step)
 
 
-_FACTORIES = {
-    "avg": _avg,
-    "fedadam": lambda: _from_optim(optim.fedadam_server()),
-    "fedavgm": lambda: _from_optim(optim.fedavgm_server()),
-    "fedyogi": lambda: _from_optim(optim.fedyogi_server()),
-}
-
-
 def get_server_optimizer(name) -> ServerOptimizer:
-    """Resolve by name; a ``ServerOptimizer`` instance passes through."""
+    """Resolve through ``SERVER_OPTIMIZER_REGISTRY``; a
+    ``ServerOptimizer`` instance passes through."""
     if isinstance(name, ServerOptimizer):
         return name
-    if name not in _FACTORIES:
-        raise ValueError(f"unknown server optimizer {name!r}; known: "
-                         f"{SERVER_OPTIMIZERS}")
-    return _FACTORIES[name]()
+    return SERVER_OPTIMIZER_REGISTRY.get(name)()
+
+
+# builtin registrations: factory(**kw)
+register_server_optimizer("avg", lambda **kw: _avg())
+register_server_optimizer("fedadam",
+                          lambda **kw: _from_optim(optim.fedadam_server()))
+register_server_optimizer("fedavgm",
+                          lambda **kw: _from_optim(optim.fedavgm_server()))
+register_server_optimizer("fedyogi",
+                          lambda **kw: _from_optim(optim.fedyogi_server()))

@@ -19,13 +19,20 @@ Difference from the reference: the builder is asked for one round at a
 time (``n_rounds=1``), and each bucket runs as one engine dispatch per
 round. The sample stream is the same (padding rounds draw nothing), and a
 CIFAR100 round at paper width is a 491.5 MB batch, which the reference's
-8-round buckets would multiply. The trainer owns its state (params, server
-state, counters); the reference's ``GlobalModelStore`` waits for
-checkpointing.
+8-round buckets would multiply.
+
+The server-side state (params, server-optimizer state, codec state,
+version, cost counters) lives in a ``GlobalModelStore``; the trainer's and
+the engine's attributes of the same names read and write it.
+``save_state``/``restore_state`` checkpoint everything a bitwise
+continuation needs, in the reference's layout, and ``run(...,
+resume=True)`` continues from the first round not run.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.engine.aggregators import LINEAR_AGGREGATORS
+from repro_torch.core.engine.model_store import GlobalModelStore
 from repro_torch.core.engine.round import LossFn, RoundEngine
 from repro_torch.core.engine.sampling import make_sampler
 from repro_torch.core.engine.scheduler import Bucket, RoundScheduler
@@ -62,10 +70,30 @@ class History:
     val_rounds: List[int] = field(default_factory=list)
     val_error: List[float] = field(default_factory=list)
     max_val_acc: List[float] = field(default_factory=list)    # Fig. 2 metric
+    # async buffered aggregation (empty for sync runs)
+    staleness: List[float] = field(default_factory=list)      # per-apply mean
+    applied_updates: List[int] = field(default_factory=list)  # cumulative
+    dropped_updates: List[int] = field(default_factory=list)  # cumulative
     serve_rounds: List[int] = field(default_factory=list)     # ServingLoop.tick
     serve_tokens_per_sec: List[float] = field(default_factory=list)
     serve_swap_us: List[float] = field(default_factory=list)  # snapshot swap
     serve_staleness: List[int] = field(default_factory=list)  # versions behind
+
+    def as_dict(self) -> Dict[str, list]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, list]) -> "History":
+        """The inverse of ``as_dict``; missing fields start empty, and
+        fields this schema lacks are dropped with a warning."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - names)
+        if unknown:
+            warnings.warn(
+                f"History.from_dict: ignoring unknown field(s) {unknown} "
+                f"(checkpoint written by a different History schema?)",
+                stacklevel=2)
+        return cls(**{k: list(v) for k, v in d.items() if k in names})
 
 
 def _refuse_unported(fed: FedConfig) -> None:
@@ -117,6 +145,7 @@ class FedAvgTrainer:
                                   downlink_ref=fed.downlink_ref,
                                   backend=backend, device=device)
         self.device = self.engine.device
+        self.store = self.engine.bind_store(GlobalModelStore())
         self.params = tree_map(self.engine.to_device, init_params)
         self.server_state = self.engine.init_server_state(self.params)
         self.engine.init_transport_state(self.params)
@@ -128,12 +157,14 @@ class FedAvgTrainer:
         self.ctrl = DecayController(fed)
         self.history = History()
         self._np_rng = np.random.default_rng(fed.seed)
-        self._wall = 0.0
-        self._steps = 0
-        self._up_mbit = 0.0
-        self._down_mbit = 0.0
-        self._min_loss = float("inf")
-        self._max_acc = 0.0
+        self._completed_rounds = 0
+
+    # the store owns the state; these names read and write it
+    params = property(lambda self: self.store.params,
+                      lambda self, v: setattr(self.store, "params", v))
+    server_state = property(
+        lambda self: self.store.server_state,
+        lambda self, v: setattr(self.store, "server_state", v))
 
     @property
     def dispatch_count(self) -> int:
@@ -158,13 +189,19 @@ class FedAvgTrainer:
         return rt
 
     def run(self, rounds: Optional[int] = None, eval_every: int = 10,
-            verbose: bool = False) -> History:
+            verbose: bool = False, resume: bool = False) -> History:
         """Run rounds 1..``rounds`` of the schedule. A repeated call replays
-        the schedule from round 1 and continues the sample stream."""
+        the schedule from round 1 and continues the sample stream;
+        ``resume=True`` continues a restored run (``restore_state``) from
+        the first round not run."""
         rounds = rounds if rounds is not None else self.fed.rounds
+        start = self._completed_rounds + 1 if resume else 1
+        if start > rounds:
+            return self.history
         sched = RoundScheduler(
             self.ctrl, self.fed, total_rounds=rounds,
-            eval_every=eval_every if self.eval_fn is not None else None)
+            eval_every=eval_every if self.eval_fn is not None else None,
+            start_round=start)
         builder = pipeline.make_builder(
             self.data, self.fed.clients_per_round, self.fed.batch_size,
             self._np_rng,
@@ -178,6 +215,7 @@ class FedAvgTrainer:
                 self._run_feedback(sched, builder, verbose)
         finally:
             builder.close()
+        self._completed_rounds = rounds
         return self.history
 
     # ------------------------------------------------------------------
@@ -203,6 +241,7 @@ class FedAvgTrainer:
                 f = torch.cat([f, self.engine.last_downlink_levels
                                .to(f.dtype).reshape(1)])
             rows.append(f)
+            self.store.advance()            # params committed for a round
         return torch.stack(rows)
 
     def _run_pipelined(self, sched: RoundScheduler, builder,
@@ -246,41 +285,91 @@ class FedAvgTrainer:
         levels = None
         if self.runtime.downlink_level_ratios is not None:
             losses, levels = losses[:, :-1], losses[:, -1]
-        h = self.history
+        h, st = self.history, self.store
         for i, r in enumerate(bucket.rounds):
             round_loss = float(np.mean(losses[i]))
             self.ctrl.observe_round_losses(round_loss)
             cost = self.runtime.round_cost(
                 bucket.k,
                 downlink_level=None if levels is None else int(levels[i]))
-            self._wall += cost.wall_clock_s
-            self._steps += cost.sgd_steps
-            self._up_mbit += cost.uplink_mbit
-            self._down_mbit += cost.downlink_mbit
-            self._min_loss = min(self._min_loss, round_loss)
+            st.wall += cost.wall_clock_s
+            st.steps += cost.sgd_steps
+            st.up_mbit += cost.uplink_mbit
+            st.down_mbit += cost.downlink_mbit
+            st.min_loss = min(st.min_loss, round_loss)
             h.rounds.append(r)
             h.k.append(bucket.k)
             h.eta.append(bucket.etas[i])
-            h.wall_clock_s.append(self._wall)
-            h.sgd_steps.append(self._steps)
-            h.uplink_mbit.append(self._up_mbit)
-            h.downlink_mbit.append(self._down_mbit)
+            h.wall_clock_s.append(st.wall)
+            h.sgd_steps.append(st.steps)
+            h.uplink_mbit.append(st.up_mbit)
+            h.downlink_mbit.append(st.down_mbit)
             h.train_loss.append(round_loss)
-            h.min_train_loss.append(self._min_loss)
+            h.min_train_loss.append(st.min_loss)
+
+    # ------------------------------------------------------------------
+    # full-state checkpointing
+    # ------------------------------------------------------------------
+    def save_state(self, path: str,
+                   extra_meta: Optional[Dict[str, Any]] = None) -> None:
+        """Checkpoint everything a bitwise continuation needs: the store's
+        tree (params, server-optimizer state, codec state, per-client
+        residual slots with their leading axis) and counters, the numpy
+        sample stream, the straggler stream, the controller's feedback
+        state and the history. ``extra_meta`` entries go into
+        ``meta.json`` too (``FederatedExperiment.save`` embeds the spec).
+        Restore with ``restore_state`` and continue with ``run(rounds,
+        resume=True)``."""
+        from repro_torch.checkpoint import save_checkpoint
+        sd = self.store.state_dict()
+        meta = {
+            **(extra_meta or {}),
+            "completed_rounds": self._completed_rounds,
+            "history": self.history.as_dict(),
+            "rng": self._np_rng.bit_generator.state,
+            "runtime_rng": self.runtime._rng.bit_generator.state,
+            "wall": self.store.wall,
+            **sd["meta"],
+            "ctrl": self.ctrl.state_dict(),
+        }
+        save_checkpoint(path, sd["tree"], meta=meta)
+
+    def restore_state(self, path: str) -> None:
+        """The inverse of ``save_state`` (of either package) on a trainer
+        built with the same configuration: the live trainer's state gives
+        every template, so tensors land on its device in its dtypes."""
+        tree, meta = self.store.load_checkpoint_tree(path)
+        self.store.restore_tree(tree)
+        self._completed_rounds = int(meta["completed_rounds"])
+        self.history = History.from_dict(meta["history"])
+        h = self.history
+        if len(h.downlink_mbit) < len(h.rounds):
+            # a checkpoint from before downlink accounting: backfill the
+            # series so the per-round lists stay aligned
+            h.downlink_mbit = ([0.0] * (len(h.rounds) - len(h.downlink_mbit))
+                               + h.downlink_mbit)
+        self._np_rng.bit_generator.state = meta["rng"]
+        if "runtime_rng" in meta:
+            self.runtime._rng.bit_generator.state = meta["runtime_rng"]
+        self.store.wall = float(meta["wall"])
+        self.store.load_counters_meta(
+            meta, default_version=self._completed_rounds)
+        self.ctrl.load_state_dict(meta["ctrl"])
 
     def _eval(self, r: int, verbose: bool) -> None:
         metrics = self.eval_fn(self.params)
         err = metrics.get("error", 1.0 - metrics.get("acc", 0.0))
         self.ctrl.observe_validation(err)
-        self._max_acc = max(self._max_acc, metrics.get("acc", 0.0))
+        st = self.store
+        st.max_acc = max(st.max_acc, metrics.get("acc", 0.0))
         h = self.history
         h.val_rounds.append(r)
         h.val_error.append(err)
-        h.max_val_acc.append(self._max_acc)
+        h.max_val_acc.append(st.max_acc)
         if verbose:
             print(f"round {r:5d} K={h.k[-1]:3d} eta={h.eta[-1]:.4f} "
                   f"loss={h.train_loss[-1]:.4f} val_err={err:.4f} "
-                  f"W={self._wall:.1f}s steps={self._steps}")
+                  f"W={st.wall:.1f}s steps={st.steps}")
 
 
 # ---------------------------------------------------------------------------

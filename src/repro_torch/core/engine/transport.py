@@ -59,6 +59,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch.api.registries import TRANSPORT_REGISTRY, register_transport
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.collectives import all_reduce_tiers, axes_size
 from repro_torch.models.attention import quantize_kv, quantize_kv_residual
@@ -584,45 +585,50 @@ class AdaptiveDownlinkCodec(DownlinkCodec):
         return bits_per_param / 8.0
 
 
-# name -> factory(*, topk_frac, ref_store); ``adaptive`` is downlink-only
-_CODECS = {
-    "none": lambda **kw: None,
-    "int8": lambda **kw: Int8Transport(levels=1, error_feedback=True),
-    "int8x2": lambda **kw: Int8Transport(levels=2, error_feedback=False),
-    "topk": lambda *, topk_frac=0.1, **kw: TopKTransport(frac=topk_frac),
-    "adaptive": lambda *, ref_store="f32", **kw: AdaptiveDownlinkCodec(
-        ref_store=ref_store),
-}
-
-
-def _make(name: str, **kw):
-    if name not in _CODECS:
-        raise ValueError(f"unknown transport codec {name!r}; known: "
-                         f"{tuple(_CODECS)}")
-    return _CODECS[name](**kw)
-
-
 def get_downlink(name: Optional[str], *, topk_frac: float = 0.1,
                  ref_store: str = "f32") -> Optional[DownlinkCodec]:
-    """The broadcast codec: any uplink codec name wrapped in a
-    ``DownlinkCodec``, or ``adaptive``. ``None``/``"none"`` -> None (the
-    uncompressed broadcast)."""
-    if name is None:
-        return None
-    codec = _make(name, topk_frac=topk_frac, ref_store=ref_store)
+    """The broadcast codec, resolved through ``TRANSPORT_REGISTRY``: any
+    uplink codec wrapped in a ``DownlinkCodec``, or a downlink-only codec
+    (``adaptive``). ``None``/``"none"`` -> None (the uncompressed
+    broadcast); a ``DownlinkCodec`` passes through."""
+    if name is None or isinstance(name, DownlinkCodec):
+        return name
+    codec = (name if isinstance(name, Transport)
+             else TRANSPORT_REGISTRY.get(name)(topk_frac=topk_frac,
+                                               ref_store=ref_store))
     if codec is None or isinstance(codec, DownlinkCodec):
         return codec
     return DownlinkCodec(codec, ref_store=ref_store)
 
 
 def get_transport(name, *, topk_frac: float = 0.1) -> Optional[Transport]:
-    """The uplink codec: a name, or a ``Transport`` (which passes through).
-    ``None``/``"none"`` -> None; downlink-only codecs are refused."""
+    """The uplink codec through ``TRANSPORT_REGISTRY``, or a ``Transport``
+    (which passes through). ``None``/``"none"`` -> None; downlink-only
+    codecs are refused."""
     if name is None or isinstance(name, Transport):
         return name
-    codec = _make(name, topk_frac=topk_frac)
+    if isinstance(name, DownlinkCodec):
+        raise ValueError(f"{name.name!r} is a downlink-only codec; it is "
+                         f"valid for transport.downlink, not "
+                         f"transport.name")
+    codec = TRANSPORT_REGISTRY.get(name)(topk_frac=topk_frac)
     if isinstance(codec, DownlinkCodec):
         raise ValueError(f"{codec.name!r} is a downlink-only codec; it is "
                          f"valid for transport.downlink, not "
                          f"transport.name")
     return codec
+
+
+# builtin registrations: factory(*, topk_frac, ref_store, **kw); top-k runs
+# error feedback only, the one form the reference registers
+register_transport("none", lambda **kw: None)
+register_transport("int8",
+                   lambda **kw: Int8Transport(levels=1, error_feedback=True))
+register_transport("int8x2",
+                   lambda **kw: Int8Transport(levels=2, error_feedback=False))
+register_transport("topk",
+                   lambda *, topk_frac=0.1, **kw: TopKTransport(frac=topk_frac))
+register_transport(
+    "adaptive",
+    lambda *, ref_store="f32", **kw: AdaptiveDownlinkCodec(
+        ref_store=ref_store))

@@ -1,3 +1,3 @@
-from repro_torch.core.serve.loop import TRAFFIC, ServingLoop
+from repro_torch.core.serve.loop import ServingLoop
 
-__all__ = ["ServingLoop", "TRAFFIC"]
+__all__ = ["ServingLoop"]

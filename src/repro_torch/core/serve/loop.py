@@ -9,8 +9,8 @@ decode path, then greedy decode through the decode cache (KV caches, and
 SSM and conv states for mamba layers), and records
 tokens/s, swap latency and staleness into ``History``.
 
-Traffic streams are a plain name -> factory dict (``TRAFFIC``); the
-``synthetic`` stream draws uniform prompt ids from a numpy rng seeded
+Traffic streams register in ``TRAFFIC_REGISTRY`` (``register_traffic``);
+the ``synthetic`` stream draws uniform prompt ids from a numpy rng seeded
 ``[seed, tick]``, draw for draw the reference's.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.api.registries import TRAFFIC_REGISTRY, register_traffic
 from repro_torch.core.engine.model_store import GlobalModelStore
 from repro_torch.models import registry
 
@@ -37,7 +38,7 @@ def _synthetic_traffic(*, cfg, batch: int, prompt_len: int, seed: int = 0):
     return prompts
 
 
-TRAFFIC = {"synthetic": _synthetic_traffic}
+register_traffic("synthetic", _synthetic_traffic)
 
 
 def _sync(device: torch.device) -> None:
@@ -60,17 +61,14 @@ class ServingLoop:
                 f"arch {cfg.name!r} is an audio encoder-decoder: its decode "
                 f"cache needs per-query audio embeddings, which the "
                 f"synthetic serving loop does not model")
-        if traffic not in TRAFFIC:
-            raise ValueError(f"unknown traffic {traffic!r}: one of "
-                             f"{sorted(TRAFFIC)}")
         self.store = store
         self.cfg = cfg
         self.batch = int(batch)
         self.prompt_len = int(prompt_len)
         self.tokens = int(tokens)
         self._step = registry.decode_fn(cfg, moe_path=moe_path)
-        self._traffic = TRAFFIC[traffic](cfg=cfg, batch=self.batch,
-                                         prompt_len=self.prompt_len, seed=seed)
+        self._traffic = TRAFFIC_REGISTRY.get(traffic)(
+            cfg=cfg, batch=self.batch, prompt_len=self.prompt_len, seed=seed)
         self.params: PyTree = None
         self.served_version = -1
         self.ticks = 0

@@ -12,8 +12,10 @@ The model is ``--arch``'s reduced config resized by ``--layers``,
 ``--d-model`` and ``--vocab``, trained with ``FedAvgTrainer`` over
 ``make_lm_clients`` token streams (24 clients, 6 a round), through
 ``registry.loss_fn`` on the dense MoE path with ``use_kernel=False``, as
-the reference trains. ``--checkpoint`` is refused until the checkpoint
-port (ROADMAP A4).
+the reference trains. ``--checkpoint DIR`` saves the final params as the
+reference's example does (bare params, with the rounds, arch and
+K-schedule in the meta); ``launch.serve --checkpoint DIR --arch ...`` reads
+such a checkpoint when the model is the arch's reduced config.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import FedConfig, RuntimeModelConfig
 from repro_torch.core import FedAvgTrainer, RuntimeModel
@@ -77,10 +80,6 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise SystemExit("[train_federated_lm] --checkpoint is not ported "
-                         "yet: it comes with the checkpoint port (ROADMAP "
-                         "A4)")
 
     trainer, cfg, n_params = build(args)
     print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
@@ -91,6 +90,11 @@ def main(argv=None):
               f"loss={h.train_loss[r]:.4f} simW={h.wall_clock_s[r]:.0f}s")
     print(f"final: loss={h.train_loss[-1]:.4f} (from {h.train_loss[0]:.4f}) "
           f"steps={h.sgd_steps[-1]} simW={h.wall_clock_s[-1]:.0f}s")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, trainer.params,
+                        meta={"rounds": args.rounds, "arch": cfg.name,
+                              "k_schedule": args.k_schedule})
+        print(f"checkpoint -> {args.checkpoint}")
     return h
 
 

@@ -6,6 +6,7 @@ and hybrid LMs), the names of ``repro.models.registry``:
     forward_fn(cfg)(params, batch)              -> (logits, aux)
     init_cache(params, cfg, batch, seq)         -> decode cache
     decode_fn(cfg)(params, cache, token, pos)   -> (logits, cache)
+    shapes(cfg, dtype)                          -> params on ``meta``
     param_count(cfg)                            -> int (no allocation)
 
 ``init`` draws from an explicit ``torch.Generator`` with the reference's
@@ -95,11 +96,15 @@ def decode_fn(cfg: ArchConfig, *, long_mode: bool = False,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
+def shapes(cfg: ArchConfig, dtype=torch.float32) -> PyTree:
+    """``init``'s tree on the ``meta`` device: every leaf's shape and dtype,
+    nothing drawn, nothing allocated."""
+    return transformer.init_lm(None, cfg, dtype, torch.device("meta"))
+
+
 def param_count(cfg: ArchConfig) -> int:
-    """Parameters of ``cfg``, counted from shapes on the ``meta`` device
-    (nothing drawn, nothing allocated)."""
-    shapes = transformer.init_lm(None, cfg, device="meta")
-    return int(sum(t.numel() for t in tree_leaves(shapes)))
+    """Parameters of ``cfg``, counted from ``shapes``."""
+    return int(sum(t.numel() for t in tree_leaves(shapes(cfg))))
 
 
 def active_param_count(cfg: ArchConfig) -> int:

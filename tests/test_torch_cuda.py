@@ -6,6 +6,7 @@ Imports only torch and the port, so it runs where JAX is not installed:
 
 Every test skips without a CUDA card (the kernels have no CPU mode)."""
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1370,3 +1371,85 @@ def test_fixed_cohort_topk_rounds_repeat_bitwise(cuda):
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
     assert all(a.shape[0] == 4 and torch.equal(a, b)
                for a, b in zip(sa, sb))
+
+
+# ---------------------------------------------------------------------------
+# the spec-driven entry point: checkpoint, restore and resume on the card
+# ---------------------------------------------------------------------------
+
+SPECS = Path(__file__).resolve().parents[1] / "examples" / "specs"
+
+
+def _spec_run(spec, rounds):
+    from repro_torch.api import build
+    from repro_torch.optim import tree_leaves
+    exp = build(spec.with_overrides(f"fed.rounds={rounds}"))
+    h = exp.run()
+    return h.as_dict(), [t.cpu() for t in tree_leaves(exp.params)]
+
+
+def _max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_reduced_spec_resume_on_the_card_follows_the_repeat_rule(cuda,
+                                                                 tmp_path):
+    """Reduced ``local-int8-decayK`` through ``build`` on the card: 2
+    rounds, ``save``, ``FederatedExperiment.restore``, resume to 4, against
+    two uninterrupted 4-round runs. Counters exact; params and losses
+    bitwise when the two uninterrupted runs are bitwise, else within their
+    difference; 14 ``int8_decompress_reduce`` launches a round."""
+    from repro_torch.api import ExperimentSpec, FederatedExperiment, build
+    from repro_torch.optim import tree_leaves
+    spec = ExperimentSpec.load(str(SPECS / "local-int8-decayK.json"))
+    before = tdc.launches["int8_decompress_reduce"]
+    exp = build(spec.with_overrides("fed.rounds=2"))
+    exp.run()
+    leaves = len(tree_leaves(exp.params))
+    path = str(tmp_path / "ckpt")
+    exp.save(path)
+    again = FederatedExperiment.restore(path)
+    assert again.trainer.device.type == "cuda"
+    assert all(t.device.type == "cuda"
+               for t in tree_leaves(again.trainer.engine.transport_state))
+    h = again.trainer.run(4, resume=True).as_dict()
+    params = [t.cpu() for t in tree_leaves(again.params)]
+    assert tdc.launches["int8_decompress_reduce"] == before + 4 * leaves
+    (sh, sp), (ph, pp) = _spec_run(spec, 4), _spec_run(spec, 4)
+    for key in ("rounds", "k", "eta", "sgd_steps", "wall_clock_s",
+                "uplink_mbit", "downlink_mbit"):
+        assert h[key] == sh[key] == ph[key], key
+    repeat, resume = _max_diff(sp, pp), _max_diff(params, sp)
+    loss_repeat = max(abs(a - b) for a, b in zip(sh["train_loss"],
+                                                 ph["train_loss"]))
+    loss_resume = max(abs(a - b) for a, b in zip(h["train_loss"],
+                                                 sh["train_loss"]))
+    assert resume <= repeat and loss_resume <= loss_repeat, \
+        (resume, repeat, loss_resume, loss_repeat)
+
+
+@pytest.mark.cuda
+def test_launcher_checkpoint_serves_bitwise_on_the_card(cuda, tmp_path):
+    """``launch.train --spec fixed-cohort-topk.json --checkpoint`` on the
+    card, then ``launch.serve --checkpoint``: the served params are the
+    checkpoint's, bit for bit."""
+    from repro_torch.launch import serve, train
+    path = str(tmp_path / "ckpt")
+    exp = train.main(["--spec", str(SPECS / "fixed-cohort-topk.json"),
+                      "--rounds", "1", "--checkpoint", path])
+    assert exp.trainer.engine.transport.ef_slots == 4
+    res = serve.main(["--checkpoint", path, "--tokens", "4"])
+    with np.load(f"{path}/arrays.npz") as data:
+        def walk(tree, prefix):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from walk(v, f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", v
+        served = dict(walk(res["params"], "params/"))
+        assert sorted(served) == sorted(k for k in data
+                                        if k.startswith("params/"))
+        for k, v in served.items():
+            assert v.device.type == "cuda"
+            np.testing.assert_array_equal(v.cpu().numpy(), data[k])

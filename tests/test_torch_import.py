@@ -16,7 +16,8 @@ from repro_torch.core import (FedAvgTrainer, RuntimeModel, make_round_fn,
                               run_reference_rounds)
 from repro_torch.core.engine.trainer import make_eval_fn
 from repro_torch.data import make_paper_task
-from repro_torch.launch import serve
+from repro_torch.api import ExperimentSpec, build
+from repro_torch.launch import quickstart, serve, train
 from repro_torch.models import registry, small, transformer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -38,14 +39,22 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.core.engine.backends.mesh, "
             "repro_torch.kernels.collectives, "
             "repro_torch.core.engine.sampling, repro_torch.data.population, "
-            "repro_torch.launch.train_federated_lm\n"
+            "repro_torch.launch.train_federated_lm, repro_torch.api, "
+            "repro_torch.api.spec, repro_torch.api.registries, "
+            "repro_torch.api.sweep, repro_torch.api.experiment, "
+            "repro_torch.checkpoint, repro_torch.core.theory, "
+            "repro_torch.core.engine.policies, repro_torch.launch.train, "
+            "repro_torch.launch.quickstart\n"
+            "from repro_torch.api import ExperimentSpec, build\n"
+            "ExperimentSpec.load('examples/specs/local-int8-decayK.json')"
+            ".validate()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
-                   timeout=120)
+                   timeout=120, cwd=SRC.parent)
 
 
 def test_source_imports_no_jax_and_no_reference():
@@ -77,6 +86,9 @@ def _trainer_no_device():
     lambda: make_eval_fn(None, None),
     lambda: registry.init(0, get_arch("qwen1.5-0.5b-reduced")),
     lambda: serve.main(["--tokens", "1"]),
+    lambda: build(ExperimentSpec()),
+    lambda: train.main(["--rounds", "1"]),
+    lambda: quickstart.main(["--rounds", "1"]),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):

@@ -197,22 +197,31 @@ def test_one_lm_round_matches_reference(arch, moe_path):
     assert_trees_close(tr.params, jtr.params, **TOL)
 
 
-def test_launcher_trains_an_lm_on_the_cpu():
+def test_launcher_trains_an_lm_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.train_federated_lm --device cpu`` at
     a reduced size: K follows K_r-rounds, losses are finite and the
-    counters add up; ``--checkpoint`` is refused by name."""
+    counters add up; ``--checkpoint`` saves the final params as the
+    reference's example does (bare params; rounds, arch, K-schedule in the
+    meta)."""
+    import json
     rounds = 3
+    ckpt = str(tmp_path / "ckpt")
     h = train_federated_lm.main(["--rounds", str(rounds), "--device", "cpu",
                                  "--layers", "1", "--d-model", "64",
                                  "--vocab", "128", "--seq", "16",
-                                 "--k0", "4"])
+                                 "--k0", "4", "--checkpoint", ckpt])
     assert h.k == [min(max(math.ceil(4 / r ** (1 / 3)), 1), 4)
                    for r in range(1, rounds + 1)]
     assert h.sgd_steps[-1] == 6 * sum(h.k)
     assert all(math.isfinite(v) for v in h.train_loss)
-    with pytest.raises(SystemExit, match="A4"):
-        train_federated_lm.main(["--checkpoint", "/nonexistent",
-                                 "--device", "cpu"])
+    with open(f"{ckpt}/meta.json") as f:
+        meta = json.load(f)
+    assert meta == {"rounds": rounds, "arch": "qwen2-7b-reduced",
+                    "k_schedule": "rounds"}
+    with np.load(f"{ckpt}/arrays.npz") as arrays:
+        assert not any(k.startswith("params/") for k in arrays)
+        assert arrays["embed/embedding"].shape == (128, 64)
+        assert all(np.isfinite(arrays[k]).all() for k in arrays)
 
 
 if __name__ == "__main__":
