@@ -167,13 +167,43 @@ exits non-zero without printing a result:
               FedConfig through ``launch.train`` for 2 rounds, one
               ``fedavg_reduce`` launch a round; (v) ``launch.quickstart
               --rounds 10``. Checkpoints live in a temporary directory the
-              phase removes.
+              phase removes;
+13. stream  — streaming cohorts (``fed.cohort_chunk``), after phase spec:
+              (i) CIFAR100 at paper width (U 25, b 32, K0 50, kernel
+              aggregator, cuDNN deterministic) 2 rounds dense, as one slab
+              of 25 (bitwise dense) and in slabs of 3 (eight and a tail of
+              1; within ``STREAM_TOL``), ``fedavg_reduce`` launches 2, 2,
+              18, the allocator's peak dense over C = 3 at least 4x, ms a
+              round; (ii) qwen1.5-0.5b at full width (phase lm's params)
+              at the LM specs' traffic with the int8 uplink, 32 clients,
+              16 a round in 4 slabs of 4, 2 rounds: 14 x 4 x 2
+              ``int8_decompress_reduce`` launches, counters exact, ms a
+              round, peak; one slab round more holds every call at the 14
+              leaf sizes against its plain version; one round of U 4 as one
+              slab bitwise the dense U 4 round; (iii)
+              ``population-chunked.json`` through ``launch.train`` (20
+              rounds, 8 slabs of 4, int8: 6 x 8 x 20 launches) and the same
+              spec at C = 32 bitwise its dense run for 2 rounds; (iv)
+              reduced ``fixed-cohort-topk`` dense, C = 4 (bitwise dense)
+              and C = 2, every slab's top-k reduce held exactly;
+14. async   — async buffered aggregation (``AsyncBufferedEngine``): (i)
+              ``async-buffered.json`` through ``launch.train`` (12
+              applications; ``int8_decompress_reduce`` launches 6 a fold),
+              saved after 4, restored, resumed to 12 bitwise the
+              uninterrupted run (history, params, residual slots,
+              staleness histogram); (ii) the sync-parity oracle against
+              ``FedAvgTrainer``; (iii) qwen1.5-0.5b at full width, 12
+              clients, 4 in flight, buffer 2, ``inv``, max staleness 4,
+              heterogeneity 0.8, int8: 14 launches a fold, ms an
+              application, peak; one application more holds every fold's
+              call (N = 1) at the 14 leaf sizes against its plain version.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
 the wire kernels and ``fedavg_reduce`` with their launches in phase
 lm_train and their row at qwen's embedding leaf; every entry with its
-launches in phase spec, ``spec_launches``);
+launches in phase spec, ``spec_launches``, and in phases stream and
+async, ``stream_launches`` and ``async_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -2440,8 +2470,21 @@ def check_lm_round(torch, trainer, label):
     """One round more of ``trainer``, after its counts were read: each call
     of a wire entry point and of the tree reduce is held against its plain
     version (``kernels.ref``) on the same inputs, at every leaf size of the
-    model. Returns, for each kernel that ran, its calls, leaf sizes, max
-    abs error and tolerance."""
+    model. Returns, for each kernel that ran, its calls, leaf sizes, client
+    rows, max abs error and tolerance."""
+    h, seen = check_calls(torch, lambda: trainer.run(1), label)
+    if not math.isfinite(h.train_loss[-1]):
+        raise AssertionError(f"lm_train ({label}): checked round's loss "
+                             f"{h.train_loss[-1]}")
+    return seen
+
+
+def check_calls(torch, run, label):
+    """``run()`` with each call of a wire entry point and of the tree
+    reduce held against its plain version on the same inputs. Returns
+    ``(run's result, {kernel: calls, leaf sizes "m", client rows "n" (1
+    for an apply), max abs error, tolerance})``; the tree reduce's entry
+    also holds the weights "w" of each call, on the host."""
     from repro_torch.kernels import ops, ref
     from repro_torch.optim import tree_leaves
     plain = {"int8_decompress_reduce": (ref.int8_decompress_reduce_ref,
@@ -2451,11 +2494,12 @@ def check_lm_round(torch, trainer, label):
              "topk_scatter_apply": (ref.topk_scatter_apply_ref, "exact")}
     seen = {}
 
-    def note(key, ms, err, tol):
-        r = seen.setdefault(key, {"calls": 0, "m": [], "max_abs_err": 0.0,
-                                  "tol": tol})
+    def note(key, ms, rows, err, tol):
+        r = seen.setdefault(key, {"calls": 0, "m": [], "n": [],
+                                  "max_abs_err": 0.0, "tol": tol})
         r["calls"] += 1
         r["m"] += ms
+        r["n"].append(rows)
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
     def checked(key, fn):
@@ -2465,7 +2509,8 @@ def check_lm_round(torch, trainer, label):
             out = fn(*a)
             err = _check(torch, out, want_fn(*a), tol,
                          f"lm_train ({label}) {key} at M {out.numel()}")
-            note(key, [out.numel()], err, tol)
+            rows = int(a[0].shape[0]) if key.endswith("reduce") else 1
+            note(key, [out.numel()], rows, err, tol)
             return out
         return call
 
@@ -2481,7 +2526,8 @@ def check_lm_round(torch, trainer, label):
                     f"at M {g.numel()}: {m}")
                 ms.append(g.numel())
                 err = max(err, float((g.reshape(-1) - want).abs().max()))
-            note("fedavg_reduce", ms, err, TOL["float32"])
+            note("fedavg_reduce", ms, int(w.shape[0]), err, TOL["float32"])
+            seen["fedavg_reduce"].setdefault("w", []).append(w.cpu())
             return out
         return call
 
@@ -2491,15 +2537,12 @@ def check_lm_round(torch, trainer, label):
         setattr(ops, fn, checked(key, saved[fn]))
     ops.fedavg_reduce_tree = checked_tree(saved["fedavg_reduce_tree"])
     try:
-        h = trainer.run(1)
+        out = run()
         torch.cuda.synchronize()
     finally:
         for fn, f in saved.items():
             setattr(ops, fn, f)
-    if not math.isfinite(h.train_loss[-1]):
-        raise AssertionError(f"lm_train ({label}): checked round's loss "
-                             f"{h.train_loss[-1]}")
-    return seen
+    return out, seen
 
 
 def run_lm_train(torch, label, cfg, params, data):
@@ -3208,6 +3251,688 @@ def phase_spec(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# streaming cohorts and async buffered aggregation (phases 13 and 14)
+# ---------------------------------------------------------------------------
+
+STREAM_ROUNDS = 2
+# (i): CIFAR100 dense, one slab of the whole cohort, and slabs of 3 (eight
+# of 3 and a tail of 1). vmap's batch count changes the cuDNN and cuBLAS
+# algorithms and 90 local steps amplify the difference at a few entries
+# (2.9e-4 at 2 of fc2's 51,200, 6% of the leaf's movement, where the f32
+# tolerance alone allows 2e-4), so C = 3 holds dense at tests/
+# test_kernels.py's f32 tolerance plus STREAM_MOVE of each leaf's movement
+# over the run (max |dense - init|) entry by entry, and its mean |C=3 -
+# dense| within STREAM_MOVE_MEAN of that movement leaf by leaf
+STREAM_CHUNKS = (None, 25, 3)
+STREAM_TOL = dict(rtol=2e-4, atol=2e-4)
+STREAM_MOVE, STREAM_MOVE_MEAN = 0.1, 0.01
+# (ii): qwen1.5-0.5b, the LM specs' traffic (lm_train (a)) at 32 clients,
+# 16 a round in slabs of 4
+LM_STREAM = dict(total_clients=32, clients_per_round=16, cohort_chunk=4)
+# async (iii): 12 clients, 4 in flight, a buffer of 2
+LM_ASYNC = dict(aggregation="async", buffer_size=2, staleness_weight="inv",
+                max_staleness=4)
+LM_ASYNC_HET, LM_ASYNC_APPLIES = 0.8, 4
+# async (i): the checkpoint after this many applications
+ASYNC_SAVE_AT = 4
+# async (ii): tests/test_async.py's base spec
+ORACLE = ("data.kind=paper", "data.task=femnist", "data.clients=16",
+          "fed.clients_per_round=8", "fed.rounds=6", "fed.k0=4",
+          "fed.batch_size=8", "fed.eval_every=0", "fed.k_schedule=rounds")
+
+
+def kernel_counts():
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    return {**dc.launches, "fedavg_reduce": fr.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    for k in dc.launches:
+        dc.launches[k] = 0
+    fr.launches = 0
+
+
+def only(counts, want, what):
+    """The counts are ``want`` and zero for every other kernel."""
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, want {full}")
+
+
+def timed_rounds(torch, engine):
+    """Instrumentation of this script only: the host ms of each round an
+    engine runs (dense or streamed), synchronised before and after."""
+    ms = []
+    for name in ("run_bucket", "run_round_chunked"):
+        fn = getattr(engine, name)
+
+        def timed(*a, _fn=fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        setattr(engine, name, timed)
+    return ms
+
+
+def _bitwise(a, b) -> bool:
+    """Two host trees (``_host``) equal value for value (-0.0 == 0.0)."""
+    import numpy as np
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+
+
+def _peak_run(torch, make, run):
+    """``make()`` then ``run(made)`` with the allocator's peak reset just
+    before and every count zeroed: (made, run's result, the counts, the
+    peak GB over what was allocated before, the peak GB, seconds). The
+    peak is ``core.trainer_peak_mb`` of the made trainer."""
+    from repro_torch.core import trainer_peak_mb
+    _free(torch)
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    made = make()
+    t0 = time.perf_counter()
+    out = run(made)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    peak = trainer_peak_mb(made) / 1e3
+    return made, out, kernel_counts(), peak - base, peak, s
+
+
+def _cifar_trainer(torch, task, data, chunk):
+    """(i)'s trainer: CIFAR100 at paper width (U 25, b 32, K0 50, eta0
+    0.01, K_r-rounds, the kernel aggregator) in slabs of ``chunk`` (None:
+    dense), its rounds timed (``timed_rounds``, in ``_ms``)."""
+    from repro_torch.core import FedAvgTrainer, RuntimeModel
+    from repro_torch.models import small
+    fed = dataclasses.replace(task.fed, k_schedule="rounds",
+                              aggregator="kernel", rounds=STREAM_ROUNDS,
+                              cohort_chunk=chunk)
+    tr = FedAvgTrainer(lambda p, b: small.task_loss(p, task, b),
+                       small.init_task_model(0, task), data, fed,
+                       RuntimeModel(task.model_size_mb, task.runtime,
+                                    fed.clients_per_round))
+    tr._ms = timed_rounds(torch, tr.engine)
+    return tr
+
+
+def slab_rows(u, chunk):
+    """The client rows of each slab of a round of ``u`` in slabs of
+    ``chunk`` (None: one of ``u``)."""
+    c = chunk or u
+    return [min(c, u - s) for s in range(0, u, c)]
+
+
+def c3_shares(pd, p3, init):
+    """How far the C = 3 params ``p3`` are from dense ``pd`` (host trees,
+    both started from ``init``), against (i)'s bound: the worst entry's
+    share of the f32 tolerance plus ``STREAM_MOVE`` of its leaf's
+    movement, and the worst leaf's mean |C=3 - dense| as a share of
+    ``STREAM_MOVE_MEAN`` of that movement. The check is both at most 1."""
+    import numpy as np
+    worst = worst_mean = 0.0
+    for k in pd:
+        move = float(np.max(np.abs(pd[k] - init[k])))
+        diff = np.abs(p3[k] - pd[k])
+        bound = (STREAM_TOL["atol"] + STREAM_TOL["rtol"] * np.abs(pd[k])
+                 + STREAM_MOVE * move)
+        worst = max(worst, float(np.max(diff / bound)))
+        worst_mean = max(worst_mean,
+                         float(np.mean(diff)) / (STREAM_MOVE_MEAN * move))
+    return worst, worst_mean
+
+
+def _checked_cifar(torch, task, data, chunk, label):
+    """(i)'s trainer in slabs of ``chunk`` run through ``check_calls``:
+    (its host params, its tree reduce's calls, each round's slab weights
+    joined)."""
+    tr = _cifar_trainer(torch, task, data, chunk)
+    _, seen = check_calls(torch, lambda: tr.run(STREAM_ROUNDS), label)
+    red = seen.get("fedavg_reduce", {})
+    rows = slab_rows(tr.fed.clients_per_round, chunk)
+    if set(seen) != {"fedavg_reduce"} or red["n"] != rows * STREAM_ROUNDS:
+        raise AssertionError(f"{label}: checked run ran {seen}")
+    n = len(rows)
+    weights = [torch.cat(red["w"][i * n:(i + 1) * n])
+               for i in range(STREAM_ROUNDS)]
+    params = _host(tr.params)
+    del tr
+    _free(torch)
+    return params, red, weights
+
+
+def _tail_dropped(torch, task, data):
+    """(i)'s negative control: ``_checked_cifar`` at C = 3 with the engine
+    placing the one-client tail slab at weight 0 (a dropped client)."""
+    from repro_torch.core.engine.backends.local import LocalBackend
+    had = LocalBackend.__dict__.get("place_slab")
+    place = LocalBackend.place_slab
+
+    def dropped(self, sb):
+        if sb.stop - sb.start == 1:
+            sb = dataclasses.replace(sb, weights=sb.weights * 0)
+        return place(self, sb)
+
+    LocalBackend.place_slab = dropped
+    try:
+        return _checked_cifar(torch, task, data, 3, "stream (i) control")
+    finally:
+        if had is None:
+            del LocalBackend.place_slab
+        else:
+            LocalBackend.place_slab = had
+
+
+def stream_cifar(torch, data):
+    """(i) CIFAR100 at paper width (``_cifar_trainer``, cuDNN
+    deterministic) for ``STREAM_ROUNDS`` rounds dense, as one slab of 25,
+    and in slabs of 3. Each run is measured, then repeated with every
+    ``fedavg_reduce`` call held against its plain version: the repeat must
+    give the measured run's params bit for bit, its calls the slabs' rows,
+    and each round's slab weights, joined, the dense round's weights. A
+    negative control (``_tail_dropped``) must fail that weight check and
+    the C = 3 bound. Returns the launches."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.models import small
+    task = get_paper_task("cifar100")
+    u = task.fed.clients_per_round
+    total, runs, checked, weights = {}, {}, {}, {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for chunk in STREAM_CHUNKS:
+            label = f"stream (i) C={chunk}"
+            tr, h, counts, peak, _, _ = _peak_run(
+                torch, lambda: _cifar_trainer(torch, task, data, chunk),
+                lambda t: t.run(STREAM_ROUNDS))
+            rows = slab_rows(u, chunk)
+            only(counts, {"fedavg_reduce": STREAM_ROUNDS * len(rows)}, label)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            runs[chunk] = (h.as_dict(), _host(tr.params), peak, tr._ms)
+            del tr
+            _free(torch)
+            params, red, weights[chunk] = _checked_cifar(torch, task, data,
+                                                         chunk, label)
+            if not _bitwise(params, runs[chunk][1]):
+                raise AssertionError(f"{label}: the checked run is not the "
+                                     f"measured one")
+            checked[chunk] = {"calls": red["calls"],
+                              "rows": sorted(set(red["n"])),
+                              "max_abs_err": red["max_abs_err"],
+                              "tol": red["tol"]}
+        p_ctrl, _, w_ctrl = _tail_dropped(torch, task, data)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    for chunk in (25, 3):
+        if not same(weights[chunk], weights[None]):
+            raise AssertionError(f"stream (i) C={chunk}: the slab weights "
+                                 f"are not the dense round's")
+    if same(w_ctrl, weights[None]):
+        raise AssertionError("stream (i): the slab-weight check passed a "
+                             "run that dropped the tail client")
+    (hd, pd, peak_d, ms_d) = runs[None]
+    (hu, pu, peak_u, ms_u) = runs[25]
+    (h3, p3, peak_3, ms_3) = runs[3]
+    if not _bitwise(pu, pd) or hu["train_loss"] != hd["train_loss"]:
+        raise AssertionError(f"stream (i): one slab of 25 is not the dense "
+                             f"round: {_max_diff(pu, pd)}")
+    init = _host(small.init_task_model(0, task))
+    worst, worst_mean = c3_shares(pd, p3, init)
+    ctrl_worst, ctrl_mean = c3_shares(pd, p_ctrl, init)
+    if ctrl_worst <= 1.0 and ctrl_mean <= 1.0:
+        raise AssertionError(f"stream (i): the C = 3 bound passed a run that "
+                             f"dropped the tail client ({ctrl_worst}, "
+                             f"{ctrl_mean})")
+    if worst > 1.0 or worst_mean > 1.0:
+        raise AssertionError(f"stream (i) C=3: {worst} of the entry bound, "
+                             f"{worst_mean} of the leaf mean bound")
+    import numpy as np
+    np.testing.assert_allclose(h3["train_loss"], hd["train_loss"],
+                               **STREAM_TOL)
+    if any(h[key] != hd[key] for h in (hu, h3) for key in SPEC_COUNTERS):
+        raise AssertionError("stream (i): counters differ")
+    ratio = peak_d / peak_3
+    if ratio < 4.0:
+        raise AssertionError(f"stream (i): peak dense {peak_d} GB over "
+                             f"C=3 {peak_3} GB is {ratio}, under 4x")
+    emit({"phase": "stream", "what": "(i) CIFAR100 paper width, kernel "
+          "aggregator, dense / C=25 / C=3", "k": hd["k"],
+          "loss": {"dense": hd["train_loss"], "c25": hu["train_loss"],
+                   "c3": h3["train_loss"]},
+          "ms_per_round": {"dense": ms_d, "c25": ms_u, "c3": ms_3},
+          "peak_gb_over_base": {"dense": peak_d, "c25": peak_u,
+                                "c3": peak_3},
+          "peak_ratio_dense_over_c3": ratio, "c25_bitwise": True,
+          "c3_max_abs_diff": _max_diff(p3, pd),
+          "c3_tol": {**STREAM_TOL, "move": STREAM_MOVE,
+                     "mean_move": STREAM_MOVE_MEAN},
+          "c3_worst_share_of_tol": worst,
+          "c3_worst_mean_share": worst_mean,
+          "fedavg_reduce_launches": {
+              str(c or "dense"): STREAM_ROUNDS * len(slab_rows(u, c))
+              for c in STREAM_CHUNKS},
+          "checked_runs": {str(c or "dense"): v for c, v in checked.items()},
+          "slab_weights_equal_dense": True,
+          "control_tail_dropped": {
+              "slab_weights_equal_dense": False,
+              "max_abs_diff": _max_diff(p_ctrl, pd),
+              "worst_share_of_tol": ctrl_worst,
+              "worst_mean_share": ctrl_mean},
+          "cudnn_deterministic": True})
+    return total
+
+
+def _lm_fed(**kw):
+    """The LM specs' traffic (``lm_train_timing.TRAFFIC``, configuration
+    (a): int8 uplink, k0 8) with ``kw`` over it."""
+    from repro_torch.configs import FedConfig
+    from repro_torch.launch.lm_train_timing import CONFIGS, TRAFFIC
+    return FedConfig(**{**TRAFFIC, **CONFIGS["a"], **kw})
+
+
+def _lm_engine(cfg, params, data, fed, het=0.0):
+    """``build``'s trainer for ``fed`` (``AGGREGATION_REGISTRY``: a
+    ``FedAvgTrainer`` or an ``AsyncBufferedEngine``) on the LM loss, |x|
+    the params at 4 bytes, beta 0.05 s."""
+    from repro_torch.api.registries import AGGREGATION_REGISTRY
+    from repro_torch.configs.base import RuntimeModelConfig
+    from repro_torch.core import RuntimeModel
+    from repro_torch.launch.lm_train_timing import BETA
+    from repro_torch.models import registry
+    model_loss = registry.loss_fn(cfg)
+    rt = RuntimeModel(registry.param_count(cfg) * 4 * 8 / 1e6,
+                      RuntimeModelConfig(beta_seconds=BETA),
+                      fed.clients_per_round, heterogeneity=het)
+    return AGGREGATION_REGISTRY.get(fed.aggregation)()(
+        lambda p, b: model_loss(p, {"tokens": b["x"]}), params, data, fed,
+        rt)
+
+
+def stream_lm(torch, params):
+    """(ii) qwen1.5-0.5b at full width (phase lm's params), int8 uplink,
+    16 clients a round in slabs of 4 for ``STREAM_ROUNDS`` rounds; one
+    checked slab round more; one round of U = 4 as one slab against the
+    dense U = 4 round. Returns the launches."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_lm_clients
+    from repro_torch.launch.lm_train_timing import SEQ
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    sizes = [int(t.numel()) for t in tree_leaves(params)]
+    data = make_lm_clients(np.random.default_rng(0),
+                           LM_STREAM["total_clients"], vocab=cfg.vocab_size,
+                           seq_len=SEQ)
+    fed = _lm_fed(rounds=STREAM_ROUNDS, **LM_STREAM)
+    n_slabs = -(-fed.clients_per_round // fed.cohort_chunk)
+
+    def make():
+        tr = _lm_engine(cfg, params, data, fed)
+        tr._ms = timed_rounds(torch, tr.engine)
+        return tr
+
+    tr, h, counts, peak, peak_abs, run_s = _peak_run(
+        torch, make, lambda t: t.run(STREAM_ROUNDS))
+    want = STREAM_ROUNDS * n_slabs * len(sizes)
+    only(counts, {"int8_decompress_reduce": want}, "stream (ii)")
+    formula = lm_train_want(fed, sizes, STREAM_ROUNDS)
+    got = {key: getattr(h, key) for key in formula}
+    if got != formula or not all(math.isfinite(v) for v in h.train_loss):
+        raise AssertionError(f"stream (ii): counters {got} != {formula} "
+                             f"or loss {h.train_loss}")
+    ms, ks, losses = list(tr._ms), list(h.k), list(h.train_loss)
+    # one slab round more, neither counted nor timed: every call at the
+    # 14 leaf sizes (4 rows a slab) against its plain version
+    h2, seen = check_calls(torch, lambda: tr.run(1), "stream (ii)")
+    got_calls = {k: v["calls"] for k, v in seen.items()}
+    red = seen.get("int8_decompress_reduce", {})
+    if got_calls != {"int8_decompress_reduce": n_slabs * len(sizes)} or \
+            sorted(red["m"]) != sorted(sizes * n_slabs) or \
+            set(red["n"]) != {fed.cohort_chunk}:
+        raise AssertionError(f"stream (ii): checked round ran {seen}")
+    del tr
+    _free(torch)
+    # U = 4: one slab of the whole cohort against the dense round
+    pair = {}
+    for chunk in (None, 4):
+        f4 = _lm_fed(rounds=1, total_clients=LM_STREAM["total_clients"],
+                     clients_per_round=4, cohort_chunk=chunk)
+        t4 = _lm_engine(cfg, params, data, f4)
+        h4 = t4.run(1)
+        pair[chunk] = (h4.train_loss, [t.clone() for t in
+                                       tree_leaves(t4.params)])
+        del t4
+        _free(torch)
+    if pair[None][0] != pair[4][0] or not all(
+            torch.equal(a, b) for a, b in zip(pair[None][1], pair[4][1])):
+        raise AssertionError("stream (ii): one slab of U = 4 is not the "
+                             "dense U = 4 round")
+    del pair
+    _free(torch)
+    emit({"phase": "stream", "what": "(ii) qwen1.5-0.5b full width, int8 "
+          "uplink, 16 clients a round in 4 slabs of 4",
+          "arch": cfg.name, "params": sum(sizes), "leaves": len(sizes),
+          "clients": fed.total_clients, "u": fed.clients_per_round,
+          "c": fed.cohort_chunk, "k": ks, "loss": losses,
+          "counters_exact": True, "ms_per_round": ms, "run_s": run_s,
+          "peak_gb_over_base": peak,
+          "peak_gb": peak_abs,
+          "int8_decompress_reduce_launches": want,
+          "checked_round": {k: {"calls": v["calls"], "leaves": len(sizes),
+                                "rows": sorted(set(v["n"])),
+                                "max_abs_err": v["max_abs_err"],
+                                "tol": v["tol"]} for k, v in seen.items()},
+          "u4_one_slab_bitwise_dense": True})
+    return counts
+
+
+def stream_population(torch):
+    """(iii) ``population-chunked.json`` as written through
+    ``launch.train`` (20 rounds, 32 a round in 8 slabs of 4, int8); the
+    same spec at C = 32 for 2 rounds against its dense run. Returns the
+    launches of the launcher's run."""
+    from repro_torch.api import ExperimentSpec, build
+    from repro_torch.core.engine import round as round_mod
+    from repro_torch.launch import train
+    from repro_torch.optim import tree_leaves
+    spec = ExperimentSpec.load(str(SPEC_DIR / "population-chunked.json"))
+    ms, chunked = [], round_mod.RoundEngine.run_round_chunked
+
+    def timed(self, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = chunked(self, *a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    round_mod.RoundEngine.run_round_chunked = timed
+    try:
+        zero_counts()
+        exp, out = _quiet(train.main, ["--spec", str(
+            SPEC_DIR / "population-chunked.json")])
+        counts = kernel_counts()
+    finally:
+        round_mod.RoundEngine.run_round_chunked = chunked
+    f = spec.fed
+    leaves = len(tree_leaves(exp.params))
+    n_slabs = -(-f.clients_per_round // f.cohort_chunk)
+    only(counts, {"int8_decompress_reduce": leaves * n_slabs * f.rounds},
+         "stream (iii)")
+    h = exp.history
+    if h.rounds != list(range(1, f.rounds + 1)) or not all(
+            math.isfinite(v) for v in h.train_loss):
+        raise AssertionError(f"stream (iii): rounds {h.rounds}, loss "
+                             f"{h.train_loss}")
+    if f"{f.rounds} dispatch(es)" not in out:
+        raise AssertionError(f"stream (iii): the launcher said:\n{out}")
+    del exp
+    _free(torch)
+    pair = {}
+    for chunk in (None, f.clients_per_round):
+        d = spec.as_dict()
+        d["fed"].update(rounds=2, cohort_chunk=chunk)
+        e = build(ExperimentSpec.from_dict(d))
+        e.run()
+        pair[chunk] = (e.history.train_loss, _host(e.params),
+                       _host(e.trainer.engine.transport_state))
+        del e
+    (ld, pd, sd), (lc, pc, sc) = pair[None], pair[f.clients_per_round]
+    if ld != lc or not _bitwise(pd, pc) or not _bitwise(sd, sc):
+        raise AssertionError(f"stream (iii): C = 32 is not the dense run: "
+                             f"{_max_diff(pd, pc)}")
+    emit({"phase": "stream", "what": "(iii) population-chunked.json, "
+          "launch.train", "population": spec.sampler.population,
+          "clients": spec.data.clients, "u": f.clients_per_round,
+          "c": f.cohort_chunk, "rounds": f.rounds, "leaves": leaves,
+          "k": h.k[:3] + ["..."] + h.k[-2:],
+          "loss_first_last": [h.train_loss[0], h.train_loss[-1]],
+          "ms_per_round": sum(ms) / len(ms), "ms_first_rounds": ms[:3],
+          "int8_decompress_reduce_launches": counts[
+              "int8_decompress_reduce"],
+          "c32_bitwise_dense_2_rounds": True,
+          "wall_clock_s": h.wall_clock_s[-1],
+          "uplink_mbit": h.uplink_mbit[-1]})
+    return counts
+
+
+def stream_topk(torch):
+    """(iv) reduced ``fixed-cohort-topk`` (cohort [0, 3, 5, 9]) dense and
+    at C = 4 and C = 2 for 2 rounds each, every slab's
+    ``topk_scatter_reduce`` call held exactly against its plain version.
+    Returns the launches."""
+    from repro_torch.api import ExperimentSpec, build
+    spec = ExperimentSpec.load(str(SPEC_DIR / "fixed-cohort-topk.json"))
+    total, runs, checked = {}, {}, {}
+    for chunk in (None, 4, 2):
+        d = spec.as_dict()
+        d["fed"].update(rounds=2, cohort_chunk=chunk)
+        e = build(ExperimentSpec.from_dict(d))
+        zero_counts()
+        h, seen = check_calls(torch, e.run, f"stream (iv) C={chunk}")
+        counts = kernel_counts()
+        leaves = len(_host(e.params))
+        slabs = 1 if chunk is None else 4 // chunk
+        only(counts, {"topk_scatter_reduce": 2 * slabs * leaves},
+             f"stream (iv) C={chunk}")
+        if set(seen) != {"topk_scatter_reduce"} or \
+                set(seen["topk_scatter_reduce"]["n"]) != {chunk or 4}:
+            raise AssertionError(f"stream (iv) C={chunk}: calls {seen}")
+        slots = {t.shape[0] for t in
+                 _host(e.trainer.engine.transport_state).values()}
+        if slots != {4}:
+            raise AssertionError(f"stream (iv) C={chunk}: slots {slots}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        runs[chunk] = (h.train_loss, _host(e.params),
+                       _host(e.trainer.engine.transport_state))
+        checked[chunk] = seen["topk_scatter_reduce"]
+        del e
+        _free(torch)
+    (ld, pd, sd), (l4, p4, s4) = runs[None], runs[4]
+    if ld != l4 or not _bitwise(pd, p4) or not _bitwise(sd, s4):
+        raise AssertionError("stream (iv): C = 4 is not the dense run")
+    emit({"phase": "stream", "what": "(iv) fixed-cohort-topk reduced, "
+          "dense / C=4 / C=2", "loss": {str(c or "dense"): r[0]
+                                        for c, r in runs.items()},
+          "c4_bitwise_dense": True,
+          "c2_max_abs_diff": _max_diff(runs[2][1], pd),
+          "topk_scatter_reduce": {str(c or "dense"): {"calls": v["calls"],
+                                           "rows": sorted(set(v["n"])),
+                                           "max_abs_err": v["max_abs_err"],
+                                           "tol": v["tol"]}
+                                  for c, v in checked.items()}})
+    return total
+
+
+def phase_stream(torch, cifar, params):
+    """Streaming cohorts (``fed.cohort_chunk``): (i) CIFAR100, (ii)
+    qwen1.5-0.5b at full width, (iii) ``population-chunked.json``, (iv)
+    reduced ``fixed-cohort-topk``. Returns each kernel's launches."""
+    t0 = time.perf_counter()
+    total = {}
+    for counts in (stream_cifar(torch, cifar), stream_lm(torch, params),
+                   stream_population(torch), stream_topk(torch)):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "stream", "summary": True, "launches": total,
+          "s": time.perf_counter() - t0})
+    return total
+
+
+def _folds(tr) -> int:
+    """The arrivals an async engine folded (each one launch a leaf)."""
+    return tr.applied_updates + tr._buf_count
+
+
+def async_spec(torch, tmp):
+    """(i) ``async-buffered.json`` as written through ``launch.train``
+    (12 applications); saved after 4 applications, restored through
+    ``FederatedExperiment.restore`` and resumed to 12: bitwise the
+    uninterrupted run. Returns the launcher run's launches."""
+    from repro_torch.api import ExperimentSpec, FederatedExperiment, build
+    from repro_torch.launch import train
+    path = str(SPEC_DIR / "async-buffered.json")
+    spec = ExperimentSpec.load(path)
+    zero_counts()
+    t0 = time.perf_counter()
+    exp, out = _quiet(train.main, ["--spec", path])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    tr = exp.trainer
+    leaves = len(_host(tr.params))
+    only(counts, {"int8_decompress_reduce": leaves * _folds(tr)},
+         "async (i)")
+    if "[train] aggregation=async: buffer_size=8" not in out or \
+            f"[train] async: {tr.applied_updates} updates applied" not in out:
+        raise AssertionError(f"async (i): the launcher said:\n{out}")
+    straight = (exp.history.as_dict(), _host(tr.params),
+                _host(tr.transport_state), dict(tr.staleness_hist))
+    folds, dispatches = _folds(tr), tr.dispatch_count
+    del exp, tr
+    _free(torch)
+    first = build(spec)
+    first.trainer.run(ASYNC_SAVE_AT)
+    ck = os.path.join(tmp, "async")
+    first.save(ck)
+    mid = (first.trainer._buf_count, len(first.trainer._heap))
+    del first
+    _free(torch)
+    res = FederatedExperiment.restore(ck)
+    res.trainer.run(spec.fed.rounds, resume=True)
+    got = (res.history.as_dict(), _host(res.params),
+           _host(res.trainer.transport_state),
+           dict(res.trainer.staleness_hist))
+    if got[0] != straight[0] or not _bitwise(got[1], straight[1]) or \
+            not _bitwise(got[2], straight[2]) or got[3] != straight[3]:
+        raise AssertionError(f"async (i): the resumed run is not the "
+                             f"uninterrupted one: {_max_diff(got[1], straight[1])}")
+    h = straight[0]
+    emit({"phase": "async", "what": "(i) async-buffered.json, launch.train; "
+          f"saved after {ASYNC_SAVE_AT}, restored, resumed",
+          "applications": len(h["rounds"]), "folds": folds,
+          "applied": h["applied_updates"][-1],
+          "dropped": h["dropped_updates"][-1],
+          "staleness_hist": straight[3], "dispatches": dispatches,
+          "ms_per_application": run_s * 1e3 / len(h["rounds"]),
+          "loss_first_last": [h["train_loss"][0], h["train_loss"][-1]],
+          "wall_clock_s": h["wall_clock_s"][-1],
+          "saved_mid_buffer": {"buf_count": mid[0], "heap": mid[1]},
+          "resume_bitwise": True,
+          "int8_decompress_reduce_launches": counts[
+              "int8_decompress_reduce"]})
+    return counts
+
+
+def async_oracle(torch):
+    """(ii) the sync-parity oracle (tests/test_async.py's base spec):
+    heterogeneity 0, a buffer of the whole cohort, ``constant`` weight,
+    K_r-rounds, against ``FedAvgTrainer`` on the same seed."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build
+    base = ExperimentSpec().with_overrides(*ORACLE)
+    hs = build(base).run()
+    ha = build(base.with_overrides("fed.aggregation=async")).run()
+    if ha.rounds != hs.rounds or ha.k != hs.k or ha.eta != hs.eta or \
+            ha.wall_clock_s != hs.wall_clock_s or \
+            ha.sgd_steps != hs.sgd_steps or \
+            ha.downlink_mbit != hs.downlink_mbit or \
+            any(s != 0.0 for s in ha.staleness):
+        raise AssertionError("async (ii): the oracle's counters differ")
+    np.testing.assert_allclose(ha.train_loss, hs.train_loss, rtol=0,
+                               atol=5e-6)
+    np.testing.assert_allclose(ha.uplink_mbit, hs.uplink_mbit, rtol=1e-12)
+    emit({"phase": "async", "what": "(ii) sync-parity oracle", "k": ha.k,
+          "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                   zip(ha.train_loss, hs.train_loss)),
+          "tol": 5e-6})
+    _free(torch)
+
+
+def async_lm(torch, params):
+    """(iii) qwen1.5-0.5b at full width, async: 12 clients, 4 in flight,
+    a buffer of 2, ``inv``, max staleness 4, heterogeneity 0.8, int8
+    uplink, ``LM_ASYNC_APPLIES`` applications; one application more holds
+    every fold's call (N = 1) at the 14 leaf sizes against its plain
+    version. Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.lm_train_timing import lm_data
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    sizes = [int(t.numel()) for t in tree_leaves(params)]
+    fed = _lm_fed(rounds=LM_ASYNC_APPLIES, **LM_ASYNC)
+    data = lm_data(cfg)
+    tr, h, counts, peak, peak_abs, run_s = _peak_run(
+        torch, lambda: _lm_engine(cfg, params, data, fed, LM_ASYNC_HET),
+        lambda t: t.run(LM_ASYNC_APPLIES))
+    folds = _folds(tr)
+    only(counts, {"int8_decompress_reduce": folds * len(sizes)},
+         "async (iii)")
+    if not all(math.isfinite(v) for v in h.train_loss) or \
+            tr.transport.ef_slots != fed.clients_per_round:
+        raise AssertionError(f"async (iii): loss {h.train_loss}, slots "
+                             f"{tr.transport.ef_slots}")
+    hist, ks, losses = dict(tr.staleness_hist), list(h.k), list(h.train_loss)
+    _, seen = check_calls(torch, lambda: tr.run(LM_ASYNC_APPLIES + 1),
+                          "async (iii)")
+    more = _folds(tr) - folds
+    red = seen.get("int8_decompress_reduce", {})
+    if {k: v["calls"] for k, v in seen.items()} != {
+            "int8_decompress_reduce": more * len(sizes)} or \
+            sorted(red["m"]) != sorted(sizes * more) or \
+            set(red["n"]) != {1}:
+        raise AssertionError(f"async (iii): checked application ran {seen}")
+    emit({"phase": "async", "what": "(iii) qwen1.5-0.5b full width, async "
+          "int8, 4 in flight, buffer 2", "arch": cfg.name,
+          "params": sum(sizes), "leaves": len(sizes),
+          "applications": LM_ASYNC_APPLIES, "folds": folds,
+          "dispatch_groups": tr._dispatch_idx, "staleness_hist": hist,
+          "k": ks, "loss": losses,
+          "ms_per_application": run_s * 1e3 / LM_ASYNC_APPLIES,
+          "peak_gb_over_base": peak,
+          "peak_gb": peak_abs,
+          "int8_decompress_reduce_launches": counts[
+              "int8_decompress_reduce"],
+          "checked_application": {"folds": more, "calls": red["calls"],
+                                  "rows": sorted(set(red["n"])),
+                                  "leaves": len(sizes),
+                                  "max_abs_err": red["max_abs_err"],
+                                  "tol": red["tol"]}})
+    del tr
+    _free(torch)
+    return counts
+
+
+def phase_async(torch, params):
+    """Async buffered aggregation (``fed.aggregation="async"``): (i)
+    ``async-buffered.json``, (ii) the sync-parity oracle, (iii)
+    qwen1.5-0.5b at full width. Returns each kernel's launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in async_spec(torch, tmp).items():
+            total[k] = total.get(k, 0) + v
+    async_oracle(torch)
+    for k, v in async_lm(torch, params).items():
+        total[k] = total.get(k, 0) + v
+    emit({"phase": "async", "summary": True, "launches": total,
+          "s": time.perf_counter() - t0})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3276,7 +4001,6 @@ def main() -> int:
                                            "fedavg_reduce")):
         raise AssertionError(f"a kernel of lm_train never ran: "
                              f"{train_launches}")
-    del params
     _free(torch)
     spec_launches = phase_spec(torch)
     if not all(spec_launches[k] for k in ("int8_decompress_reduce",
@@ -3284,6 +4008,17 @@ def main() -> int:
                                           "fedavg_reduce")):
         raise AssertionError(f"a kernel of phase spec never ran: "
                              f"{spec_launches}")
+    # streaming cohorts and async buffering, on phase lm's params
+    stream_launches = phase_stream(torch, cifar, params)
+    async_launches = phase_async(torch, params)
+    if not all(stream_launches[k] for k in ("int8_decompress_reduce",
+                                            "topk_scatter_reduce",
+                                            "fedavg_reduce")) or \
+            not async_launches["int8_decompress_reduce"]:
+        raise AssertionError(f"a kernel of phase stream or async never "
+                             f"ran: {stream_launches}, {async_launches}")
+    del params
+    _free(torch)
     moe_launches, params = phase_moe(torch)
     moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
     moe_bf16 = phase_bf16_prefill(
@@ -3400,6 +4135,8 @@ def main() -> int:
         if entry["name"] in train_launches:
             entry["lm_train_launches"] = train_launches[entry["name"]]
         entry["spec_launches"] = spec_launches.get(entry["name"], 0)
+        entry["stream_launches"] = stream_launches.get(entry["name"], 0)
+        entry["async_launches"] = async_launches.get(entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

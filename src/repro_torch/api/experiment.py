@@ -11,11 +11,12 @@ Checkpoints written by ``FederatedExperiment.save`` embed the spec, so
 ``FederatedExperiment.restore(path)`` rebuilds the exact trainer and loads
 its state, from a checkpoint of either package.
 
-What the port does not run yet, ``build`` refuses by name (after
-``validate``, which accepts what the reference accepts): streaming cohorts
-(``fed.cohort_chunk``, ROADMAP A6), async buffering
-(``fed.aggregation="async"``, A7), serving while training
-(``serve.every``, A8) and the mesh's sequential strategy (A13).
+``fed.aggregation="async"`` builds an ``AsyncBufferedEngine`` (through
+``AGGREGATION_REGISTRY``) and ``fed.cohort_chunk`` a trainer that streams
+each round in slabs. What the port does not run yet, ``build`` refuses by
+name (after ``validate``, which accepts what the reference accepts):
+serving while training (``serve.every``, ROADMAP A8) and the mesh's
+sequential strategy (A13).
 """
 from __future__ import annotations
 
@@ -60,12 +61,8 @@ def _make_fed_config(spec: ExperimentSpec) -> FedConfig:
 def _refuse_unported(spec: ExperimentSpec) -> None:
     """Raise on a valid spec the port cannot run yet, naming the field and
     the ROADMAP item that brings it."""
-    f, b = spec.fed, spec.backend
+    b = spec.backend
     unported = [
-        (f.cohort_chunk is not None, "fed.cohort_chunk", f.cohort_chunk,
-         "A6 (streaming cohorts)"),
-        (f.aggregation == "async", "fed.aggregation", f.aggregation,
-         "A7 (async buffered aggregation)"),
         (spec.serve.every > 0, "serve.every", spec.serve.every,
          "A8 (serve while training)"),
         (b.name == "mesh" and b.strategy == "sequential",

@@ -138,7 +138,7 @@ BACKEND_REGISTRY = Registry("backend", "repro_torch.core.engine.backends")
 
 #: AggregationPolicy axis: factory(**kw) -> policy(loss_fn, init_params,
 #: data, fed, runtime, *, eval_fn, backend, device, **kw) -> trainer
-#: ("sync" -> FedAvgTrainer; "async" is refused until ROADMAP A7)
+#: ("sync" -> FedAvgTrainer; "async" -> AsyncBufferedEngine)
 AGGREGATION_REGISTRY = Registry("aggregation",
                                 "repro_torch.core.engine.policies")
 

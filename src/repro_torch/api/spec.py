@@ -20,8 +20,7 @@ Contracts:
 
 ``validate`` accepts and rejects what the reference's does: the
 architectures the port refuses by name (``configs.LATER_ARCHS``) and the
-features it has not ported yet (``fed.cohort_chunk``,
-``fed.aggregation="async"``, ``serve.every``, the mesh's sequential
+features it has not ported yet (``serve.every``, the mesh's sequential
 strategy) validate, and ``build`` refuses them, naming the field.
 """
 from __future__ import annotations

@@ -19,8 +19,12 @@ from repro_torch.core.engine.server import (SERVER_OPTIMIZERS,
                                             ServerOptimizer,
                                             get_server_optimizer)
 from repro_torch.core.engine.trainer import FedAvgTrainer, History, make_eval_fn
+from repro_torch.core.engine.policies import (STALENESS_WEIGHTS,
+                                              get_staleness_weight)
+from repro_torch.core.engine.async_buffer import AsyncBufferedEngine
 
-__all__ = ["AGGREGATORS", "get_aggregator", "weighted_mean", "ClientResult",
+__all__ = ["AsyncBufferedEngine", "STALENESS_WEIGHTS",
+           "get_staleness_weight", "AGGREGATORS", "get_aggregator", "weighted_mean", "ClientResult",
            "client_update", "make_client_update", "RoundEngine",
            "make_round_fn", "SAMPLERS", "ClientSampler",
            "UniformSampler", "WeightedSampler", "FixedCohortSampler",

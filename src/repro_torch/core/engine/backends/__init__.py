@@ -8,8 +8,8 @@ from repro_torch.api.registries import BACKEND_REGISTRY, register_backend
 from repro_torch.core.engine.backends.base import (ExecutionBackend,
                                                    LINEAR_AGGREGATORS,
                                                    axes_size)
-from repro_torch.core.engine.backends.local import (LocalBackend,
-                                                    make_parallel_round_core)
+from repro_torch.core.engine.backends.local import (
+    LocalBackend, make_parallel_round_core, make_parallel_slab_cores)
 from repro_torch.core.engine.backends.mesh import MeshBackend
 
 
@@ -45,5 +45,6 @@ def get_backend(name, **kw) -> ExecutionBackend:
 
 
 __all__ = ["ExecutionBackend", "LINEAR_AGGREGATORS", "LocalBackend",
-           "MeshBackend", "make_parallel_round_core", "BACKENDS",
+           "MeshBackend", "make_parallel_round_core",
+           "make_parallel_slab_cores", "BACKENDS",
            "axes_size", "get_backend"]

@@ -18,12 +18,13 @@ cohort; tensors count as placed.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.core.engine.aggregators import LINEAR_AGGREGATORS
-from repro_torch.data.pipeline import BucketBatch
+from repro_torch.data.pipeline import BucketBatch, SlabBatch
 from repro_torch.kernels.collectives import axes_size
 from repro_torch.optim import tree_leaves, tree_map
 
@@ -50,6 +51,15 @@ class ExecutionBackend:
         ``backends.local.make_parallel_round_core``."""
         raise NotImplementedError
 
+    def make_slab_cores(self, loss_fn: LossFn, *, aggregator: str = "mean",
+                        server=None, server_lr: float = 1.0, transport=None):
+        """``(slab_core, finalize_core)`` for streaming cohorts, as
+        ``backends.local.make_parallel_slab_cores``. A backend whose
+        geometry cannot stream slabs refuses."""
+        raise NotImplementedError(
+            f"backend {self.name!r} does not support streaming cohorts "
+            f"(cohort_chunk)")
+
     # ------------------------------------------------------------------
     # placement (host -> device)
     # ------------------------------------------------------------------
@@ -74,6 +84,14 @@ class ExecutionBackend:
             batches={k: self.to_device(v) for k, v in bb.batches.items()},
             weights=self.to_device(bb.weights), active=bb.active,
             n_rounds=bb.n_rounds)
+
+    def place_slab(self, sb: SlabBatch) -> SlabBatch:
+        """A streaming round's slab (leaves (C, K, b, ...), weights (C,)):
+        the builders' ``place_slab_fn``, so the next slab's copy starts on
+        the build thread. Idempotent."""
+        return dataclasses.replace(
+            sb, batches={k: self.to_device(v) for k, v in sb.batches.items()},
+            weights=self.to_device(sb.weights))
 
     def place_transport_state(self, state):
         """The codec's error-feedback state: params-shaped, placed like the

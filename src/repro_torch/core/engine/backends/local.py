@@ -20,7 +20,7 @@ from repro_torch.core.engine.aggregators import Aggregator, get_aggregator
 from repro_torch.core.engine.backends.base import ExecutionBackend
 from repro_torch.core.engine.client import make_client_update
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.optim import tree_leaves
+from repro_torch.optim import tree_leaves, tree_map
 
 PyTree = Any
 LossFn = Callable[[PyTree, Dict[str, torch.Tensor]], Any]
@@ -75,6 +75,71 @@ def make_parallel_round_core(loss_fn: LossFn, aggregator: Aggregator,
     return round_core
 
 
+def make_parallel_slab_cores(loss_fn: LossFn, aggregator: Aggregator,
+                             server, server_lr: float, *, transport=None):
+    """The streaming round: its U clients arrive as ceil(U/C) slabs of C,
+    each slab folds into params-shaped f32 running sums, and only the
+    finalize touches the server optimizer.
+
+    slab_core(params, batches{(C,K,b,...)}, weights (C,), eta, acc, ef)
+        -> (acc, first_losses (C,), last_losses (C,), ef_out)
+    finalize_core(params, acc, server_state)
+        -> (new_params, server_state, new_residual)
+
+    ``acc = (hat_acc, true_acc)``: the sums of ``aggregator(...)`` (or of
+    the codec's ``hat``) and, for a codec with aggregate error feedback,
+    of its ``true``; ``(None, None)`` before the first slab, whose partials
+    become the sums, so C == U is the dense round bit for bit. ``weights``
+    are the slab's slice of the round's global weights (sum 1 over U, not
+    over C), so partials add. ``ef``: the slab's slice of the per-client
+    residual slots, the round's aggregate residual (read only), or ``()``.
+    The sums are added in place: they are the slab cores' own tensors."""
+    if transport is not None and transport.name == "none":
+        transport = None            # the identity codec is the plain path
+    agg_ef = (transport is not None and transport.error_feedback
+              and not transport.ef_slots)
+    client = torch.func.vmap(make_client_update(loss_fn),
+                             in_dims=(None, 0, None))
+
+    def fold(acc, part):
+        part = tree_map(lambda x: x.to(torch.float32), part)
+        if acc is None:
+            return part
+        return tree_map(lambda a, x: a.add_(x), acc, part)
+
+    def slab_core(params, batches, weights, eta, acc, ef):
+        client_params, first_losses, last_losses = client(params, batches,
+                                                          eta)
+        hat_acc, true_acc = acc
+        if transport is None:
+            hat_acc = fold(hat_acc, aggregator(client_params, weights))
+        else:
+            hat, true, ef = transport.aggregate_slab(params, client_params,
+                                                     weights, ef)
+            hat_acc = fold(hat_acc, hat)
+            if agg_ef:
+                true_acc = fold(true_acc, true)
+        return (hat_acc, true_acc), first_losses, last_losses, ef
+
+    def finalize_core(params, acc, server_state):
+        hat_acc, true_acc = acc
+        if transport is None:
+            # the dense path's cast of the weighted sum to the params'
+            # dtype, deferred to the round's end
+            aggregate = tree_map(lambda a, p: a.to(p.dtype), hat_acc, params)
+            new_res = ()
+        else:
+            aggregate = tree_map(lambda p, h: (p.to(torch.float32) + h)
+                                 .to(p.dtype), params, hat_acc)
+            new_res = (tree_map(torch.sub, true_acc, hat_acc) if agg_ef
+                       else ())
+        new_params, server_state = server.step(params, aggregate,
+                                               server_state, server_lr)
+        return new_params, server_state, new_res
+
+    return slab_core, finalize_core
+
+
 class LocalBackend(ExecutionBackend):
     """The whole cohort on one device (``device=None`` means the card)."""
 
@@ -91,3 +156,9 @@ class LocalBackend(ExecutionBackend):
         return make_parallel_round_core(loss_fn, agg, server, server_lr,
                                         transport=transport,
                                         downlink=downlink)
+
+    def make_slab_cores(self, loss_fn: LossFn, *, aggregator: str = "mean",
+                        server=None, server_lr: float = 1.0, transport=None):
+        return make_parallel_slab_cores(loss_fn, get_aggregator(aggregator),
+                                        server, server_lr,
+                                        transport=transport)

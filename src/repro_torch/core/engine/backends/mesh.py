@@ -35,7 +35,8 @@ divide among the shards through the unsharded kernel (``mesh.py:227-229``,
 ``transport.py:334-335``), the port splits the cohort unevenly; the sums
 agree within the 1e-6 the reference allows between groupings. Not ported,
 and refused by name: ``strategy="sequential"``, streaming cohorts
-(``make_slab_cores``), fleet sub-meshes (``fleet_slices``,
+(``make_slab_cores``) and the async engine on a mesh (both ROADMAP A13),
+fleet sub-meshes (``fleet_slices``,
 ``carve_submeshes``), ``param_specs``, a ``"model"`` axis above 1 and
 per-client error feedback (``Transport.ef_slots``).
 """
@@ -156,7 +157,7 @@ class MeshBackend(ExecutionBackend):
     def make_slab_cores(self, *a, **kw):
         raise NotImplementedError(
             "cohort_chunk (streaming cohorts, make_slab_cores) is not ported "
-            "to the MeshBackend yet")
+            "to the MeshBackend yet: it comes with ROADMAP A13")
 
     def fleet_slices(self, n: int):
         raise NotImplementedError(

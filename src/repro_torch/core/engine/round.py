@@ -22,6 +22,12 @@ or the trainer's after ``bind_store``). A codec bound to a fixed cohort
 ``(ef_slots, ...)``; the engine threads it the same way, and slot j meets
 client cohort[j] in every round (reference ``round.py:313-364``, :503,
 :553).
+
+Streaming cohorts (``cohort_chunk=C``): ``run_round_chunked`` runs one
+round as ceil(U/C) slabs of C clients through the backend's slab cores
+(``make_slab_cores``), so the device holds C clients' state at a time
+(reference ``round.py:531-590``). Per-client residual slices commit after
+the round's finalize, never mid-round.
 """
 from __future__ import annotations
 
@@ -59,7 +65,8 @@ class RoundEngine:
                  server_lr: float = 1.0,
                  backend: Optional[ExecutionBackend] = None, transport=None,
                  topk_frac: float = 0.1, downlink=None,
-                 downlink_ref: str = "f32", device: DeviceLike = None):
+                 downlink_ref: str = "f32", cohort_chunk=None,
+                 device: DeviceLike = None):
         """``transport``: None/"none" keeps the plain aggregator path;
         "int8"/"int8x2"/"topk" (or a ``Transport``) aggregates compressed
         deltas and needs a linear aggregator. ``downlink``: None/"none"
@@ -68,7 +75,10 @@ class RoundEngine:
         store of the broadcast reference and residual, "f32" or "q8";
         anything but "f32" needs a downlink codec. ``backend``: the round
         core and the placement (None: ``LocalBackend(device)``); a given
-        backend brings its device, which ``device`` may only repeat."""
+        backend brings its device, which ``device`` may only repeat.
+        ``cohort_chunk``: stream each round in slabs of this many clients
+        (``run_round_chunked``); needs a linear aggregator and no downlink
+        codec."""
         if backend is None:
             backend = LocalBackend(device)
         elif device is not None and \
@@ -95,6 +105,21 @@ class RoundEngine:
             loss_fn, aggregator=aggregator, trim_fraction=trim_fraction,
             server=self.server, server_lr=server_lr,
             transport=self.transport, downlink=self.downlink)
+        self.cohort_chunk = cohort_chunk
+        if cohort_chunk:
+            if self.downlink is not None:
+                raise ValueError(
+                    "cohort_chunk cannot combine with a downlink codec: the "
+                    "broadcast reference advances round-atomically and "
+                    "does not stream over slabs")
+            if aggregator not in LINEAR_AGGREGATORS:
+                raise ValueError(
+                    f"cohort_chunk requires a linear aggregator "
+                    f"{LINEAR_AGGREGATORS}: streaming slabs fold into a "
+                    f"running weighted sum, got {aggregator!r}")
+            self.slab_core, self.finalize_core = backend.make_slab_cores(
+                loss_fn, aggregator=aggregator, server=self.server,
+                server_lr=server_lr, transport=self.transport)
         self.dispatch_count = 0
         # the codec state lives in a store: this private one until a
         # trainer binds its own (``bind_store``)
@@ -163,6 +188,57 @@ class RoundEngine:
             self.downlink_state)
         self.dispatch_count += 1
         return params, firsts, lasts, server_state
+
+    def run_round_chunked(self, params, slabs, eta, server_state
+                          ) -> Tuple[PyTree, torch.Tensor, torch.Tensor, Any]:
+        """One round as streamed C-client slabs.
+
+        ``slabs``: ``pipeline.SlabBatch``es covering the round's cohort in
+        order (host arrays or placed by ``place_slab``). The device holds
+        the params-shaped f32 sums and the current slab's residual slice
+        across slabs. Returns ``run_bucket``'s 4-tuple, the losses
+        ``(1, U)``. Per-client residual slices are kept aside and replace
+        ``transport_state`` only after the finalize, so a checkpoint
+        between rounds never sees mid-round state; one dispatch a
+        round."""
+        if not self.cohort_chunk:
+            raise ValueError("engine was built without cohort_chunk")
+        be = self.backend
+        params = be.place_params(params)
+        t = self.transport
+        if t is not None and self.transport_state is None:
+            self.init_transport_state(params)
+        per_client = t is not None and t.ef_slots is not None
+        agg_ef = t is not None and t.error_feedback and not per_client
+        eta = _eta(eta)
+        acc = (None, None)
+        firsts, lasts, ef_parts = [], [], []
+        for sb in slabs:
+            sb = be.place_slab(sb)
+            ef = ()
+            if per_client:
+                ef = tree_map(lambda s: s[sb.start:sb.stop],
+                              self.transport_state)
+            elif agg_ef:
+                ef = self.transport_state
+            acc, f, l, ef = self.slab_core(params, sb.batches, sb.weights,
+                                           eta, acc, ef)
+            firsts.append(f)
+            lasts.append(l)
+            if per_client:
+                ef_parts.append(ef)
+        if not firsts:
+            raise ValueError("run_round_chunked got an empty slab stream")
+        new_params, server_state, new_res = self.finalize_core(
+            params, acc, server_state)
+        if per_client:
+            self.transport_state = tree_map(
+                lambda *xs: torch.cat(xs, dim=0), *ef_parts)
+        elif agg_ef:
+            self.transport_state = new_res
+        self.dispatch_count += 1
+        return (new_params, torch.cat(firsts)[None], torch.cat(lasts)[None],
+                server_state)
 
 
 def make_round_fn(loss_fn: LossFn, *, server: str = "avg",

@@ -96,15 +96,15 @@ class History:
         return cls(**{k: list(v) for k, v in d.items() if k in names})
 
 
-def _refuse_unported(fed: FedConfig) -> None:
-    """Raise on configuration this slice of the port does not implement,
-    naming the field, rather than running something else."""
-    unported = [("cohort_chunk", bool(fed.cohort_chunk)),
-                ("aggregation", fed.aggregation != "sync")]
-    for name, bad in unported:
-        if bad:
-            raise ValueError(f"fed.{name}={getattr(fed, name)!r} is not "
-                             f"ported yet")
+def _refuse_async(fed: FedConfig) -> None:
+    """This trainer is the synchronous round; without the refusal an async
+    configuration would run sync silently."""
+    if fed.aggregation != "sync":
+        raise ValueError(
+            f"fed.aggregation={fed.aggregation!r}: FedAvgTrainer runs the "
+            f"synchronous round; build the experiment with "
+            f"repro_torch.api.build, or construct "
+            f"core.engine.AsyncBufferedEngine")
 
 
 class FedAvgTrainer:
@@ -118,7 +118,7 @@ class FedAvgTrainer:
         ``engine.backends.ExecutionBackend`` (default ``LocalBackend``);
         with a ``MeshBackend`` every rank runs this trainer on the same
         seed and ``init_params``, and it brings its own device."""
-        _refuse_unported(fed)
+        _refuse_async(fed)
         self.sampler = make_sampler(fed)
         if (self.sampler.needs_weighted_aggregation
                 and fed.aggregator not in LINEAR_AGGREGATORS):
@@ -143,6 +143,7 @@ class FedAvgTrainer:
                                   topk_frac=fed.topk_frac,
                                   downlink=fed.downlink,
                                   downlink_ref=fed.downlink_ref,
+                                  cohort_chunk=fed.cohort_chunk,
                                   backend=backend, device=device)
         self.device = self.engine.device
         self.store = self.engine.bind_store(GlobalModelStore())
@@ -207,7 +208,8 @@ class FedAvgTrainer:
             self._np_rng,
             background=self.fed.prefetch and sched.loss_free,
             place_fn=self.engine.place_bucket,
-            sampler=self.sampler)
+            sampler=self.sampler, chunk=self.fed.cohort_chunk,
+            place_slab_fn=self.engine.backend.place_slab)
         try:
             if sched.loss_free:
                 self._run_pipelined(sched, builder, verbose)
@@ -219,9 +221,12 @@ class FedAvgTrainer:
         return self.history
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _submit(builder, bucket: Bucket) -> None:
-        """Announce a bucket to the builder, one round per request."""
+    def _submit(self, builder, bucket: Bucket) -> None:
+        """Announce a bucket to the builder, one round per request; under
+        streaming cohorts the bucket's one round as its slabs."""
+        if self.fed.cohort_chunk:
+            builder.submit_slabs(bucket.k, round_id=bucket.rounds[0])
+            return
         for r in bucket.rounds:
             builder.submit(1, bucket.k, pad_to=1, rounds=[r])
 
@@ -229,6 +234,8 @@ class FedAvgTrainer:
         """Run one bucket's rounds; returns the (B, N) first-step losses,
         still on the device. With an adaptive downlink a last column holds
         each round's level, so one read brings back both."""
+        if self.fed.cohort_chunk:
+            return self._dispatch_chunked(bucket, builder)
         rows = []
         per_level = self.runtime.downlink_level_ratios is not None
         for eta in bucket.etas:
@@ -243,6 +250,19 @@ class FedAvgTrainer:
             rows.append(f)
             self.store.advance()            # params committed for a round
         return torch.stack(rows)
+
+    def _dispatch_chunked(self, bucket: Bucket, builder) -> torch.Tensor:
+        """One streaming round (the scheduler makes a chunked bucket one
+        round): its ceil(U/C) slabs pulled off the builder and folded by
+        the engine. Returns the (1, U) first-step losses."""
+        n = min(self.fed.clients_per_round, self.data.num_clients)
+        c = min(max(int(self.fed.cohort_chunk), 1), n)
+        slabs = (builder.get() for _ in range(-(-n // c)))
+        self.params, firsts, _lasts, self.server_state = \
+            self.engine.run_round_chunked(self.params, slabs,
+                                          bucket.etas[0], self.server_state)
+        self.store.advance()
+        return firsts
 
     def _run_pipelined(self, sched: RoundScheduler, builder,
                        verbose: bool) -> None:

@@ -191,6 +191,29 @@ class Transport:
         (aggregate tree, new state). Compressed codecs ignore the
         aggregator (checked linear upstream) and work in delta space."""
         del aggregator
+        hat, true, new_state = self.aggregate_slab(params, client_stack,
+                                                   weights, state)
+        if self.error_feedback and not self.ef_slots:
+            new_state = tree_map(torch.sub, true, hat)
+        return tree_map(_add_to, params, hat), new_state
+
+    def aggregate_slab(self, params: PyTree, client_stack: PyTree,
+                       weights: torch.Tensor, state):
+        """The wire body of a round, or of one C-client slab of a streaming
+        round (reference :223-260): delta -> error-feedback compensation ->
+        encode -> fused reduce, returning the partial sums instead of
+        applying them. ``aggregate`` runs it on the whole cohort, so C == U
+        is the dense round by construction.
+
+        ``weights`` are the clients' slice of the round's global weights,
+        so slab partials add up to the round's sums. ``state`` is the
+        feedback the clients meet: their slice of the per-client residual
+        slots, or the round's aggregate residual (read only: the round's
+        end sets the new one to sum(true) - sum(hat)). Returns ``(hat,
+        true, new_state)``: ``hat`` the weighted sum of decoded deltas,
+        ``true`` the weighted sum of the compensated deltas (aggregate
+        feedback only, else ``()``), ``new_state`` the slots' own
+        compression errors (per-client feedback) or ``state``."""
         deltas = tree_map(lambda cp, p: cp.to(torch.float32)
                           - p.to(torch.float32)[None], client_stack, params)
         if self.error_feedback:
@@ -200,23 +223,20 @@ class Transport:
                       else tree_map(lambda d, r: d + r[None], deltas, state))
         payloads = self.encode(deltas, stacked=True)
         hat = self.reduce(payloads, weights, like=params)
-        new_state = state
-        if self.error_feedback and self.ef_slots:
+        if not self.error_feedback:
+            return hat, (), state
+        if self.ef_slots:
             # each slot keeps its own compression error; hat stays on the
             # fused reduce, so the aggregate is the same program in both
             # feedback modes (reference :236-249)
-            new_state = tree_map(torch.sub, deltas,
-                                 self.decode(payloads, like=params,
-                                             stacked=True))
-        elif self.error_feedback:
-            w32 = weights.to(torch.float32)
-            true = [torch.tensordot(w32, d, dims=1)
-                    for d in tree_leaves(deltas)]
-            if self._mesh is not None:      # every rank's clients
-                true = [all_reduce_tiers(t, **self._mesh_kw()) for t in true]
-            new_state = _unflatten(params, [
-                t - h for t, h in zip(true, tree_leaves(hat))])
-        return tree_map(_add_to, params, hat), new_state
+            return hat, (), tree_map(torch.sub, deltas,
+                                     self.decode(payloads, like=params,
+                                                 stacked=True))
+        w32 = weights.to(torch.float32)
+        true = [torch.tensordot(w32, d, dims=1) for d in tree_leaves(deltas)]
+        if self._mesh is not None:          # every rank's clients
+            true = [all_reduce_tiers(t, **self._mesh_kw()) for t in true]
+        return hat, _unflatten(params, true), state
 
 
 class IdentityTransport(Transport):

@@ -1,11 +1,13 @@
 """Federated batching: per-client numpy datasets -> fixed-shape round tensors.
 
-A copy of ``repro.data.pipeline`` without the streaming-cohort slabs. One
-FedAvg round with N clients and K local steps needs, per client, K
-minibatches of size b, stacked as ``(N, K, b, *feature)``; ``bucket_batches``
-stacks rounds to ``(B, N, K, b, ...)`` and ``BatchPrefetcher`` builds the
-next request on a background thread while the current one runs on the
-device.
+A copy of ``repro.data.pipeline``. One FedAvg round with N clients and K
+local steps needs, per client, K minibatches of size b, stacked as
+``(N, K, b, *feature)``; ``bucket_batches`` stacks rounds to
+``(B, N, K, b, ...)`` and ``BatchPrefetcher`` builds the next request on a
+background thread while the current one runs on the device. Under
+streaming cohorts (``fed.cohort_chunk``) a round comes out as
+ceil(U/C) ``SlabBatch``es of C clients instead (``round_slabs``), drawn
+from the same stream as the dense round.
 
 Every builder draws from one numpy Generator in request order, so the
 client ids and sample indices match the reference draw for draw. The port's
@@ -145,6 +147,67 @@ def bucket_batches(rng: np.random.Generator, data: FederatedData, *,
                        active=active, n_rounds=n_rounds)
 
 
+# ---------------------------------------------------------------------------
+# streaming cohort slabs
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SlabBatch:
+    """Host tensors for one C-client slab of a streaming round: clients
+    ``[start, stop)`` of the round's cohort. ``weights`` is the slice of the
+    round's global weights (they sum to 1 over the whole cohort, not over
+    the slab), so slab partial sums add up to the round's. ``ids``: the
+    slab's client ids."""
+    batches: Dict[str, np.ndarray]   # (C_s, K, b, ...)
+    weights: np.ndarray              # (C_s,)
+    start: int
+    stop: int
+    slab: int
+    n_slabs: int
+    ids: np.ndarray                  # (C_s,)
+
+
+def round_slabs(rng: np.random.Generator, data: FederatedData, *, k: int,
+                clients_per_round: int, batch_size: int, chunk: int,
+                sampler=None, round_id: Optional[int] = None):
+    """Yield one round's cohort as ceil(U/C) ``SlabBatch``es of ``chunk``
+    clients (the tail slab may be smaller).
+
+    Draws exactly the dense one-round ``bucket_batches`` stream: one
+    sampler (or uniform) draw first, then each client's sample indices in
+    cohort order as the slabs come out. That is what makes C == U bitwise
+    the dense round and lets a dense checkpoint resume into a chunked
+    trainer. Only the current slab's arrays exist on the host."""
+    n = min(clients_per_round, data.num_clients)
+    c = min(max(int(chunk), 1), n)
+    if sampler is None:
+        ids = sample_clients(rng, data, clients_per_round)
+        w = client_weights(data, ids)
+    else:
+        ids, w = sampler.round(rng, data, clients_per_round, round_id)
+    feat = data.client_x[ids[0]].shape[1:]
+    yfeat = data.client_y[ids[0]].shape[1:]
+    xdt, ydt = data.client_x[ids[0]].dtype, data.client_y[ids[0]].dtype
+    n_slabs = -(-n // c)
+    for s in range(n_slabs):
+        start, stop = s * c, min((s + 1) * c, n)
+        m = stop - start
+        xs = np.empty((m, k, batch_size) + feat, xdt)
+        ys = np.empty((m, k, batch_size) + yfeat, ydt)
+        for j in range(m):
+            cid = ids[start + j]
+            n_c = len(data.client_y[cid])
+            idx = rng.integers(0, n_c, size=k * batch_size)
+            np.take(data.client_x[cid], idx, axis=0,
+                    out=xs[j].reshape((k * batch_size,) + feat))
+            np.take(data.client_y[cid], idx, axis=0,
+                    out=ys[j].reshape((k * batch_size,) + yfeat))
+        yield SlabBatch(batches={"x": xs, "y": ys},
+                        weights=np.asarray(w[start:stop], np.float32),
+                        start=start, stop=stop, slab=s, n_slabs=n_slabs,
+                        ids=np.asarray(ids[start:stop]))
+
+
 class _BuilderBase:
     """submit/get protocol shared by the sync and threaded builders.
     Requests are served strictly FIFO off one rng, so batch contents depend
@@ -154,20 +217,30 @@ class _BuilderBase:
     so repeated trainer runs continue one sample stream). ``place_fn``:
     applied to each finished BucketBatch (the engine's host->device copy);
     on the threaded builder it runs on the worker, so the copy of round r+1
-    overlaps round r's compute."""
+    overlaps round r's compute.
+
+    ``chunk``/``place_slab_fn``: streaming cohorts. ``submit_slabs(k,
+    round_id)`` enqueues one round whose ceil(U/C) slabs come out of
+    ``get()`` one by one, each through ``place_slab_fn``; on the threaded
+    builder the next slab's build and copy overlap the current slab's
+    compute."""
 
     def __init__(self, data: FederatedData, clients_per_round: int,
                  batch_size: int,
                  rng: "Union[int, np.random.Generator]",
                  place_fn: Optional[Callable[["BucketBatch"],
                                              "BucketBatch"]] = None,
-                 sampler=None):
+                 sampler=None, chunk: Optional[int] = None,
+                 place_slab_fn: Optional[Callable[["SlabBatch"],
+                                                  "SlabBatch"]] = None):
         self.data = data
         self.clients_per_round = clients_per_round
         self.batch_size = batch_size
         self._rng = np.random.default_rng(rng)
         self._place_fn = place_fn
         self._sampler = sampler
+        self._chunk = chunk
+        self._place_slab_fn = place_slab_fn
 
     def _build(self, n_rounds: int, k: int, pad_to: Optional[int],
                rounds: Optional[Sequence[int]] = None) -> BucketBatch:
@@ -177,11 +250,31 @@ class _BuilderBase:
                             sampler=self._sampler, round_ids=rounds)
         return self._place_fn(bb) if self._place_fn is not None else bb
 
+    def _items(self, req):
+        """Serve one request as a stream of finished items: a bucket is one
+        item, a slab round ceil(U/C) items, in submission order off the one
+        rng."""
+        if req[0] == "bucket":
+            yield self._build(*req[1:])
+            return
+        _, k, round_id = req
+        for sb in round_slabs(self._rng, self.data, k=k,
+                              clients_per_round=self.clients_per_round,
+                              batch_size=self.batch_size, chunk=self._chunk,
+                              sampler=self._sampler, round_id=round_id):
+            yield (self._place_slab_fn(sb) if self._place_slab_fn is not None
+                   else sb)
+
     def submit(self, n_rounds: int, k: int, pad_to: Optional[int] = None,
                rounds: Optional[Sequence[int]] = None) -> None:
         raise NotImplementedError
 
-    def get(self) -> BucketBatch:
+    def submit_slabs(self, k: int, round_id: Optional[int] = None) -> None:
+        """Enqueue one streaming round (needs ``chunk``); its slabs come
+        out of ``get()`` in order."""
+        raise NotImplementedError
+
+    def get(self):
         raise NotImplementedError
 
     def close(self) -> None:
@@ -194,12 +287,22 @@ class SyncBatchBuilder(_BuilderBase):
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self._pending: List = []
+        self._cur = None
 
     def submit(self, n_rounds, k, pad_to=None, rounds=None):
-        self._pending.append((n_rounds, k, pad_to, rounds))
+        self._pending.append(("bucket", n_rounds, k, pad_to, rounds))
+
+    def submit_slabs(self, k, round_id=None):
+        self._pending.append(("slabs", k, round_id))
 
     def get(self):
-        return self._build(*self._pending.pop(0))
+        while True:
+            if self._cur is None:
+                self._cur = self._items(self._pending.pop(0))
+            try:
+                return next(self._cur)
+            except StopIteration:
+                self._cur = None
 
 
 class BatchPrefetcher(_BuilderBase):
@@ -209,9 +312,11 @@ class BatchPrefetcher(_BuilderBase):
 
     def __init__(self, data: FederatedData, clients_per_round: int,
                  batch_size: int, rng: "Union[int, np.random.Generator]",
-                 depth: int = 1, place_fn=None, sampler=None):
+                 depth: int = 1, place_fn=None, sampler=None, chunk=None,
+                 place_slab_fn=None):
         super().__init__(data, clients_per_round, batch_size, rng,
-                         place_fn=place_fn, sampler=sampler)
+                         place_fn=place_fn, sampler=sampler, chunk=chunk,
+                         place_slab_fn=place_slab_fn)
         self._req: "queue.Queue" = queue.Queue()
         self._out: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
@@ -224,12 +329,18 @@ class BatchPrefetcher(_BuilderBase):
             req = self._req.get()
             if req is None:
                 return
-            try:
-                item = ("ok", self._build(*req))
-            except BaseException as e:      # surfaced on the next get();
-                item = ("err", e)           # the worker keeps serving
-            if not self._put(item):
-                return
+            it = self._items(req)
+            while True:
+                try:
+                    item = ("ok", next(it))
+                except StopIteration:
+                    break
+                except BaseException as e:  # surfaced on the next get();
+                    item = ("err", e)       # the worker keeps serving
+                if not self._put(item):
+                    return
+                if item[0] == "err":
+                    break
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():
@@ -241,7 +352,10 @@ class BatchPrefetcher(_BuilderBase):
         return False
 
     def submit(self, n_rounds, k, pad_to=None, rounds=None):
-        self._req.put((n_rounds, k, pad_to, rounds))
+        self._req.put(("bucket", n_rounds, k, pad_to, rounds))
+
+    def submit_slabs(self, k, round_id=None):
+        self._req.put(("slabs", k, round_id))
 
     def get(self):
         status, item = self._out.get()
@@ -263,7 +377,8 @@ class BatchPrefetcher(_BuilderBase):
 def make_builder(data: FederatedData, clients_per_round: int, batch_size: int,
                  rng: "Union[int, np.random.Generator]", *,
                  background: bool = True, place_fn=None,
-                 sampler=None) -> _BuilderBase:
+                 sampler=None, chunk=None,
+                 place_slab_fn=None) -> _BuilderBase:
     cls = BatchPrefetcher if background else SyncBatchBuilder
     return cls(data, clients_per_round, batch_size, rng, place_fn=place_fn,
-               sampler=sampler)
+               sampler=sampler, chunk=chunk, place_slab_fn=place_slab_fn)

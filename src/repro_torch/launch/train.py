@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
+
 from repro_torch.api import ExperimentSpec, build
 from repro_torch.configs import ARCHS, LATER_ARCHS
 
@@ -215,16 +217,22 @@ def main(argv=None):
     print(f"[train] {exp.label}: K-schedule={spec.fed.k_schedule}, "
           f"eta-schedule={spec.fed.eta_schedule}, "
           f"sampler={spec.sampler.name}, backend={spec.backend.name}")
-    engine = trainer.engine
+    if spec.fed.aggregation == "async":
+        print(f"[train] aggregation=async: buffer_size="
+              f"{trainer.buffer_size}, "
+              f"staleness_weight={spec.fed.staleness_weight}, "
+              f"max_staleness={spec.fed.max_staleness}")
+    engine = getattr(trainer, "engine", None)   # the sync trainer's
+    transport = engine.transport if engine is not None else trainer.transport
     rt = trainer.runtime
-    if engine.transport is not None:
-        ef = engine.transport.ef_slots
+    if transport is not None:
+        ef = transport.ef_slots
         print(f"[train] transport={spec.transport.name}: uplink "
               f"{rt.uplink_compression:.2f}x compressed "
               f"({rt.uplink_mbit_per_client:.2f} of {rt.size:.2f} mbit "
               f"per client-round)"
               + (f", per-client EF x{ef}" if ef else ""))
-    if engine.downlink is not None:
+    if engine is not None and engine.downlink is not None:
         print(f"[train] downlink={spec.transport.downlink}: broadcast "
               f"{rt.downlink_compression:.2f}x compressed "
               f"({rt.downlink_mbit_per_client:.2f} of {rt.size:.2f} mbit "
@@ -233,6 +241,11 @@ def main(argv=None):
     h = exp.run()
     print(f"[train] engine[{spec.backend.name}]: {trainer.dispatch_count} "
           f"dispatch(es) for {rounds} rounds ({trainer.device.type})")
+    if spec.fed.aggregation == "async":
+        print(f"[train] async: {trainer.applied_updates} updates applied, "
+              f"{trainer.dropped_updates} dropped, mean staleness "
+              f"{float(np.mean(h.staleness)) if h.staleness else 0.0:.2f}, "
+              f"event-clock wall {h.wall_clock_s[-1]:.0f}s")
     step = max(rounds // 10, 1)
     for i in range(0, rounds, step):
         print(f"[train] round {h.rounds[i]:4d} K={h.k[i]:3d} "

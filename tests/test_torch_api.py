@@ -25,9 +25,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SPECS = sorted((ROOT / "examples" / "specs").glob("*.json"))
 RUNS = ["adaptive-downlink", "fixed-cohort-topk", "local-int8-decayK",
         "local-int8-downlink"]
-# spec -> (refused field, ROADMAP item)
-REFUSED = {"population-chunked": ("fed.cohort_chunk", "A6"),
-           "async-buffered": ("fed.aggregation", "A7"),
+# spec -> (refused field, ROADMAP item); None: ported, the spec builds
+REFUSED = {"population-chunked": None,                 # A6, streaming
+           "async-buffered": None,                     # A7, async buffer
            "serve-while-training": ("serve.every", "A8"),
            "mesh-sequential-cosine": ("backend.strategy", "A13")}
 
@@ -207,9 +207,21 @@ def test_registries_hold_the_reference_names():
         got = treg.STALENESS_WEIGHT_REGISTRY.get(name)()
         want = jreg.STALENESS_WEIGHT_REGISTRY.get(name)()
         assert [got(st) for st in range(6)] == [want(st) for st in range(6)]
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        treg.AGGREGATION_REGISTRY.get("async")()(None, None, None, None,
-                                                 None)
+    # the async factory builds the buffered engine (ROADMAP A7)
+    from repro_torch.configs import FedConfig, get_paper_task
+    from repro_torch.core import RuntimeModel
+    from repro_torch.core.engine import AsyncBufferedEngine
+    from repro_torch.data import make_paper_task
+    from repro_torch.models import small
+    task = get_paper_task("femnist")
+    engine = treg.AGGREGATION_REGISTRY.get("async")()(
+        lambda p, b: small.task_loss(p, task, b),
+        small.init_task_model(0, task, device="cpu"),
+        make_paper_task("femnist", np.random.default_rng(0), num_clients=4,
+                        samples_per_client=4),
+        FedConfig(clients_per_round=2, aggregation="async"),
+        RuntimeModel(1.0, task.runtime, 2), device="cpu")
+    assert type(engine) is AsyncBufferedEngine and engine.buffer_size == 2
 
 
 MISSPELT = {"aggregator": "meen", "server_optimizer": "fedadamw",
@@ -283,13 +295,23 @@ def test_registered_custom_aggregator_resolves_through_build():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_build_refuses_unported_specs_by_name(name):
-    """Each spec validates (as in the reference) and ``build`` refuses it,
-    naming the field and the ROADMAP item."""
+    """Each spec validates (as in the reference). ``build`` refuses a spec
+    the port cannot run yet, naming the field and the ROADMAP item; the
+    streaming (A6) and async (A7) specs build and run a round."""
     from repro_torch.api import build
-    field, item = REFUSED[name]
+    from repro_torch.core.engine import AsyncBufferedEngine, FedAvgTrainer
     spec = tspec.ExperimentSpec.load(str(ROOT / "examples" / "specs"
                                          / f"{name}.json"))
     spec.validate()
+    if REFUSED[name] is None:
+        exp = build(spec, device="cpu")
+        want = (AsyncBufferedEngine if spec.fed.aggregation == "async"
+                else FedAvgTrainer)
+        assert type(exp.trainer) is want
+        h = exp.run(1)
+        assert h.rounds == [1] and np.isfinite(h.train_loss).all()
+        return
+    field, item = REFUSED[name]
     with pytest.raises(ValueError, match=rf"{field}=.*ROADMAP {item}\b"):
         build(spec, device="cpu")
 

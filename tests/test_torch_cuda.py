@@ -1453,3 +1453,107 @@ def test_launcher_checkpoint_serves_bitwise_on_the_card(cuda, tmp_path):
         for k, v in served.items():
             assert v.device.type == "cuda"
             np.testing.assert_array_equal(v.cpu().numpy(), data[k])
+
+
+# ---------------------------------------------------------------------------
+# streaming cohorts and async folds: the kernels in their new regimes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8193, 2 ** 27 + 4])
+def test_int8_decompress_reduce_at_one_row(cuda, m):
+    """An async arrival's fold: one client row (N = 1) through the kernel,
+    one launch, its plain version's result exactly (a single product in
+    f32 rounds once either way), at an odd M (the one-column path) and at
+    an M above 2^27 (the 4-column path)."""
+    rng = np.random.default_rng(m)
+    q = torch.tensor(rng.integers(-127, 128, size=(1, m)),
+                     dtype=torch.int8).to(cuda)
+    w = torch.tensor([0.0123], dtype=torch.float32, device=cuda)
+    before = tdc.launches["int8_decompress_reduce"]
+    got = tdc.int8_decompress_reduce(q, w)
+    torch.cuda.synchronize()
+    assert tdc.launches["int8_decompress_reduce"] == before + 1
+    assert got.device.type == "cuda" and got.shape == (m,)
+    assert torch.equal(got, tref.int8_decompress_reduce_ref(q, w))
+
+
+@pytest.mark.cuda
+def test_fedavg_reduce_tree_on_a_one_row_tail_slab(cuda):
+    """A streamed round's tail slab of one client: the whole CIFAR100 tree
+    in one launch at a weight that is the global one (1/25), not 1, bitwise
+    the per-leaf kernel and within the f32 tolerance of the plain
+    version."""
+    from repro_torch.optim import tree_leaves, tree_map
+    tree, _ = _tree_case("cifar100", np.random.default_rng(3), cuda)
+    tail = tree_map(lambda v: v[:1].contiguous(), tree)
+    w = torch.tensor([1.0 / 25.0], dtype=torch.float32, device=cuda)
+    before = tfr.launches
+    got = tree_leaves(tops.fedavg_reduce_tree(tail, w))
+    torch.cuda.synchronize()
+    assert tfr.launches == before + 1
+    for x, g in zip(tree_leaves(tail), got):
+        assert torch.equal(g, tfr.fedavg_reduce(x.reshape(1, -1), w)
+                           .reshape(x.shape[1:]))
+        torch.testing.assert_close(
+            g, tref.fedavg_reduce_ref(x.reshape(1, -1), w)
+            .reshape(x.shape[1:]), **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_narrow_cifar100_one_slab_round_is_bitwise_dense(cuda):
+    """A narrow CIFAR100 round with the kernel aggregator, dense and as one
+    slab of the whole cohort (``cohort_chunk`` = U), from one seed: params
+    bitwise, one ``fedavg_reduce`` launch a round each. cuDNN runs
+    deterministically (its default convolution algorithms are not bitwise
+    from run to run)."""
+    from repro_torch.configs import FedConfig, get_paper_task
+    from repro_torch.core import FedAvgTrainer, RuntimeModel
+    from repro_torch.data import make_paper_task
+    from repro_torch.models import small
+    from repro_torch.optim import tree_leaves
+    task = get_paper_task("cifar100")
+    data = make_paper_task("cifar100", np.random.default_rng(1),
+                           num_clients=8, samples_per_client=16)
+    init = small.cnn_init(torch.Generator().manual_seed(1), (32, 32, 3), 100,
+                          channels=(8, 16), hidden=32)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for chunk in (None, 4):
+            fed = FedConfig(total_clients=8, clients_per_round=4, k0=2,
+                            batch_size=4, aggregator="kernel",
+                            cohort_chunk=chunk)
+            tr = FedAvgTrainer(lambda p, b: small.task_loss(p, task, b),
+                               init, data, fed,
+                               RuntimeModel(1.0, task.runtime, 4),
+                               device=cuda)
+            before = tfr.launches
+            h = tr.run(2)
+            torch.cuda.synchronize()
+            assert tfr.launches == before + 2
+            out.append((h.train_loss, tree_leaves(tr.params)))
+    finally:
+        torch.backends.cudnn.deterministic = old
+    (la, pa), (lb, pb) = out
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+@pytest.mark.cuda
+def test_peak_mb_reads_the_allocator_and_resets_it(cuda):
+    """``core.mem`` on the card: the peak since the counter was last reset
+    covers a tensor allocated and freed in between, and each reading
+    resets the counter to what is allocated now."""
+    from types import SimpleNamespace
+    from repro_torch.core import engine_peak_mb, trainer_peak_mb
+    engine = SimpleNamespace(device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    del x
+    assert trainer_peak_mb(SimpleNamespace(engine=engine)) >= (
+        base + (64 << 20)) / 1e6
+    assert engine_peak_mb(engine) == torch.cuda.memory_allocated(cuda) / 1e6

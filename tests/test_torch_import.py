@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs import FedConfig, get_arch, get_paper_task
 from repro_torch.core import (FedAvgTrainer, RuntimeModel, make_round_fn,
                               run_reference_rounds)
+from repro_torch.core.engine import AsyncBufferedEngine
 from repro_torch.core.engine.trainer import make_eval_fn
 from repro_torch.data import make_paper_task
 from repro_torch.api import ExperimentSpec, build
@@ -44,7 +45,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.api.sweep, repro_torch.api.experiment, "
             "repro_torch.checkpoint, repro_torch.core.theory, "
             "repro_torch.core.engine.policies, repro_torch.launch.train, "
-            "repro_torch.launch.quickstart\n"
+            "repro_torch.launch.quickstart, repro_torch.core.mem, "
+            "repro_torch.core.engine.async_buffer\n"
             "from repro_torch.api import ExperimentSpec, build\n"
             "ExperimentSpec.load('examples/specs/local-int8-decayK.json')"
             ".validate()\n"
@@ -68,18 +70,19 @@ def test_source_imports_no_jax_and_no_reference():
     assert not hits, hits
 
 
-def _trainer_no_device():
+def _trainer_no_device(cls=FedAvgTrainer, **fed_kw):
     task = get_paper_task("femnist")
     data = make_paper_task("femnist", np.random.default_rng(0),
                            num_clients=4, samples_per_client=4)
     params = small.init_task_model(0, task, device="cpu")
-    return FedAvgTrainer(lambda p, b: small.task_loss(p, task, b), params,
-                         data, FedConfig(clients_per_round=2),
-                         RuntimeModel(1.0, task.runtime, 2))
+    return cls(lambda p, b: small.task_loss(p, task, b), params,
+               data, FedConfig(clients_per_round=2, **fed_kw),
+               RuntimeModel(1.0, task.runtime, 2))
 
 
 @pytest.mark.parametrize("entry", [
     _trainer_no_device,
+    lambda: _trainer_no_device(AsyncBufferedEngine, aggregation="async"),
     lambda: make_round_fn(lambda p, b: None),
     lambda: small.init_task_model(0, get_paper_task("sent140")),
     lambda: run_reference_rounds(None, {}, None, FedConfig(), 1),
@@ -102,21 +105,34 @@ REFUSED = [
     ("transport", "int8", {"aggregator": "median"}),      # needs linear
     ("downlink", "int8", {"downlink_ref": "q4"}),         # unknown store
     ("downlink_ref", "q8", {}),                           # needs a downlink
-    ("cohort_chunk", 2, {}), ("aggregation", "async", {}),
+    # streaming cohorts are ported (ROADMAP A6): the trainer runs them
+    ("cohort_chunk", 2, {}),
+    # async is its own engine (A7): the synchronous trainer points there
+    ("aggregation", "async", {}),
 ]
+RUNS = {"cohort_chunk"}
 
 
 @pytest.mark.parametrize("field,value,extra", REFUSED,
                          ids=[f"{f}-{v}" for f, v, _ in REFUSED])
 def test_trainer_refuses_unported_config_by_name(field, value, extra):
+    """The trainer refuses a configuration it cannot run, naming the field;
+    a field in ``RUNS`` was refused before its slice and now runs."""
     task = get_paper_task("femnist")
     data = make_paper_task("femnist", np.random.default_rng(0),
                            num_clients=4, samples_per_client=4)
     params = small.init_task_model(0, task, device="cpu")
     fed = FedConfig(clients_per_round=2, **{field: value, **extra})
+    make = lambda: FedAvgTrainer(lambda p, b: small.task_loss(p, task, b),
+                                 params, data, fed,
+                                 RuntimeModel(1.0, task.runtime, 2),
+                                 device="cpu")
+    if field in RUNS:
+        h = make().run(2)
+        assert h.rounds == [1, 2] and np.isfinite(h.train_loss).all()
+        return
     with pytest.raises(ValueError, match=field):
-        FedAvgTrainer(lambda p, b: small.task_loss(p, task, b), params, data,
-                      fed, RuntimeModel(1.0, task.runtime, 2), device="cpu")
+        make()
 
 
 @pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-34b",

@@ -320,14 +320,24 @@ def test_refusals_name_the_field(meshes):
         make_mesh((1, 2), ("data", "model"), "cpu")
     with pytest.raises(ValueError, match="reduce"):
         MeshBackend(tmesh, reduce="ring")
-    with pytest.raises(NotImplementedError, match="cohort_chunk"):
+    with pytest.raises(NotImplementedError, match="cohort_chunk.*A13"):
         MeshBackend(tmesh).make_slab_cores(None)
     with pytest.raises(NotImplementedError, match="carve_submeshes"):
         MeshBackend(tmesh).fleet_slices(2)
     task, params, data = small_setup("femnist")
+    # streaming cohorts and the async engine wait for ROADMAP A13 on a mesh
     fed = FedConfig(total_clients=8, clients_per_round=4, cohort_chunk=2)
-    with pytest.raises(ValueError, match="cohort_chunk"):
+    with pytest.raises(NotImplementedError, match="cohort_chunk.*A13"):
         _trainer("femnist", params, data, fed, MeshBackend(tmesh))
+    from repro_torch.core.engine import AsyncBufferedEngine
+    fed = FedConfig(total_clients=8, clients_per_round=4,
+                    aggregation="async")
+    with pytest.raises(ValueError, match="MeshBackend.*A13"):
+        ttask = get_paper_task("femnist")
+        AsyncBufferedEngine(lambda p, b: small.task_loss(p, ttask, b),
+                            _torch(params), data, fed,
+                            RuntimeModel(1.0, ttask.runtime, 4),
+                            backend=MeshBackend(tmesh))
     with pytest.raises(ValueError, match="device"):
         RoundEngine(lambda p, b: 0.0, backend=MeshBackend(tmesh),
                     device="cuda")
