@@ -196,14 +196,46 @@ exits non-zero without printing a result:
               clients, 4 in flight, buffer 2, ``inv``, max staleness 4,
               heterogeneity 0.8, int8: 14 launches a fold, ms an
               application, peak; one application more holds every fold's
-              call (N = 1) at the 14 leaf sizes against its plain version.
+              call (N = 1) at the 14 leaf sizes against its plain version;
+15. serve_train — serving while training: (i)
+              ``serve-while-training.json`` with ``model.reduced=false``
+              (qwen1.5-0.5b at full width, 6 rounds, int8 both ways on a q8
+              store, a ``ServingLoop`` tick every 2 rounds at 50 qps x 2
+              ms) through ``launch.train``: 14 launches a round of each
+              int8 kernel, ticks at rounds 2, 4, 6 with the staleness the
+              reference defines (2: the rounds since the last swap), the
+              served tree bitwise the q8 store's load, every round's wall
+              clock exactly the Eq. 3 formula x 1/(1 - rho) and
+              serve_queries 50 x the wall; tokens/s and swap us a tick;
+              the last tick's decode repeated on the CPU from the same
+              snapshot (ids equal wherever the top-2 gap allows); one round
+              more holds every wire call against its plain version; then
+              the read-only rule: with ``fed.bucket_rounds=1``, serving on
+              and off give the same params, losses, steps and wire Mbit bit
+              for bit, each wall clock its own formula's; (ii) phase async
+              (iii)'s configuration with a tick every 2 applications,
+              4 applications, every fold's call held in one more;
+16. encdec  — (i) whisper-tiny at full width and depth (36,448,128 f32
+              params): the prefill (B 2, 1,500 audio frames, decoder S 448)
+              card against CPU, and the launcher's audio decode at batch 4
+              (tokens/s, ids against the CPU's); it runs no kernel, as the
+              reference; (ii) llava-next-34b at full width and 12 of its 60
+              layers (7,611,792,384 f32 params): prefill B 2 x S 4096 (576
+              patch embeddings and 3,520 tokens) through flash (12
+              launches a prefill on ``"wgmma_split"``), the plain path on
+              the same batch, ``ServingLoop`` text decode at batch 4, then
+              the bf16 prefill (12 launches on ``"wgmma"``, held by
+              ``BF16_ANCHOR_FACTOR``). Phase ``kernel`` holds flash at
+              llava's prefill shape in f32 and bf16, and phase ``parity``
+              reduced whisper-tiny and llava-next-34b.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
 the wire kernels and ``fedavg_reduce`` with their launches in phase
 lm_train and their row at qwen's embedding leaf; every entry with its
-launches in phase spec, ``spec_launches``, and in phases stream and
-async, ``stream_launches`` and ``async_launches``);
+launches in phase spec, ``spec_launches``, in phases stream and async,
+``stream_launches`` and ``async_launches``, and in phases serve_train and
+encdec, ``serve_train_launches`` and ``encdec_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -1080,6 +1112,10 @@ FLASH_SHAPES = [
     ("hd16.bf16", 1, 2, 1, 80, 80, 16, "bfloat16", True, 16, None),
     ("phi3.5-moe.bf16", 2, 32, 8, 4096, 4096, 128, "bfloat16", True, None,
      None),
+    # llava-next-34b's attention at its prefill (576 patch positions and
+    # 3,520 tokens: S 4096), 56 heads over 8 kv heads (GQA 7:1), hd 128
+    ("llava", 2, 56, 8, 4096, 4096, 128, "float32", True, None, None),
+    ("llava.bf16", 2, 56, 8, 4096, 4096, 128, "bfloat16", True, None, None),
 ]
 LM_ARCH = "qwen1.5-0.5b"
 LM_PARAMS = 463_987_712
@@ -1087,6 +1123,7 @@ LM_BATCH, LM_SEQ = 2, 4096            # train_4k's sequence length
 PARITY_ARCHS = ("qwen1.5-0.5b-reduced", "gemma2-27b-reduced",
                 "phi3.5-moe-42b-a6.6b-reduced", "mixtral-8x22b-reduced")
 PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
+ENCDEC_PARITY = ("whisper-tiny-reduced", "llava-next-34b-reduced")
 SERVE = dict(batch=4, prompt_len=16, tokens=32)   # launch/serve.py defaults
 
 
@@ -1283,15 +1320,33 @@ def route_flips(torch, a: RouteLog, b: RouteLog, layers: int,
     return out
 
 
+def frontend_inputs(torch, cfg, b: int, seed: int):
+    """The stub frontends' outputs, on the host: the encoder-decoder's
+    (b, encoder_seq, d) audio embeddings, a vlm's (b, patches, d) patch
+    embeddings (both N(0, 0.1^2) from ``seed``); nothing for the other
+    families."""
+    g = torch.Generator().manual_seed(seed)
+    if cfg.arch_type == "audio":
+        return {"audio_embeds": torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), generator=g) * 0.1}
+    if cfg.arch_type == "vlm":
+        return {"patch_embeds": torch.randn(
+            (b, cfg.num_patch_tokens, cfg.d_model), generator=g) * 0.1}
+    return {}
+
+
 def phase_parity_lm(torch, names=PARITY_ARCHS):
     """Reduced configs (``PARITY_ARCHS``: qwen1.5-0.5b, gemma2-27b,
-    phi3.5-moe-42b-a6.6b, mixtral-8x22b; ``SSM_PARITY``): prefill through
-    the kernels on the card against the plain path on the CPU (last-token
-    logits, the decode states (KV, or SSM and conv) and, for MoE, every
+    phi3.5-moe-42b-a6.6b, mixtral-8x22b; ``SSM_PARITY``; ``ENCDEC_PARITY``:
+    whisper-tiny with its audio, llava-next-34b with its patches ahead of
+    the tokens): prefill through the kernels on the card against the plain
+    path on the CPU (last-token logits, the decode states (KV, or SSM and
+    conv; none from the encoder-decoder's step) and, for MoE, every
     layer's routing ids), then 8 greedy decode steps on both (MoE on the
-    serving loop's dense path), each fed the CPU's token: the card's argmax
-    must equal the CPU's wherever the CPU's top-2 logit gap exceeds the
-    tolerance."""
+    serving loop's dense path; whisper's cache from one encoder run over
+    the same audio; llava text-only), each fed the CPU's token: the card's
+    argmax must equal the CPU's wherever the CPU's top-2 logit gap exceeds
+    the tolerance."""
     from repro_torch.distributed import make_prefill_step
     from repro_torch.models import registry
     from repro_torch.optim import tree_leaves, tree_map
@@ -1300,12 +1355,16 @@ def phase_parity_lm(torch, names=PARITY_ARCHS):
         cpu = registry.init(0, cfg, device="cpu")
         card = tree_map(lambda t: t.to("cuda"), cpu)
         toks = torch.tensor(_lm_tokens(cfg, 2, 96, 5))
+        extra = frontend_inputs(torch, cfg, 2, 5)
         with torch.no_grad(), RouteLog(torch) as rcpu:
-            want, wst = make_prefill_step(cfg, use_kernel=False)(
-                cpu, {"tokens": toks})
+            want = make_prefill_step(cfg, use_kernel=False)(
+                cpu, {"tokens": toks, **extra})
         with torch.no_grad(), RouteLog(torch) as rcard:
-            got, gst = make_prefill_step(cfg, use_kernel=True)(
-                card, {"tokens": toks.cuda()})
+            got = make_prefill_step(cfg, use_kernel=True)(
+                card, {"tokens": toks.cuda(),
+                       **{k: v.cuda() for k, v in extra.items()}})
+        (want, wst), (got, gst) = ((want, {}), (got, {})) \
+            if registry.is_encdec(cfg) else (want, got)
         routing = {}
         if cfg.moe is not None:
             routing = route_flips(torch, rcpu, rcard, cfg.num_layers)
@@ -1317,8 +1376,12 @@ def phase_parity_lm(torch, names=PARITY_ARCHS):
         step = registry.decode_fn(cfg, moe_path="dense")
         n_prompt, n_new = 16, 8
         steps = n_prompt + n_new - 1
-        caches = {"cpu": registry.init_cache(cpu, cfg, 2, steps),
-                  "cuda": registry.init_cache(card, cfg, 2, steps)}
+        audio = extra.get("audio_embeds")
+        with torch.no_grad():
+            caches = {dev: registry.init_cache(
+                p, cfg, 2, steps, audio_embeds=None if audio is None
+                else audio.to(dev)) for dev, p in (("cpu", cpu),
+                                                   ("cuda", card))}
         params = {"cpu": cpu, "cuda": card}
         prompt = torch.tensor(_lm_tokens(cfg, 2, n_prompt, 6))
         ids, gaps, worst = [], [], 0.0
@@ -1438,6 +1501,18 @@ def timed_prefills(torch, step, params, batch, kernels, runs: int = 3):
                         for key, v in shares.items()}, routes
 
 
+def lm_batch(torch, cfg, seed):
+    """The prefill batch on the card: B ``LM_BATCH`` x S ``LM_SEQ``
+    positions from ``seed``; a vlm's patch embeddings take the first
+    ``num_patch_tokens`` of them, the tokens the rest."""
+    extra = frontend_inputs(torch, cfg, LM_BATCH, seed)
+    n_prefix = cfg.num_patch_tokens if "patch_embeds" in extra else 0
+    return {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH,
+                                              LM_SEQ - n_prefix, seed),
+                                   device="cuda"),
+            **{k: v.cuda() for k, v in extra.items()}}
+
+
 def run_step(torch, step, params, batch):
     """``step(params, batch)`` without autograd, and its ms on the host
     clock between synchronisations."""
@@ -1450,7 +1525,8 @@ def run_step(torch, step, params, batch):
 
 
 def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
-             kernels=(FLASH,), seed=7, state_tol=PARITY_TOL, extra=None):
+             kernels=(FLASH,), seed=7, state_tol=PARITY_TOL, extra=None,
+             cfg=None):
     """One architecture at full width (``arch``, ``n_want`` params): prefill
     B 2 x S 4096 through its kernels (each ``(module, short name, layer
     type)``: the wrapper of that name in ``repro_torch.kernels``, one launch
@@ -1459,7 +1535,9 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     ``state_tol``), then ``ServingLoop`` greedy decode. ``extra(cfg)`` adds
     config fields to the prefill line. Phase ``lm``: qwen1.5-0.5b through
     ``flash_attention``; phase ``ssm``: mamba2-780m through ``ssd_scan``;
-    phase ``zamba2``: zamba2-7b through both. Returns {module: launches}
+    phase ``zamba2``: zamba2-7b through both; phase ``encdec``:
+    llava-next-34b (``cfg``, its depth cut) through ``flash_attention``,
+    576 patch embeddings ahead of the tokens. Returns {module: launches}
     counted over the four kernel prefills, and the f32 params."""
     import importlib
     from repro_torch.configs import get_arch
@@ -1470,7 +1548,7 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     from repro_torch.optim import tree_leaves
     mods = {k[0]: importlib.import_module(f"repro_torch.kernels.{k[0]}")
             for k in kernels}
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1481,8 +1559,7 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     n_params = sum(t.numel() for t in tree_leaves(params))
     if n_params != n_want or registry.param_count(cfg) != n_want:
         raise AssertionError(f"{arch}: {n_params} params, want {n_want}")
-    batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, seed),
-                                    device="cuda")}
+    batch = lm_batch(torch, cfg, seed)
 
     (logits, states), times, shares, _ = timed_prefills(
         torch, make_prefill_step(cfg, use_kernel=True), params, batch,
@@ -1593,8 +1670,7 @@ def phase_bf16_prefill(torch, phase, cfg, params, kernels, seed):
         t.copy_(b)
     torch.cuda.synchronize()
     cast_s = time.perf_counter() - t0
-    batch = {"tokens": torch.tensor(_lm_tokens(cfg, LM_BATCH, LM_SEQ, seed),
-                                    device="cuda")}
+    batch = lm_batch(torch, cfg, seed)
     (logits, states), times, shares, kroutes = timed_prefills(
         torch, make_prefill_step(cfg, use_kernel=True), bf16, batch,
         {key: (mod, fn) for key, (mod, fn, _) in kernels.items()})
@@ -2414,13 +2490,16 @@ LM_LEAF = ("qwen1.5-0.5b.embed", 4, 155_582_464)
 LM_TOPK_FRAC = 0.25
 
 
-def lm_train_want(fed, sizes, rounds: int):
+def lm_train_want(fed, sizes, rounds: int, stretch: float = 1.0,
+                  qps=None):
     """K_r and the cumulative History counters the RuntimeModel formula
     (Eq. 3, homogeneous clients, the default 20 / 5 Mbit/s links) gives,
     computed here from the leaf sizes: |x| is the params at 4 bytes, and
     each leg's Mbit is |x| over the codec's ratio (full bits over the
     encoded bits: int8 a byte a value and a scale a leaf, top-k a value
-    and an index a kept coordinate)."""
+    and an index a kept coordinate). Serving while training multiplies
+    each round's wall clock by ``stretch`` = 1/(1 - rho); with ``qps`` the
+    cumulative ``serve_queries`` (qps x each round's wall) come too."""
     from repro_torch.launch.lm_train_timing import BETA
     ks = [min(max(math.ceil(fed.k0 / r ** (1.0 / 3.0)), fed.k_min), fed.k0)
           for r in range(1, rounds + 1)]
@@ -2440,9 +2519,13 @@ def lm_train_want(fed, sizes, rounds: int):
     n = fed.clients_per_round
     want = {"k": ks, "sgd_steps": [], "wall_clock_s": [], "uplink_mbit": [],
             "downlink_mbit": []}
-    wall, steps, up_t, down_t = 0.0, 0, 0.0, 0.0
+    wall, steps, up_t, down_t, queries = 0.0, 0, 0.0, 0.0, 0.0
     for k in ks:
-        wall += down / 20.0 + k * BETA + up / 5.0
+        w = (down / 20.0 + k * BETA + up / 5.0) * stretch
+        wall += w
+        if qps is not None:
+            queries += qps * w
+            want.setdefault("serve_queries", []).append(queries)
         steps += k * n
         up_t += up * n
         down_t += down * n
@@ -3643,6 +3726,7 @@ def stream_population(torch):
     same spec at C = 32 for 2 rounds against its dense run. Returns the
     launches of the launcher's run."""
     from repro_torch.api import ExperimentSpec, build
+    from repro_torch.configs import get_arch
     from repro_torch.core.engine import round as round_mod
     from repro_torch.launch import train
     from repro_torch.optim import tree_leaves
@@ -3933,6 +4017,473 @@ def phase_async(torch, params):
     return total
 
 
+# ---------------------------------------------------------------------------
+# serving while training (phase 15)
+# ---------------------------------------------------------------------------
+
+SERVE_SPEC = "serve-while-training.json"
+# (ii): phase async (iii)'s configuration, a tick every 2 applications
+SERVE_ASYNC_EVERY = 2
+# the serving loop's traffic of serve-while-training.json
+SERVE_TRAFFIC = dict(batch=2, prompt_len=4, tokens=8)
+
+
+class DecodeLog:
+    """Instrumentation of this script only: while active, every
+    ``ServingLoop.decode`` call keeps its prompts, the token fed at each
+    decode step and the argmax of the logits it returned (on the device,
+    no synchronisation); the last call's record stays in ``last``."""
+
+    def __init__(self):
+        from repro_torch.core.serve import loop
+        self.cls, self.decode, self.last = loop.ServingLoop, \
+            loop.ServingLoop.decode, None
+
+    def __enter__(self):
+        decode = self.decode
+
+        def logged(loop, prompt_ids, params=None):
+            step, fed, top = loop._step, [], []
+
+            def rec(p, cache, tok, pos):
+                logits, cache = step(p, cache, tok, pos)
+                fed.append(tok)
+                top.append(logits.argmax(-1))
+                return logits, cache
+            loop._step = rec
+            try:
+                ids, dt = decode(loop, prompt_ids, params)
+            finally:
+                loop._step = step
+            self.last = {"prompts": prompt_ids, "fed": fed, "argmax": top,
+                         "ids": ids,
+                         "params": loop.params if params is None else params}
+            return ids, dt
+
+        self.cls.decode = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.decode = self.decode
+
+
+def repeat_decode_on_cpu(torch, cfg, rec):
+    """The decode ``rec`` (a ``DecodeLog`` record) repeated on the CPU from
+    the same params, fed the card's tokens step by step: the card's argmax
+    must equal the CPU's at every step where the CPU's top-2 gap exceeds
+    2 x (atol + rtol x max |logit|) of ``PARITY_TOL``. Returns the steps
+    compared, those that differ, the smallest gap and the largest logit."""
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_map
+    cpu = tree_map(lambda t: t.detach().cpu(), rec["params"])
+    step = registry.decode_fn(cfg, moe_path="dense")
+    fed = [t.cpu() for t in rec["fed"]]
+    top = [t.cpu() for t in rec["argmax"]]
+    n_prompt = len(fed) - rec["ids"].shape[1]
+    cache = registry.init_cache(cpu, cfg, fed[0].shape[0], len(fed))
+    compared = flips = 0
+    min_gap, max_logit = math.inf, 0.0
+    with torch.no_grad():
+        for pos, tok in enumerate(fed):
+            logits, cache = step(cpu, cache, tok, pos)
+            if pos < n_prompt - 1:
+                continue               # the prompt's own positions
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            max_logit = max(max_logit, float(logits.abs().max()))
+            tol = 2 * (PARITY_TOL["atol"] + PARITY_TOL["rtol"] * max_logit)
+            differ = top[pos] != torch.argmax(logits, dim=-1)
+            if bool((differ & (gap > tol)).any()):
+                raise AssertionError(
+                    f"decode step {pos}: card {top[pos].tolist()} vs cpu "
+                    f"{torch.argmax(logits, -1).tolist()}, gaps "
+                    f"{gap.tolist()} over {tol}")
+            compared += differ.numel()
+            flips += int(differ.sum())
+            min_gap = min(min_gap, float(gap.min()))
+    if not torch.equal(torch.stack(top[n_prompt:], 1),
+                       rec["ids"].cpu()):
+        raise AssertionError("the logged argmax is not the decode's ids")
+    return {"steps_compared": compared, "differ": flips,
+            "min_top2_gap": min_gap, "max_abs_logit": max_logit}
+
+
+def _served_tree_is_the_clients(trainer) -> bool:
+    """The served params bitwise the tree clients hold: the downlink
+    codec's load of the stored reference, else the params."""
+    st, loop = trainer.store, trainer.serving
+    dl = st.downlink
+    want = (dl.load_tree(st.downlink_state["ref"], like=st.params)
+            if dl is not None else st.params)
+    return _bitwise(_host(loop.params), _host(want)) and _bitwise(
+        _host(st.snapshot()[1]), _host(want))
+
+
+def serve_sync(torch, tmp):
+    """(i) ``serve-while-training.json`` at full width through
+    ``launch.train``; its read-only rule (``fed.bucket_rounds=1`` with and
+    without serving); one tick repeated on the CPU; one round more whose
+    every wire call is held against its plain version. Returns the
+    counted run's launches."""
+    from repro_torch.api import ExperimentSpec, build
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import round as round_mod
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves
+    spec = ExperimentSpec.load(str(SPEC_DIR / SERVE_SPEC)).with_overrides(
+        "model.reduced=false")
+    sv, rounds = spec.serve, spec.fed.rounds
+    rho = sv.qps * (sv.query_ms / 1e3)
+    stretch = 1.0 / (1.0 - rho)
+    cfg = get_arch(spec.model.arch + ("-reduced" if spec.model.reduced
+                                      else ""))
+    if registry.param_count(cfg) != LM_PARAMS:
+        raise AssertionError(f"serve_train: {registry.param_count(cfg)} "
+                             f"params, want {LM_PARAMS}")
+    path = os.path.join(tmp, "serve.json")
+    spec.save(path)
+    # instrumentation of this script only: host clock around each round
+    # (synchronised)
+    round_ms, run_bucket = [], round_mod.RoundEngine.run_bucket
+
+    def timed_bucket(self, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_bucket(self, *a)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    round_mod.RoundEngine.run_bucket = timed_bucket
+    try:
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with DecodeLog() as log:
+            exp, out = _quiet(train.main, ["--spec", path])
+        run_s = time.perf_counter() - t0
+        counts = kernel_counts()
+    finally:
+        round_mod.RoundEngine.run_bucket = run_bucket
+    tr, h = exp.trainer, exp.history
+    fed = tr.fed
+    sizes = [int(t.numel()) for t in tree_leaves(tr.params)]
+    only(counts, {"int8_decompress_reduce": rounds * len(sizes),
+                  "int8_decode_apply": rounds * len(sizes)},
+         "serve_train (i)")
+    line = [ln for ln in out.splitlines() if ln.startswith("[train] serve:")]
+    every = sv.every
+    ticks = [r for r in range(1, rounds + 1) if r % every == 0]
+    # the staleness the reference defines: the versions the served model
+    # fell behind by tick time, the rounds since the last swap
+    if h.serve_rounds != ticks or h.serve_staleness != [every] * len(ticks) \
+            or tr.serving.served_version != tr.store.version != rounds \
+            or len(line) != 1:
+        raise AssertionError(f"serve_train (i): ticks {h.serve_rounds}, "
+                             f"staleness {h.serve_staleness}, served "
+                             f"{tr.serving.served_version} of "
+                             f"{tr.store.version}, line {line}")
+    if not _served_tree_is_the_clients(tr):
+        raise AssertionError("serve_train (i): the served tree is not the "
+                             "q8 store's load of the reference")
+    want = lm_train_want(fed, sizes, rounds, stretch, sv.qps)
+    queries = want.pop("serve_queries")
+    got = {k: getattr(h, k) for k in want}
+    if got != want or tr.store.serve_queries != queries[-1]:
+        raise AssertionError(f"serve_train (i): counters {got}, "
+                             f"serve_queries {tr.store.serve_queries}; the "
+                             f"formula's {want}, {queries[-1]}")
+    if not all(math.isfinite(v) for v in h.train_loss):
+        raise AssertionError(f"serve_train (i): losses {h.train_loss}")
+    cpu_tick = repeat_decode_on_cpu(torch, cfg, log.last)
+    served, hist = _host(tr.params), h.as_dict()
+    queries = tr.store.serve_queries
+    checked = check_lm_round(torch, tr, "serve_train (i)")
+    calls = {k: v["calls"] for k, v in checked.items()}
+    if calls != {"int8_decompress_reduce": len(sizes),
+                 "int8_decode_apply": len(sizes)} or any(
+            sorted(v["m"]) != sorted(sizes) for v in checked.values()):
+        raise AssertionError(f"serve_train (i): checked round ran {checked}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "serve_train", "what": "(i) serve-while-training.json, "
+          "full width, launch.train", "arch": cfg.name, "params": sum(sizes),
+          "leaves": len(sizes), "rounds": rounds, "every": every,
+          "qps": sv.qps, "query_ms": sv.query_ms, "rho": rho,
+          "k": hist["k"], "loss": hist["train_loss"],
+          "ms_per_round": round_ms, "s": run_s,
+          "ticks": hist["serve_rounds"], "staleness": hist["serve_staleness"],
+          "tokens_per_s": hist["serve_tokens_per_sec"],
+          "swap_us": hist["serve_swap_us"],
+          "wall_clock_s": hist["wall_clock_s"],
+          "serve_queries": queries, "counters_exact": True,
+          "served_version": tr.serving.served_version,
+          "served_tree_bitwise_clients": True, "cpu_tick": cpu_tick,
+          "launches": {k: v for k, v in counts.items() if v},
+          "checked_round": {k: {"calls": v["calls"],
+                                "max_abs_err": v["max_abs_err"],
+                                "tol": v["tol"]}
+                            for k, v in checked.items()},
+          "peak_mem_gb": peak, "line": line[0]})
+    del exp, tr, log
+    _free(torch)
+    # the read-only rule: serving changes nothing the trainer computes
+    runs = {}
+    for label, over in (("on", ()), ("off", ("serve.every=0",
+                                             "serve.qps=0"))):
+        e = build(spec.with_overrides("fed.bucket_rounds=1", *over))
+        hh = e.run()
+        runs[label] = (hh.as_dict(), _host(e.params))
+        del e
+        _free(torch)
+    (hon, pon), (hoff, poff) = runs["on"], runs["off"]
+    off_want = lm_train_want(fed, sizes, rounds)
+    same = {k: hon[k] == hoff[k] for k in ("train_loss", "sgd_steps",
+                                           "uplink_mbit", "downlink_mbit",
+                                           "k")}
+    walls_exact = (hon["wall_clock_s"] == want["wall_clock_s"]
+                   and hoff["wall_clock_s"] == off_want["wall_clock_s"])
+    if not (_bitwise(pon, poff) and all(same.values()) and walls_exact
+            and _bitwise(pon, served)
+            and hon["train_loss"] == hist["train_loss"]
+            and hoff["serve_rounds"] == []):
+        raise AssertionError(f"serve_train (i): read-only rule broken: "
+                             f"params bitwise {_bitwise(pon, poff)}, "
+                             f"{same}, walls exact {walls_exact}, as "
+                             f"written {_bitwise(pon, served)}")
+    emit({"phase": "serve_train", "what": "(i) read-only rule: "
+          "fed.bucket_rounds=1, serve.every=2 qps 50 against serve.every=0 "
+          "qps 0", "params_bitwise": True, "history_equal": same,
+          "walls_off": hoff["wall_clock_s"], "walls_on": hon["wall_clock_s"],
+          "walls_formula_exact": True, "stretch": stretch,
+          "bitwise_the_bucket_rounds_4_run": True})
+    return counts
+
+
+def serve_async(torch, params):
+    """(ii) phase async (iii)'s configuration (qwen1.5-0.5b at full width,
+    4 in flight, a buffer of 2, int8) with a ``ServingLoop`` attached as
+    ``build`` attaches it, a tick every 2 applications, for
+    ``LM_ASYNC_APPLIES``; one application more holds every fold's call.
+    Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.serve import ServingLoop
+    from repro_torch.launch.lm_train_timing import lm_data
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    sizes = [int(t.numel()) for t in tree_leaves(params)]
+    fed = _lm_fed(rounds=LM_ASYNC_APPLIES, **LM_ASYNC)
+    data = lm_data(cfg)
+
+    def make():
+        tr = _lm_engine(cfg, params, data, fed, LM_ASYNC_HET)
+        tr.serving = ServingLoop(tr.store, cfg, **SERVE_TRAFFIC)
+        tr.serve_every = SERVE_ASYNC_EVERY
+        return tr
+
+    tr, h, counts, peak, peak_abs, run_s = _peak_run(
+        torch, make, lambda t: t.run(LM_ASYNC_APPLIES))
+    folds = _folds(tr)
+    only(counts, {"int8_decompress_reduce": folds * len(sizes)},
+         "serve_train (ii)")
+    ticks = [r for r in range(1, LM_ASYNC_APPLIES + 1)
+             if r % SERVE_ASYNC_EVERY == 0]
+    if h.serve_rounds != ticks or \
+            h.serve_staleness != [SERVE_ASYNC_EVERY] * len(ticks) or \
+            tr.serving.served_version != tr.store.version or \
+            not _served_tree_is_the_clients(tr):
+        raise AssertionError(f"serve_train (ii): ticks {h.serve_rounds}, "
+                             f"staleness {h.serve_staleness}, served "
+                             f"{tr.serving.served_version} of "
+                             f"{tr.store.version}")
+    _, seen = check_calls(torch, lambda: tr.run(LM_ASYNC_APPLIES + 1),
+                          "serve_train (ii)")
+    more = _folds(tr) - folds
+    red = seen.get("int8_decompress_reduce", {})
+    if {k: v["calls"] for k, v in seen.items()} != {
+            "int8_decompress_reduce": more * len(sizes)} or \
+            sorted(red["m"]) != sorted(sizes * more) or \
+            set(red["n"]) != {1}:
+        raise AssertionError(f"serve_train (ii): checked application ran "
+                             f"{seen}")
+    emit({"phase": "serve_train", "what": "(ii) async (iii) with a tick "
+          "every 2 applications", "arch": cfg.name,
+          "applications": LM_ASYNC_APPLIES, "folds": folds,
+          "ticks": h.serve_rounds, "staleness": h.serve_staleness,
+          "tokens_per_s": h.serve_tokens_per_sec,
+          "swap_us": h.serve_swap_us,
+          "ms_per_application": run_s * 1e3 / LM_ASYNC_APPLIES,
+          "peak_gb_over_base": peak, "peak_gb": peak_abs,
+          "int8_decompress_reduce_launches": counts[
+              "int8_decompress_reduce"],
+          "checked_application": {"folds": more, "calls": red["calls"],
+                                  "max_abs_err": red["max_abs_err"],
+                                  "tol": red["tol"]}})
+    del tr
+    _free(torch)
+    return counts
+
+
+def phase_serve_train(torch, params):
+    """Serving while training: (i) sync, (ii) async. Returns each kernel's
+    launches over the two counted runs."""
+    import tempfile
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in serve_sync(torch, tmp).items():
+            total[k] = total.get(k, 0) + v
+    for k, v in serve_async(torch, params).items():
+        total[k] = total.get(k, 0) + v
+    emit({"phase": "serve_train", "summary": True,
+          "launches": {k: v for k, v in total.items() if v},
+          "s": time.perf_counter() - t0})
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and vision-language families (phase 16)
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_PARAMS = 36_448_128
+# Whisper's text context (arXiv:2212.04356) over its 1,500 audio frames
+WHISPER_BATCH, WHISPER_SEQ = 2, 448
+LLAVA_ARCH = "llava-next-34b"
+LLAVA_FULL_PARAMS = 34_388_917_248
+# 12 of its 60 layers: all 60 hold 137.6 GB in f32, past the card's 80 GB
+LLAVA_LAYERS = 12
+LLAVA_PARAMS = 7_611_792_384
+
+
+def all_launches():
+    """Every kernel's launch count, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ssd_scan as ss
+    return {**kernel_counts(), "flash_attention": fa.launches,
+            "gmm": mg.launches, "ssd_scan": ss.launches}
+
+
+def phase_whisper(torch):
+    """(i) whisper-tiny at full width and depth (36,448,128 f32 params from
+    seed 0): the prefill step (B 2, 1,500 audio frames, decoder S 448) on
+    the card against the CPU, then the launcher's direct audio decode
+    (``launch.serve.decode_audio``, batch 4, prompt 16, 32 tokens):
+    tokens/s and peak, the card's ids against the CPU's up to the first
+    step where the CPU's top-2 gap allows another choice. No kernel runs,
+    as in the reference. Returns the launches (all zero)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.kernels import flash_attention, moe_gmm, ssd_scan
+    from repro_torch.launch.serve import decode_audio
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = get_arch(WHISPER_ARCH)
+    cpu = registry.init(0, cfg, device="cpu")
+    n = sum(t.numel() for t in tree_leaves(cpu))
+    if n != WHISPER_PARAMS or registry.param_count(cfg) != WHISPER_PARAMS:
+        raise AssertionError(f"whisper: {n} params, want {WHISPER_PARAMS}")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for mod in (flash_attention, moe_gmm, ssd_scan):
+        reset_counts(mod)
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    toks = torch.tensor(_lm_tokens(cfg, WHISPER_BATCH, WHISPER_SEQ, 12))
+    extra = frontend_inputs(torch, cfg, WHISPER_BATCH, 12)
+    step = make_prefill_step(cfg, use_kernel=True)
+    batch = {"tokens": toks.cuda(), **{k: v.cuda() for k, v in extra.items()}}
+    times = []
+    for _ in range(4):
+        got, ms = run_step(torch, step, card, batch)
+        times.append(ms)
+    with torch.no_grad():
+        want = make_prefill_step(cfg)(cpu, {"tokens": toks, **extra})
+    if got.shape != (WHISPER_BATCH, cfg.vocab_size):
+        raise AssertionError(f"whisper prefill {tuple(got.shape)}")
+    torch.testing.assert_close(got.cpu(), want, **PARITY_TOL)
+    dec = {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        dec[dev] = decode_audio(p, cfg, **SERVE, seed=0)
+    ids, dt, _ = dec["cuda"]
+    ids_cpu, _, logits_cpu = dec["cpu"]
+    agree, min_gap = [], math.inf
+    tol_of = lambda lg: 2 * (PARITY_TOL["atol"] + PARITY_TOL["rtol"]
+                             * float(lg.abs().max()))
+    for b in range(SERVE["batch"]):
+        differ = (ids[b].cpu() != ids_cpu[b]).nonzero()
+        t = int(differ[0]) if len(differ) else SERVE["tokens"]
+        agree.append(t)
+        if t < SERVE["tokens"]:
+            top2 = torch.topk(logits_cpu[b, t], 2).values
+            gap = float(top2[0] - top2[1])
+            min_gap = min(min_gap, gap)
+            if gap > tol_of(logits_cpu[b, t]):
+                raise AssertionError(f"whisper decode row {b} step {t}: "
+                                     f"card {ids[b].tolist()} vs cpu "
+                                     f"{ids_cpu[b].tolist()}, gap {gap}")
+    launches = all_launches()
+    if any(launches.values()):
+        raise AssertionError(f"whisper launched a kernel: {launches}")
+    order = sorted(times[1:])
+    emit({"phase": "encdec", "what": "(i) whisper-tiny full width: "
+          "prefill card vs cpu, launcher audio decode", "arch": cfg.name,
+          "params": n, "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.num_layers, "audio_frames": cfg.encoder_seq,
+          "prefill_batch": WHISPER_BATCH, "prefill_seq": WHISPER_SEQ,
+          "prefill_ms": order[len(order) // 2], "prefill_ms_runs": times,
+          "logits_max_abs_err_vs_cpu": float((got.cpu() - want).abs().max()),
+          "tol": PARITY_TOL, **SERVE,
+          "tokens_per_s": SERVE["batch"] * SERVE["tokens"] / dt,
+          "ids_agree_steps_by_row": agree, "min_top2_gap_at_split": (
+              None if min_gap == math.inf else min_gap),
+          "ids": ids.tolist()[:2], "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del card, cpu
+    _free(torch)
+    return launches
+
+
+def phase_encdec(torch):
+    """(i) whisper-tiny, (ii) llava-next-34b at full width and 12 of 60
+    layers: the f32 prefill through flash (``phase_lm``: 12 launches a
+    prefill on ``"wgmma_split"``, the plain path on the same batch,
+    ``ServingLoop`` decode at batch 4), then the same in bf16 (12 launches
+    on ``"wgmma"``, ``BF16_ANCHOR_FACTOR``). Returns {kernel: launches}
+    over the f32 and bf16 prefills."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    phase_whisper(torch)
+    full = get_arch(LLAVA_ARCH)
+    if registry.param_count(full) != LLAVA_FULL_PARAMS:
+        raise AssertionError(f"llava: {registry.param_count(full)} params")
+    cfg = dataclasses.replace(full, num_layers=LLAVA_LAYERS)
+    llava_fields = lambda c: {
+        "layers": c.num_layers, "of_layers": full.num_layers,
+        "full_params": LLAVA_FULL_PARAMS, "d_model": c.d_model,
+        "heads": c.num_heads, "kv_heads": c.num_kv_heads,
+        "head_dim": c.head_dim, "d_ff": c.d_ff,
+        "patch_tokens": c.num_patch_tokens,
+        "text_tokens": LM_SEQ - c.num_patch_tokens}
+    launches, params = phase_lm(torch, "encdec", LLAVA_ARCH, LLAVA_PARAMS,
+                                (FLASH,), 13, PARITY_TOL, llava_fields,
+                                cfg=cfg)
+    bf16 = phase_bf16_prefill(torch, "encdec", cfg, params,
+                              {"flash": (fa, "flash_attention",
+                                         LLAVA_LAYERS)}, 13)
+    del params
+    _free(torch)
+    total = {"flash_attention": launches["flash_attention"] + bf16["flash"]}
+    emit({"phase": "encdec", "summary": True, "launches": total,
+          "flash_f32": launches["flash_attention"],
+          "flash_bf16": bf16["flash"], "s": time.perf_counter() - t0})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3964,6 +4515,7 @@ def main() -> int:
     phase_parity_wire(torch)
     phase_parity_lm(torch)
     phase_parity_lm(torch, SSM_PARITY)
+    phase_parity_lm(torch, ENCDEC_PARITY)
     phase_parity_lm_train(torch)
     cifar, cifar_s = paper_data("cifar100")
     launches = run_task(torch, "cifar100", CIFAR_ROUNDS, cifar, cifar_s)
@@ -4017,6 +4569,13 @@ def main() -> int:
             not async_launches["int8_decompress_reduce"]:
         raise AssertionError(f"a kernel of phase stream or async never "
                              f"ran: {stream_launches}, {async_launches}")
+    # serving while training, sync at full width and async on phase lm's
+    # params
+    serve_launches = phase_serve_train(torch, params)
+    if not all(serve_launches[k] for k in ("int8_decompress_reduce",
+                                           "int8_decode_apply")):
+        raise AssertionError(f"a kernel of phase serve_train never ran: "
+                             f"{serve_launches}")
     del params
     _free(torch)
     moe_launches, params = phase_moe(torch)
@@ -4043,6 +4602,9 @@ def main() -> int:
     del params
     phase_lm(torch, "zamba2", ZAMBA_ARCH, ZAMBA_PARAMS, (FLASH, SSD), 11,
              SSM_STATE_TOL, ssm_fields)
+    encdec_launches = phase_encdec(torch)
+    if not encdec_launches["flash_attention"]:
+        raise AssertionError("flash never ran in phase encdec")
 
     # one CIFAR100 round: the sums over its eight leaves (for the int8
     # kernels, the one-plane codec's round)
@@ -4137,6 +4699,8 @@ def main() -> int:
         entry["spec_launches"] = spec_launches.get(entry["name"], 0)
         entry["stream_launches"] = stream_launches.get(entry["name"], 0)
         entry["async_launches"] = async_launches.get(entry["name"], 0)
+        entry["serve_train_launches"] = serve_launches.get(entry["name"], 0)
+        entry["encdec_launches"] = encdec_launches.get(entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -12,11 +12,11 @@ Checkpoints written by ``FederatedExperiment.save`` embed the spec, so
 its state, from a checkpoint of either package.
 
 ``fed.aggregation="async"`` builds an ``AsyncBufferedEngine`` (through
-``AGGREGATION_REGISTRY``) and ``fed.cohort_chunk`` a trainer that streams
-each round in slabs. What the port does not run yet, ``build`` refuses by
-name (after ``validate``, which accepts what the reference accepts):
-serving while training (``serve.every``, ROADMAP A8) and the mesh's
-sequential strategy (A13).
+``AGGREGATION_REGISTRY``), ``fed.cohort_chunk`` a trainer that streams
+each round in slabs, and ``serve.every`` attaches a ``ServingLoop`` that
+the trainer ticks while it trains. What the port does not run yet,
+``build`` refuses by name (after ``validate``, which accepts what the
+reference accepts): the mesh's sequential strategy (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -63,8 +63,6 @@ def _refuse_unported(spec: ExperimentSpec) -> None:
     the ROADMAP item that brings it."""
     b = spec.backend
     unported = [
-        (spec.serve.every > 0, "serve.every", spec.serve.every,
-         "A8 (serve while training)"),
         (b.name == "mesh" and b.strategy == "sequential",
          "backend.strategy", b.strategy,
          "A13 (the mesh's sequential strategy)"),
@@ -209,18 +207,31 @@ def build(spec: ExperimentSpec, *, backend=None,
         data = PopulationView(data, spec.sampler.population)
     fed = _make_fed_config(spec)
     r = spec.runtime
-    # no serve stretch: validate allows serve.qps > 0 only with
-    # serve.every >= 1, which _refuse_unported refuses
     runtime = RuntimeModel(
         size_mbit,
         RuntimeModelConfig(download_mbps=r.download_mbps,
                            upload_mbps=r.upload_mbps,
                            beta_seconds=r.beta_seconds,
                            bytes_per_param=r.bytes_per_param),
-        fed.clients_per_round, heterogeneity=r.heterogeneity)
+        fed.clients_per_round, heterogeneity=r.heterogeneity,
+        serve_qps=spec.serve.qps, serve_query_s=spec.serve.query_ms / 1e3)
     eval_fn = (make_eval_fn(loss_fn, data, device=device)
                if spec.fed.eval_every > 0 else None)
     policy = AGGREGATION_REGISTRY.get(fed.aggregation)()
     trainer = policy(loss_fn, params, data, fed, runtime, eval_fn=eval_fn,
                      backend=backend, device=device)
+    if spec.serve.every > 0:
+        # serve while training: the loop reads the trainer's store; the
+        # trainer ticks it between rounds and changes nothing it computes
+        from repro_torch.configs import get_arch
+        from repro_torch.core.serve import ServingLoop
+        cfg = get_arch(spec.model.arch)
+        if spec.model.reduced:
+            cfg = cfg.reduced()
+        trainer.serving = ServingLoop(
+            trainer.store, cfg, batch=spec.serve.batch,
+            prompt_len=spec.serve.prompt_len, tokens=spec.serve.tokens,
+            moe_path=spec.model.moe_path, traffic=spec.serve.traffic,
+            seed=spec.serve.seed)
+        trainer.serve_every = spec.serve.every
     return FederatedExperiment(spec, trainer, label)

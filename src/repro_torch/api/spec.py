@@ -18,10 +18,9 @@ Contracts:
   * unknown JSON keys are aggregated errors, never silently dropped —
     schema drift in saved specs is loud.
 
-``validate`` accepts and rejects what the reference's does: the
-architectures the port refuses by name (``configs.LATER_ARCHS``) and the
-features it has not ported yet (``serve.every``, the mesh's sequential
-strategy) validate, and ``build`` refuses them, naming the field.
+``validate`` accepts and rejects what the reference's does: the one
+feature the port has not ported yet (the mesh's sequential strategy)
+validates, and ``build`` refuses it, naming the field.
 """
 from __future__ import annotations
 
@@ -311,8 +310,8 @@ class ExperimentSpec:
                 errors.append(f"data.task: {d.task!r} not in "
                               f"{sorted(PAPER_TASKS)}")
         else:
-            from repro_torch.configs import ARCHS, LATER_ARCHS
-            if m.arch not in ARCHS and m.arch not in LATER_ARCHS:
+            from repro_torch.configs import ARCHS
+            if m.arch not in ARCHS:
                 errors.append(f"model.arch: {m.arch!r} not a known "
                               f"architecture (see configs.ARCHS)")
         for name, v in (("data.clients", d.clients),

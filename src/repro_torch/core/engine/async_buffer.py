@@ -43,9 +43,10 @@ per-slot metadata, buffer weight and count, counters), ``rng``,
 checkpoint of either package restores into the other.
 
 Not ported here: the reference's executable registry (``registry``,
-``program_key``, ``compile_count``, ``shared_count``: ROADMAP A9), the
-``serving`` tick of serve-while-training (A8), and the engine on a
-``MeshBackend`` (A13). ``dispatch_count`` counts dispatch groups, folds and
+``program_key``, ``compile_count``, ``shared_count``: ROADMAP A9) and the
+engine on a ``MeshBackend`` (A13). Serving while training ticks the
+attached ``ServingLoop`` after every ``serve_every``-th buffer
+application. ``dispatch_count`` counts dispatch groups, folds and
 applies, one each, as the reference's executable runs.
 """
 from __future__ import annotations
@@ -207,6 +208,10 @@ class AsyncBufferedEngine:
         self.dropped_updates = 0
         self.staleness_hist: Dict[int, int] = {}
         self._completed_rounds = 0
+        # serve while training: set by ``api.build``; ticks ride buffer
+        # applications
+        self.serving = None
+        self.serve_every = 0
 
     # the store owns the state; these names read and write it
     params = property(lambda self: self.store.params,
@@ -351,6 +356,10 @@ class AsyncBufferedEngine:
         self._buf_count = 0
         self._buf_first_losses = []
         self._buf_staleness = []
+        if (self.serving is not None and self.serve_every
+                and r % self.serve_every == 0):
+            # hot-swap the version just applied into the decode service
+            self.serving.tick(r, h)
         if eval_every and self.eval_fn is not None and r % eval_every == 0:
             metrics = self.eval_fn(self.params)
             err = metrics.get("error", 1.0 - metrics.get("acc", 0.0))
@@ -373,6 +382,11 @@ class AsyncBufferedEngine:
         nothing; it is accepted for ``FedAvgTrainer``'s surface."""
         del resume
         rounds = rounds if rounds is not None else self.fed.rounds
+        if (self.serving is not None
+                and self.serving.served_version != self.store.version):
+            # a restored store is ahead of the loop's snapshot: swap before
+            # the clock advances
+            self.serving.swap()
         if not self._started:
             self._dispatch_group(list(range(self.n)))
             self._started = True

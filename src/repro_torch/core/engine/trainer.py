@@ -23,7 +23,11 @@ CIFAR100 round at paper width is a 491.5 MB batch, which the reference's
 
 The server-side state (params, server-optimizer state, codec state,
 version, cost counters) lives in a ``GlobalModelStore``; the trainer's and
-the engine's attributes of the same names read and write it.
+the engine's attributes of the same names read and write it. Serving while
+training: ``api.build`` attaches a ``ServingLoop`` (``serving``) and its
+cadence (``serve_every``); the scheduler cuts buckets at serve rounds, and
+each serve bucket is absorbed, and the loop ticked, before the next
+dispatch commits, which bounds the served version's staleness.
 ``save_state``/``restore_state`` checkpoint everything a bitwise
 continuation needs, in the reference's layout, and ``run(...,
 resume=True)`` continues from the first round not run.
@@ -159,6 +163,9 @@ class FedAvgTrainer:
         self.history = History()
         self._np_rng = np.random.default_rng(fed.seed)
         self._completed_rounds = 0
+        # serve while training: set by ``api.build`` when the spec serves
+        self.serving = None
+        self.serve_every = 0
 
     # the store owns the state; these names read and write it
     params = property(lambda self: self.store.params,
@@ -202,7 +209,14 @@ class FedAvgTrainer:
         sched = RoundScheduler(
             self.ctrl, self.fed, total_rounds=rounds,
             eval_every=eval_every if self.eval_fn is not None else None,
+            serve_every=self.serve_every if self.serving is not None
+            else None,
             start_round=start)
+        if (self.serving is not None
+                and self.serving.served_version != self.store.version):
+            # a restored (or rerun) store is ahead of the loop's snapshot:
+            # swap, so the first tick's staleness measures this run
+            self.serving.swap()
         builder = pipeline.make_builder(
             self.data, self.fed.clients_per_round, self.fed.batch_size,
             self._np_rng,
@@ -279,9 +293,12 @@ class FedAvgTrainer:
             if pending is not None:     # read bucket r-1 while r computes
                 self._absorb(*pending)
                 pending = None
-            if cur.eval_after:
+            if cur.eval_after or cur.serve_after:
+                # a serve bucket is absorbed at once: its tick must run
+                # before the next dispatch commits
                 self._absorb(cur, firsts)
-                self._eval(cur.rounds[-1], verbose)
+                if cur.eval_after:
+                    self._eval(cur.rounds[-1], verbose)
             else:
                 pending = (cur, firsts)
         if pending is not None:
@@ -316,6 +333,7 @@ class FedAvgTrainer:
             st.steps += cost.sgd_steps
             st.up_mbit += cost.uplink_mbit
             st.down_mbit += cost.downlink_mbit
+            st.serve_queries += cost.serve_queries
             st.min_loss = min(st.min_loss, round_loss)
             h.rounds.append(r)
             h.k.append(bucket.k)
@@ -326,6 +344,9 @@ class FedAvgTrainer:
             h.downlink_mbit.append(st.down_mbit)
             h.train_loss.append(round_loss)
             h.min_train_loss.append(st.min_loss)
+            if (self.serving is not None and self.serve_every
+                    and r % self.serve_every == 0):
+                self.serving.tick(r, h)
 
     # ------------------------------------------------------------------
     # full-state checkpointing

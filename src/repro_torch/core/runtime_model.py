@@ -1,7 +1,7 @@
 """The paper's FedAvg runtime model (§3.2, Eq. 3-5) and compute accounting.
 
-A copy of ``repro.core.runtime_model`` without the serve-while-training
-stretch, which belongs to a later slice.
+A copy of ``repro.core.runtime_model``, the serve-while-training stretch
+included.
 
 Nominal per-round wall-clock for client c:
     W_r^c = |x|/D^c + K_r * beta^c + |x|/U^c          (Eq. 3)
@@ -29,18 +29,24 @@ class RoundCost:
     sgd_steps: int
     uplink_mbit: float
     downlink_mbit: float
+    #: decode queries the server answered during this round's wall time
+    #: (serve while training); 0.0 without serving
+    serve_queries: float = 0.0
 
 
 class RuntimeModel:
     def __init__(self, model_size_mbit: float, cfg: RuntimeModelConfig,
                  clients_per_round: int = 1, heterogeneity: float = 0.0,
                  seed: int = 0, uplink_compression: float = 1.0,
-                 downlink_compression: float = 1.0):
+                 downlink_compression: float = 1.0,
+                 serve_qps: float = 0.0, serve_query_s: float = 0.0):
         """heterogeneity: sigma of lognormal speed multipliers per sampled
         client, applied to the client's whole round time (compute and both
         wire legs); 0 reproduces the paper's homogeneous Eq. 5.
         ``uplink_compression`` / ``downlink_compression``: ratios by which a
-        codec shrinks each wire leg (1.0 = the paper's uncompressed |x|)."""
+        codec shrinks each wire leg (1.0 = the paper's uncompressed |x|).
+        ``serve_qps`` / ``serve_query_s``: the decode traffic the server
+        answers while it trains (rho = qps * query_s of every wall second)."""
         self.size = model_size_mbit
         self.cfg = cfg
         self.n = clients_per_round
@@ -51,6 +57,18 @@ class RuntimeModel:
         #: trainer and read by ``round_cost(..., downlink_level=...)``;
         #: None charges every round the fixed ``downlink_compression``
         self.downlink_level_ratios = None
+        # round coordination runs on the 1 - rho of each wall second left
+        # after serving: the utilisation stretch 1/(1 - rho) on the clock
+        self.serve_qps = float(serve_qps)
+        self.serve_query_s = float(serve_query_s)
+        rho = self.serve_qps * self.serve_query_s
+        if rho >= 1.0:
+            raise ValueError(
+                f"serve utilisation rho = serve_qps * serve_query_s = "
+                f"{rho:.3f} >= 1: the server spends every second answering "
+                f"queries and training never progresses — lower serve.qps "
+                f"or serve.query_ms")
+        self._serve_stretch = 1.0 / (1.0 - rho) if rho > 0 else 1.0
         self._seed = int(seed)
         self._rng = np.random.default_rng(seed)
 
@@ -125,10 +143,12 @@ class RuntimeModel:
             wall = float(np.max(times))
         else:
             wall = self._base_seconds(k, downlink_level)
+        wall *= self._serve_stretch
         return RoundCost(wall_clock_s=wall,
                          sgd_steps=k * self.n,
                          uplink_mbit=up * self.n,
-                         downlink_mbit=down * self.n)
+                         downlink_mbit=down * self.n,
+                         serve_queries=self.serve_qps * wall)
 
     def total_time(self, ks: Sequence[int]) -> float:
         """Eq. 5 (homogeneous)."""

@@ -11,7 +11,7 @@ the sequential strategy, the mesh arguments (``act_spec``,
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import registry, transformer
+from repro_torch.models import encdec, registry, transformer
 
 
 def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
@@ -29,13 +29,22 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
     (B, S, V) logits never exist. ``use_kernel=True`` runs every layer's
     attention through the flash kernel, on the ``dispatch`` MoE path every
     expert FFN through the grouped-matmul kernel, and every mamba layer's
-    scan through the SSD kernel."""
-    transformer.require_ported(cfg)
+    scan through the SSD kernel. A vlm's batch carries ``patch_embeds``.
+    The encoder-decoder's step takes {tokens, audio_embeds} and returns
+    the last-token logits alone, through no kernel, as the reference's."""
+    if registry.is_encdec(cfg):
+        def encdec_prefill_step(params, batch):
+            logits, _ = encdec.forward_encdec(params, cfg, batch["tokens"],
+                                              batch["audio_embeds"])
+            return logits[:, -1]
+        return encdec_prefill_step
+
     gw = registry.LONG_GLOBAL_WINDOW if long_mode else None
 
     def prefill_step(params, batch):
         feats, _, states = transformer.forward_lm(
-            params, cfg, batch["tokens"], global_window=gw,
+            params, cfg, batch["tokens"], batch.get("patch_embeds"),
+            global_window=gw,
             moe_path=moe_path, use_kernel=use_kernel, return_states=True,
             return_features=True)
         logits = transformer._readout(params, cfg, feats[:, -1:])

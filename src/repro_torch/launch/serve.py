@@ -13,16 +13,22 @@ decoding through the wrong architecture. A checkpoint without a spec (bare
 params, or a trainer layout) takes the reduced ``--arch``. MoE archs decode
 on the serving loop's dense MoE path, every expert on every token, as the
 reference serves them; SSM and hybrid archs decode through their SSM and
-conv states.
+conv states; ``llava-next-34b`` serves text only, as the reference's. The
+encoder-decoder ``whisper-tiny`` decodes directly through
+``registry.init_cache(..., audio_embeds=...)`` (``decode_audio``): the
+serving loop's synthetic traffic has no audio, so it refuses audio archs.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import time
+
+import torch
 
 from repro_torch.checkpoint import load_checkpoint
-from repro_torch.configs import ARCHS, LATER_ARCHS, get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.core.engine.model_store import (GlobalModelStore,
                                                  as_spec_tree)
 from repro_torch.core.serve import ServingLoop
@@ -84,11 +90,51 @@ def load_serving_params(path: str, arch_arg=None, device=None):
     return cfg, params
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def decode_audio(params, cfg, *, batch: int, prompt_len: int, tokens: int,
+                 seed: int = 0):
+    """The encoder-decoder's direct decode (the reference's audio branch):
+    audio embeddings drawn N(0, 0.1^2) from ``seed`` and uniform prompt ids
+    from seed 1 (torch's streams, not ``jax.random``'s), the encoder run
+    once into the cache, teacher-forced prefill through the decode step,
+    then greedy decode of ``tokens`` tokens. Returns the (batch, tokens)
+    ids, the decode seconds (the prefill excluded) and each generated
+    step's (batch, vocab) logits."""
+    dev = params["embed"]["embedding"].device
+    audio = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                        generator=torch.Generator().manual_seed(seed)) * 0.1
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(1))
+    cache = registry.init_cache(params, cfg, batch, prompt_len + tokens,
+                                audio_embeds=audio.to(dev))
+    step = registry.decode_fn(cfg, moe_path="dense")
+    prompt = prompt.to(dev)
+    for pos in range(prompt_len):
+        logits, cache = step(params, cache, prompt[:, pos], pos)
+    tok = torch.argmax(logits, dim=-1)
+    out, steps = [], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(tokens):
+        logits, cache = step(params, cache, tok, prompt_len + i)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+        steps.append(logits)
+    _sync(dev)
+    return (torch.stack(out, dim=1), time.perf_counter() - t0,
+            torch.stack(steps, dim=1))
+
+
 def main(argv=None):
     """Returns ``{"cfg", "params" (the served snapshot), "ids",
     "tokens_per_s"}``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=sorted({*ARCHS, *LATER_ARCHS}),
+    ap.add_argument("--arch", choices=sorted(ARCHS),
                     default=None,
                     help=f"architecture (default {DEFAULT_ARCH}), reduced; "
                          f"ignored, and checked for conflicts, when "
@@ -110,19 +156,25 @@ def main(argv=None):
         device = resolve_device(args.device)
         cfg = get_arch((args.arch or DEFAULT_ARCH) + "-reduced")
         params = registry.init(args.seed, cfg, device=device)
-    store = GlobalModelStore(params=params)
-    loop = ServingLoop(store, cfg, batch=args.batch,
-                       prompt_len=args.prompt_len, tokens=args.tokens,
-                       seed=args.seed)
-    swap_us = loop.swap()
-    ids, dt = loop.decode(loop._traffic(0))
+    if registry.is_encdec(cfg):
+        ids, dt, _ = decode_audio(params, cfg, batch=args.batch,
+                                  prompt_len=args.prompt_len,
+                                  tokens=args.tokens, seed=args.seed)
+    else:
+        store = GlobalModelStore(params=params)
+        loop = ServingLoop(store, cfg, batch=args.batch,
+                           prompt_len=args.prompt_len, tokens=args.tokens,
+                           seed=args.seed)
+        swap_us = loop.swap()
+        ids, dt = loop.decode(loop._traffic(0))
+        params = loop.params
+        print(f"[serve] store snapshot v{loop.served_version} hot-swapped "
+              f"in {swap_us:.0f}us")
     tps = args.batch * args.tokens / dt
-    print(f"[serve] store snapshot v{loop.served_version} hot-swapped "
-          f"in {swap_us:.0f}us")
     print(f"[serve] {cfg.name} ({cfg.arch_type}): batch={args.batch}, "
           f"{args.tokens} tokens/seq, {tps:.1f} tok/s ({device.type})")
     print(f"[serve] ids[0] = {ids[0].tolist()}")
-    return {"cfg": cfg, "params": loop.params, "ids": ids,
+    return {"cfg": cfg, "params": params, "ids": ids,
             "tokens_per_s": tps}
 
 

@@ -27,7 +27,7 @@ import argparse
 import numpy as np
 
 from repro_torch.api import ExperimentSpec, build
-from repro_torch.configs import ARCHS, LATER_ARCHS
+from repro_torch.configs import ARCHS
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -53,7 +53,7 @@ def make_parser() -> argparse.ArgumentParser:
                     help="run sweep points serially (refused with --sweep, "
                          "ROADMAP A10)")
     # --- legacy flags (translated to a spec) ------------------------
-    ap.add_argument("--arch", choices=sorted({*ARCHS, *LATER_ARCHS}),
+    ap.add_argument("--arch", choices=sorted(ARCHS),
                     default="qwen1.5-0.5b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--rounds", type=int, default=None,
@@ -251,6 +251,13 @@ def main(argv=None):
         print(f"[train] round {h.rounds[i]:4d} K={h.k[i]:3d} "
               f"eta={h.eta[i]:.4f} loss={h.train_loss[i]:.4f} "
               f"simW={h.wall_clock_s[i]:.0f}s steps={h.sgd_steps[i]}")
+    if spec.serve.every and h.serve_rounds:
+        print(f"[train] serve: {len(h.serve_rounds)} tick(s), "
+              f"{float(np.mean(h.serve_tokens_per_sec)):.0f} tok/s mean, "
+              f"swap {float(np.mean(h.serve_swap_us)):.0f}us mean, "
+              f"staleness <= {max(h.serve_staleness)}, "
+              f"served version {trainer.serving.served_version} of "
+              f"{trainer.store.version}")
     print(f"[train] final loss {h.train_loss[-1]:.4f} "
           f"(start {h.train_loss[0]:.4f}); total steps {h.sgd_steps[-1]}, "
           f"simulated wall-clock {h.wall_clock_s[-1]:.0f}s, "

@@ -1,6 +1,7 @@
 """Multi-head / grouped-query attention with the variants the dense archs
 need: GQA, QKV bias, sliding window, logit softcap, RoPE, KV-cache decode
-(f32 or the two-level int8 Q-KV cache), as ``repro.models.attention``.
+(f32 or the two-level int8 Q-KV cache) and the encoder-decoder's cross
+attention, as ``repro.models.attention``.
 
 The plain path is torch (the oracle); ``use_kernel=True`` swaps in the CUDA
 flash kernel through ``kernels.ops.flash_attention``. The int8 quantisers
@@ -130,6 +131,30 @@ def attention(p, cfg: ArchConfig, x, positions, *,
         out = _attend_chunk(q, k, v, cfg.attn_logit_softcap, mask)
     out = layers.dense_apply(p["wo"], out.reshape(B, S, -1))
     return out, (k, v)
+
+
+def cross_attention_init(gen, cfg: ArchConfig, dtype=torch.float32,
+                         device="cpu"):
+    return attn_init(gen, cfg, dtype, device)
+
+
+def cross_attention(p, cfg: ArchConfig, x, enc_kv):
+    """Decoder-to-encoder attention: no mask, no rope. x: (B,Sq,d); enc_kv:
+    the precomputed (k, v), each (B,Senc,KV,hd)."""
+    B, Sq, _ = x.shape
+    q = layers.dense_apply(p["wq"], x).reshape(B, Sq, cfg.num_heads,
+                                               cfg.head_dim)
+    out = _attend_chunk(q, *enc_kv, None, None)
+    return layers.dense_apply(p["wo"], out.reshape(B, Sq, -1))
+
+
+def cross_attention_kv(p, cfg: ArchConfig, enc_out):
+    """The encoder's (k, v) for cross attention, computed once a sequence
+    and read by every decode step."""
+    B, Senc, _ = enc_out.shape
+    shape = (B, Senc, cfg.num_kv_heads, cfg.head_dim)
+    return (layers.dense_apply(p["wk"], enc_out).reshape(shape),
+            layers.dense_apply(p["wv"], enc_out).reshape(shape))
 
 
 def _decode_valid(L: int, pos: int, window: Optional[int], ring: bool,

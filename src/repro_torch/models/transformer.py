@@ -1,5 +1,6 @@
-"""Decoder-only LM for the dense, MoE, SSM and hybrid architectures
-(``repro.models.transformer``).
+"""Decoder-only LM for the dense, MoE, SSM, hybrid and vision-language
+architectures (``repro.models.transformer``; the encoder-decoder family is
+``models/encdec.py``).
 
 Layers are grouped into *cycles*, one repetition of ``cfg.layer_pattern``
 (e.g. (local, global) for gemma2, five mamba and a shared attention block
@@ -10,8 +11,9 @@ for zamba2). The params of all cycles are stacked on a leading axis under
 checkpoints one cycle at a time (``torch.utils.checkpoint``) when autograd
 is on.
 
-``arch_type`` "dense", "moe", "ssm" and "hybrid" run here; the other
-families raise, naming the part of the port that brings them. An MoE block
+A vision-language model (``arch_type`` "vlm") takes its patch embeddings
+(the stub vision frontend's output) ahead of the text tokens; the loss
+skips those prefix positions. An MoE block
 holds ``moe`` (``models/moe.py``) where a dense block holds ``mlp``; its
 load-balance aux is summed over the layers and never kept in the decode
 states. A mamba block holds ``{"ln", "ssm"}`` (``models/ssm.py``) and its
@@ -33,20 +35,6 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.optim import tree_leaves, tree_map
 
 PyTree = Any
-
-#: the families the port runs, and where each other one arrives (ROADMAP.md)
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-LATER_FAMILIES = {"audio": "the encoder-decoder slice",
-                  "vlm": "the encoder-decoder slice"}
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    if cfg.arch_type not in PORTED_FAMILIES:
-        raise ValueError(
-            f"arch {cfg.name!r} is {cfg.arch_type!r}: the port runs dense, "
-            f"MoE, SSM and hybrid LMs; {cfg.arch_type} comes with "
-            f"{LATER_FAMILIES.get(cfg.arch_type, 'a later slice')}")
-
 
 # ---------------------------------------------------------------------------
 # structure helpers
@@ -201,7 +189,6 @@ def init_lm(gen: Optional[torch.Generator], cfg: ArchConfig,
             dtype=torch.float32, device="cpu") -> PyTree:
     """The reference's parameter tree, drawn from ``gen`` (on the ``meta``
     device: shapes only, ``gen`` unused)."""
-    require_ported(cfg)
     spec = cycle_spec(cfg)
     n_cycles, n_tail = cycle_counts(cfg)
     params: Dict[str, Any] = {
@@ -252,24 +239,30 @@ def _cycle_apply(cparams, shared, cfg, x, positions, kw):
     return x, states, aux
 
 
-def embed_inputs(params, cfg: ArchConfig, tokens):
-    """Token embedding. Returns (x, positions, n_prefix)."""
+def embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds=None):
+    """Token (+ a vlm's patch) embedding. Returns (x, positions,
+    n_prefix)."""
     x = layers.embedding_apply(params["embed"], tokens)
+    n_prefix = 0
+    if cfg.arch_type == "vlm" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        n_prefix = patch_embeds.shape[1]
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    return x, positions, 0
+    return x, positions, n_prefix
 
 
-def forward_lm(params, cfg: ArchConfig, tokens, *,
+def forward_lm(params, cfg: ArchConfig, tokens, patch_embeds=None, *,
                global_window: Optional[int] = None, remat: bool = False,
                moe_path: str = "dispatch", use_kernel: bool = False,
                return_states: bool = False, return_features: bool = False):
     """Full-sequence forward. Returns (logits|features, aux[, decode
     states]); states are stacked over cycles like the params, and aux is
-    the MoE load-balance loss summed over the layers (0 for dense)."""
-    require_ported(cfg)
-    x, positions, _ = embed_inputs(params, cfg, tokens)
+    the MoE load-balance loss summed over the layers (0 for dense).
+    ``patch_embeds``: a vlm's (B, P, d) patch embeddings, read ahead of
+    the tokens."""
+    x, positions, _ = embed_inputs(params, cfg, tokens, patch_embeds)
     kw = dict(global_window=global_window, moe_path=moe_path,
               use_kernel=use_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -374,12 +367,16 @@ def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = False, moe_path: str = "dispatch",
             use_kernel: bool = False):
     """Next-token LM loss plus ``router_aux_coef`` x the MoE aux. batch:
-    {tokens, [mask]}. Returns (loss, {"xent", "aux"})."""
+    {tokens, [patch_embeds], [mask]}. Returns (loss, {"xent", "aux"})."""
     tokens = batch["tokens"]
-    feats, aux = forward_lm(params, cfg, tokens, remat=remat,
+    patch = batch.get("patch_embeds")
+    feats, aux = forward_lm(params, cfg, tokens, patch, remat=remat,
                             moe_path=moe_path, use_kernel=use_kernel,
                             return_features=True)
-    pred_feats = feats[:, :-1]
+    n_prefix = (patch.shape[1] if patch is not None
+                and cfg.arch_type == "vlm" else 0)
+    # tokens[t + 1] is predicted from sequence position n_prefix + t
+    pred_feats = feats[:, n_prefix:-1]
     targets = tokens[:, 1:]
     mask = batch.get("mask")
     mask = mask[:, 1:].to(torch.float32) if mask is not None else None
@@ -423,7 +420,6 @@ def _block_cache(cfg: ArchConfig, ltype: str, batch: int, max_seq: int, dtype,
 def init_cache_lm(cfg: ArchConfig, batch: int, max_seq: int,
                   dtype=torch.float32, *, ring: bool = False,
                   global_window=None, quant: bool = False, device="cpu"):
-    require_ported(cfg)
     spec = cycle_spec(cfg)
     n_cycles, n_tail = cycle_counts(cfg)
     kw = dict(ring=ring, global_window=global_window, quant=quant,

@@ -28,7 +28,7 @@ RUNS = ["adaptive-downlink", "fixed-cohort-topk", "local-int8-decayK",
 # spec -> (refused field, ROADMAP item); None: ported, the spec builds
 REFUSED = {"population-chunked": None,                 # A6, streaming
            "async-buffered": None,                     # A7, async buffer
-           "serve-while-training": ("serve.every", "A8"),
+           "serve-while-training": None,               # A8, serving
            "mesh-sequential-cosine": ("backend.strategy", "A13")}
 
 
@@ -297,7 +297,8 @@ def test_registered_custom_aggregator_resolves_through_build():
 def test_build_refuses_unported_specs_by_name(name):
     """Each spec validates (as in the reference). ``build`` refuses a spec
     the port cannot run yet, naming the field and the ROADMAP item; the
-    streaming (A6) and async (A7) specs build and run a round."""
+    streaming (A6), async (A7) and serve-while-training (A8) specs build
+    and run a round."""
     from repro_torch.api import build
     from repro_torch.core.engine import AsyncBufferedEngine, FedAvgTrainer
     spec = tspec.ExperimentSpec.load(str(ROOT / "examples" / "specs"
@@ -317,10 +318,21 @@ def test_build_refuses_unported_specs_by_name(name):
 
 
 def test_build_refuses_later_archs_by_name():
+    """``model.arch=whisper-tiny`` over LM data: both packages' ``build``
+    runs, and the first round raises ``KeyError: 'audio_embeds'`` in both
+    (the LM clients carry no audio; the port adds none)."""
+    from repro.api import build as jbuild
     from repro_torch.api import build
-    spec = tspec.ExperimentSpec().with_overrides("model.arch=whisper-tiny")
-    with pytest.raises(ValueError, match="not ported yet"):
-        build(spec, device="cpu")
+    overrides = ("model.arch=whisper-tiny", "fed.rounds=1")
+    outcomes = []
+    for exp in (build(tspec.ExperimentSpec().with_overrides(*overrides),
+                      device="cpu"),
+                jbuild(jspec.ExperimentSpec().with_overrides(*overrides))):
+        assert exp.label == "whisper-tiny-reduced"
+        with pytest.raises(KeyError) as e:
+            exp.run(1)
+        outcomes.append(e.value.args)
+    assert outcomes[0] == outcomes[1] == ("audio_embeds",)
 
 
 def test_restore_needs_an_embedded_spec(tmp_path):

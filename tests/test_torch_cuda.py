@@ -1557,3 +1557,97 @@ def test_peak_mb_reads_the_allocator_and_resets_it(cuda):
     assert trainer_peak_mb(SimpleNamespace(engine=engine)) >= (
         base + (64 << 20)) / 1e6
     assert engine_peak_mb(engine) == torch.cuda.memory_allocated(cuda) / 1e6
+
+
+# ---------------------------------------------------------------------------
+# the vision-language model and serving while training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_llava_prefill_shape(cuda, dtype):
+    """llava-next-34b's attention at its prefill length (576 patch
+    positions ahead of 3,520 tokens: S 4096), 56 heads over 8 kv heads
+    (GQA 7:1), hd 128, one sequence: the path its dtype names, against the
+    plain version."""
+    case = (1, 56, 8, 4096, 4096, 128)
+    q, k, v = _fa_inputs(case, dtype, cuda, seed=56)
+    want_path = "wgmma" if dtype == torch.bfloat16 else "wgmma_split"
+    assert tfa.kernel_path(128, dtype) == want_path
+    before = dict(tfa.launches_by_path)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.launches_by_path == {
+        p: before[p] + (p == want_path) for p in tfa.PATHS}
+    want = tref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+    if dtype == torch.bfloat16:
+        del want
+        _assert_bf16_rows_close(got, q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_reduced_llava_prefill_with_the_kernel_matches_without(cuda):
+    """Reduced llava-next-34b, patch embeddings ahead of the tokens: the
+    prefill through flash (one launch a layer) against the plain path on
+    the card, logits and every K/V state."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch("llava-next-34b-reduced")
+    params = registry.init(0, cfg, device=cuda)
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 80),
+                                     generator=g).to(cuda),
+             "patch_embeds": (torch.randn((2, cfg.num_patch_tokens,
+                                           cfg.d_model), generator=g)
+                              * 0.1).to(cuda)}
+    before = tfa.launches
+    with torch.no_grad():
+        got, gst = make_prefill_step(cfg, use_kernel=True)(params, batch)
+        assert tfa.launches == before + cfg.num_layers
+        want, wst = make_prefill_step(cfg, use_kernel=False)(params, batch)
+    assert tfa.launches == before + cfg.num_layers
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+    for a, b in zip(tree_leaves(gst), tree_leaves(wst)):
+        assert a.shape[2] == 80 + cfg.num_patch_tokens
+        torch.testing.assert_close(a, b, **FA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_serving_tick_over_a_trainer_on_the_card(cuda):
+    """``serve-while-training.json`` (reduced) on the card for 4 rounds:
+    the int8 wire kernels run each round, the loop ticks at rounds 2 and 4
+    with the version of its round, the served tree is the q8 store's load
+    of the reference clients hold, and each round's wall clock is the
+    runtime model's times 1/(1 - rho)."""
+    from repro_torch.api import ExperimentSpec, build
+    from repro_torch.optim import tree_leaves
+    spec = ExperimentSpec.load(str(Path(__file__).resolve().parents[1]
+                                   / "examples" / "specs"
+                                   / "serve-while-training.json"))
+    exp = build(spec.with_overrides("fed.rounds=4"))
+    tr = exp.trainer
+    assert tr.device.type == "cuda" and tr.serving is not None
+    leaves = len(tree_leaves(tr.params))
+    before = dict(tdc.launches)
+    h = exp.run()
+    for name in ("int8_decompress_reduce", "int8_decode_apply"):
+        assert tdc.launches[name] == before[name] + 4 * leaves, name
+    assert h.serve_rounds == [2, 4] and h.serve_staleness == [2, 2]
+    assert tr.serving.served_version == tr.store.version == 4
+    ref = tr.engine.downlink_state["ref"]
+    served = tr.serving.params
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(served),
+        tree_leaves(tr.engine.downlink.load_tree(ref, like=tr.params))))
+    assert served["embed"]["embedding"].device.type == "cuda"
+    rho = spec.serve.qps * spec.serve.query_ms / 1e3
+    walls = np.diff(h.wall_clock_s, prepend=0.0)
+    base = [tr.runtime._base_seconds(k) for k in h.k]
+    np.testing.assert_allclose(walls, np.array(base) / (1 - rho),
+                               rtol=1e-12, atol=0)
+    assert tr.store.serve_queries == pytest.approx(
+        spec.serve.qps * h.wall_clock_s[-1], rel=1e-12)
+    assert all(t > 0 for t in h.serve_tokens_per_sec)

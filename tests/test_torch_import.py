@@ -19,7 +19,7 @@ from repro_torch.core.engine.trainer import make_eval_fn
 from repro_torch.data import make_paper_task
 from repro_torch.api import ExperimentSpec, build
 from repro_torch.launch import quickstart, serve, train
-from repro_torch.models import registry, small, transformer
+from repro_torch.models import registry, small
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -46,7 +46,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.checkpoint, repro_torch.core.theory, "
             "repro_torch.core.engine.policies, repro_torch.launch.train, "
             "repro_torch.launch.quickstart, repro_torch.core.mem, "
-            "repro_torch.core.engine.async_buffer\n"
+            "repro_torch.core.engine.async_buffer, repro_torch.models.encdec, "
+            "repro_torch.configs.whisper_tiny, "
+            "repro_torch.configs.llava_next_34b\n"
             "from repro_torch.api import ExperimentSpec, build\n"
             "ExperimentSpec.load('examples/specs/local-int8-decayK.json')"
             ".validate()\n"
@@ -138,8 +140,11 @@ def test_trainer_refuses_unported_config_by_name(field, value, extra):
 @pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-34b",
                                   "whisper-tiny-reduced"])
 def test_get_arch_refuses_unported_families_by_name(name):
-    with pytest.raises(ValueError, match="slice"):
-        get_arch(name)
+    """Every family is ported now: the names the port once refused
+    resolve (the encoder-decoder and the vision-language model)."""
+    cfg = get_arch(name)
+    assert cfg.name == name and cfg.arch_type in ("audio", "vlm")
+    assert registry.param_count(cfg) > 0
 
 
 @pytest.mark.parametrize("name", ["mamba2-780m-reduced", "zamba2-7b-reduced",
@@ -151,10 +156,15 @@ def test_get_arch_resolves_ssm_families_by_name(name):
 
 
 def test_model_refuses_non_dense_arch_and_serve_refuses_checkpoint():
-    import dataclasses
-    audio = dataclasses.replace(get_arch("qwen1.5-0.5b-reduced"),
-                                arch_type="audio")
-    with pytest.raises(ValueError, match="encoder-decoder slice"):
-        transformer.init_lm(None, audio, device="meta")
+    """The serving loop refuses the audio encoder-decoder by name (its
+    decode cache needs audio the synthetic traffic lacks), as the
+    reference's; the serve launcher refuses a missing checkpoint."""
+    from repro_torch.core.engine.model_store import GlobalModelStore
+    from repro_torch.core.serve import ServingLoop
+    cfg = get_arch("whisper-tiny-reduced")
+    params = registry.init(0, cfg, device="cpu")
+    assert set(params) >= {"enc_stack", "dec_stack"}
+    with pytest.raises(ValueError, match="audio encoder-decoder"):
+        ServingLoop(GlobalModelStore(params=params), cfg)
     with pytest.raises(SystemExit, match="checkpoint"):
         serve.main(["--checkpoint", "/nonexistent", "--device", "cpu"])
