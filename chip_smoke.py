@@ -46,7 +46,9 @@ exits non-zero without printing a result:
               rounds plus one eval, then FEMNIST, Sent140 and Shakespeare at
               their paper FedConfigs for 2 rounds each; launch counts are
               zeroed before each run and must equal the rounds after (one
-              ``fedavg_reduce`` launch a round for the whole tree);
+              ``fedavg_reduce`` launch a round for the whole tree); each
+              engine dispatch runs a whole bucket: ms a bucket, and a
+              round's ms is its bucket's over the bucket's active rounds;
 6. wire     — ``FedAvgTrainer`` on CIFAR100 at paper width for 3 rounds in
               each of three codec configurations (int8 up / int8x2 down,
               int8x2 up / int8 down, top-k both ways at 10%); ms per round,
@@ -227,15 +229,28 @@ exits non-zero without printing a result:
               the bf16 prefill (12 launches on ``"wgmma"``, held by
               ``BF16_ANCHOR_FACTOR``). Phase ``kernel`` holds flash at
               llava's prefill shape in f32 and bf16, and phase ``parity``
-              reduced whisper-tiny and llava-next-34b.
+              reduced whisper-tiny and llava-next-34b. llava's and
+              zamba2's weights are drawn on the card (every check of theirs
+              compares kernel and plain there);
+17. fleet   — the fleet runner (``launch.fleet.run_fleet``, run after phase
+              serve_train): FEMNIST at paper width (DNN 200-200, 209,662
+              params, U 60, b 32, data from seed 0), K_r-rounds quantized,
+              kernel aggregator, 4 rounds, swept over ``fed.k0=64,80`` x
+              ``transport.name=none,int8`` with ``share_k_grid``; packed
+              (four ``LocalBackend`` slices on four streams), then serial,
+              each on a fresh registry: bitwise equal points, programs
+              built as the scheduler's plans predict, dispatches a bucket,
+              shared counts that add up, exact launches; wall seconds,
+              rounds/s and peaks, and the leaderboard CSV under ``build/``.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
 the wire kernels and ``fedavg_reduce`` with their launches in phase
 lm_train and their row at qwen's embedding leaf; every entry with its
 launches in phase spec, ``spec_launches``, in phases stream and async,
-``stream_launches`` and ``async_launches``, and in phases serve_train and
-encdec, ``serve_train_launches`` and ``encdec_launches``);
+``stream_launches`` and ``async_launches``, in phases serve_train and
+encdec, ``serve_train_launches`` and ``encdec_launches``, and in phase
+fleet's packed run, ``fleet_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -364,6 +379,29 @@ def host_ms(torch, fn, reps: int = 25) -> float:
         times.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def timed_buckets(torch, fn, log, method: bool = False):
+    """Instrumentation of this script only: ``RoundEngine.run_bucket``
+    (``fn``; ``method``: the class's function, called with the engine)
+    under the host clock between synchronisations. Each dispatch appends
+    (ms, its active rounds) to ``log``."""
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        active = a[5 if method else 4]
+        log.append(((time.perf_counter() - t) * 1e3,
+                    sum(bool(x) for x in active)))
+        return out
+    return timed
+
+
+def per_round_ms(log):
+    """Each bucket's ms over its active rounds, once for each of them: the
+    ms of every round in order."""
+    return [ms / n for ms, n in log for _ in range(n)]
 
 
 def phase_device(torch):
@@ -831,13 +869,14 @@ def phase_parity_wire(torch):
     for r in range(2):
         bb = pipeline.bucket_batches(rng, data, n_rounds=1, k=3,
                                      clients_per_round=4, batch_size=4)
-        batches = {k: v[0] for k, v in bb.batches.items()}
         outs = {}
         for dev, eng in engines.items():
             eng.transport_state = to(state["t"], dev)
             eng.downlink_state = to(state["d"], dev)
-            outs[dev] = eng.run_bucket(to(state["params"], dev), batches,
-                                       bb.weights[0], 0.01, ())
+            p, f, l, s = eng.run_bucket(
+                to(state["params"], dev), bb.batches, bb.weights,
+                np.full(1, 0.01, np.float32), bb.active, ())
+            outs[dev] = (p, f[0], l[0], s)
         for old, a, b in zip(tree_leaves(state["params"]),
                              tree_leaves(outs["cpu"][0]),
                              tree_leaves(outs["cuda"][0])):
@@ -879,18 +918,9 @@ def run_wire(torch, data, up: str, down: str):
     trainer = FedAvgTrainer(loss_fn, params, data, fed,
                             RuntimeModel(task.model_size_mb, task.runtime, n))
 
-    # instrumentation of this script only: host clock around each round,
+    # instrumentation of this script only: host clock around each bucket,
     # CUDA events around each kernel entry point and each encoder
-    round_ms, events = [], {}
-    run_bucket = trainer.engine.run_bucket
-
-    def timed_bucket(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_bucket(*a)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    buckets, events = [], {}
 
     def timed(key, fn):
         def call(*a, **kw):
@@ -910,7 +940,8 @@ def run_wire(torch, data, up: str, down: str):
     saved = {fn: getattr(ops, fn) for fn in entry.values()}
     for key, fn in entry.items():
         setattr(ops, fn, timed(key, saved[fn]))
-    trainer.engine.run_bucket = timed_bucket
+    trainer.engine.run_bucket = timed_buckets(
+        torch, trainer.engine.run_bucket, buckets)
     codecs = {"encode_up": trainer.engine.transport,
               "encode_down": trainer.engine.downlink.codec}
     for key, codec in codecs.items():
@@ -927,6 +958,7 @@ def run_wire(torch, data, up: str, down: str):
     finally:
         for fn, f in saved.items():
             setattr(ops, fn, f)
+    round_ms = per_round_ms(buckets)
     launches = dict(dc.launches)
     want = {k: 0 for k in launches}
     kind = lambda codec: "int8" if codec.startswith("int8") else "topk"
@@ -991,20 +1023,12 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
         make_eval_fn(loss_fn, data))
 
     # instrumentation of this script only: each engine dispatch is one
-    # round (host clock between synchronisations); CUDA events around the
-    # tree reduce, which span the card's wait for the host's enqueue when
-    # the card is idle, and the host clock around the same call
-    round_ms, reduce_events, reduce_host_ms = [], [], []
-    run_bucket, reduce_tree = trainer.engine.run_bucket, \
-        ops.fedavg_reduce_tree
-
-    def timed_bucket(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_bucket(*a)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    # bucket (host clock between synchronisations), and a round's ms is its
+    # bucket's over the bucket's active rounds; CUDA events around the tree
+    # reduce, which span the card's wait for the host's enqueue when the
+    # card is idle, and the host clock around the same call
+    buckets, reduce_events, reduce_host_ms = [], [], []
+    reduce_tree = ops.fedavg_reduce_tree
 
     def timed_reduce(*a):
         ev = (torch.cuda.Event(enable_timing=True),
@@ -1017,7 +1041,8 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
         reduce_events.append(ev)
         return out
 
-    trainer.engine.run_bucket = timed_bucket
+    trainer.engine.run_bucket = timed_buckets(
+        torch, trainer.engine.run_bucket, buckets)
     ops.fedavg_reduce_tree = timed_reduce
     torch.cuda.reset_peak_memory_stats()
     fr.launches = 0
@@ -1029,6 +1054,8 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
     finally:
         ops.fedavg_reduce_tree = reduce_tree
     launches = fr.launches
+    round_ms = per_round_ms(buckets)
+    bucket_of = [i for i, (_, n) in enumerate(buckets) for _ in range(n)]
     if len(reduce_events) != rounds:
         raise AssertionError(f"{name}: {len(reduce_events)} tree reduces "
                              f"timed, want one a round")
@@ -1044,8 +1071,11 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
         raise AssertionError(f"{name}: {launches} kernel launches, want "
                              f"{want}: one a round for {leaves} leaves")
     for i in range(rounds):
+        bucket_ms, active = buckets[bucket_of[i]]
         emit({"phase": "main", "task": name, "round": h.rounds[i],
               "k": h.k[i], "loss": h.train_loss[i], "ms": round_ms[i],
+              "bucket": bucket_of[i], "bucket_ms": bucket_ms,
+              "bucket_active_rounds": active,
               "reduce_ms": reduce_ms[i], "reduce_host_ms": reduce_host_ms[i],
               "reduce_share": reduce_ms[i] / round_ms[i]})
     emit({"phase": "main", "task": name, "summary": True,
@@ -1053,6 +1083,10 @@ def run_task(torch, name: str, rounds: int, data=None, data_s=None):
           "batch_size": fed.batch_size, "k": h.k, "eta0": fed.eta0,
           "params": sum(p.numel() for p in tree_leaves(params)),
           "leaves": leaves, "launches": launches,
+          "dispatches": trainer.dispatch_count,
+          "bucket_programs": trainer.compile_count,
+          "ms_per_bucket": [ms for ms, _ in buckets],
+          "ms_per_active_round": [ms / n for ms, n in buckets],
           "val_error": h.val_error[-1], "run_s": run_s,
           "data_build_s": data_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1526,7 +1560,7 @@ def run_step(torch, step, params, batch):
 
 def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
              kernels=(FLASH,), seed=7, state_tol=PARITY_TOL, extra=None,
-             cfg=None):
+             cfg=None, gen=None):
     """One architecture at full width (``arch``, ``n_want`` params): prefill
     B 2 x S 4096 through its kernels (each ``(module, short name, layer
     type)``: the wrapper of that name in ``repro_torch.kernels``, one launch
@@ -1537,8 +1571,11 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     ``flash_attention``; phase ``ssm``: mamba2-780m through ``ssd_scan``;
     phase ``zamba2``: zamba2-7b through both; phase ``encdec``:
     llava-next-34b (``cfg``, its depth cut) through ``flash_attention``,
-    576 patch embeddings ahead of the tokens. Returns {module: launches}
-    counted over the four kernel prefills, and the f32 params."""
+    576 patch embeddings ahead of the tokens. The weights come from seed 0
+    on ``gen`` (default: a CPU generator, the weights every device gets; a
+    CUDA generator draws them on the card, for a phase whose checks stay on
+    the card). Returns {module: launches} counted over the four kernel
+    prefills, and the f32 params."""
     import importlib
     from repro_torch.configs import get_arch
     from repro_torch.core.engine.model_store import GlobalModelStore
@@ -1552,8 +1589,8 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = registry.init(torch.Generator().manual_seed(0), cfg,
-                           device="cuda")
+    gen = gen if gen is not None else torch.Generator()
+    params = registry.init(gen.manual_seed(0), cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -1592,7 +1629,7 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     emit({"phase": phase, "what": "prefill", "arch": arch,
           **(extra(cfg) if extra else {}),
           "params": n_params, "dtype": "float32", "batch": LM_BATCH,
-          "seq": LM_SEQ, "init_s": init_s,
+          "seq": LM_SEQ, "init_s": init_s, "init_device": gen.device.type,
           "ms": order[len(order) // 2], "ms_runs": times,
           **{f"{short}_share": shares[name] for name, short, _ in kernels},
           **{f"{short}_launches_per_prefill": launches[name] // 4
@@ -2179,18 +2216,10 @@ def run_mesh(torch, data, up, down, backend, rounds: int):
         RuntimeModel(task.model_size_mb, task.runtime,
                      fed.clients_per_round), backend=backend)
 
-    # instrumentation of this script only: host clock around each round,
+    # instrumentation of this script only: host clock around each bucket,
     # CUDA events around each all-reduce
-    round_ms, events = [], []
-    run_bucket, all_reduce = trainer.engine.run_bucket, dist.all_reduce
-
-    def timed_bucket(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_bucket(*a)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    buckets, events = [], []
+    all_reduce = dist.all_reduce
 
     def timed_all_reduce(*a, **kw):
         ev = (torch.cuda.Event(enable_timing=True),
@@ -2201,7 +2230,8 @@ def run_mesh(torch, data, up, down, backend, rounds: int):
         events.append(ev)
         return out
 
-    trainer.engine.run_bucket = timed_bucket
+    trainer.engine.run_bucket = timed_buckets(
+        torch, trainer.engine.run_bucket, buckets)
     dist.all_reduce = timed_all_reduce
     try:
         h = trainer.run(rounds)
@@ -2209,7 +2239,7 @@ def run_mesh(torch, data, up, down, backend, rounds: int):
     finally:
         dist.all_reduce = all_reduce
     ar_ms = sum(a.elapsed_time(b) for a, b in events) / rounds
-    return trainer, h, round_ms, ar_ms, len(events)
+    return trainer, h, per_round_ms(buckets), ar_ms, len(events)
 
 
 def phase_mesh(torch, data, meshes):
@@ -2644,10 +2674,10 @@ def run_lm_train(torch, label, cfg, params, data):
     n_params = sum(t.numel() for t in leaves)
     sizes = [int(t.numel()) for t in leaves]
 
-    # instrumentation of this script only: host clock around each round,
+    # instrumentation of this script only: host clock around each bucket,
     # CUDA events around the vmapped client update (its K local steps),
     # each kernel entry point, each encoder and the tree reduce
-    round_ms, events = [], {}
+    events = {}
 
     def timed(key, fn):
         def call(*a, **kw):
@@ -2671,17 +2701,9 @@ def run_lm_train(torch, label, cfg, params, data):
         local.make_client_update = make_update
     fed = trainer.fed
     ids = record_ids(trainer)
-    run_bucket = trainer.engine.run_bucket
-
-    def timed_bucket(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_bucket(*a)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    trainer.engine.run_bucket = timed_bucket
+    buckets = []
+    trainer.engine.run_bucket = timed_buckets(
+        torch, trainer.engine.run_bucket, buckets)
     entries = {**WIRE_ENTRIES, "fedavg_reduce": "fedavg_reduce_tree"}
     saved = {fn: getattr(ops, fn) for fn in entries.values()}
     for key, fn in entries.items():
@@ -2705,6 +2727,7 @@ def run_lm_train(torch, label, cfg, params, data):
             setattr(ops, fn, f)
     launches = {**dc.launches, "fedavg_reduce": fr.launches}
     peak = torch.cuda.max_memory_allocated() / 1e9
+    round_ms = per_round_ms(buckets)
 
     up, down = fed.transport, fed.downlink
     want = dict.fromkeys(launches, 0)
@@ -2731,9 +2754,10 @@ def run_lm_train(torch, label, cfg, params, data):
         raise AssertionError(f"lm_train ({label}): client ids {ids}")
     if not all(math.isfinite(v) for v in h.train_loss):
         raise AssertionError(f"lm_train ({label}): loss {h.train_loss}")
-    ef = trainer.engine.transport_state
-    ef_shape = (list(tree_leaves(ef)[0].shape[:1])
-                if tree_leaves(ef) else None)
+    # no codec: the state is (), a leaf of no tensor
+    ef = [t for t in tree_leaves(trainer.engine.transport_state)
+          if isinstance(t, torch.Tensor)]
+    ef_shape = list(ef[0].shape[:1]) if ef else None
     if fed.sampler == "fixed_cohort" and (
             trainer.engine.transport.ef_slots != fed.clients_per_round
             or ef_shape != [fed.clients_per_round]):
@@ -2976,17 +3000,9 @@ def _split_vs_straight(torch, label, spec, save_at, total, tmp, launcher,
     from repro_torch.launch import train
     ckpt = os.path.join(tmp, label)
     ids, undo = _recorded_ids()
-    # instrumentation of this script only: host clock around each round
+    # instrumentation of this script only: host clock around each bucket
     # (synchronised), and around the save and the restore
-    round_ms, run_bucket = [], round_mod.RoundEngine.run_bucket
-
-    def timed_bucket(self, *a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_bucket(self, *a)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    buckets, run_bucket = [], round_mod.RoundEngine.run_bucket
 
     from repro_torch.core.engine.trainer import FedAvgTrainer
     save, save_s = FederatedExperiment.save, []
@@ -3001,7 +3017,8 @@ def _split_vs_straight(torch, label, spec, save_at, total, tmp, launcher,
             out.append(time.perf_counter() - t)
         return call
 
-    round_mod.RoundEngine.run_bucket = timed_bucket
+    round_mod.RoundEngine.run_bucket = timed_buckets(torch, run_bucket,
+                                                     buckets, method=True)
     FederatedExperiment.save = timed(save, save_s)
     FedAvgTrainer.restore_state = timed(restore_state, load_s)
     runs, counts = {}, {}
@@ -3031,7 +3048,7 @@ def _split_vs_straight(torch, label, spec, save_at, total, tmp, launcher,
             exp.save(ckpt)
         counts["first"] = count()
         first_h = exp.history.as_dict()
-        first_ms = list(round_ms)
+        n_first = len(buckets)
         del exp
         _free(torch)
         zero()
@@ -3047,10 +3064,10 @@ def _split_vs_straight(torch, label, spec, save_at, total, tmp, launcher,
             if isinstance(t, torch.Tensor)]
         runs["resumed"] = (exp.history.as_dict(), _host(exp.params),
                            {"slots": slots, "fed": exp.trainer.fed})
-        checked, n_ids, n_ms = None, len(ids), len(round_ms)
+        checked, n_ids, n_buckets = None, len(ids), len(buckets)
         if check:
             checked = check_lm_round(torch, exp.trainer, f"spec {label}")
-            del ids[n_ids:], round_ms[n_ms:]
+            del ids[n_ids:], buckets[n_buckets:]
         del exp
         _free(torch)
         for rep in ("straight", "repeat"):
@@ -3068,7 +3085,8 @@ def _split_vs_straight(torch, label, spec, save_at, total, tmp, launcher,
         FedAvgTrainer.restore_state = restore_state
     return {"runs": runs, "ids": ids, "counts": counts, "checked": checked,
             "first": first_h,
-            "first_ms": first_ms, "round_ms": round_ms[len(first_ms):],
+            "first_ms": per_round_ms(buckets[:n_first]),
+            "round_ms": per_round_ms(buckets[n_first:]),
             "save_s": save_s[0], "load_s": load_s[0],
             "restore_s": restore_s, "ckpt": ckpt,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3388,20 +3406,27 @@ def only(counts, want, what):
 
 def timed_rounds(torch, engine):
     """Instrumentation of this script only: the host ms of each round an
-    engine runs (dense or streamed), synchronised before and after."""
-    ms = []
-    for name in ("run_bucket", "run_round_chunked"):
-        fn = getattr(engine, name)
+    engine runs, synchronised before and after each dispatch: a streamed
+    round's, or a dense bucket's over its active rounds for each of
+    them."""
+    ms, buckets = [], []
+    bucket = timed_buckets(torch, engine.run_bucket, buckets)
+    chunked = engine.run_round_chunked
 
-        def timed(*a, _fn=fn):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = _fn(*a)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-            return out
+    def timed_bucket(*a):
+        out = bucket(*a)
+        ms.extend(per_round_ms(buckets[-1:]))
+        return out
 
-        setattr(engine, name, timed)
+    def timed_chunked(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = chunked(*a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    engine.run_bucket, engine.run_round_chunked = timed_bucket, timed_chunked
     return ms
 
 
@@ -4143,19 +4168,11 @@ def serve_sync(torch, tmp):
                              f"params, want {LM_PARAMS}")
     path = os.path.join(tmp, "serve.json")
     spec.save(path)
-    # instrumentation of this script only: host clock around each round
+    # instrumentation of this script only: host clock around each bucket
     # (synchronised)
-    round_ms, run_bucket = [], round_mod.RoundEngine.run_bucket
-
-    def timed_bucket(self, *a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_bucket(self, *a)
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    round_mod.RoundEngine.run_bucket = timed_bucket
+    buckets, run_bucket = [], round_mod.RoundEngine.run_bucket
+    round_mod.RoundEngine.run_bucket = timed_buckets(torch, run_bucket,
+                                                     buckets, method=True)
     try:
         _free(torch)
         torch.cuda.reset_peak_memory_stats()
@@ -4212,7 +4229,8 @@ def serve_sync(torch, tmp):
           "leaves": len(sizes), "rounds": rounds, "every": every,
           "qps": sv.qps, "query_ms": sv.query_ms, "rho": rho,
           "k": hist["k"], "loss": hist["train_loss"],
-          "ms_per_round": round_ms, "s": run_s,
+          "ms_per_round": per_round_ms(buckets),
+          "ms_per_bucket": [ms for ms, _ in buckets], "s": run_s,
           "ticks": hist["serve_rounds"], "staleness": hist["serve_staleness"],
           "tokens_per_s": hist["serve_tokens_per_sec"],
           "swap_us": hist["serve_swap_us"],
@@ -4346,6 +4364,158 @@ def phase_serve_train(torch, params):
 # the encoder-decoder and vision-language families (phase 16)
 # ---------------------------------------------------------------------------
 
+# the fleet runner (phase fleet): FEMNIST at paper width (DNN 200-200, U 60,
+# b 32) over launch.fleet, packed on four streams and serial
+FLEET_BASE = ("data.kind=paper", "data.task=femnist", "data.clients=300",
+              "data.samples_per_client=170", "data.seed=0",
+              "fed.clients_per_round=60", "fed.batch_size=32",
+              "fed.eta0=0.3", "fed.k_schedule=rounds", "fed.k_quantize=true",
+              "fed.aggregator=kernel", "fed.rounds=4",
+              "runtime.beta_seconds=0.017")
+FLEET_SWEEP = ("fed.k0=64,80", "transport.name=none,int8")
+FEMNIST_PARAMS = 209_662
+FLEET_CSV = (Path(__file__).resolve().parent / "build"
+             / "fleet_leaderboard.csv")
+
+
+def fleet_plan(points):
+    """From the scheduler, without running anything: each point's buckets
+    as (k, shape) pairs, and the distinct (program key, k, shape) pairs
+    of all points (every point's bucket inputs have the same shapes but
+    for K and the bucket's length)."""
+    from repro_torch.api.experiment import _make_fed_config
+    from repro_torch.api.sweep import spec_program_key
+    from repro_torch.core.engine.scheduler import RoundScheduler
+    from repro_torch.core.schedules import DecayController
+    plans, keys = {}, set()
+    for p in points:
+        fed = _make_fed_config(p.spec)
+        plan = [(b.k, b.shape_rounds, len(b)) for b in RoundScheduler(
+            DecayController(fed), fed, total_rounds=fed.rounds).plan()]
+        plans[p.label] = plan
+        keys |= {(spec_program_key(p.spec), k, shape)
+                 for k, shape, _ in plan}
+    return plans, keys
+
+
+def phase_fleet(torch):
+    """The fleet runner on the card: ``FLEET_SWEEP`` over ``FLEET_BASE``
+    with ``share_k_grid`` (four points, one K grid anchored at 80), packed
+    (four ``LocalBackend`` slices, each on its own stream) and then serial,
+    each with a fresh registry. Every point's params, losses and history
+    bitwise equal between the two; the registry's builds equal the
+    distinct (program key, bucket signature) pairs of the four plans (from
+    the scheduler), each point's dispatches its buckets, and the shared
+    counts add up; ``fedavg_reduce`` launches once a round of a plain
+    point, ``int8_decompress_reduce`` once a leaf a round of an int8 point
+    and ``int8_decode_apply`` never (no downlink codec), each count zeroed
+    just before the run; the leaderboard CSV goes to ``build/``. Returns
+    the packed run's launches."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.sweep import expand_sweep
+    from repro_torch.launch import fleet
+    from repro_torch.optim import tree_leaves
+    t0 = time.perf_counter()
+    base = ExperimentSpec().with_overrides(*FLEET_BASE)
+    points = fleet.share_k_grid(expand_sweep(*FLEET_SWEEP, base=base))
+    plans, keys = fleet_plan(points)
+    built, build = {}, fleet.build
+
+    def recording(spec, **kw):
+        exp = build(spec, **kw)
+        built[(mode, spec.fed.k0, spec.transport.name)] = exp
+        return exp
+
+    results, launches = {}, {}
+    fleet.build = recording
+    try:
+        for mode in ("packed", "serial"):
+            _free(torch)
+            zero_counts()
+            results[mode] = fleet.run_fleet(points=points,
+                                            packed=mode == "packed")
+            torch.cuda.synchronize()
+            launches[mode] = kernel_counts()
+    finally:
+        fleet.build = build
+    rounds = base.fed.rounds
+    n_int8 = sum(p.spec.transport.name == "int8" for p in points)
+    leaves, n_params = None, None
+    for (mode, k0, name), exp in built.items():
+        if mode != "packed":
+            continue
+        other = built[("serial", k0, name)]
+        a, b = tree_leaves(exp.params), tree_leaves(other.params)
+        leaves, n_params = len(a), sum(t.numel() for t in a)
+        if json.dumps(exp.history.as_dict()) != json.dumps(
+                other.history.as_dict()) or not all(
+                torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in zip(a, b)):
+            raise AssertionError(f"fleet: point k0={k0} {name} packed is "
+                                 f"not bitwise its serial run")
+        if not all(math.isfinite(v) for v in exp.history.train_loss):
+            raise AssertionError(f"fleet: k0={k0} {name} losses "
+                                 f"{exp.history.train_loss}")
+    if n_params != FEMNIST_PARAMS:
+        raise AssertionError(f"fleet: {n_params} params, want "
+                             f"{FEMNIST_PARAMS}")
+    want = {k: 0 for k in launches["packed"]}
+    want["fedavg_reduce"] = (len(points) - n_int8) * rounds
+    want["int8_decompress_reduce"] = n_int8 * rounds * leaves
+    for mode, res in results.items():
+        if launches[mode] != want:
+            raise AssertionError(f"fleet ({mode}): launches "
+                                 f"{launches[mode]}, want {want}")
+        per_point = {r.label: r for r in res.points}
+        if res.compile_count != len(keys):
+            raise AssertionError(f"fleet ({mode}): {res.compile_count} "
+                                 f"programs built, the plans' distinct "
+                                 f"pairs are {len(keys)}")
+        touched = 0
+        for label, plan in plans.items():
+            r = per_point[label]
+            if r.dispatch_count != len(plan) or r.rounds != rounds:
+                raise AssertionError(f"fleet ({mode}): {label} dispatched "
+                                     f"{r.dispatch_count} for a plan of "
+                                     f"{len(plan)} buckets")
+            touched += len({(k, shape) for k, shape, _ in plan})
+        if res.compile_count + res.shared_count != touched or                 sum(r.compile_count for r in res.points)                 != res.compile_count:
+            raise AssertionError(f"fleet ({mode}): {res.compile_count} "
+                                 f"built + {res.shared_count} shared != "
+                                 f"{touched} programs the points used")
+    FLEET_CSV.parent.mkdir(parents=True, exist_ok=True)
+    results["packed"].to_csv(str(FLEET_CSV))
+    with open(FLEET_CSV) as f:
+        header = f.readline().strip().split(",")
+    if tuple(header) != fleet.CSV_FIELDS:
+        raise AssertionError(f"fleet: csv header {header}")
+    packed, serial = results["packed"], results["serial"]
+    for r in packed.points:
+        s = next(x for x in serial.points if x.label == r.label)
+        emit({"phase": "fleet", "point": r.label, "k": built[
+              ("packed", r.spec.fed.k0, r.spec.transport.name)].history.k,
+              "buckets": plans[r.label], "final_loss": r.final_loss,
+              "compiles": r.compile_count, "shared": r.shared_count,
+              "dispatches": r.dispatch_count,
+              "packed_rounds_per_s": r.rounds_per_sec,
+              "serial_rounds_per_s": s.rounds_per_sec,
+              "packed_wall_s": r.wall_s, "serial_wall_s": s.wall_s,
+              "packed_peak_mb": r.peak_mb, "serial_peak_mb": s.peak_mb})
+    summary = {"phase": "fleet", "summary": True, "points": len(points),
+               "rounds": rounds, "params": n_params, "leaves": leaves,
+               "packed_wall_s": packed.wall_s,
+               "serial_wall_s": serial.wall_s,
+               "compiles": packed.compile_count,
+               "shared": packed.shared_count,
+               "dispatches": packed.dispatch_count,
+               "launches": launches["packed"], "bitwise_packed_serial": True,
+               "csv": str(FLEET_CSV.relative_to(FLEET_CSV.parents[1])),
+               "s": time.perf_counter() - t0}
+    emit(summary)
+    print(packed.leaderboard(), file=sys.stderr)
+    return launches["packed"]
+
+
 WHISPER_ARCH = "whisper-tiny"
 WHISPER_PARAMS = 36_448_128
 # Whisper's text context (arXiv:2212.04356) over its 1,500 audio frames
@@ -4469,9 +4639,11 @@ def phase_encdec(torch):
         "head_dim": c.head_dim, "d_ff": c.d_ff,
         "patch_tokens": c.num_patch_tokens,
         "text_tokens": LM_SEQ - c.num_patch_tokens}
+    # every llava check compares kernel and plain on the card's weights,
+    # so they are drawn there
     launches, params = phase_lm(torch, "encdec", LLAVA_ARCH, LLAVA_PARAMS,
                                 (FLASH,), 13, PARITY_TOL, llava_fields,
-                                cfg=cfg)
+                                cfg=cfg, gen=torch.Generator(device="cuda"))
     bf16 = phase_bf16_prefill(torch, "encdec", cfg, params,
                               {"flash": (fa, "flash_attention",
                                          LLAVA_LAYERS)}, 13)
@@ -4576,6 +4748,12 @@ def main() -> int:
                                            "int8_decode_apply")):
         raise AssertionError(f"a kernel of phase serve_train never ran: "
                              f"{serve_launches}")
+    # the fleet runner: sweep points packed on streams, then serial
+    fleet_launches = phase_fleet(torch)
+    if not all(fleet_launches[k] for k in ("fedavg_reduce",
+                                           "int8_decompress_reduce")):
+        raise AssertionError(f"a kernel of phase fleet never ran: "
+                             f"{fleet_launches}")
     del params
     _free(torch)
     moe_launches, params = phase_moe(torch)
@@ -4600,8 +4778,9 @@ def main() -> int:
         torch, "ssm", ssm_cfg, params,
         {"ssd": (ss, "ssd_scan", ssm_cfg.num_layers)}, 9)
     del params
+    # zamba2's checks stay on the card too: its weights are drawn there
     phase_lm(torch, "zamba2", ZAMBA_ARCH, ZAMBA_PARAMS, (FLASH, SSD), 11,
-             SSM_STATE_TOL, ssm_fields)
+             SSM_STATE_TOL, ssm_fields, gen=torch.Generator(device="cuda"))
     encdec_launches = phase_encdec(torch)
     if not encdec_launches["flash_attention"]:
         raise AssertionError("flash never ran in phase encdec")
@@ -4701,6 +4880,7 @@ def main() -> int:
         entry["async_launches"] = async_launches.get(entry["name"], 0)
         entry["serve_train_launches"] = serve_launches.get(entry["name"], 0)
         entry["encdec_launches"] = encdec_launches.get(entry["name"], 0)
+        entry["fleet_launches"] = fleet_launches.get(entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -179,21 +179,25 @@ class FederatedExperiment:
         return exp
 
 
-def build(spec: ExperimentSpec, *, backend=None,
-          device: DeviceLike = None) -> FederatedExperiment:
+def build(spec: ExperimentSpec, *, backend=None, registry=None,
+          program_key=None, device: DeviceLike = None) -> FederatedExperiment:
     """Validate the spec and compose the experiment it describes.
 
     ``backend``: an ``ExecutionBackend`` overriding the spec's backend
-    section (it brings its device). ``device``: where the experiment runs
-    (default ``cuda``). The reference's ``registry`` and ``program_key``
-    arguments belong to its AOT executable cache, which the port does not
-    have until ROADMAP A9."""
+    section (it brings its device; the fleet runner passes each packed
+    point its slice). ``registry``: a shared ``ExecutableRegistry``, so
+    experiments share bucket programs; ``program_key`` defaults to
+    ``sweep.spec_program_key(spec)`` when a registry is given. ``device``:
+    where the experiment runs (default ``cuda``)."""
     from repro_torch.api.registries import AGGREGATION_REGISTRY
     from repro_torch.core.engine.trainer import make_eval_fn
     from repro_torch.core.runtime_model import RuntimeModel
 
     spec.validate()
     _refuse_unported(spec)
+    if registry is not None and program_key is None:
+        from repro_torch.api.sweep import spec_program_key
+        program_key = spec_program_key(spec)
     if backend is None:
         device = resolve_device(device)
         backend = _make_backend(spec, device)
@@ -219,7 +223,8 @@ def build(spec: ExperimentSpec, *, backend=None,
                if spec.fed.eval_every > 0 else None)
     policy = AGGREGATION_REGISTRY.get(fed.aggregation)()
     trainer = policy(loss_fn, params, data, fed, runtime, eval_fn=eval_fn,
-                     backend=backend, device=device)
+                     backend=backend, device=device, registry=registry,
+                     program_key=program_key)
     if spec.serve.every > 0:
         # serve while training: the loop reads the trainer's store; the
         # trainer ticks it between rounds and changes nothing it computes

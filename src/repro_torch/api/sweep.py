@@ -15,8 +15,8 @@ grid.
 ``spec_program_key(spec)`` fingerprints every spec field that shapes the
 round program (model/task, aggregator/server, transport + downlink config,
 sampler, chunking, backend placement) and leaves out what only shows up in
-the inputs (k0/eta0/rounds/seeds/batch sizes). The fleet runner that packs
-sweep points by it comes with ROADMAP A10.
+the inputs (k0/eta0/rounds/seeds/batch sizes). The fleet runner
+(``launch.fleet``) keys each point's bucket programs by it.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ from repro_torch.core.engine.aggregators import (AGGREGATORS, get_aggregator,
                                                  weighted_mean)
 from repro_torch.core.engine.client import (ClientResult, client_update,
                                             make_client_update)
-from repro_torch.core.engine.round import RoundEngine, make_round_fn
+from repro_torch.core.engine.round import (BucketProgram, ExecutableRegistry,
+                                          RoundEngine, make_round_fn)
 from repro_torch.core.engine.sampling import (
     SAMPLERS, AvailabilitySampler, ClientSampler, FixedCohortSampler,
     PopulationSampler, UniformSampler, WeightedSampler, get_sampler,
@@ -26,6 +27,7 @@ from repro_torch.core.engine.async_buffer import AsyncBufferedEngine
 __all__ = ["AsyncBufferedEngine", "STALENESS_WEIGHTS",
            "get_staleness_weight", "AGGREGATORS", "get_aggregator", "weighted_mean", "ClientResult",
            "client_update", "make_client_update", "RoundEngine",
+           "ExecutableRegistry", "BucketProgram",
            "make_round_fn", "SAMPLERS", "ClientSampler",
            "UniformSampler", "WeightedSampler", "FixedCohortSampler",
            "AvailabilitySampler", "PopulationSampler", "get_sampler",

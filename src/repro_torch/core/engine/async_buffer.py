@@ -42,12 +42,14 @@ per-slot metadata, buffer weight and count, counters), ``rng``,
 ``runtime_rng`` and ``ctrl``. A mid-buffer save resumes bitwise, and a
 checkpoint of either package restores into the other.
 
-Not ported here: the reference's executable registry (``registry``,
-``program_key``, ``compile_count``, ``shared_count``: ROADMAP A9) and the
-engine on a ``MeshBackend`` (A13). Serving while training ticks the
-attached ``ServingLoop`` after every ``serve_every``-th buffer
-application. ``dispatch_count`` counts dispatch groups, folds and
-applies, one each, as the reference's executable runs.
+The three device steps (a dispatch group's client compute, a fold, an
+apply) run as bucket programs of an ``ExecutableRegistry``, keyed as the
+reference's: ``(program_key, "async-dispatch" | "async-fold" |
+"async-apply", codec signature, input signature)``. ``compile_count`` and
+``shared_count`` count them as ``RoundEngine``'s, and ``dispatch_count``
+counts their runs. Serving while training ticks the attached
+``ServingLoop`` after every ``serve_every``-th buffer application. Not
+ported: the engine on a ``MeshBackend`` (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -64,7 +66,9 @@ from repro_torch.core.engine.backends import LocalBackend, MeshBackend
 from repro_torch.core.engine.client import make_client_update
 from repro_torch.core.engine.model_store import GlobalModelStore
 from repro_torch.core.engine.policies import get_staleness_weight
-from repro_torch.core.engine.round import LossFn, _eta
+from repro_torch.core.engine.round import (BucketProgram,
+                                          ExecutableRegistry, LossFn, _eta,
+                                          _signature)
 from repro_torch.core.engine.sampling import make_sampler
 from repro_torch.core.engine.server import get_server_optimizer
 from repro_torch.core.engine.trainer import History
@@ -126,7 +130,9 @@ class AsyncBufferedEngine:
                  runtime: RuntimeModel,
                  eval_fn: Optional[Callable[[PyTree],
                                             Dict[str, float]]] = None,
-                 *, backend=None, device: DeviceLike = None):
+                 *, backend=None, device: DeviceLike = None,
+                 registry: Optional[ExecutableRegistry] = None,
+                 program_key: Optional[Tuple] = None):
         self.backend = backend if backend is not None \
             else LocalBackend(device)
         self.device = self.backend.device
@@ -157,6 +163,7 @@ class AsyncBufferedEngine:
             # lane j's residual compensates the next update of that lane
             transport = transport.with_ef_slots(self.n)
         self.transport = transport
+        self._codec_sig = (() if transport is None else transport.signature())
 
         # the store owns params, server state, the residual slots, the
         # version and the cost counters; no downlink, so it serves params
@@ -179,6 +186,16 @@ class AsyncBufferedEngine:
 
         self._client = torch.func.vmap(make_client_update(loss_fn),
                                        in_dims=(None, 0, None))
+        if registry is not None and program_key is None:
+            raise ValueError(
+                "a shared ExecutableRegistry requires a program_key (see "
+                "RoundEngine)")
+        self._registry = registry if registry is not None \
+            else ExecutableRegistry()
+        self._program_key = program_key if program_key is not None else ()
+        self._executables: Dict[Tuple, BucketProgram] = {}
+        self._own_keys: set = set()
+        self._shared_keys: set = set()
         self.dispatch_count = 0
         self.history = History()
         self._np_rng = np.random.default_rng(fed.seed)
@@ -226,7 +243,8 @@ class AsyncBufferedEngine:
                         lambda self, v: setattr(self.store, "version", v))
 
     # ------------------------------------------------------------------
-    # the three device steps
+    # the three device steps: programs of the registry, each a function of
+    # its arguments only, so an engine may run another's
     # ------------------------------------------------------------------
     def _dispatch_fn(self, params, batches, eta):
         """(params, batches (m, K, b, ...), eta) -> (f32 deltas (m, ...),
@@ -236,39 +254,63 @@ class AsyncBufferedEngine:
                           - p.to(torch.float32)[None], client_params, params)
         return deltas, first, last
 
-    def _fold_fn(self, slot: int, w: float) -> None:
-        """Fold slot ``slot``'s arrival into the buffer: through the codec
-        (one-row slab, the slot's residual) when there is one, then
-        ``buffer += w * hat`` with ``w`` rounded to f32 as the reference's
-        scalar. The slot's new residual is written back in place."""
-        delta = tree_map(lambda t: t[slot], self._inflight)
+    def _fold_fn(self, buffer, delta, w, ef):
+        """Fold one arrival's ``delta`` into ``buffer`` (in place): through
+        the codec (one-row slab with the slot's residual ``ef``) when there
+        is one, then ``buffer += w * hat`` with ``w`` rounded to f32 as the
+        reference's scalar. Returns (buffer, the slot's new residual)."""
+        hat, new_ef = delta, ef
         if self.transport is not None:
-            ef = (tree_map(lambda t: t[slot:slot + 1], self.transport_state)
-                  if self.transport.error_feedback else ())
             # zero params as broadcast views: the codec's delta is the
             # in-flight delta itself, and no params-sized zeros are held
             zero = tree_map(lambda d: torch.zeros(
                 (), dtype=torch.float32, device=d.device).expand(d.shape),
                 delta)
-            delta, _true, new_ef = self.transport.aggregate_slab(
+            hat, _true, new_ef = self.transport.aggregate_slab(
                 zero, tree_map(lambda d: d[None], delta),
                 torch.ones(1, dtype=torch.float32, device=self.device), ef)
-            if self.transport.error_feedback:
-                tree_map(lambda t, n: t[slot:slot + 1].copy_(n),
-                         self.transport_state, new_ef)
         w32 = float(np.float32(w))
-        tree_map(lambda b, h: b.add_(h * w32), self._buffer, delta)
+        tree_map(lambda b, h: b.add_(h * w32), buffer, hat)
+        return buffer, new_ef
 
-    def _apply_fn(self) -> None:
+    def _apply_fn(self, params, buffer, buf_weight, server_state):
         """aggregate = params + buffer / buf_weight through the server
-        step; the buffer is zeroed for the next fill."""
-        bw = np.float32(self._buf_weight)
+        step; the buffer is zeroed (in place) for the next fill. Returns
+        (params, server_state, buffer)."""
+        bw = np.float32(buf_weight)
         inv = float(np.float32(1.0) / bw) if bw > 0 else 0.0
         aggregate = tree_map(lambda p, b: p.to(torch.float32) + inv * b,
-                             self.params, self._buffer)
-        self.params, self.server_state = self.server.step(
-            self.params, aggregate, self.server_state, self.server_lr)
-        tree_map(lambda b: b.zero_(), self._buffer)
+                             params, buffer)
+        params, server_state = self.server.step(
+            params, aggregate, server_state, self.server_lr)
+        tree_map(lambda b: b.zero_(), buffer)
+        return params, server_state, buffer
+
+    def _run_exe(self, tag: str, fn, args):
+        """Run ``fn`` on ``args`` through the program of its key, built on
+        a miss (reference ``async_buffer.py:311-321``)."""
+        key = ((self._program_key,) if self._program_key else ()) \
+            + (tag, self._codec_sig) + _signature(args)
+        exe = self._executables.get(key)
+        if exe is None:
+            exe, built = self._registry.get_or_build(
+                key, lambda: BucketProgram(fn, self.device))
+            self._executables[key] = exe
+            (self._own_keys if built else self._shared_keys).add(key)
+        self.dispatch_count += 1
+        return exe(*args)
+
+    @property
+    def compile_count(self) -> int:
+        return len(self._own_keys)
+
+    @property
+    def shared_count(self) -> int:
+        return len(self._shared_keys)
+
+    @property
+    def registry(self) -> ExecutableRegistry:
+        return self._registry
 
     # ------------------------------------------------------------------
     # the event loop
@@ -289,9 +331,9 @@ class AsyncBufferedEngine:
                               sampler=self.sampler, round_id=r))
         ids, w = sb.ids, sb.weights
         batches = self.backend.place_batches(sb.batches)
-        deltas, first, last = self._dispatch_fn(self.params, batches,
-                                                _eta(eta))
-        self.dispatch_count += 1
+        deltas, first, last = self._run_exe(
+            "async-dispatch", self._dispatch_fn,
+            (self.params, batches, _eta(eta)))
         sl = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
         tree_map(lambda t, d: t.index_copy_(0, sl, d), self._inflight,
                  deltas)
@@ -322,16 +364,26 @@ class AsyncBufferedEngine:
             self.dropped_updates += 1
             return
         w = float(self._slot_weight[slot]) * float(self.staleness_weight(s))
-        self._fold_fn(slot, w)
-        self.dispatch_count += 1
+        ef_on = self.transport is not None and self.transport.error_feedback
+        ef = (tree_map(lambda t: t[slot:slot + 1], self.transport_state)
+              if ef_on else ())
+        delta = tree_map(lambda t: t[slot], self._inflight)
+        self._buffer, new_ef = self._run_exe(
+            "async-fold", self._fold_fn,
+            (self._buffer, delta, np.float32(w), ef))
+        if ef_on:
+            tree_map(lambda t, n: t[slot:slot + 1].copy_(n),
+                     self.transport_state, new_ef)
         self._buf_weight += w
         self._buf_count += 1
         self._buf_first_losses.append(float(self._slot_first[slot]))
         self._buf_staleness.append(s)
 
     def _apply_buffer(self, verbose: bool, eval_every: Optional[int]) -> None:
-        self._apply_fn()
-        self.dispatch_count += 1
+        self.params, self.server_state, self._buffer = self._run_exe(
+            "async-apply", self._apply_fn,
+            (self.params, self._buffer, np.float32(self._buf_weight),
+             self.server_state))
         self.applied_updates += self._buf_count
         self._version += 1
         st = self.store
@@ -387,27 +439,30 @@ class AsyncBufferedEngine:
             # a restored store is ahead of the loop's snapshot: swap before
             # the clock advances
             self.serving.swap()
-        if not self._started:
-            self._dispatch_group(list(range(self.n)))
-            self._started = True
-        while self._version < rounds:
-            if not self._heap:
-                raise RuntimeError("async event loop drained with no "
-                                   "in-flight clients")
-            t = self._heap[0][0]
-            freed: List[int] = []
-            # pop the whole same-time group in seq order, folding each
-            # arrival and applying whenever the buffer fills, then
-            # redispatch the freed slots as one group from the params now
-            while self._heap and self._heap[0][0] == t:
-                _, _, slot = heapq.heappop(self._heap)
-                self._sim_time = t
-                self._fold_arrival(slot)
-                freed.append(slot)
-                if self._buf_count >= self.buffer_size:
-                    self._apply_buffer(verbose, eval_every
-                                       if self.eval_fn is not None else None)
-            self._dispatch_group(freed)
+        with self.backend.stream_context():
+            if not self._started:
+                self._dispatch_group(list(range(self.n)))
+                self._started = True
+            while self._version < rounds:
+                if not self._heap:
+                    raise RuntimeError("async event loop drained with no "
+                                       "in-flight clients")
+                t = self._heap[0][0]
+                freed: List[int] = []
+                # pop the whole same-time group in seq order, folding each
+                # arrival and applying whenever the buffer fills, then
+                # redispatch the freed slots as one group from the params
+                # now
+                while self._heap and self._heap[0][0] == t:
+                    _, _, slot = heapq.heappop(self._heap)
+                    self._sim_time = t
+                    self._fold_arrival(slot)
+                    freed.append(slot)
+                    if self._buf_count >= self.buffer_size:
+                        self._apply_buffer(
+                            verbose, eval_every
+                            if self.eval_fn is not None else None)
+                self._dispatch_group(freed)
         self._completed_rounds = self._version
         return self.history
 

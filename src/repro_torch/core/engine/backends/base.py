@@ -13,14 +13,23 @@ backend; a backend decides the execution geometry:
 
 ``RoundEngine`` takes its round core and its placement from a backend.
 Placement hooks are idempotent: a tensor already placed passes through, so
-the engine may call them on every round. Host arrays (numpy) are the whole
-cohort; tensors count as placed.
+the engine may call them on every bucket. Host arrays (numpy) are the whole
+cohort; tensors count as placed. A bucket's etas and active mask stay on
+the host: the client step takes eta as a number, and the host decides
+which rounds run.
+
+A backend may own a CUDA stream (``stream``; a fleet slice,
+``LocalBackend.fleet_slices``): its placement and every round it runs are
+then issued on that stream (``stream_context``), so packed sweep points
+overlap on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine.aggregators import LINEAR_AGGREGATORS
@@ -40,6 +49,9 @@ class ExecutionBackend:
 
     name: str = "base"
     device: torch.device
+    #: the CUDA stream this backend's work is issued on (None: the
+    #: caller's current stream)
+    stream: Optional["torch.cuda.Stream"] = None
 
     def make_round_core(self, loss_fn: LossFn, *, aggregator: str = "mean",
                         trim_fraction: float = 0.1, server=None,
@@ -61,21 +73,56 @@ class ExecutionBackend:
             f"(cohort_chunk)")
 
     # ------------------------------------------------------------------
+    # streams
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def stream_context(self):
+        """Issue the enclosed work on this backend's stream. Entered from
+        another stream, the backend's stream first waits for the caller's
+        work, and the caller's waits for the enclosed work on the way out;
+        entered from its own stream (a fleet point's thread) it waits for
+        nothing, so packed points overlap. No stream: the caller's."""
+        s = self.stream
+        if s is None:
+            yield
+            return
+        outer = torch.cuda.current_stream(s.device)
+        if outer == s:
+            yield
+            return
+        s.wait_stream(outer)
+        with torch.cuda.stream(s):
+            yield
+        outer.wait_stream(s)
+
+    def _placing(self):
+        """Host -> device copies go on the backend's stream, the one their
+        consumer runs on (placement may run on a builder's thread)."""
+        return (contextlib.nullcontext() if self.stream is None
+                else torch.cuda.stream(self.stream))
+
+    # ------------------------------------------------------------------
     # placement (host -> device)
     # ------------------------------------------------------------------
     def to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        with self._placing():
+            return torch.as_tensor(x, device=self.device)
 
     def place_params(self, params: PyTree) -> PyTree:
         return tree_map(self.to_device, params)
 
     def place_batches(self, batches: Dict[str, Any]) -> Dict[str, Any]:
-        """One round's batch arrays, leaves (N, K, b, ...)."""
+        """A bucket's batch arrays, leaves (B, N, K, b, ...)."""
         return {k: self.to_device(v) for k, v in batches.items()}
 
     def place_weights(self, weights) -> torch.Tensor:
-        """One round's client weights (N,)."""
+        """A bucket's client weights (B, N)."""
         return self.to_device(weights)
+
+    def place_scalars(self, etas, active):
+        """A bucket's etas (B,) f32 and active mask (B,) bool, as host
+        arrays."""
+        return np.asarray(etas, np.float32), np.asarray(active, bool)
 
     def place_bucket(self, bb: BucketBatch) -> BucketBatch:
         """A bucket (leaves (B, N, ...), weights (B, N)) in one call: the
@@ -99,6 +146,15 @@ class ExecutionBackend:
         if not tree_leaves(state):
             return state
         return self.place_params(state)
+
+    # ------------------------------------------------------------------
+    # fleet packing
+    # ------------------------------------------------------------------
+    def fleet_slices(self, n: int):
+        """``n`` backends for ``n`` concurrent sweep points. Default: this
+        backend, shared (its placement is stateless); ``LocalBackend``
+        gives fresh slices."""
+        return [self] * n
 
     # ------------------------------------------------------------------
     # codec binding

@@ -141,12 +141,14 @@ def make_parallel_slab_cores(loss_fn: LossFn, aggregator: Aggregator,
 
 
 class LocalBackend(ExecutionBackend):
-    """The whole cohort on one device (``device=None`` means the card)."""
+    """The whole cohort on one device (``device=None`` means the card).
+    ``stream``: a CUDA stream its work is issued on (a fleet slice)."""
 
     name = "local"
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, *, stream=None):
         self.device = resolve_device(device)
+        self.stream = stream
 
     def make_round_core(self, loss_fn: LossFn, *, aggregator: str = "mean",
                         trim_fraction: float = 0.1, server=None,
@@ -162,3 +164,11 @@ class LocalBackend(ExecutionBackend):
         return make_parallel_slab_cores(loss_fn, get_aggregator(aggregator),
                                         server, server_lr,
                                         transport=transport)
+
+    def fleet_slices(self, n: int):
+        """``n`` fresh backends on this device, one for each packed sweep
+        point; on the card each owns a new stream, so the points' rounds
+        overlap on the card while each keeps its own prefetch thread."""
+        make = ((lambda: torch.cuda.Stream(self.device))
+                if self.device.type == "cuda" else (lambda: None))
+        return [LocalBackend(self.device, stream=make()) for _ in range(n)]

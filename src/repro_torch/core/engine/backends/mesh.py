@@ -22,8 +22,9 @@ are the per-rank kernel plus a collective:
     all-reduced; the int8 downlink's decode-apply runs the sharded
     decode-apply (``bind_downlink``).
 
-The server step, the downlink encode and the codec state run replicated on
-every rank: the all-reduce hands every rank the same sum, so their inputs
+A bucket's rounds run one after another through the same core, each on
+this rank's rows of that round. The server step, the downlink encode and
+the codec state run replicated on every rank: the all-reduce hands every rank the same sum, so their inputs
 agree. First and last losses are gathered to every rank.
 
 ``reduce="grouped"`` turns each all-reduce into one per client axis,
@@ -162,7 +163,7 @@ class MeshBackend(ExecutionBackend):
     def fleet_slices(self, n: int):
         raise NotImplementedError(
             "fleet_slices (carve_submeshes: fleet packing on sub-meshes) is "
-            "not ported to the MeshBackend yet")
+            "not ported to the MeshBackend yet: it comes with ROADMAP A13")
 
     # ------------------------------------------------------------------
     # placement: this rank's client rows
@@ -178,18 +179,18 @@ class MeshBackend(ExecutionBackend):
         return lo, hi
 
     def place_batches(self, batches: Dict[str, object]) -> Dict[str, object]:
-        """Host leaves (N, K, b, ...) -> this rank's rows on the device;
-        tensors are placed already and pass through."""
+        """Host leaves (B, N, K, b, ...) -> this rank's rows of every round
+        on the device; tensors are placed already and pass through."""
         out = {}
         for k, v in batches.items():
             if isinstance(v, np.ndarray):
-                lo, hi = self.rows(v.shape[0])
-                v = v[lo:hi]
+                lo, hi = self.rows(v.shape[1])
+                v = v[:, lo:hi]
             out[k] = self.to_device(v)
         return out
 
     def place_weights(self, weights) -> torch.Tensor:
-        """Host weights (N,) -> this rank's rows; a tensor passes
+        """Host weights (B, N) -> this rank's rows; a tensor passes
         through."""
         if isinstance(weights, np.ndarray):
             lo, hi = self.rows(weights.shape[-1])

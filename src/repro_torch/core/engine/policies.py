@@ -34,18 +34,22 @@ def get_staleness_weight(name) -> Callable[[int], float]:
 
 
 def _sync_policy(loss_fn, init_params, data, fed, runtime, *, eval_fn=None,
-                 backend=None, device=None, **kw):
+                 backend=None, device=None, registry=None, program_key=None,
+                 **kw):
     from repro_torch.core.engine.trainer import FedAvgTrainer
     return FedAvgTrainer(loss_fn, init_params, data, fed, runtime,
-                         eval_fn=eval_fn, backend=backend, device=device)
+                         eval_fn=eval_fn, backend=backend, device=device,
+                         registry=registry, program_key=program_key)
 
 
 def _async_policy(loss_fn, init_params, data, fed, runtime, *, eval_fn=None,
-                  backend=None, device=None, **kw):
+                  backend=None, device=None, registry=None,
+                  program_key=None, **kw):
     from repro_torch.core.engine.async_buffer import AsyncBufferedEngine
     return AsyncBufferedEngine(loss_fn, init_params, data, fed, runtime,
                                eval_fn=eval_fn, backend=backend,
-                               device=device)
+                               device=device, registry=registry,
+                               program_key=program_key)
 
 
 register_aggregation("sync", lambda **kw: _sync_policy)

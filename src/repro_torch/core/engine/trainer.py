@@ -3,9 +3,10 @@ with a ``MeshBackend``, with the cohort's clients spread over the ranks of
 a mesh (one trainer a rank; every rank keeps the same History).
 
 ClientSampler (who runs, with what weights) -> RoundScheduler (K-bucket
-plan) -> BatchPrefetcher (host tensors for the next round, built and
-copied to the device on a background thread) -> RoundEngine (the rounds of
-a bucket) -> DecayController feedback. A sampler with a ``stateful_cohort``
+plan) -> BatchPrefetcher (host tensors for the next bucket, built and
+copied to the device on a background thread) -> RoundEngine (one dispatch
+a bucket, through the bucket program of its signature) -> DecayController
+feedback. A sampler with a ``stateful_cohort``
 (``fixed_cohort``) gives a codec with error feedback one residual slot a
 client (``Transport.with_ef_slots``).
 
@@ -15,11 +16,12 @@ Synchronisation policy, as in ``repro.core.engine.trainer``:
     has been dispatched;
   * error/step schedules sync at every bucket boundary.
 
-Difference from the reference: the builder is asked for one round at a
-time (``n_rounds=1``), and each bucket runs as one engine dispatch per
-round. The sample stream is the same (padding rounds draw nothing), and a
-CIFAR100 round at paper width is a 491.5 MB batch, which the reference's
-8-round buckets would multiply.
+The builder is asked for whole buckets (``n_rounds=len(bucket)``, padded
+to the bucket's shape; padding rounds draw nothing), so a bucket of shape 8
+on CIFAR100 at paper width is 8 x 491.5 MB of batches on the device, twice
+that with the prefetched next bucket. ``registry`` and ``program_key``
+share bucket programs with other experiments (the fleet runner);
+``compile_count`` and ``shared_count`` count them as the reference's.
 
 The server-side state (params, server-optimizer state, codec state,
 version, cost counters) lives in a ``GlobalModelStore``; the trainer's and
@@ -116,12 +118,16 @@ class FedAvgTrainer:
                  data: FederatedData, fed: FedConfig,
                  runtime: RuntimeModel,
                  eval_fn: Optional[Callable[[PyTree], Dict[str, float]]] = None,
-                 *, device: DeviceLike = None, backend=None):
+                 *, device: DeviceLike = None, backend=None,
+                 registry=None, program_key=None):
         """``device``: where the rounds run (default ``cuda``, which raises
         without a card); ``init_params`` are copied there. ``backend``: an
         ``engine.backends.ExecutionBackend`` (default ``LocalBackend``);
         with a ``MeshBackend`` every rank runs this trainer on the same
-        seed and ``init_params``, and it brings its own device."""
+        seed and ``init_params``, and it brings its own device.
+        ``registry``/``program_key``: a shared ``ExecutableRegistry`` and
+        the experiment's program fingerprint, passed to the
+        ``RoundEngine`` (default: a private registry)."""
         _refuse_async(fed)
         self.sampler = make_sampler(fed)
         if (self.sampler.needs_weighted_aggregation
@@ -148,7 +154,8 @@ class FedAvgTrainer:
                                   downlink=fed.downlink,
                                   downlink_ref=fed.downlink_ref,
                                   cohort_chunk=fed.cohort_chunk,
-                                  backend=backend, device=device)
+                                  backend=backend, registry=registry,
+                                  program_key=program_key, device=device)
         self.device = self.engine.device
         self.store = self.engine.bind_store(GlobalModelStore())
         self.params = tree_map(self.engine.to_device, init_params)
@@ -173,6 +180,16 @@ class FedAvgTrainer:
     server_state = property(
         lambda self: self.store.server_state,
         lambda self, v: setattr(self.store, "server_state", v))
+
+    @property
+    def compile_count(self) -> int:
+        return self.engine.compile_count
+
+    @property
+    def shared_count(self) -> int:
+        """Bucket programs taken from a shared registry without building
+        them."""
+        return self.engine.shared_count
 
     @property
     def dispatch_count(self) -> int:
@@ -225,10 +242,11 @@ class FedAvgTrainer:
             sampler=self.sampler, chunk=self.fed.cohort_chunk,
             place_slab_fn=self.engine.backend.place_slab)
         try:
-            if sched.loss_free:
-                self._run_pipelined(sched, builder, verbose)
-            else:
-                self._run_feedback(sched, builder, verbose)
+            with self.engine.backend.stream_context():
+                if sched.loss_free:
+                    self._run_pipelined(sched, builder, verbose)
+                else:
+                    self._run_feedback(sched, builder, verbose)
         finally:
             builder.close()
         self._completed_rounds = rounds
@@ -236,34 +254,34 @@ class FedAvgTrainer:
 
     # ------------------------------------------------------------------
     def _submit(self, builder, bucket: Bucket) -> None:
-        """Announce a bucket to the builder, one round per request; under
-        streaming cohorts the bucket's one round as its slabs."""
+        """Announce a bucket to the builder: a whole K-bucket padded to its
+        shape, or under streaming cohorts the bucket's one round as its
+        slabs."""
         if self.fed.cohort_chunk:
             builder.submit_slabs(bucket.k, round_id=bucket.rounds[0])
-            return
-        for r in bucket.rounds:
-            builder.submit(1, bucket.k, pad_to=1, rounds=[r])
+        else:
+            builder.submit(len(bucket), bucket.k, pad_to=bucket.shape_rounds,
+                           rounds=bucket.rounds)
 
     def _dispatch(self, bucket: Bucket, builder) -> torch.Tensor:
-        """Run one bucket's rounds; returns the (B, N) first-step losses,
-        still on the device. With an adaptive downlink a last column holds
-        each round's level, so one read brings back both."""
+        """Run one bucket in one engine dispatch; returns the (B, N)
+        first-step losses, still on the device (padding rows NaN). With an
+        adaptive downlink a last column holds each round's level, so one
+        read brings back both."""
         if self.fed.cohort_chunk:
             return self._dispatch_chunked(bucket, builder)
-        rows = []
-        per_level = self.runtime.downlink_level_ratios is not None
-        for eta in bucket.etas:
-            bb = builder.get()                  # one round: B = 1
-            self.params, f, _lasts, self.server_state = \
-                self.engine.run_bucket(
-                    self.params, {k: v[0] for k, v in bb.batches.items()},
-                    bb.weights[0], eta, self.server_state)
-            if per_level:
-                f = torch.cat([f, self.engine.last_downlink_levels
-                               .to(f.dtype).reshape(1)])
-            rows.append(f)
-            self.store.advance()            # params committed for a round
-        return torch.stack(rows)
+        bb = builder.get()
+        pad = bucket.shape_rounds - len(bucket)
+        etas = np.asarray(list(bucket.etas) + [bucket.etas[-1]] * pad,
+                          np.float32)
+        self.params, firsts, _lasts, self.server_state = \
+            self.engine.run_bucket(self.params, bb.batches, bb.weights,
+                                   etas, bb.active, self.server_state)
+        if self.runtime.downlink_level_ratios is not None:
+            firsts = torch.cat([firsts, self.engine.last_downlink_levels
+                                .to(firsts.dtype)[:, None]], dim=1)
+        self.store.advance(len(bucket))     # params committed for B rounds
+        return firsts
 
     def _dispatch_chunked(self, bucket: Bucket, builder) -> torch.Tensor:
         """One streaming round (the scheduler makes a chunked bucket one

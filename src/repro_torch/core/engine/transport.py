@@ -449,6 +449,14 @@ class DownlinkCodec:
         self.error_feedback = bool(codec.error_feedback)
         self.ref_store = ref_store
 
+    def signature(self) -> tuple:
+        """The codec's part of a bucket program's registry key
+        (``RoundEngine``), the reference's tuple."""
+        sig = ("downlink",) + tuple(self.codec.signature())
+        if self.ref_store != "f32":
+            sig = sig + ("ref:" + self.ref_store,)
+        return sig
+
     def with_mesh(self, mesh, client_axes: Sequence[str],
                   reduce_tiers=None) -> "DownlinkCodec":
         """A copy whose codec is bound to ``mesh``: the broadcast's int8
@@ -535,6 +543,13 @@ class AdaptiveDownlinkCodec(DownlinkCodec):
         super().__init__(Int8Transport(levels=2, error_feedback=True),
                          ref_store=ref_store)
         self.name = "adaptive"
+
+    def signature(self) -> tuple:
+        sig = ("downlink", "adaptive", ADAPTIVE_SKIP_RTOL,
+               ADAPTIVE_BOOST_RTOL)
+        if self.ref_store != "f32":
+            sig = sig + ("ref:" + self.ref_store,)
+        return sig
 
     @staticmethod
     def _norm(tree) -> torch.Tensor:

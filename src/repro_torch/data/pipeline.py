@@ -10,13 +10,13 @@ ceil(U/C) ``SlabBatch``es of C clients instead (``round_slabs``), drawn
 from the same stream as the dense round.
 
 Every builder draws from one numpy Generator in request order, so the
-client ids and sample indices match the reference draw for draw. The port's
-trainer asks for ONE round per request (``n_rounds=1, pad_to=1``): a CIFAR100
-round at paper width is a 491.5 MB batch, and the reference's default
-8-round bucket would be 3.9 GB of host memory. That does not change the
-stream: ``bucket_batches`` draws exactly what ``n_rounds`` sequential
-per-round draws would, and padding rounds draw nothing. On a mesh every rank
-draws the same cohort and keeps its own client rows (``slice_clients``).
+client ids and sample indices match the reference draw for draw. The
+trainer asks for whole buckets (``n_rounds`` active rounds padded to
+``pad_to``), as the reference's: ``bucket_batches`` draws exactly what
+``n_rounds`` sequential per-round draws would, and padding rounds draw
+nothing. A CIFAR100 round at paper width is a 491.5 MB batch, so a bucket
+of shape 8 is 3.9 GB. On a mesh every rank draws the same cohort and keeps
+its own client rows (``slice_clients``).
 
 Sampling is with replacement within a client's local dataset.
 """

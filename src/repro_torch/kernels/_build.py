@@ -5,7 +5,9 @@ repository root (a directory ``.gitignore`` lists): a plain C interface,
 compiled for ``sm_90a`` at first use and rebuilt when its source, or a
 shared header ``csrc/*.cuh``, is newer than the library. Nothing here runs
 at import time: the CPU tests import every module on a machine with no
-``nvcc``.
+``nvcc``. ``load`` is safe to call from several threads (packed fleet
+points), and so is ``count_launch``, which every kernel wrapper's launch
+counter goes through.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -96,6 +99,9 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+#: the one lock of every kernel wrapper's launch counter
+LAUNCH_LOCK = threading.Lock()
 #: ``-Xptxas -v`` report (registers, spills) of each library built here
 build_logs: Dict[str, str] = {}
 
@@ -159,10 +165,20 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` with its argtypes set, built if stale."""
     if name not in _loaded:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _loaded[name] = lib
+        with _load_lock:
+            if name not in _loaded:
+                build_all([name])
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = restype
+                _loaded[name] = lib
     return _loaded[name]
+
+
+def count_launch(counts: dict, key: str, n: int = 1) -> None:
+    """``counts[key] += n`` under ``LAUNCH_LOCK``, so a counter stays exact
+    when several threads launch kernels. A wrapper's module-level int
+    counter passes its module's ``globals()``."""
+    with LAUNCH_LOCK:
+        counts[key] += n

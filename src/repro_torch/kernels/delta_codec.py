@@ -113,7 +113,7 @@ def int8_decompress_reduce(q: torch.Tensor, w_eff: torch.Tensor,
                                      _stream(dev))
     _raise_on(err, name, f"shape ({n}, {m}), "
               f"{1 if qr is None else 2} plane(s)")
-    launches[name] += 1
+    _build.count_launch(launches, name)
     return out
 
 
@@ -152,7 +152,7 @@ def int8_decode_apply(ref: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                                     _stream(dev))
     _raise_on(err, name, f"M={m} {ref.dtype}, "
               f"{1 if qr is None else 2} plane(s)")
-    launches[name] += 1
+    _build.count_launch(launches, name)
     return out
 
 
@@ -192,7 +192,7 @@ def topk_scatter_reduce(vals: torch.Tensor, idx: torch.Tensor,
                                      weights.data_ptr(), out.data_ptr(), n, s,
                                      size, _stream(dev))
     _raise_on(err, name, f"payload ({n}, {s}) into M={size}")
-    launches[name] += 1
+    _build.count_launch(launches, name)
     return out
 
 
@@ -221,7 +221,7 @@ def topk_scatter_apply(ref: torch.Tensor, vals: torch.Tensor,
                                     idx.data_ptr(), out.data_ptr(), s, m,
                                     _DTYPE_TAGS[ref.dtype], _stream(dev))
     _raise_on(err, name, f"payload ({s},) into M={m} {ref.dtype}")
-    launches[name] += 1
+    _build.count_launch(launches, name)
     return out
 
 
@@ -244,7 +244,7 @@ def int8_decompress_reduce_sharded(q: torch.Tensor, w_eff: torch.Tensor,
     if n:
         partial = int8_decompress_reduce(q, w_eff, qr, wr_eff)
         if q.is_cuda:
-            sharded_launches[name] += 1
+            _build.count_launch(sharded_launches, name)
     else:
         partial = torch.zeros((m,), dtype=torch.float32, device=q.device)
     return all_reduce_tiers(partial, mesh, client_axes, reduce_tiers)
@@ -272,7 +272,7 @@ def int8_decode_apply_sharded(ref: torch.Tensor, q: torch.Tensor,
     cut = lambda t: None if t is None else t[lo:lo + m // size]
     part = int8_decode_apply(cut(ref), cut(q), s, cut(qr), rs)
     if ref.is_cuda:
-        sharded_launches[name] += 1
+        _build.count_launch(sharded_launches, name)
     return all_gather_flat(part, mesh, axes)
 
 
@@ -285,7 +285,7 @@ def topk_scatter_reduce_sharded(vals: torch.Tensor, idx: torch.Tensor,
     rank's rows (one launch, zeros for none), then the partials
     all-reduced over ``client_axes`` (flat or by ``reduce_tiers``)."""
     name = "topk_scatter_reduce_sharded"
-    before = launches["topk_scatter_reduce"]
     partial = topk_scatter_reduce(vals, idx, weights, size)
-    sharded_launches[name] += launches["topk_scatter_reduce"] - before
+    if vals.is_cuda and vals.numel() and int(size):   # the kernel launched
+        _build.count_launch(sharded_launches, name)
     return all_reduce_tiers(partial, mesh, client_axes, reduce_tiers)

@@ -215,7 +215,7 @@ def fedavg_reduce_stacks(stacks: Sequence[torch.Tensor],
                 _plan_cache.clear()
             _plan_cache[key] = cached
     lib = _library()
-    global launches, last_plans
+    global last_plans
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for plan, table in cached:
@@ -232,7 +232,7 @@ def fedavg_reduce_stacks(stacks: Sequence[torch.Tensor],
                     f"fedavg_reduce kernel launch failed: CUDA error {err} "
                     f"for {len(plan.leaves)} leaves of N={n} {plan.dtype} "
                     f"-> {plan.out_dtype}")
-            launches += 1
+            _build.count_launch(globals(), "launches")
     last_plans = [plan for plan, _ in cached]
     return outs
 
@@ -262,8 +262,7 @@ def fedavg_reduce_sharded(client_rows: torch.Tensor, weights: torch.Tensor,
         partial = fedavg_reduce(client_rows, weights,
                                 out_dtype=torch.float32)
         if client_rows.is_cuda:
-            global sharded_launches
-            sharded_launches += 1
+            _build.count_launch(globals(), "sharded_launches")
     else:
         partial = torch.zeros((m,), dtype=torch.float32,
                               device=client_rows.device)

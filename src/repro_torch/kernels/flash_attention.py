@@ -125,7 +125,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel ({path}) launch failed: "
                            f"error {err} for q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)} {q.dtype}")
-    global launches
-    launches += 1
-    launches_by_path[path] += 1
+    _build.count_launch(globals(), "launches")
+    _build.count_launch(launches_by_path, path)
     return out

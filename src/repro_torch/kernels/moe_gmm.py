@@ -108,9 +108,8 @@ def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"gmm kernel ({path}) launch failed: error {err} "
                            f"for x {tuple(x.shape)}, w {tuple(w.shape)} "
                            f"{x.dtype}")
-    global launches
-    launches += 1
-    launches_by_path[path] += 1
+    _build.count_launch(globals(), "launches")
+    _build.count_launch(launches_by_path, path)
     return out
 
 

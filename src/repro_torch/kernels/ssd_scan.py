@@ -149,7 +149,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
                            f"for x {tuple(x.shape)}, b {tuple(b.shape)}, "
                            f"chunk {chunk} {x.dtype} on path {path}")
-    global launches
-    launches += 1
-    launches_by_path[path] += 1
+    _build.count_launch(globals(), "launches")
+    _build.count_launch(launches_by_path, path)
     return y, state

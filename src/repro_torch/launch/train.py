@@ -11,14 +11,18 @@ Two front doors, one composition root (``repro_torch.api.build``):
 The resolved spec is printed before the run (and is itself valid ``--spec``
 input). With ``--checkpoint`` the final state is saved with the spec
 embedded; ``FederatedExperiment.restore(path)`` rebuilds the exact trainer.
-The run is on the card unless ``--device cpu``. ``--sweep`` and the flags
-only a sweep reads (``--sweep-csv``, ``--share-k-grid``, ``--serial-sweep``)
-are refused: the fleet runner comes with ROADMAP A10. The engine line prints
-the dispatch count; the port has no compile count until ROADMAP A9.
+The run is on the card unless ``--device cpu``. ``--sweep`` runs the
+resolved spec as the base of a fleet (``launch.fleet.run_fleet``: packed,
+or one point after another with ``--serial-sweep``; ``--share-k-grid``;
+the leaderboard CSV to ``--sweep-csv``). The engine line prints the bucket
+programs built beside the dispatches.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --spec examples/specs/local-int8-decayK.json --set fed.rounds=4 \\
         --device cpu --checkpoint runs/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --set data.kind=paper --set data.task=femnist \\
+        --sweep fed.k0=7,8 --share-k-grid --sweep-csv build/sweep.csv
 """
 from __future__ import annotations
 
@@ -41,17 +45,17 @@ def make_parser() -> argparse.ArgumentParser:
                     help="dotted-path spec override, repeatable "
                          "(e.g. --set fed.k0=4 --set transport.name=int8)")
     ap.add_argument("--sweep", nargs="+", default=[], metavar="PATH=V1,V2",
-                    help="a sweep grid (refused: the fleet runner comes "
-                         "with ROADMAP A10)")
+                    help="run a fleet over this sweep grid on top of the "
+                         "resolved spec (e.g. --sweep fed.k0=2,4,8 "
+                         "transport.name=none,int8)")
     ap.add_argument("--sweep-csv", default=None, metavar="FILE.csv",
-                    help="the fleet leaderboard CSV (refused with --sweep, "
-                         "ROADMAP A10)")
+                    help="with --sweep: write the fleet leaderboard CSV")
     ap.add_argument("--share-k-grid", action="store_true",
-                    help="pin one fed.k_grid0 anchor across sweep points "
-                         "(refused with --sweep, ROADMAP A10)")
+                    help="with --sweep: pin fed.k_grid0 to the grid's max "
+                         "fed.k0 so k0 points share bucket programs")
     ap.add_argument("--serial-sweep", action="store_true",
-                    help="run sweep points serially (refused with --sweep, "
-                         "ROADMAP A10)")
+                    help="with --sweep: run points one after another "
+                         "instead of packed")
     # --- legacy flags (translated to a spec) ------------------------
     ap.add_argument("--arch", choices=sorted(ARCHS),
                     default="qwen1.5-0.5b")
@@ -198,16 +202,17 @@ def resolve_spec(args) -> ExperimentSpec:
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
-    sweep_flags = [f for f, on in (("--sweep", args.sweep),
-                                   ("--sweep-csv", args.sweep_csv),
-                                   ("--share-k-grid", args.share_k_grid),
-                                   ("--serial-sweep", args.serial_sweep))
-                   if on]
-    if sweep_flags:
-        raise SystemExit(f"[train] {', '.join(sweep_flags)}: sweeps are not "
-                         f"ported yet, the packed fleet runner comes with "
-                         f"ROADMAP A10")
     spec = resolve_spec(args).validate()
+    if args.sweep:
+        from repro_torch.launch.fleet import run_fleet
+        result = run_fleet(spec, args.sweep, packed=not args.serial_sweep,
+                           rounds=args.rounds, share_grid=args.share_k_grid,
+                           verbose=True, device=args.device)
+        print(result.leaderboard())
+        if args.sweep_csv:
+            result.to_csv(args.sweep_csv)
+            print(f"[train] fleet csv -> {args.sweep_csv}")
+        return result
     print("[train] resolved spec:")
     print(spec.to_json())
 
@@ -239,7 +244,8 @@ def main(argv=None):
               f"per client-round)")
 
     h = exp.run()
-    print(f"[train] engine[{spec.backend.name}]: {trainer.dispatch_count} "
+    print(f"[train] engine[{spec.backend.name}]: {trainer.compile_count} "
+          f"bucket program(s) built, {trainer.dispatch_count} "
           f"dispatch(es) for {rounds} rounds ({trainer.device.type})")
     if spec.fed.aggregation == "async":
         print(f"[train] async: {trainer.applied_updates} updates applied, "

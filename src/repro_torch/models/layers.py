@@ -4,8 +4,10 @@ softcap (the functions of ``repro.models.layers``).
 Params are nested dicts of tensors with the reference's keys and layouts
 (dense ``kernel`` is (in, out)), so a reference parameter tree crosses over
 through numpy with no transposes (``repro_torch.bridge``). Initialisers draw
-from a ``torch.Generator`` on the CPU and then move to ``device``, so one
-seed gives the same weights on every device; they do not reproduce the
+on their ``torch.Generator``'s device and then move to ``device``: a CPU
+generator (what a seed makes) gives the same weights on every device, and
+a CUDA generator draws a large model on the card in a fraction of the
+time, other weights than a CPU one's. They do not reproduce the
 reference's ``jax.random`` streams. On the ``meta`` device they draw
 nothing and allocate nothing: ``registry.param_count`` counts shapes so.
 Norms, RoPE and softmax-adjacent math run in f32 and cast back, as the
@@ -27,8 +29,10 @@ import torch.nn.functional as F
 def normal_init(gen: torch.Generator, shape, stddev, dtype, device):
     if torch.device(device).type == "meta":
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
-    # scaled in place: host memory holds one copy of a (GB-sized) bank
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+    # on the generator's device, scaled in place: one copy of a (GB-sized)
+    # bank
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return w.mul_(stddev).to(device=device, dtype=dtype)
 
 

@@ -45,9 +45,9 @@ def is_encdec(cfg: ArchConfig) -> bool:
 
 def init(seed_or_generator: Union[int, torch.Generator], cfg: ArchConfig,
          dtype=torch.float32, device: DeviceLike = None) -> PyTree:
-    """Params on ``device`` (default ``cuda``), drawn on the CPU from the
-    generator (a seed makes one), so one seed gives the same weights on
-    every device."""
+    """Params on ``device`` (default ``cuda``), drawn on the generator's
+    device (a seed makes a CPU generator, so one seed gives the same
+    weights on every device)."""
     make = encdec.init_encdec if is_encdec(cfg) else transformer.init_lm
     return make(_generator(seed_or_generator), cfg, dtype,
                 resolve_device(device))

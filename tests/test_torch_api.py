@@ -20,6 +20,7 @@ from repro.api import sweep as jsweep
 from repro_torch.api import registries as treg
 from repro_torch.api import spec as tspec
 from repro_torch.api import sweep as tsweep
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SPECS = sorted((ROOT / "examples" / "specs").glob("*.json"))
@@ -379,7 +380,10 @@ def test_launcher_runs_the_local_lm_specs(tmp_path, name):
     assert exp.history.rounds == [1, 2]
     assert exp.spec.transport == tspec.ExperimentSpec.load(
         str(ROOT / "examples" / "specs" / f"{name}.json")).transport
-    assert "[train] engine[local]: 2 dispatch(es) for 2 rounds (cpu)" in out
+    # K stays 2: one bucket of both rounds, one program (the reference's
+    # counts for these runs)
+    assert ("[train] engine[local]: 1 bucket program(s) built, 1 "
+            "dispatch(es) for 2 rounds (cpu)") in out
     assert f"[train] checkpoint (spec embedded) -> {ckpt}" in out
     again = FederatedExperiment.restore(ckpt, device="cpu")
     assert again.spec == exp.spec
@@ -409,7 +413,8 @@ def test_launcher_prints_the_reference_resolved_spec(monkeypatch):
     jout = io.StringIO()
     with contextlib.redirect_stdout(jout), pytest.raises(_Stop):
         jtrain.main(argv)
-    assert "[train] engine[local]: 1 dispatch(es) for 1 rounds (cpu)" in out
+    assert ("[train] engine[local]: 1 bucket program(s) built, 1 "
+            "dispatch(es) for 1 rounds (cpu)") in out
     assert _resolved(out) == _resolved(jout.getvalue() + "[train] end")
     for legacy in ([], ["--arch", "qwen2-7b", "--rounds", "7", "--transport",
                         "topk", "--downlink", "adaptive", "--ref-store", "q8",
@@ -421,19 +426,45 @@ def test_launcher_prints_the_reference_resolved_spec(monkeypatch):
         assert got.to_json() == want.to_json()
 
 
+FLEET_SMALL = ["--set", "data.kind=paper", "--set", "data.task=femnist",
+               "--set", "data.clients=8", "--set", "data.samples_per_client=8",
+               "--set", "fed.clients_per_round=4", "--set", "fed.batch_size=4",
+               "--set", "fed.k_schedule=fixed", "--rounds", "2"]
+
+
 def test_launcher_refuses_a_sweep():
+    """A bad sweep grid is refused before any point runs, naming the axis,
+    as the reference's launcher does; a good one runs as a fleet."""
+    from repro.api import spec as jspec
+    from repro.launch import train as jtrain
     from repro_torch.launch import train
-    with pytest.raises(SystemExit, match="A10"):
-        train.main(["--sweep", "fed.k0=2,4", "--device", "cpu"])
+    for main, error, extra in (
+            (jtrain.main, jspec.SpecValidationError, []),
+            (train.main, tspec.SpecValidationError, ["--device", "cpu"])):
+        with pytest.raises(error, match="fed.nope"):
+            main(["--sweep", "fed.nope=2,4", *extra])
+    res, out = _run_main(train.main, ["--sweep", "fed.k0=2,4", "--device",
+                                      "cpu", *FLEET_SMALL])
+    assert [p.label for p in res.points] == ["k0=2", "k0=4"]
+    assert "fleet: 2 point(s)" in out
 
 
 @pytest.mark.parametrize("flags", [["--sweep-csv", "fleet.csv"],
                                    ["--share-k-grid"], ["--serial-sweep"]])
-def test_launcher_refuses_sweep_only_flags(flags):
-    """The flags only a sweep reads are refused by name, not ignored."""
+def test_launcher_refuses_sweep_only_flags(flags, tmp_path):
+    """The flags only a sweep reads act on the sweep they come with (the
+    CSV written, the k0 points sharing one program, the points run one
+    after another), as the reference's."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit, match=f"{flags[0]}.*A10"):
-        train.main([*flags, "--device", "cpu"])
+    if flags[0] == "--sweep-csv":
+        flags = [flags[0], str(tmp_path / flags[1])]
+    res, out = _run_main(train.main, ["--sweep", "fed.k0=3,4", *flags,
+                                      "--device", "cpu", *FLEET_SMALL])
+    if flags[0] == "--sweep-csv":
+        assert os.path.exists(flags[1])
+        assert f"[train] fleet csv -> {flags[1]}" in out
+    assert res.packed == (flags[0] != "--serial-sweep")
+    assert res.shared_count == (1 if flags[0] == "--share-k-grid" else 0)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.data import make_paper_task
 from repro_torch.models import small
 from repro_torch.optim import tree_leaves
 from test_torch_parity_helpers import flat
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 BASE = ("data.kind=paper", "data.task=femnist", "data.clients=16",
         "fed.clients_per_round=8", "fed.rounds=6", "fed.k0=4",
@@ -47,17 +48,6 @@ HISTORY = ("rounds", "k", "eta", "wall_clock_s", "sgd_steps", "uplink_mbit",
            "downlink_mbit", "staleness", "applied_updates",
            "dropped_updates")
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The FEMNIST rounds' ops are tiny: with several test workers on one
-    machine, torch's intra-op threads oversubscribe the cores (an async
-    test ran ~170x slower). One thread a worker, restored after the
-    file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def spec_with(*overrides):

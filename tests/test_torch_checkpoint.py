@@ -23,6 +23,7 @@ from repro_torch.optim import tree_leaves
 
 from test_torch_parity_helpers import (assert_trees_close, drift_in_steps,
                                        flat, lm_spec, record_ids)
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_kernels.py's f32 tolerance
 KTOL = dict(rtol=2e-4, atol=2e-4)

@@ -1651,3 +1651,110 @@ def test_serving_tick_over_a_trainer_on_the_card(cuda):
     assert tr.store.serve_queries == pytest.approx(
         spec.serve.qps * h.wall_clock_s[-1], rel=1e-12)
     assert all(t > 0 for t in h.serve_tokens_per_sec)
+
+
+# ---------------------------------------------------------------------------
+# whole-bucket dispatch and the packed fleet on the card
+# ---------------------------------------------------------------------------
+
+def _bytes_equal(a, b):
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_bucket_of_four_is_four_one_round_buckets_on_the_card(cuda):
+    """FEMNIST at paper width with the kernel aggregator and int8 both
+    ways: one B = 4 bucket equals four B = 1 buckets bitwise (params,
+    codec state, losses), the first records its allocator peak, and each
+    round launches each wire kernel once a leaf."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.core.engine.round import RoundEngine
+    from repro_torch.core.mem import executable_peak_bytes
+    from repro_torch.data import make_paper_task, pipeline
+    from repro_torch.models import small
+    from repro_torch.optim import tree_leaves
+    task = get_paper_task("femnist")
+    data = make_paper_task("femnist", np.random.default_rng(0),
+                           num_clients=16, samples_per_client=32)
+    bb = pipeline.bucket_batches(np.random.default_rng(1), data, n_rounds=4,
+                                 k=3, clients_per_round=8, batch_size=8)
+    etas = np.full(4, 0.05, np.float32)
+    leaves = len(tree_leaves(small.init_task_model(0, task, device="cpu")))
+    outs = []
+    for spans in ([(0, 4)], [(i, i + 1) for i in range(4)]):
+        eng = RoundEngine(lambda p, b: small.task_loss(p, task, b),
+                          aggregator="kernel", transport="int8",
+                          downlink="int8", device=cuda)
+        p = small.init_task_model(0, task, device=cuda)
+        firsts = []
+        before = dict(tdc.launches)
+        for lo, hi in spans:
+            p, f, _, _ = eng.run_bucket(
+                p, {k: v[lo:hi] for k, v in bb.batches.items()},
+                bb.weights[lo:hi], etas[lo:hi], bb.active[lo:hi], ())
+            firsts.append(f)
+        torch.cuda.synchronize()
+        for name in ("int8_decompress_reduce", "int8_decode_apply"):
+            assert tdc.launches[name] - before[name] == 4 * leaves
+        program = next(iter(eng.registry.executables()))
+        assert executable_peak_bytes(program) > 0
+        outs.append((tree_leaves(p) + tree_leaves(eng.transport_state)
+                     + tree_leaves(eng.downlink_state), torch.cat(firsts)))
+    (sa, fa_), (sb, fb) = outs
+    assert len(sa) == len(sb)
+    assert all(_bytes_equal(x, y) for x, y in zip(sa, sb))
+    assert _bytes_equal(fa_, fb)
+
+
+@pytest.mark.cuda
+def test_packed_fleet_on_streams_equals_serial_on_the_card(cuda):
+    """A k0 x codec sweep at FEMNIST paper width, packed on four streams
+    and serial: every point's params, losses and history bitwise equal, the
+    programs shared alike, and the wire kernels' launches exact under the
+    threads."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.sweep import expand_sweep
+    from repro_torch.launch import fleet
+    from repro_torch.optim import tree_leaves
+    base = ExperimentSpec().with_overrides(
+        "data.kind=paper", "data.task=femnist", "data.clients=16",
+        "data.samples_per_client=32", "fed.clients_per_round=8",
+        "fed.rounds=3", "fed.batch_size=8", "fed.eta0=0.05",
+        "fed.k_schedule=rounds", "fed.aggregator=kernel")
+    built = {}
+    build = fleet.build
+
+    def recording(spec, **kw):
+        exp = build(spec, **kw)
+        built[(mode, spec.fed.k0, spec.transport.name)] = exp
+        return exp
+
+    fleet.build = recording
+    results = {}
+    try:
+        for mode in ("packed", "serial"):
+            pts = fleet.share_k_grid(expand_sweep(
+                "fed.k0=6,8", "transport.name=none,int8", base=base))
+            before = dict(tdc.launches)
+            results[mode] = fleet.run_fleet(points=pts,
+                                            packed=mode == "packed")
+            torch.cuda.synchronize()
+            results[mode].launches = {k: tdc.launches[k] - before[k]
+                                      for k in before}
+    finally:
+        fleet.build = build
+    packed, serial = results["packed"], results["serial"]
+    assert (packed.compile_count, packed.shared_count,
+            packed.dispatch_count) == (serial.compile_count,
+                                       serial.shared_count,
+                                       serial.dispatch_count)
+    assert packed.launches == serial.launches
+    assert packed.launches["int8_decompress_reduce"] > 0
+    for (mode, k0, name), a in built.items():
+        if mode != "packed":
+            continue
+        b = built[("serial", k0, name)]
+        assert a.history.as_dict() == b.history.as_dict()
+        assert all(_bytes_equal(x, y) for x, y in
+                   zip(tree_leaves(a.params), tree_leaves(b.params)))

@@ -36,6 +36,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import tree_leaves, tree_map
 from test_torch_parity_helpers import assert_trees_close, flat
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-4, atol=2e-4)
 STEP = dict(rtol=2e-2, atol=2e-2)

@@ -18,7 +18,7 @@ from repro_torch.core.engine import AsyncBufferedEngine
 from repro_torch.core.engine.trainer import make_eval_fn
 from repro_torch.data import make_paper_task
 from repro_torch.api import ExperimentSpec, build
-from repro_torch.launch import quickstart, serve, train
+from repro_torch.launch import fleet, quickstart, serve, train
 from repro_torch.models import registry, small
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -46,6 +46,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.checkpoint, repro_torch.core.theory, "
             "repro_torch.core.engine.policies, repro_torch.launch.train, "
             "repro_torch.launch.quickstart, repro_torch.core.mem, "
+            "repro_torch.launch.fleet, repro_torch.core.engine.round, "
             "repro_torch.core.engine.async_buffer, repro_torch.models.encdec, "
             "repro_torch.configs.whisper_tiny, "
             "repro_torch.configs.llava_next_34b\n"
@@ -94,6 +95,7 @@ def _trainer_no_device(cls=FedAvgTrainer, **fed_kw):
     lambda: build(ExperimentSpec()),
     lambda: train.main(["--rounds", "1"]),
     lambda: quickstart.main(["--rounds", "1"]),
+    lambda: fleet.main(["--sweep", "fed.k0=2,4", "--rounds", "1"]),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):

@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import fedavg_reduce as tfr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_kernels.py:12
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),

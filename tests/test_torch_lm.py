@@ -38,6 +38,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import tree_map
 from test_torch_parity_helpers import assert_trees_close
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-4, atol=2e-4)
 BF16 = dict(rtol=3e-2, atol=3e-2)

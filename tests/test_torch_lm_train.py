@@ -28,6 +28,7 @@ from repro_torch.models import registry
 from test_torch_parity_helpers import (TOL, _np, _torch, assert_counters_equal,
                                        assert_trees_close, drift_in_steps,
                                        lm_spec, lm_trainers)
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-4
 

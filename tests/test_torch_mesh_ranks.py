@@ -178,11 +178,12 @@ def wire_rounds(backend, up: str, down: str, rounds: int = 3):
     for _ in range(rounds):
         bb = pipeline.bucket_batches(rng, data, n_rounds=1, k=3,
                                      clients_per_round=5, batch_size=4)
-        batches = {k: v[0] for k, v in bb.batches.items()}
+        scalars = (np.full(1, 0.3, np.float32), np.ones(1, bool), ())
         mesh.transport_state = local.transport_state
         mesh.downlink_state = local.downlink_state
-        got = mesh.run_bucket(params, batches, bb.weights[0], 0.3, ())[0]
-        want = local.run_bucket(params, batches, bb.weights[0], 0.3, ())[0]
+        got = mesh.run_bucket(params, bb.batches, bb.weights, *scalars)[0]
+        want = local.run_bucket(params, bb.batches, bb.weights,
+                                *scalars)[0]
         out.append((params, want, got))
         params = want
     return out

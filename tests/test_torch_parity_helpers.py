@@ -1,11 +1,14 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
 same narrow models and small data for both packages, LM trainers built
-from one spec in both packages, and tree comparison by key path."""
+from one spec in both packages, tree comparison by key path, and the
+one-torch-thread pin (``one_torch_thread``: a test file imports it, and
+the import makes it apply to every test of that file)."""
 import dataclasses
 from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_paper_task as jax_task
@@ -16,6 +19,18 @@ from repro_torch.data import make_paper_task
 from repro_torch.optim import tree_leaves
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's test ops are small: with several test workers on one
+    machine, torch's intra-op threads oversubscribe the cores (an async
+    test ran ~170x slower, and a gmm accumulation test ~80x). One thread a
+    worker, restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -28,6 +28,7 @@ from repro_torch.models import registry, small
 from test_torch_parity_helpers import (TOL, _np, _torch,
                                        assert_counters_equal, flat, lm_spec,
                                        lm_trainers, to_port_state)
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-4
 
@@ -391,9 +392,9 @@ def test_fixed_cohort_topk_rounds_from_reference_state():
                                        np.ones(1, bool), ())
         teng.transport_state = to_port_state(before[1])
         tp, tf, _, _ = teng.run_bucket(
-            _torch(before[0]), {key: v[0] for key, v in bb.batches.items()},
-            bb.weights[0], 0.05, ())
-        np.testing.assert_allclose(tf.numpy(), np.asarray(jf)[0], **TOL)
+            _torch(before[0]), bb.batches, bb.weights,
+            np.full(1, 0.05, np.float32), np.ones(1, bool), ())
+        np.testing.assert_allclose(tf.numpy()[0], np.asarray(jf)[0], **TOL)
         got, want = flat(teng.transport_state), flat(jeng.transport_state)
         pg, pw = flat(tp), flat(jp)
         for key in want:

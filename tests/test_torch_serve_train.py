@@ -33,6 +33,7 @@ from repro_torch.core.schedules import DecayController
 from repro_torch.optim import tree_leaves, tree_map
 from test_torch_parity_helpers import (drift_in_steps, flat, lm_spec,
                                        record_ids, trees_equal)
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 PAPER = ("data.kind=paper", "data.task=femnist", "data.clients=16",
          "data.samples_per_client=16", "fed.clients_per_round=6",

@@ -42,6 +42,7 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import tree_map
 from test_torch_parity_helpers import assert_trees_close
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-4, atol=2e-4)
 SCAN = dict(rtol=5e-4, atol=5e-4)
@@ -66,15 +67,6 @@ def _close(got, want, **tol):
                                           else got, np.float32),
                                np.asarray(want, np.float32), **tol)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The reduced models' ops are tiny: one torch thread a test worker
-    (several workers share the machine), restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def configs(name):

@@ -28,6 +28,7 @@ from repro_torch.data import PopulationView, make_paper_task, pipeline
 from repro_torch.models import small
 from repro_torch.optim import tree_leaves, tree_map
 from test_torch_parity_helpers import flat, lm_spec, record_ids
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 COHORT = 6
 # tests/test_kernels.py's f32 tolerance, for losses across frameworks
@@ -43,17 +44,6 @@ CONFIGS = [("none", "uniform", "mean"), ("none", "uniform", "kernel"),
            ("topk", "fixed_cohort", "mean")]
 IDS = ["-".join(c) for c in CONFIGS]
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The FEMNIST rounds' ops are tiny: with several test workers on one
-    machine, torch's intra-op threads oversubscribe the cores (an async
-    test ran ~170x slower). One thread a worker, restored after the
-    file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _spec(chunk=None, transport="none", sampler="uniform",
@@ -186,12 +176,15 @@ def test_one_slab_of_the_whole_cohort_is_bitwise_dense(dense_runs, config):
         _equal(full.trainer.engine.transport_state,
                dense.trainer.engine.transport_state)
     assert full.history.train_loss == dense.history.train_loss
-    assert full.trainer.dispatch_count == dense.trainer.dispatch_count == 4
+    # a streamed round is one dispatch; the dense run one a bucket of 2
+    assert full.trainer.dispatch_count == 4
+    assert dense.trainer.dispatch_count == 2
 
 
 def test_cohort_chunk_none_leaves_the_dense_engine():
     """Without ``cohort_chunk`` (the spec's None) the engine has no slab
-    cores and runs one ``run_bucket`` a round."""
+    cores and runs one ``run_bucket`` a bucket (rounds 5 and 6 are one
+    bucket of 2)."""
     dense = _run(_spec(None))
     assert dense.spec.as_dict()["fed"]["cohort_chunk"] is None
     eng = dense.trainer.engine
@@ -199,7 +192,7 @@ def test_cohort_chunk_none_leaves_the_dense_engine():
     calls, run_bucket = [], eng.run_bucket
     eng.run_bucket = lambda *a: calls.append(1) or run_bucket(*a)
     dense.trainer.run(6, resume=True)
-    assert len(calls) == 2 and eng.dispatch_count == 6
+    assert len(calls) == 1 and eng.dispatch_count == 3
 
 
 @pytest.mark.parametrize("chunk", [1, 3])

@@ -13,7 +13,8 @@ from repro.core import FedAvgTrainer as JTrainer
 from repro.core import RuntimeModel as JRuntime
 from repro.models import small as jsmall
 from repro_torch.configs import FedConfig, get_paper_task
-from repro_torch.core import (FedAvgTrainer, RuntimeModel, make_eval_fn,
+from repro_torch.core import (DecayController, FedAvgTrainer,
+                              RoundScheduler, RuntimeModel, make_eval_fn,
                               run_reference_rounds)
 from repro_torch.data import pipeline
 from repro_torch.models import small
@@ -79,7 +80,10 @@ def test_trainer_bitwise_equals_per_round_oracle(kw):
     assert trees_equal(ref.params, tr.params)
     assert list(ref.losses) == h.train_loss
     assert ref.ks == h.k
-    assert tr.dispatch_count == rounds          # one dispatch per round
+    # one dispatch a bucket of the scheduler's plan
+    plan = RoundScheduler(DecayController(fed), fed,
+                          total_rounds=rounds).plan()
+    assert tr.dispatch_count == sum(1 for _ in plan)
 
 
 def test_trainer_eval_weights_ragged_tail_batch():
@@ -103,8 +107,9 @@ def test_trainer_eval_weights_ragged_tail_batch():
 
 
 def test_run_bucket_runs_one_round_like_round_fn():
-    """``RoundEngine.run_bucket`` on two successive rounds equals the
-    single-round ``make_round_fn`` bitwise, one dispatch per call."""
+    """``RoundEngine.run_bucket`` on two successive one-round buckets
+    equals the single-round ``make_round_fn`` bitwise, one dispatch per
+    call."""
     from repro_torch.core import make_round_fn
     from repro_torch.core.engine.round import RoundEngine
     task, params, data = small_setup("femnist")
@@ -115,12 +120,14 @@ def test_run_bucket_runs_one_round_like_round_fn():
     round_fn, _ = make_round_fn(loss_fn, aggregator="kernel", device="cpu")
     p = q = _torch(params)
     for i in range(2):
-        batches = {k: v[i] for k, v in bb.batches.items()}
-        p, firsts, lasts, _ = eng.run_bucket(p, batches, bb.weights[i], 0.3,
-                                             ())
-        q, want_firsts, want_mean_last, _ = round_fn(q, batches,
-                                                     bb.weights[i], 0.3, ())
-        assert tuple(firsts.shape) == (3,) and eng.dispatch_count == i + 1
-        assert torch.equal(firsts, want_firsts)
-        assert torch.equal(torch.mean(lasts), want_mean_last)
+        batches = {k: v[i:i + 1] for k, v in bb.batches.items()}
+        p, firsts, lasts, _ = eng.run_bucket(
+            p, batches, bb.weights[i:i + 1], np.full(1, 0.3, np.float32),
+            np.ones(1, bool), ())
+        q, want_firsts, want_mean_last, _ = round_fn(
+            q, {k: v[0] for k, v in batches.items()}, bb.weights[i], 0.3,
+            ())
+        assert tuple(firsts.shape) == (1, 3) and eng.dispatch_count == i + 1
+        assert torch.equal(firsts[0], want_firsts)
+        assert torch.equal(torch.mean(lasts[0]), want_mean_last)
         assert trees_equal(p, q)

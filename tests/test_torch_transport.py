@@ -41,6 +41,7 @@ from repro_torch.models import attention as tatt
 from repro_torch.models import small
 from test_torch_parity_helpers import (TOL, _np, _torch, drift_in_steps, flat,
                                        record_ids, to_port_state)
+from test_torch_parity_helpers import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5          # reduces: f32 sums of <= 25 terms in another order
 # trainer losses after 3 rounds of wire quantisation (see DRIFT_LIMITS)
@@ -688,11 +689,11 @@ def test_engine_round_from_reference_state_matches_reference(
         teng.transport_state = to_port_state(before[1])
         teng.downlink_state = to_port_state(before[2])
         tp, tf, _, _ = teng.run_bucket(
-            _torch(before[0]), {k: v[0] for k, v in bb.batches.items()},
-            bb.weights[0], 0.3, ())
-        np.testing.assert_allclose(tf.numpy(), np.asarray(jf)[0], **TOL)
+            _torch(before[0]), bb.batches, bb.weights,
+            np.full(1, 0.3, np.float32), np.ones(1, bool), ())
+        np.testing.assert_allclose(tf.numpy()[0], np.asarray(jf)[0], **TOL)
         if down == "adaptive":
-            assert int(teng.last_downlink_levels) == int(
+            assert int(teng.last_downlink_levels[0]) == int(
                 np.asarray(jeng.last_downlink_levels)[0])
         fg, fw, f0 = flat(tp), flat(jp), flat(before[0])
         for k in fw:
