@@ -241,7 +241,21 @@ exits non-zero without printing a result:
               each on a fresh registry: bitwise equal points, programs
               built as the scheduler's plans predict, dispatches a bucket,
               shared counts that add up, exact launches; wall seconds,
-              rounds/s and peaks, and the leaderboard CSV under ``build/``.
+              rounds/s and peaks, and the leaderboard CSV under ``build/``;
+18. sequential — the mesh's sequential strategy on a one-rank NCCL mesh
+              (run after phase fleet, on phase lm's params): (i)
+              ``mesh-sequential-cosine.json`` at full width through
+              ``launch.train`` for 3 rounds beside the same spec on
+              ``backend.name=local`` (K_r, ids, counters exact, params
+              within the CPU tests' parity tolerance); (ii) qwen1.5-0.5b,
+              32 clients and 16 a round one at a time, int8 up (aggregate
+              error feedback) and down, 2 rounds at ``acc_dtype`` f32
+              (``int8_decode_apply`` exactly once a leaf a round, one round
+              more checked call by call) and one at bf16 on the plain
+              uplink, ms a round and a client and the peak over base;
+              (iii) CIFAR100 at paper width one round each (mean at
+              groups 1 and 5, trimmed_mean + fedavgm) against
+              ``LocalBackend``, bitwise or the measured distance.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
@@ -249,8 +263,9 @@ the wire kernels and ``fedavg_reduce`` with their launches in phase
 lm_train and their row at qwen's embedding leaf; every entry with its
 launches in phase spec, ``spec_launches``, in phases stream and async,
 ``stream_launches`` and ``async_launches``, in phases serve_train and
-encdec, ``serve_train_launches`` and ``encdec_launches``, and in phase
-fleet's packed run, ``fleet_launches``);
+encdec, ``serve_train_launches`` and ``encdec_launches``, in phase
+fleet's packed run, ``fleet_launches``, and in phase sequential (ii)'s
+counted run, ``sequential_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -3649,10 +3664,10 @@ def _lm_fed(**kw):
     return FedConfig(**{**TRAFFIC, **CONFIGS["a"], **kw})
 
 
-def _lm_engine(cfg, params, data, fed, het=0.0):
+def _lm_engine(cfg, params, data, fed, het=0.0, backend=None):
     """``build``'s trainer for ``fed`` (``AGGREGATION_REGISTRY``: a
     ``FedAvgTrainer`` or an ``AsyncBufferedEngine``) on the LM loss, |x|
-    the params at 4 bytes, beta 0.05 s."""
+    the params at 4 bytes, beta 0.05 s; ``backend`` (default local)."""
     from repro_torch.api.registries import AGGREGATION_REGISTRY
     from repro_torch.configs.base import RuntimeModelConfig
     from repro_torch.core import RuntimeModel
@@ -3664,7 +3679,7 @@ def _lm_engine(cfg, params, data, fed, het=0.0):
                       fed.clients_per_round, heterogeneity=het)
     return AGGREGATION_REGISTRY.get(fed.aggregation)()(
         lambda p, b: model_loss(p, {"tokens": b["x"]}), params, data, fed,
-        rt)
+        rt, **({} if backend is None else {"backend": backend}))
 
 
 def stream_lm(torch, params):
@@ -4516,6 +4531,253 @@ def phase_fleet(torch):
     return launches["packed"]
 
 
+# ---------------------------------------------------------------------------
+# the mesh's sequential strategy
+# ---------------------------------------------------------------------------
+
+SEQ_SPEC = "mesh-sequential-cosine.json"
+SEQ_SPEC_ROUNDS = 3
+# tests/test_torch_sequential.py's parity tolerance for this spec's run
+# against LocalBackend (a 1x1 mesh is the local round)
+SEQ_SPEC_TOL = dict(rtol=1e-4, atol=1e-4)
+# (ii): stream (ii)'s traffic, 32 clients and 16 a round, in one group
+LM_SEQUENTIAL = dict(total_clients=32, clients_per_round=16)
+SEQ_ROUNDS = 2
+# (iii): CIFAR100 at paper width, one round each against LocalBackend
+SEQ_CIFAR = [("mean", dict(), 1), ("mean", dict(), 5),
+             ("trimmed_mean+fedavgm", dict(aggregator="trimmed_mean",
+                                           server_optimizer="fedavgm",
+                                           server_lr=0.5), 5)]
+
+
+def seq_spec(torch, smi):
+    """(i) ``mesh-sequential-cosine.json`` at full width (``model.reduced
+    =false``: qwen1.5-0.5b, weighted sampler, cosine K from k0 8, 4 a
+    round) through ``launch.train`` for ``SEQ_SPEC_ROUNDS`` rounds, beside
+    the same spec on ``backend.name=local``: K_r, ids, sgd_steps and wall
+    clocks exact, params within ``SEQ_SPEC_TOL``; ms a round (each bucket
+    between synchronisations, over its rounds) and the peak over base."""
+    import numpy as np
+    from repro_torch.core.engine.round import RoundEngine
+    from repro_torch.launch import train
+    argv = ["--spec", str(SPEC_DIR / SEQ_SPEC), "--set",
+            "model.reduced=false", "--rounds", str(SEQ_SPEC_ROUNDS)]
+    runs = {}
+    for name in ("mesh", "local"):
+        ids, undo = _recorded_ids()
+        log, bucket = [], RoundEngine.run_bucket
+        RoundEngine.run_bucket = timed_buckets(torch, bucket, log,
+                                               method=True)
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            exp, _ = _quiet(train.main, argv + (
+                [] if name == "mesh" else ["--set", "backend.name=local"]))
+        finally:
+            RoundEngine.run_bucket = bucket
+            undo()
+        be = exp.trainer.engine.backend
+        if (be.name, getattr(be, "strategy", "")) != (
+                name, "sequential" if name == "mesh" else ""):
+            raise AssertionError(f"sequential (i): ran on {be.name}")
+        runs[name] = dict(h=exp.history, ids=list(ids),
+                          params=_host(exp.trainer.params),
+                          ms=per_round_ms(log), s=time.perf_counter() - t0,
+                          peak=(torch.cuda.max_memory_allocated() - base)
+                          / 1e9, counts=(exp.trainer.compile_count,
+                                         exp.trainer.dispatch_count))
+        del exp
+        _free(torch)
+    m, loc = runs["mesh"], runs["local"]
+    for key in SPEC_COUNTERS:
+        if getattr(m["h"], key) != getattr(loc["h"], key):
+            raise AssertionError(f"sequential (i): {key} "
+                                 f"{getattr(m['h'], key)} != "
+                                 f"{getattr(loc['h'], key)}")
+    if m["ids"] != loc["ids"] or len(m["ids"]) != SEQ_SPEC_ROUNDS or \
+            m["counts"] != loc["counts"]:
+        raise AssertionError(f"sequential (i): ids {m['ids']} vs "
+                             f"{loc['ids']}, counts {m['counts']} vs "
+                             f"{loc['counts']}")
+    worst = 0.0
+    for k, want in loc["params"].items():
+        bound = SEQ_SPEC_TOL["atol"] + SEQ_SPEC_TOL["rtol"] * np.abs(want)
+        worst = max(worst, float(np.max(np.abs(m["params"][k] - want)
+                                        / bound)))
+    if not worst <= 1.0 or not all(math.isfinite(v)
+                                   for v in m["h"].train_loss):
+        raise AssertionError(f"sequential (i): params at {worst} of "
+                             f"{SEQ_SPEC_TOL}, loss {m['h'].train_loss}")
+    emit({"phase": "sequential", "what": "(i) mesh-sequential-cosine.json, "
+          "qwen1.5-0.5b full width, 1-rank NCCL mesh vs backend local",
+          "card": smi, "rounds": SEQ_SPEC_ROUNDS, "k": m["h"].k,
+          "ids": m["ids"], "counters_exact": True,
+          "compiles_dispatches": m["counts"],
+          "loss": m["h"].train_loss, "local_loss": loc["h"].train_loss,
+          "max_abs_diff": _max_diff(m["params"], loc["params"]),
+          "share_of_tol": worst, "tol": SEQ_SPEC_TOL,
+          "ms_per_round": m["ms"], "local_ms_per_round": loc["ms"],
+          "peak_gb_over_base": m["peak"], "local_peak_gb_over_base":
+          loc["peak"], "s": m["s"], "local_s": loc["s"]})
+
+
+def seq_lm(torch, params, mesh, smi):
+    """(ii) qwen1.5-0.5b at full width (phase lm's params), 32 clients and
+    16 a round in one group, b 4, seq 32, K_r-rounds from k0 8, the int8
+    uplink with aggregate error feedback and the int8 downlink, for
+    ``SEQ_ROUNDS`` rounds at ``acc_dtype`` f32: ``int8_decode_apply``
+    exactly once a leaf a round (the broadcast, once a round) and no
+    other kernel, counters exact against the runtime formula; one round
+    more holds every decode-apply call against its plain version. Then
+    one round at ``acc_dtype`` bf16 on the plain uplink (the codec's
+    decoded sum is f32 whatever ``acc_dtype``, as the reference's), the
+    int8 downlink kept. ms a round, ms a client and the allocator's peak
+    over base of each. Returns the counted run's launches."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.data import make_lm_clients
+    from repro_torch.launch.lm_train_timing import SEQ
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    sizes = [int(t.numel()) for t in tree_leaves(params)]
+    data = make_lm_clients(np.random.default_rng(0),
+                           LM_SEQUENTIAL["total_clients"],
+                           vocab=cfg.vocab_size, seq_len=SEQ)
+    out = {}
+    for acc, rounds, kw in ((torch.float32, SEQ_ROUNDS, {}),
+                            (torch.bfloat16, 1, dict(transport="none"))):
+        fed = _lm_fed(rounds=rounds, downlink="int8", **LM_SEQUENTIAL,
+                      **kw)
+
+        def make():
+            tr = _lm_engine(cfg, params, data, fed, backend=MeshBackend(
+                mesh, strategy="sequential", groups=1, acc_dtype=acc))
+            tr._ms = timed_rounds(torch, tr.engine)
+            return tr
+
+        tr, h, counts, peak, peak_abs, run_s = _peak_run(
+            torch, make, lambda t: t.run(rounds))
+        name = str(acc).replace("torch.", "")
+        only(counts, {"int8_decode_apply": rounds * len(sizes)},
+             f"sequential (ii) {name}")
+        formula = lm_train_want(fed, sizes, rounds)
+        got = {key: getattr(h, key) for key in formula}
+        if got != formula or not all(math.isfinite(v)
+                                     for v in h.train_loss):
+            raise AssertionError(f"sequential (ii) {name}: counters {got} "
+                                 f"!= {formula} or loss {h.train_loss}")
+        ks, losses = list(h.k), list(h.train_loss)
+        line = {"phase": "sequential", "what": f"(ii) qwen1.5-0.5b full "
+                f"width, 16 clients a round one at a time, acc_dtype "
+                f"{name}", "card": smi, "arch": cfg.name,
+                "params": sum(sizes), "leaves": len(sizes),
+                "clients": fed.total_clients, "u": fed.clients_per_round,
+                "groups": 1, "uplink": fed.transport,
+                "downlink": fed.downlink, "acc_dtype": name, "k": ks,
+                "loss": losses, "counters_exact": True,
+                "ms_per_round": list(tr._ms),
+                "ms_per_client": [ms / fed.clients_per_round
+                                  for ms in tr._ms],
+                "run_s": run_s, "peak_gb_over_base": peak,
+                "peak_gb": peak_abs, "launches": counts}
+        if acc == torch.float32:
+            # one round more, neither counted nor timed
+            h2, seen = check_calls(torch, lambda: tr.run(1),
+                                   "sequential (ii)")
+            app = seen.get("int8_decode_apply", {})
+            if set(seen) != {"int8_decode_apply"} or \
+                    app["calls"] != len(sizes) or \
+                    sorted(app["m"]) != sorted(sizes):
+                raise AssertionError(f"sequential (ii): checked round ran "
+                                     f"{seen}")
+            line["checked_round"] = {k: {
+                "calls": v["calls"], "leaves": len(sizes),
+                "max_abs_err": v["max_abs_err"], "tol": v["tol"]}
+                for k, v in seen.items()}
+            out = counts
+        emit(line)
+        del tr
+        _free(torch)
+    return out
+
+
+def seq_cifar(torch, data, mesh, smi):
+    """(iii) CIFAR100 at paper width (U 25, b 32, K 50, cuDNN
+    deterministic), one round each of ``SEQ_CIFAR``, the sequential
+    strategy against ``LocalBackend``: bitwise where it holds, else the
+    measured distance, held to stream (i)'s bound (``c3_shares``: the f32
+    tolerance plus a share of each leaf's movement; the per-client convs
+    and matmuls take other cuDNN and cuBLAS algorithms than the vmapped
+    cohort's)."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.core import FedAvgTrainer, RuntimeModel
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.models import small
+    task = get_paper_task("cifar100")
+    init = _host(small.init_task_model(0, task))
+    for label, kw, groups in SEQ_CIFAR:
+        fed = dataclasses.replace(task.fed, rounds=1, k_schedule="rounds",
+                                  **kw)
+        runs = {}
+        for name in ("sequential", "local"):
+            backend = (MeshBackend(mesh, strategy="sequential",
+                                   groups=groups)
+                       if name == "sequential" else None)
+            tr = FedAvgTrainer(lambda p, b: small.task_loss(p, task, b),
+                               small.init_task_model(0, task), data, fed,
+                               RuntimeModel(task.model_size_mb, task.runtime,
+                                            fed.clients_per_round),
+                               backend=backend)
+            tr._ms = timed_rounds(torch, tr.engine)
+            h = tr.run(1)
+            runs[name] = (h, _host(tr.params), list(tr._ms))
+            del tr
+            _free(torch)
+        (hs, ps, ms), (hl, pl, ml) = runs["sequential"], runs["local"]
+        if hs.k != hl.k or hs.sgd_steps != hl.sgd_steps or \
+                not all(math.isfinite(v) for v in hs.train_loss):
+            raise AssertionError(f"sequential (iii) {label}: {hs.k} "
+                                 f"{hs.train_loss} vs {hl.k}")
+        worst, worst_mean = c3_shares(pl, ps, init)
+        if worst > 1.0 or worst_mean > 1.0:
+            raise AssertionError(f"sequential (iii) {label} groups "
+                                 f"{groups}: {worst}, {worst_mean} of the "
+                                 f"bound")
+        emit({"phase": "sequential", "what": f"(iii) cifar100 paper width, "
+              f"{label}, groups {groups}, vs LocalBackend", "card": smi,
+              "k": hs.k, "loss": hs.train_loss, "local_loss": hl.train_loss,
+              "bitwise": _bitwise(ps, pl), "max_abs_diff": _max_diff(ps, pl),
+              "share_of_bound": worst, "mean_share_of_bound": worst_mean,
+              "ms_per_round": ms, "local_ms_per_round": ml,
+              "cudnn_deterministic": True})
+
+
+def phase_sequential(torch, cifar, params, smi):
+    """The mesh's sequential strategy on a one-rank NCCL mesh: (i) the
+    spec at full width through the launcher, (ii) qwen1.5-0.5b at 16
+    clients a round, (iii) CIFAR100 against LocalBackend. Returns (ii)'s
+    counted launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    mesh = init_world1(torch)["data"][0]
+    try:
+        seq_spec(torch, smi)
+        launches = seq_lm(torch, params, mesh, smi)
+        torch.backends.cudnn.deterministic = True
+        seq_cifar(torch, cifar, mesh, smi)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        del mesh
+        dist.destroy_process_group()
+    emit({"phase": "sequential", "summary": True, "card": smi,
+          "launches": launches, "s": time.perf_counter() - t0})
+    return launches
+
+
 WHISPER_ARCH = "whisper-tiny"
 WHISPER_PARAMS = 36_448_128
 # Whisper's text context (arXiv:2212.04356) over its 1,500 audio frames
@@ -4670,7 +4932,7 @@ def main() -> int:
               f"root of a checkout", file=sys.stderr)
         return 1
 
-    name, _ = phase_device(torch)
+    name, smi = phase_device(torch)
     bw, f32_peak, bf16_peak = card_peaks(name)
     phase_build()
     rows, max_err = phase_kernel(torch, bw, f32_peak)
@@ -4754,6 +5016,11 @@ def main() -> int:
                                            "int8_decompress_reduce")):
         raise AssertionError(f"a kernel of phase fleet never ran: "
                              f"{fleet_launches}")
+    # the mesh's sequential strategy, on phase lm's params
+    sequential_launches = phase_sequential(torch, cifar, params, smi)
+    if not sequential_launches["int8_decode_apply"]:
+        raise AssertionError(f"int8_decode_apply never ran in phase "
+                             f"sequential: {sequential_launches}")
     del params
     _free(torch)
     moe_launches, params = phase_moe(torch)
@@ -4881,6 +5148,8 @@ def main() -> int:
         entry["serve_train_launches"] = serve_launches.get(entry["name"], 0)
         entry["encdec_launches"] = encdec_launches.get(entry["name"], 0)
         entry["fleet_launches"] = fleet_launches.get(entry["name"], 0)
+        entry["sequential_launches"] = sequential_launches.get(
+            entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -14,9 +14,9 @@ its state, from a checkpoint of either package.
 ``fed.aggregation="async"`` builds an ``AsyncBufferedEngine`` (through
 ``AGGREGATION_REGISTRY``), ``fed.cohort_chunk`` a trainer that streams
 each round in slabs, and ``serve.every`` attaches a ``ServingLoop`` that
-the trainer ticks while it trains. What the port does not run yet,
-``build`` refuses by name (after ``validate``, which accepts what the
-reference accepts): the mesh's sequential strategy (ROADMAP A13).
+the trainer ticks while it trains. ``backend.name="mesh"`` runs either
+mesh strategy; ``backend.strategy="sequential"`` with ``backend.groups``
+loops each group's clients one at a time.
 """
 from __future__ import annotations
 
@@ -56,21 +56,6 @@ def _make_fed_config(spec: ExperimentSpec) -> FedConfig:
         prefetch=f.prefetch, cohort_chunk=f.cohort_chunk,
         aggregation=f.aggregation, buffer_size=f.buffer_size,
         staleness_weight=f.staleness_weight, max_staleness=f.max_staleness)
-
-
-def _refuse_unported(spec: ExperimentSpec) -> None:
-    """Raise on a valid spec the port cannot run yet, naming the field and
-    the ROADMAP item that brings it."""
-    b = spec.backend
-    unported = [
-        (b.name == "mesh" and b.strategy == "sequential",
-         "backend.strategy", b.strategy,
-         "A13 (the mesh's sequential strategy)"),
-    ]
-    for bad, path, value, item in unported:
-        if bad:
-            raise ValueError(f"{path}={value!r} is not ported yet: it comes "
-                             f"with ROADMAP {item}")
 
 
 def _make_backend(spec: ExperimentSpec, device):
@@ -194,7 +179,6 @@ def build(spec: ExperimentSpec, *, backend=None, registry=None,
     from repro_torch.core.runtime_model import RuntimeModel
 
     spec.validate()
-    _refuse_unported(spec)
     if registry is not None and program_key is None:
         from repro_torch.api.sweep import spec_program_key
         program_key = spec_program_key(spec)

@@ -18,9 +18,9 @@ Contracts:
   * unknown JSON keys are aggregated errors, never silently dropped —
     schema drift in saved specs is loud.
 
-``validate`` accepts and rejects what the reference's does: the one
-feature the port has not ported yet (the mesh's sequential strategy)
-validates, and ``build`` refuses it, naming the field.
+``validate`` accepts and rejects what the reference's does, the mesh's
+sequential strategy with ``cohort_chunk`` or with async aggregation
+included.
 """
 from __future__ import annotations
 

@@ -49,7 +49,7 @@ reference's: ``(program_key, "async-dispatch" | "async-fold" |
 ``shared_count`` count them as ``RoundEngine``'s, and ``dispatch_count``
 counts their runs. Serving while training ticks the attached
 ``ServingLoop`` after every ``serve_every``-th buffer application. Not
-ported: the engine on a ``MeshBackend`` (ROADMAP A13).
+ported: the engine on a ``MeshBackend`` (ROADMAP A13 (c)).
 """
 from __future__ import annotations
 
@@ -105,7 +105,7 @@ def _refuse(fed: FedConfig, backend, sampler) -> None:
     if isinstance(backend, MeshBackend):
         raise ValueError(
             "async buffered aggregation on a MeshBackend is not ported "
-            "yet: it comes with ROADMAP A13")
+            "yet: it comes with ROADMAP A13 (c)")
     if fed.downlink != "none":
         raise ValueError(
             "async clients start from skewed global versions; the "

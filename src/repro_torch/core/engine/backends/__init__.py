@@ -1,9 +1,12 @@
 """Execution backends: where a round's client fan-out runs.
 
-``local``: the whole cohort on one device. ``mesh``: the cohort's rows
-spread over the ranks of a DeviceMesh (``torch.distributed``), parallel
-strategy. Both register in ``repro_torch.api.registries.BACKEND_REGISTRY``.
+``local``: the whole cohort on one device. ``mesh``: the cohort spread
+over the ranks of a DeviceMesh (``torch.distributed``), by the parallel or
+the sequential strategy. Both register in
+``repro_torch.api.registries.BACKEND_REGISTRY``.
 """
+import torch
+
 from repro_torch.api.registries import BACKEND_REGISTRY, register_backend
 from repro_torch.core.engine.backends.base import (ExecutionBackend,
                                                    LINEAR_AGGREGATORS,
@@ -17,18 +20,21 @@ def _local_factory(*, device=None, **kw):
     return LocalBackend(device)
 
 
-def _mesh_factory(*, mesh=None, strategy: str = "parallel",
-                  reduce: str = "flat", device=None, **kw):
+def _mesh_factory(*, mesh=None, strategy: str = "parallel", groups: int = 1,
+                  reduce: str = "flat", acc_dtype=torch.float32, device=None,
+                  **kw):
     """Default mesh: every rank of the process group on a (W, 1)
     ``("data", "model")`` mesh, the geometry ``launch/train.py --backend
-    mesh`` uses. Pass a ``mesh`` to choose the topology."""
+    mesh`` uses. Pass a ``mesh`` to choose the topology. ``groups`` and
+    ``acc_dtype`` are the sequential strategy's."""
     if mesh is None:
         import torch.distributed as dist
         from repro_torch.launch.mesh import init_distributed, make_mesh
         init_distributed(device)
         mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"),
                          device)
-    return MeshBackend(mesh, strategy=strategy, reduce=reduce)
+    return MeshBackend(mesh, strategy=strategy, groups=groups,
+                       acc_dtype=acc_dtype, reduce=reduce)
 
 
 register_backend("local", _local_factory)

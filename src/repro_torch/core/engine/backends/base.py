@@ -5,11 +5,12 @@ The port of ``repro.core.engine.backends.base``. The round's semantics
 backend; a backend decides the execution geometry:
 
   * how the round's client axis runs (one device: the whole cohort
-    vmapped; a mesh: each rank vmaps its own block of client rows);
+    vmapped; a mesh: each rank vmaps its own block of client rows, or
+    runs its groups' clients one at a time);
   * which implementation of the aggregation runs (the plain contraction,
     the kernel, or the client-sharded kernel plus a collective);
   * how host arrays are placed on the device (a plain copy, or only this
-    rank's client rows).
+    rank's client rows and batch rows).
 
 ``RoundEngine`` takes its round core and its placement from a backend.
 Placement hooks are idempotent: a tensor already placed passes through, so
@@ -62,6 +63,12 @@ class ExecutionBackend:
         (N,), last_losses (N,), server_state, t_state, d_state, level), as
         ``backends.local.make_parallel_round_core``."""
         raise NotImplementedError
+
+    def program_signature(self) -> tuple:
+        """What of the backend shapes its bucket programs beyond their
+        inputs (the mesh's strategy, groups, accumulator dtype and
+        reduce); part of the registry key where not empty."""
+        return ()
 
     def make_slab_cores(self, loss_fn: LossFn, *, aggregator: str = "mean",
                         server=None, server_lr: float = 1.0, transport=None):
@@ -140,12 +147,19 @@ class ExecutionBackend:
             sb, batches={k: self.to_device(v) for k, v in sb.batches.items()},
             weights=self.to_device(sb.weights))
 
-    def place_transport_state(self, state):
-        """The codec's error-feedback state: params-shaped, placed like the
-        params (``()`` passes through)."""
+    def place_transport_state(self, state, per_client: bool = False):
+        """The codec's error-feedback state: params-shaped (``per_client``:
+        with a leading cohort axis), placed like the params (``()`` passes
+        through)."""
         if not tree_leaves(state):
             return state
         return self.place_params(state)
+
+    def collect_transport_state(self, state, per_client: bool = False):
+        """The inverse of ``place_transport_state`` for a bucket's output
+        state: the whole cohort's slots on every rank (identity on one
+        device)."""
+        return state
 
     # ------------------------------------------------------------------
     # fleet packing

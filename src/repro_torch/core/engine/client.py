@@ -2,11 +2,12 @@
 
 The update is stateless plain SGD per the paper. It is written for one
 client; ``backends.local`` vmaps it over the round's clients with
-``torch.func.vmap``, so every op below runs once for the whole cohort.
+``torch.func.vmap``, so every op below runs once for the whole cohort, and
+the mesh's sequential strategy calls it once a client.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value
@@ -15,6 +16,8 @@ from repro_torch.optim import tree_map
 
 PyTree = Any
 LossFn = Callable[[PyTree, Dict[str, torch.Tensor]], Any]
+GradHook = Callable[[PyTree, torch.Tensor, Dict[str, torch.Tensor]],
+                    Tuple[PyTree, torch.Tensor]]
 
 
 class ClientResult(NamedTuple):
@@ -26,16 +29,22 @@ class ClientResult(NamedTuple):
 
 def client_update(loss_fn: LossFn, params: PyTree,
                   client_batches: Dict[str, torch.Tensor],
-                  eta: float) -> ClientResult:
+                  eta: float, grad_hook: Optional[GradHook] = None
+                  ) -> ClientResult:
     """K steps of SGD from the round-start params. Leaves of
     ``client_batches`` have a leading K axis; each update is cast back to
-    its weight's dtype."""
+    its weight's dtype. ``grad_hook(grads, loss, batch) -> (grads,
+    loss)``, where given, sees each step's gradients and loss before the
+    update (the sequential mesh strategy all-reduces them over the ranks
+    that split the client's batch)."""
     step_grad = grad_and_value(loss_fn, has_aux=True)
     k = next(iter(client_batches.values())).shape[0]
     p, first = params, None
     for t in range(k):
-        grads, (loss, _) = step_grad(p, {key: v[t] for key, v in
-                                         client_batches.items()})
+        batch = {key: v[t] for key, v in client_batches.items()}
+        grads, (loss, _) = step_grad(p, batch)
+        if grad_hook is not None:
+            grads, loss = grad_hook(grads, loss, batch)
         p = tree_map(lambda w, g: (w - eta * g).to(w.dtype), p, grads)
         if t == 0:
             first = loss

@@ -287,7 +287,8 @@ class ExecutableRegistry:
 
 class BucketProgram:
     """One registry entry: the function that runs one key's buckets (or
-    slabs, or async steps), built once.
+    slabs, or async steps), built once, with the backend signature it was
+    built for (a mesh's strategy, groups, acc_dtype and reduce).
 
     On the card its first run records the allocator's peak
     (``peak_bytes``, read by ``core.mem.executable_peak_bytes``): the
@@ -296,9 +297,12 @@ class BucketProgram:
     On the CPU ``peak_bytes`` stays 0, as the reference's where the runtime
     keeps no memory statistics."""
 
-    def __init__(self, fn: Callable, device: DeviceLike):
+    def __init__(self, fn: Callable, device: DeviceLike,
+                 backend_sig: Tuple = ()):
         self.fn = fn
         self.device = torch.device(device)
+        #: the backend's ``program_signature()`` it was built for
+        self.backend_sig = backend_sig
         self.peak_bytes = 0
         self._measured = self.device.type != "cuda"
         self._lock = threading.Lock()
@@ -394,6 +398,9 @@ class RoundEngine:
                            else self.transport.signature())
         if self.downlink is not None:
             self._codec_sig = (self._codec_sig, self.downlink.signature())
+        # a mesh's strategy, groups, acc_dtype and reduce shape the program
+        # too; they join the key after the codecs' (local keys unchanged)
+        self._backend_sig = backend.program_signature()
         self._bucket_fn = self._make_bucket_fn()
         if registry is not None and program_key is None:
             raise ValueError(
@@ -473,11 +480,14 @@ class RoundEngine:
         bare key (``key[0]`` the "slab"/"slabfin" tag of a chunked round).
         A key this engine built counts in ``compile_count``, one another
         engine built in ``shared_count``, never both."""
+        if self._backend_sig:
+            key = (self._backend_sig,) + key
         full_key = (self._program_key,) + key if self._program_key else key
         exe = self._executables.get(full_key)
         if exe is None:
             exe, built = self._registry.get_or_build(
-                full_key, lambda: BucketProgram(fn, self.device))
+                full_key, lambda: BucketProgram(fn, self.device,
+                                                self._backend_sig))
             self._executables[full_key] = exe
             (self._own_keys if built else self._shared_keys).add(full_key)
         return exe
@@ -515,10 +525,13 @@ class RoundEngine:
             has_t, has_d = self.transport is not None, \
                 self.downlink is not None
             args = (params, batches, weights, etas, active, server_state)
+            per_client = has_t and self.transport.ef_slots is not None
             if has_t:
                 if self.transport_state is None:
                     self.init_transport_state(params)
-                t_state = be.place_transport_state(self.transport_state)
+                # per-client slots: this rank's clients' (a mesh)
+                t_state = be.place_transport_state(self.transport_state,
+                                                   per_client=per_client)
             if has_d:
                 if self.downlink_state is None:
                     self.init_downlink_state(params)
@@ -530,15 +543,18 @@ class RoundEngine:
             program = self._lookup(key, self._bucket_fn)
             self.dispatch_count += 1
             out = program(*args)
-        params, firsts, lasts, server_state = out[:4]
-        if has_d:
-            self.last_downlink_levels = out[5]
+            params, firsts, lasts, server_state = out[:4]
+            if has_d:
+                self.last_downlink_levels = out[5]
+                if has_t:
+                    t_state, self.downlink_state = out[4]
+                else:
+                    self.downlink_state = out[4]
+            elif has_t:
+                t_state = out[4]
             if has_t:
-                self.transport_state, self.downlink_state = out[4]
-            else:
-                self.downlink_state = out[4]
-        elif has_t:
-            self.transport_state = out[4]
+                self.transport_state = be.collect_transport_state(
+                    t_state, per_client=per_client)
         return params, firsts, lasts, server_state
 
     def run_round_chunked(self, params, slabs, eta, server_state

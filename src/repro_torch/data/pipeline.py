@@ -16,7 +16,9 @@ trainer asks for whole buckets (``n_rounds`` active rounds padded to
 ``n_rounds`` sequential per-round draws would, and padding rounds draw
 nothing. A CIFAR100 round at paper width is a 491.5 MB batch, so a bucket
 of shape 8 is 3.9 GB. On a mesh every rank draws the same cohort and keeps
-its own client rows (``slice_clients``).
+its own client rows (``slice_clients``); under the sequential strategy,
+its groups' clients and its share of each local batch
+(``slice_batch_rows``).
 
 Sampling is with replacement within a client's local dataset.
 """
@@ -95,6 +97,17 @@ def slice_clients(bb: BucketBatch, lo: int, hi: int) -> BucketBatch:
     return BucketBatch(batches={k: v[:, lo:hi] for k, v in
                                 bb.batches.items()},
                        weights=bb.weights[:, lo:hi], active=bb.active,
+                       n_rounds=bb.n_rounds)
+
+
+def slice_batch_rows(bb: BucketBatch, lo: int, hi: int) -> BucketBatch:
+    """Rows [lo, hi) of every client's local batch (leaves (B, N, K,
+    hi - lo, ...)): one rank's share of each local step under the mesh's
+    sequential strategy, cut on the host before the copy. The weights
+    stay whole: the rank trains every client of its groups."""
+    return BucketBatch(batches={k: v[:, :, :, lo:hi] for k, v in
+                                bb.batches.items()},
+                       weights=bb.weights, active=bb.active,
                        n_rounds=bb.n_rounds)
 
 

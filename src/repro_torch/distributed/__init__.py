@@ -1,9 +1,12 @@
-"""Serving steps of ``repro.distributed.strategies``. The mesh train
-steps' parallel strategy runs through its backend,
-``core.engine.backends.MeshBackend``; ``make_fed_train_step``, the
-sequential strategy and the sharding rules (``sharding.py``) are not
-ported yet."""
-from repro_torch.distributed.strategies import (make_prefill_step,
+"""``repro.distributed.strategies``: the federated train steps (a shim over
+``core.engine.backends.MeshBackend``, both strategies), their input specs,
+and the serving steps. The sharding rules (``sharding.py``) are not ported
+yet (ROADMAP A13 (b))."""
+from repro_torch.distributed.strategies import (TensorSpec, fed_batch_specs,
+                                                fed_weight_specs,
+                                                make_fed_train_step,
+                                                make_prefill_step,
                                                 make_serve_step)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["TensorSpec", "fed_batch_specs", "fed_weight_specs",
+           "make_fed_train_step", "make_prefill_step", "make_serve_step"]

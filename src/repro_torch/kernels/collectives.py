@@ -12,6 +12,11 @@ Every rank holds a contiguous block of the round's client rows
 (``row_range``); a block may be one row longer than another, so a cohort
 need not divide among the ranks. ``counts`` counts the collectives run
 in this process, by kind.
+
+The sequential strategy reduces over one axis at a time: the client
+groups' sums over ``"pod"`` and each local step's gradients over
+``"data"`` (``all_reduce_axis``, ``all_gather_axis``); an axis of one
+rank runs no collective.
 """
 from __future__ import annotations
 
@@ -133,3 +138,36 @@ def all_gather_rows(x: torch.Tensor, mesh,
 def rows_of(mesh, axes: Optional[Sequence[str]], n: int) -> Tuple[int, int]:
     """This rank's rows [lo, hi) of an ``n``-row client stack."""
     return row_range(n, axes_size(mesh, axes), client_rank(mesh, axes))
+
+
+# ---------------------------------------------------------------------------
+# one axis's sub-groups (the sequential strategy: groups over "pod", each
+# client's batch over "data")
+# ---------------------------------------------------------------------------
+
+def axis_range(mesh, axis: str, n: int) -> Tuple[int, int]:
+    """This rank's block [lo, hi) of ``n`` items spread over the ranks of
+    one mesh axis (``row_range``): the ranks that share this rank's place
+    on the other axes form the sub-group. All ``n`` where the axis has
+    one rank or the mesh lacks it."""
+    size = axes_size(mesh, (axis,))
+    if size == 1:
+        return 0, n
+    return row_range(n, size, client_rank(mesh, (axis,)))
+
+
+def all_reduce_axis(x: torch.Tensor, mesh, axis: str,
+                    reduce_tiers=None) -> torch.Tensor:
+    """``all_reduce_tiers`` over the sub-group of one mesh axis; nothing
+    runs where that axis has one rank."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return all_reduce_tiers(x, mesh, (axis,), reduce_tiers)
+
+
+def all_gather_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``all_gather_rows`` over the sub-group of one mesh axis; ``x``
+    itself where that axis has one rank."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return all_gather_rows(x, mesh, (axis,))

@@ -15,7 +15,7 @@ point through two fleet-wide mechanisms:
     backend slice (``ExecutionBackend.fleet_slices``: on the card, fresh
     ``LocalBackend``s that each own a CUDA stream, so the points' rounds
     overlap on the card), each with its own prefetch thread. The mesh's
-    sub-mesh slices are not ported (ROADMAP A13).
+    sub-mesh slices are not ported (ROADMAP A13 (c)).
 
 The result is one leaderboard and CSV (``CSV_FIELDS``): final and min
 loss, rounds, wall seconds and rounds a second, up- and downlink Mbit,
@@ -153,7 +153,7 @@ def _run_point(point: SweepPoint, backend, registry: ExecutableRegistry,
     on the card (its build included) goes on the slice's stream. The
     program key is the spec's fingerprint: the port's slices are
     single-device (the reference adds a sub-mesh slice's devices; sub-mesh
-    slices come with ROADMAP A13)."""
+    slices come with ROADMAP A13 (c))."""
     program_key = spec_program_key(point.spec) \
         if registry is not None else None
     ctx = (backend.stream_context() if backend is not None

@@ -66,18 +66,20 @@ def lm_data(cfg):
 
 
 def make_trainer(config: str, rounds: int, cfg, params, data, device=None,
-                 moe_path: str = "dispatch") -> FedAvgTrainer:
+                 moe_path: str = "dispatch", backend=None) -> FedAvgTrainer:
     """``FedAvgTrainer`` at ``TRAFFIC`` in ``CONFIGS[config]``, built as
     ``repro/api/experiment.py:83-97`` builds the reference's: the clients'
     loss is ``registry.loss_fn(cfg)`` (``use_kernel=False``) on the batch's
-    x; |x| is the params at 4 bytes, beta ``BETA``."""
+    x; |x| is the params at 4 bytes, beta ``BETA``; ``backend``: an
+    ``ExecutionBackend`` (default ``LocalBackend``)."""
     fed = FedConfig(rounds=rounds, **TRAFFIC, **CONFIGS[config])
     model_loss = registry.loss_fn(cfg, moe_path=moe_path)
     rt = RuntimeModel(registry.param_count(cfg) * 4 * 8 / 1e6,
                       RuntimeModelConfig(beta_seconds=BETA),
                       fed.clients_per_round)
     return FedAvgTrainer(lambda p, b: model_loss(p, {"tokens": b["x"]}),
-                         params, data, fed, rt, device=device)
+                         params, data, fed, rt, device=device,
+                         backend=backend)
 
 
 def main(argv=None) -> dict:

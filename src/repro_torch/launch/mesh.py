@@ -11,7 +11,7 @@ passes them (``init_method="tcp://localhost:<port>"`` or
 ``cuda:LOCAL_RANK``.
 
 A ``"model"`` axis larger than 1 is refused: tensor-parallel parameters
-come with the sequential strategy, which the port does not have yet.
+are not ported yet (ROADMAP A13 (b)).
 ``make_production_mesh`` (the 256-device dry-run mesh) is not ported.
 """
 from __future__ import annotations
@@ -60,8 +60,8 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     if "model" in names and shape[names.index("model")] > 1:
         raise ValueError(
             f"mesh axis 'model' of size {shape[names.index('model')]}: "
-            f"tensor-parallel parameters come with the sequential strategy, "
-            f"which is not ported; the 'model' axis must be 1")
+            f"tensor-parallel parameters are not ported yet: they come "
+            f"with ROADMAP A13 (b); the 'model' axis must be 1")
     dev = init_distributed(device)
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)

@@ -1,4 +1,4 @@
-"""Server optimizers on param dicts (the ``repro.optim`` pairs the server uses).
+"""Optimizers on param dicts (the ``repro.optim`` pairs).
 
 Each optimizer is an ``(init_fn, update_fn)`` pair on nested dicts of
 tensors: ``state = init(params)``; ``updates, state = update(grads, state,
@@ -33,8 +33,16 @@ def tree_leaves(tree: PyTree) -> list:
     return [tree]
 
 
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, a)
 
 
 def tree_zeros_like(a: PyTree) -> PyTree:
@@ -48,6 +56,17 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
 # ---------------------------------------------------------------------------
 # optimizers
 # ---------------------------------------------------------------------------
+
+def sgd():
+    """Stateless SGD, the client optimizer of FedAvg."""
+    def init(params):
+        return ()
+
+    def update(grads, state, params, lr):
+        return tree_scale(grads, -lr), state
+
+    return init, update
+
 
 def momentum(beta: float = 0.9):
     def init(params):

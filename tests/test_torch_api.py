@@ -30,7 +30,7 @@ RUNS = ["adaptive-downlink", "fixed-cohort-topk", "local-int8-decayK",
 REFUSED = {"population-chunked": None,                 # A6, streaming
            "async-buffered": None,                     # A7, async buffer
            "serve-while-training": None,               # A8, serving
-           "mesh-sequential-cosine": ("backend.strategy", "A13")}
+           "mesh-sequential-cosine": None}             # A13 (a)
 
 
 def _norm(msg: str) -> str:
@@ -295,22 +295,32 @@ def test_registered_custom_aggregator_resolves_through_build():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
-def test_build_refuses_unported_specs_by_name(name):
+def test_build_refuses_unported_specs_by_name(name, tmp_path):
     """Each spec validates (as in the reference). ``build`` refuses a spec
     the port cannot run yet, naming the field and the ROADMAP item; the
-    streaming (A6), async (A7) and serve-while-training (A8) specs build
-    and run a round."""
+    streaming (A6), async (A7), serve-while-training (A8) and mesh
+    sequential (A13 (a), on a one-rank gloo group) specs build and run a
+    round."""
+    import torch.distributed as dist
     from repro_torch.api import build
     from repro_torch.core.engine import AsyncBufferedEngine, FedAvgTrainer
     spec = tspec.ExperimentSpec.load(str(ROOT / "examples" / "specs"
                                          / f"{name}.json"))
     spec.validate()
     if REFUSED[name] is None:
-        exp = build(spec, device="cpu")
-        want = (AsyncBufferedEngine if spec.fed.aggregation == "async"
-                else FedAvgTrainer)
-        assert type(exp.trainer) is want
-        h = exp.run(1)
+        mesh = spec.backend.name == "mesh"
+        if mesh:
+            dist.init_process_group("gloo", rank=0, world_size=1,
+                                    init_method=f"file://{tmp_path}/pg")
+        try:
+            exp = build(spec, device="cpu")
+            want = (AsyncBufferedEngine if spec.fed.aggregation == "async"
+                    else FedAvgTrainer)
+            assert type(exp.trainer) is want
+            h = exp.run(1)
+        finally:
+            if mesh:
+                dist.destroy_process_group()
         assert h.rounds == [1] and np.isfinite(h.train_loss).all()
         return
     field, item = REFUSED[name]

@@ -1313,17 +1313,18 @@ def test_ssd_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
 # federated LM training: one reduced round on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def _lm_trainer(dev, config, rounds):
+def _lm_trainer(dev, config, rounds, backend=None):
     """``FedAvgTrainer`` on reduced qwen1.5-0.5b at the LM specs' traffic
     (``launch/lm_train_timing.py``: 12 clients, 4 a round, b 4, seq 32,
-    K_r-rounds) in its configuration ``config``, weights from seed 0."""
+    K_r-rounds) in its configuration ``config``, weights from seed 0, on
+    ``backend`` (default local)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.lm_train_timing import lm_data, make_trainer
     from repro_torch.models import registry
     cfg = get_arch("qwen1.5-0.5b-reduced")
     return make_trainer(config, rounds, cfg,
                         registry.init(0, cfg, device=dev), lm_data(cfg),
-                        device=dev)
+                        device=dev, backend=backend)
 
 
 @pytest.mark.cuda
@@ -1338,6 +1339,44 @@ def test_reduced_lm_round_on_the_card_matches_the_cpu(cuda):
     before = tdc.launches["int8_decompress_reduce"]
     hs = {dev: tr.run(1) for dev, tr in trainers.items()}
     assert tdc.launches["int8_decompress_reduce"] == before + len(init)
+    h, hc = hs["cuda"], hs["cpu"]
+    for key in ("rounds", "k", "eta", "sgd_steps", "wall_clock_s",
+                "uplink_mbit", "downlink_mbit"):
+        assert getattr(h, key) == getattr(hc, key), key
+    np.testing.assert_allclose(h.train_loss, hc.train_loss, rtol=1e-4,
+                               atol=1e-4)
+    for old, a, b in zip(init, tree_leaves(trainers["cpu"].params),
+                         tree_leaves(trainers["cuda"].params)):
+        step = float((a - old).abs().max()) / 127.0
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4 + step)
+
+
+@pytest.mark.cuda
+def test_reduced_lm_sequential_round_on_the_card_matches_the_cpu(
+        cuda, nccl_meshes):
+    """One round of configuration b (int8 up and down) on the mesh's
+    sequential strategy (2 groups): on the card the module's one-rank NCCL
+    mesh, one ``int8_decode_apply`` launch a leaf (the broadcast, once a
+    round) and no ``int8_decompress_reduce``; on the CPU the same core
+    without a mesh. Counters exact; losses within 1e-4; each parameter
+    within 1e-4 plus one quantisation step of its leaf's movement
+    (/127)."""
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.optim import tree_leaves
+    backends = {"cuda": MeshBackend(nccl_meshes["data"][0],
+                                    strategy="sequential", groups=2),
+                "cpu": MeshBackend(None, strategy="sequential", groups=2,
+                                   device="cpu")}
+    trainers = {dev: _lm_trainer(dev, "b", 1, backend=be)
+                for dev, be in backends.items()}
+    init = [t.clone() for t in tree_leaves(trainers["cpu"].params)]
+    before = dict(tdc.launches)
+    hs = {dev: tr.run(1) for dev, tr in trainers.items()}
+    torch.cuda.synchronize()
+    assert tdc.launches["int8_decode_apply"] == \
+        before["int8_decode_apply"] + len(init)
+    assert tdc.launches["int8_decompress_reduce"] == \
+        before["int8_decompress_reduce"]
     h, hc = hs["cuda"], hs["cpu"]
     for key in ("rounds", "k", "eta", "sgd_steps", "wall_clock_s",
                 "uplink_mbit", "downlink_mbit"):

@@ -315,9 +315,11 @@ def test_engine_places_this_ranks_rows_idempotently(meshes):
 def test_refusals_name_the_field(meshes):
     tmesh = meshes["host"][0]
     with pytest.raises(ValueError, match="strategy"):
-        MeshBackend(tmesh, strategy="sequential")
-    with pytest.raises(ValueError, match="'model'"):
+        MeshBackend(tmesh, strategy="ring")
+    with pytest.raises(ValueError, match="'model'.*A13 \(b\)"):
         make_mesh((1, 2), ("data", "model"), "cpu")
+    with pytest.raises(ValueError, match="param_specs.*A13 \(b\)"):
+        MeshBackend(tmesh, strategy="sequential", param_specs={})
     with pytest.raises(ValueError, match="reduce"):
         MeshBackend(tmesh, reduce="ring")
     with pytest.raises(NotImplementedError, match="cohort_chunk.*A13"):

@@ -1,5 +1,5 @@
-"""Rank bodies of the multi-rank runs in tests/test_torch_mesh.py (no tests
-of its own).
+"""Rank bodies of the multi-rank runs in tests/test_torch_mesh.py and
+tests/test_torch_sequential.py (no tests of its own).
 
 ``spawn`` starts ``world`` gloo ranks on the CPU with
 ``torch.multiprocessing`` (``init_method="file://..."`` in the test's own
@@ -42,6 +42,21 @@ TRAINER_RUNS = {
 }
 TRAINER_ROUNDS = 3
 WIRE_PAIRS = [("int8", "int8x2"), ("int8x2", "int8"), ("topk", "topk")]
+# the sequential strategy's runs: narrow FEMNIST, 4 clients a round in 2
+# groups (one a pod on the (2, 2) pod x data mesh), b = 4 split over
+# "data" (2 rows a rank)
+SEQ_GROUPS = 2
+SEQ_RUNS = {
+    "mean": dict(aggregator="mean"),
+    "trimmed_mean+fedavgm": dict(aggregator="trimmed_mean",
+                                 server_optimizer="fedavgm", server_lr=0.5),
+    "int8": dict(aggregator="mean", transport="int8"),
+    "topk+cohort": dict(transport="topk", sampler="fixed_cohort",
+                        cohort=(0, 2, 5, 7)),
+}
+# per-client error feedback on the parallel strategy: 5 rows a round
+PARALLEL_EF_RUN = dict(transport="topk", sampler="fixed_cohort",
+                       cohort=(0, 2, 3, 5, 7))
 
 
 def spawn(fn, world: int, tmp_path, *args):
@@ -161,6 +176,77 @@ def run_trainer(backend, rounds=TRAINER_ROUNDS, **fed_kw):
                        device="cpu", backend=backend)
     h = tr.run(rounds)
     return tr.params, h
+
+
+def run_seq_trainer(backend, rounds=TRAINER_ROUNDS, **fed_kw):
+    """``run_trainer`` at the sequential runs' traffic: 4 clients a round,
+    b = 4; returns (params, History, the codec state)."""
+    task, data, params, loss_fn = femnist_setup()
+    fed = FedConfig(total_clients=8, clients_per_round=4, rounds=rounds,
+                    k0=3, eta0=0.3, batch_size=4, k_schedule="rounds",
+                    seed=0, **fed_kw)
+    tr = FedAvgTrainer(loss_fn, params, data, fed,
+                       RuntimeModel(task.model_size_mb, task.runtime, 4),
+                       device="cpu", backend=backend)
+    h = tr.run(rounds)
+    return tr.params, h, tr.engine.transport_state
+
+
+def seq_refusals(mesh) -> dict:
+    """The sequential strategy's refusals on this world, by message."""
+    from torch.distributed.device_mesh import init_device_mesh
+    out = {}
+    tries = {
+        "pod": lambda: MeshBackend(mesh, strategy="sequential", groups=1),
+        "param_specs": lambda: MeshBackend(mesh, strategy="sequential",
+                                           param_specs={}),
+        "model": lambda: MeshBackend(
+            init_device_mesh("cpu", (1, dist.get_world_size()),
+                             mesh_dim_names=("data", "model")),
+            strategy="sequential"),
+        "groups": lambda: MeshBackend(
+            mesh, strategy="sequential", groups=3).rows(4),
+    }
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = ""
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def seq_rank_body(rank, world):
+    """The sequential strategy on ``MESHES[world]``: every run of
+    ``SEQ_RUNS`` under flat and grouped reduce, per-client error feedback
+    on the parallel strategy, and the refusals."""
+    shape, names = MESHES[world]
+    mesh = make_mesh(shape, names, "cpu")
+    res = {"rank": rank}
+    for reduce in ("flat", "grouped"):
+        for name, kw in SEQ_RUNS.items():
+            backend = MeshBackend(mesh, strategy="sequential",
+                                  groups=SEQ_GROUPS, reduce=reduce)
+            res[f"seq.{reduce}.{name}"] = run_seq_trainer(backend, **kw)
+            res[f"split.{reduce}.{name}"] = backend._b_split
+    res["parallel_ef"] = run_trainer_state(MeshBackend(mesh),
+                                           **PARALLEL_EF_RUN)
+    res["refusals"] = seq_refusals(mesh)
+    res["counts"] = dict(collectives.counts)
+    return res
+
+
+def run_trainer_state(backend, **fed_kw):
+    """``run_trainer``, with the codec state: (params, History, state)."""
+    task, data, params, loss_fn = femnist_setup()
+    fed = FedConfig(total_clients=8, clients_per_round=5,
+                    rounds=TRAINER_ROUNDS, k0=3, eta0=0.3, batch_size=4,
+                    k_schedule="rounds", seed=0, **fed_kw)
+    tr = FedAvgTrainer(loss_fn, params, data, fed,
+                       RuntimeModel(task.model_size_mb, task.runtime, 5),
+                       device="cpu", backend=backend)
+    h = tr.run(TRAINER_ROUNDS)
+    return tr.params, h, tr.engine.transport_state
 
 
 def wire_rounds(backend, up: str, down: str, rounds: int = 3):

@@ -115,9 +115,10 @@ def lm_spec(name, *overrides):
     return spec.with_overrides(*overrides) if overrides else spec
 
 
-def lm_trainers(spec):
+def lm_trainers(spec, backend=None):
     """(reference trainer, port trainer on the CPU, initial params as
-    numpy, reference ids, port ids) for an LM ``spec``. The port's trainer
+    numpy, reference ids, port ids) for an LM ``spec``; ``backend``: the
+    port trainer's (default ``LocalBackend``). The port's trainer
     is built as ``repro/api/experiment.py:83-97`` builds the reference's:
     ``registry.loss_fn(cfg, moe_path=...)`` on ``{"tokens": b["x"]}`` over
     ``make_lm_clients`` data, with the reference's FedConfig and runtime
@@ -149,7 +150,8 @@ def lm_trainers(spec):
                            bytes_per_param=r.bytes_per_param),
         fed.clients_per_round, heterogeneity=r.heterogeneity)
     tr = FedAvgTrainer(lambda p, b: model_loss(p, {"tokens": b["x"]}),
-                       _torch(init), data, fed, rt, device="cpu")
+                       _torch(init), data, fed, rt, device="cpu",
+                       backend=backend)
     return jtr, tr, init, record_ids(jtr), record_ids(tr)
 
 

@@ -307,10 +307,21 @@ def test_fixed_cohort_refuses_a_wrong_cohort_as_the_reference(data, cohort):
 
 
 def test_mesh_backend_refuses_slotted_error_feedback():
+    """The refusal this test pinned is gone: per-client error feedback runs
+    on the MeshBackend (ROADMAP A13 (a); tests/test_torch_sequential.py
+    holds it on 1, 2 and 4 ranks). A slotted codec builds a round core on
+    both strategies; slots that the sequential groups do not divide are
+    refused by name."""
     t = transport.TopKTransport(0.25).with_ef_slots(4)
-    with pytest.raises(ValueError, match="ef_slots"):
-        MeshBackend.make_round_core(object.__new__(MeshBackend),
-                                    lambda p, b: None, transport=t)
+    for strategy in ("parallel", "sequential"):
+        backend = MeshBackend(None, strategy=strategy, device="cpu")
+        assert callable(backend.make_round_core(lambda p, b: None,
+                                                transport=t))
+    slots = {"w": torch.zeros(4, 2)}
+    with pytest.raises(ValueError, match="4 clients not divisible into 3"):
+        MeshBackend(None, strategy="sequential", groups=3,
+                    device="cpu").place_transport_state(slots,
+                                                        per_client=True)
 
 
 # ---------------------------------------------------------------------------
