@@ -1701,17 +1701,21 @@ def rel_dist(torch, x, anchor) -> float:
                  / torch.linalg.vector_norm(anchor))
 
 
-def phase_bf16_prefill(torch, phase, cfg, params, kernels, seed):
+def phase_bf16_prefill(torch, phase, cfg, params, kernels, seed,
+                       step_kw=None):
     """``cfg`` at full width in bf16: the phase's f32 ``params`` cast to
     bf16 on the card, then rounded in place to those bf16 values (the
     anchor's weights). Prefill B 2 x S 4096 through the kernels
     (``kernels``: {short name: (module, wrapper name, launches a
     prefill)}), every launch on the ``"wgmma"`` path, then the plain bf16
     path on the same batch and, the bf16 model freed, the plain f32 path on
-    the rounded weights (both with the kernel run's routing ids). Returns
-    {short name: launches} over the four kernel prefills."""
-    from repro_torch.distributed import make_prefill_step
+    the rounded weights (both with the kernel run's routing ids).
+    ``step_kw``: more ``make_prefill_step`` arguments (the MoE path).
+    Returns {short name: launches} over the four kernel prefills."""
+    from repro_torch.distributed import make_prefill_step as make_step
     from repro_torch.optim import tree_leaves, tree_map
+    make_prefill_step = lambda cfg, **kw: make_step(cfg, **kw,
+                                                    **(step_kw or {}))
     if {t.dtype for t in tree_leaves(params)} != {torch.float32}:
         raise AssertionError("the bf16 prefill casts an f32 model")
     torch.cuda.empty_cache()
@@ -1774,6 +1778,7 @@ def phase_bf16_prefill(torch, phase, cfg, params, kernels, seed):
     emit({"phase": phase, "what": "prefill", "arch": cfg.name,
           "layers": cfg.num_layers, "dtype": "bfloat16", "params": n_params,
           "weights": "the phase's f32 model cast to bf16 on the card",
+          **(step_kw or {}),
           "batch": LM_BATCH, "seq": LM_SEQ, "cast_s": cast_s,
           "ms": order[len(order) // 2], "ms_runs": times,
           **{f"{key}_share": shares[key] for key in kernels},
@@ -4778,6 +4783,253 @@ def phase_sequential(torch, cifar, params, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sharded parameters and shard-local MoE dispatch (phase sharded)
+# ---------------------------------------------------------------------------
+
+# (i): the production "model" axis's token groups at phi3.5-moe's prefill
+MOE_SHARDS = 16
+# (ii): one round of the LM specs' traffic (4 clients a round, K 8), int8
+# both ways, params from param_pspecs on the production mesh (2d)
+SHARDED_ROUNDS = 1
+
+
+def _gmm_checker(torch, mg, seen):
+    """Instrumentation of this script only: ``mg.gmm`` that also runs the
+    plain ``gmm_ref`` on the same inputs and keeps each call's largest
+    error against ``GMM_TOL`` (and the first two calls' inputs: layer 0's
+    gate and its down projection's shapes)."""
+    gmm = mg.gmm
+
+    def call(x, w):
+        out = gmm(x, w)
+        want = mg.gmm_ref(x, w)
+        tol = GMM_TOL[str(x.dtype).replace("torch.", "")]
+        if not torch.allclose(out.float(), want.float(), **tol):
+            raise AssertionError(f"sharded (i): gmm {tuple(x.shape)} x "
+                                 f"{tuple(w.shape)} off its plain version")
+        seen["errs"].append(float((out.float() - want.float()).abs().max()))
+        if len(seen["inputs"]) < 3:
+            seen["inputs"].append((x, w))
+        return out
+    return gmm, call
+
+
+def _dropped(torch, ids, groups, cap, num_experts):
+    """The assignments one dispatch dropped over capacity, from its routing
+    ids (a ``RouteLog`` call): each of ``groups`` equal runs of rows (the
+    token groups of ``dispatch_sharded``, group-major) keeps at most
+    ``cap`` assignments an expert."""
+    g = ids.reshape(groups, -1)
+    counts = torch.sum(g[..., None] == torch.arange(
+        num_experts, device=ids.device), dim=1)
+    return int(torch.clamp(counts - cap, min=0).sum())
+
+
+def _stacked_equals_loop(torch, gmm, x, w, shards):
+    """The stacked call over every group's (E, C_l, d) slot block against
+    one call a group of ``gmm`` (the kernel, or its plain version):
+    (bitwise, the largest distance)."""
+    whole = gmm(x, w)
+    c = x.shape[1] // shards
+    loop = torch.cat([gmm(x[:, g * c:(g + 1) * c].contiguous(), w)
+                      for g in range(shards)], dim=1)
+    return bool(torch.equal(whole, loop)), float(
+        (whole.float() - loop.float()).abs().max())
+
+
+def sharded_moe(torch, cfg, params, smi):
+    """(i) phi3.5-moe-42b-a6.6b at full width (phase moe's f32 params,
+    ``MOE_LAYERS`` deep), the B 2 x S 4096 prefill with
+    ``moe_path="dispatch_sharded"`` and ``MOE_SHARDS`` token groups
+    through the kernels: 24 ``gmm`` launches a prefill (one stacked call of
+    three a layer), every ``gmm`` call of one prefill held against the plain
+    ``gmm``, the stacked call against one call a group (bitwise), the plain
+    ``dispatch_sharded`` path within phase moe's tolerances (both with the
+    kernel run's routing ids), the assignments dropped over capacity
+    sharded and unsharded, and the logits' distance to the unsharded
+    prefill. Then the bf16 prefill (``phase_bf16_prefill``). Returns the
+    launches {gmm, flash} of the four f32 and of the four bf16 prefills."""
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.models import moe
+    from repro_torch.optim import tree_leaves
+    kw = dict(moe_path="dispatch_sharded", moe_shards=MOE_SHARDS)
+    batch = {"tokens": torch.tensor(_lm_tokens(cfg, MOE_BATCH, MOE_SEQ, 8),
+                                    device="cuda")}
+    step = make_prefill_step(cfg, use_kernel=True, **kw)
+    (logits, states), times, shares, kroutes = timed_prefills(
+        torch, step, params, batch,
+        {"gmm": (mg, "gmm"), "flash": (fa, "flash_attention")})
+    launches = {"gmm": mg.launches, "flash": fa.launches}
+    want = {"gmm": 4 * 3 * cfg.num_layers, "flash": 4 * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"sharded (i): launches in 4 prefills "
+                             f"{launches}, want {want}")
+    by_path = f32_prefill_paths(
+        {"moe_gmm": mg, "flash_attention": fa},
+        {"moe_gmm": 3 * cfg.num_layers, "flash_attention": cfg.num_layers})
+    if logits.shape != (MOE_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("sharded (i): prefill logits not finite")
+    with RouteLog(torch, force=kroutes) as proutes:
+        (plain_logits, plain_states), plain_ms = run_step(
+            torch, make_prefill_step(cfg, use_kernel=False, **kw), params,
+            batch)
+    routing = route_flips(torch, kroutes, proutes, cfg.num_layers)
+    torch.testing.assert_close(logits, plain_logits, rtol=1e-3, atol=1e-3)
+    logit_err = float((logits - plain_logits).abs().max())
+    st_err = st_share = 0.0
+    for a, b in zip(tree_leaves(states), tree_leaves(plain_states)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+        st_err = max(st_err, float((a - b).abs().max()))
+        # the largest error as a share of its element's tolerance
+        st_share = max(st_share, float(((a - b).abs()
+                                        / (2e-4 + 2e-4 * b.abs())).max()))
+    del states, plain_states, plain_logits, proutes
+    # uncounted: every gmm call of one prefill against the plain gmm, the
+    # drops of the sharded and the unsharded dispatch, and the unsharded
+    # kernel prefill's logits and ms
+    seen = {"errs": [], "inputs": []}
+    saved, mg.gmm = _gmm_checker(torch, mg, seen)
+    try:
+        with RouteLog(torch) as routes:
+            run_step(torch, step, params, batch)
+    finally:
+        mg.gmm = saved
+    tokens, E = MOE_BATCH * MOE_SEQ, cfg.moe.num_experts
+    drops = sum(_dropped(torch, ids, MOE_SHARDS,
+                         moe.capacity(cfg, tokens // MOE_SHARDS), E)
+                for ids, _ in routes.calls)
+    unsharded = make_prefill_step(cfg, use_kernel=True)
+    with RouteLog(torch) as u_routes:
+        (u_logits, _), _ = run_step(torch, unsharded, params, batch)
+    u_drops = sum(_dropped(torch, ids, 1, moe.capacity(cfg, tokens), E)
+                  for ids, _ in u_routes.calls)
+    del routes, u_routes
+    u_times = [run_step(torch, unsharded, params, batch)[1]
+               for _ in range(3)]
+    if len(seen["errs"]) != 3 * cfg.num_layers:
+        raise AssertionError(f"sharded (i): {len(seen['errs'])} gmm calls "
+                             f"in the checked prefill")
+    stacked = [_stacked_equals_loop(torch, mg.gmm, x, w, MOE_SHARDS)
+               for x, w in seen["inputs"][::2]]
+    plain_stacked = [_stacked_equals_loop(torch, mg.gmm_ref, x, w,
+                                          MOE_SHARDS)
+                     for x, w in seen["inputs"][::2]]
+    if not all(eq for eq, _ in stacked):
+        raise AssertionError(f"sharded (i): the stacked gmm differs from "
+                             f"one call a group: {stacked}")
+    x0, gmm_err = seen["inputs"][0][0], max(seen["errs"])
+    del seen
+    order, u_order = sorted(times), sorted(u_times)
+    emit({"phase": "sharded", "what": "(i) prefill, moe_path "
+          "dispatch_sharded", "card": smi, "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": "float32", "batch": MOE_BATCH,
+          "seq": MOE_SEQ, "shards": MOE_SHARDS,
+          "capacity_per_group": moe.capacity(cfg, MOE_BATCH * MOE_SEQ
+                                             // MOE_SHARDS),
+          "capacity_unsharded": moe.capacity(cfg, MOE_BATCH * MOE_SEQ),
+          "gmm_stacked_shape": list(x0.shape),
+          "ms": order[len(order) // 2], "ms_runs": times,
+          "unsharded_ms": u_order[1], "unsharded_ms_runs": u_times,
+          "gmm_share": shares["gmm"], "flash_share": shares["flash"],
+          "gmm_launches_per_prefill": launches["gmm"] // 4,
+          "flash_launches_per_prefill": launches["flash"] // 4,
+          "gmm_launches_per_prefill_by_path": by_path["moe_gmm"],
+          "flash_launches_per_prefill_by_path": by_path["flash_attention"],
+          "gmm_calls_checked": 3 * cfg.num_layers,
+          "gmm_max_abs_err_vs_plain": gmm_err,
+          "stacked_equals_per_group_loop": [eq for eq, _ in stacked],
+          "plain_stacked_vs_loop": plain_stacked,
+          "plain_ms": plain_ms, "logits_max_abs_err_vs_plain": logit_err,
+          "states_max_abs_err_vs_plain": st_err,
+          "states_share_of_tol": st_share,
+          "dropped_assignments": drops,
+          "dropped_assignments_unsharded": u_drops,
+          "assignments": MOE_BATCH * MOE_SEQ * cfg.moe.top_k * cfg.num_layers,
+          "logits_max_abs_diff_vs_unsharded": float(
+              (logits - u_logits).abs().max()),
+          "logits_argmax_equal_unsharded": bool(torch.equal(
+              logits.argmax(-1), u_logits.argmax(-1))), **routing})
+    del logits, u_logits, x0
+    return launches
+
+
+def sharded_seq(torch, params, smi):
+    """(ii) qwen1.5-0.5b at full width (phase lm's params) on a one-rank
+    NCCL ("data", "model") mesh, ``SHARDED_ROUNDS`` round of the LM
+    specs' traffic, int8 both ways, the sequential strategy with
+    ``param_specs`` from ``param_pspecs`` on the production mesh (2d),
+    against the same round without them: params, losses and counters bit
+    for bit, ``int8_decode_apply`` once a leaf a round and no other
+    kernel; ms a round and the peak over base of each. On one rank every
+    block is the whole leaf: the card shows the path runs, the CPU tests
+    hold the multi-rank layout. Returns the sharded run's launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.data import make_lm_clients
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.lm_train_timing import SEQ
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    sizes = [int(t.numel()) for t in tree_leaves(params)]
+    fed = _lm_fed(rounds=SHARDED_ROUNDS, downlink="int8")
+    data = make_lm_clients(np.random.default_rng(0), fed.total_clients,
+                           vocab=cfg.vocab_size, seq_len=SEQ)
+    specs = sharding.param_pspecs(cfg, registry.shapes(cfg),
+                                  make_production_mesh(), two_d=True)
+    init_world1(torch)
+    runs = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for tag, sp in (("sharded", specs), ("plain", None)):
+            def make():
+                tr = _lm_engine(cfg, params, data, fed, backend=MeshBackend(
+                    mesh, strategy="sequential", groups=1, param_specs=sp))
+                tr._ms = timed_rounds(torch, tr.engine)
+                return tr
+
+            tr, h, counts, peak, peak_abs, run_s = _peak_run(
+                torch, make, lambda t: t.run(SHARDED_ROUNDS))
+            only(counts, {"int8_decode_apply": SHARDED_ROUNDS * len(sizes)},
+                 f"sharded (ii) {tag}")
+            runs[tag] = (_host(tr.params), h, counts, list(tr._ms), peak,
+                         peak_abs, run_s, tr.compile_count,
+                         tr.dispatch_count)
+            del tr
+            _free(torch)
+    finally:
+        dist.destroy_process_group()
+    (ps, hs, counts, ms, peak, peak_abs, run_s, nc, nd), plain = \
+        runs["sharded"], runs["plain"]
+    same = (_bitwise(ps, plain[0]) and hs.train_loss == plain[1].train_loss
+            and hs.k == plain[1].k and (nc, nd) == plain[7:9])
+    if not same or not all(math.isfinite(v) for v in hs.train_loss):
+        raise AssertionError(f"sharded (ii): not the unsharded round: "
+                             f"{_max_diff(ps, plain[0])}, {hs.train_loss} "
+                             f"vs {plain[1].train_loss}")
+    emit({"phase": "sharded", "what": "(ii) qwen1.5-0.5b full width, "
+          "sequential strategy with param_specs (2d, production mesh) on "
+          "a one-rank NCCL mesh, vs without", "card": smi, "arch": cfg.name,
+          "params": sum(sizes), "leaves": len(sizes),
+          "u": fed.clients_per_round, "uplink": fed.transport,
+          "downlink": fed.downlink, "k": hs.k, "loss": hs.train_loss,
+          "bitwise_equal_unsharded": True, "compiles_dispatches": [nc, nd],
+          "sharded_leaves": sum(any(e is not None for e in sp)
+                                for sp in tree_leaves(specs)),
+          "launches": counts, "ms_per_round": ms,
+          "unsharded_ms_per_round": plain[3], "run_s": run_s,
+          "peak_gb_over_base": peak, "unsharded_peak_gb_over_base": plain[4],
+          "peak_gb": peak_abs})
+    return counts
+
+
 WHISPER_ARCH = "whisper-tiny"
 WHISPER_PARAMS = 36_448_128
 # Whisper's text context (arXiv:2212.04356) over its 1,500 audio frames
@@ -5021,14 +5273,32 @@ def main() -> int:
     if not sequential_launches["int8_decode_apply"]:
         raise AssertionError(f"int8_decode_apply never ran in phase "
                              f"sequential: {sequential_launches}")
+    # phase sharded (ii): the sequential strategy with param_specs, on
+    # phase lm's params; (i) follows phase moe, on its weights
+    t_sharded = time.perf_counter()
+    sharded_launches = dict(sharded_seq(torch, params, smi))
+    s_sharded = time.perf_counter() - t_sharded
     del params
     _free(torch)
     moe_launches, params = phase_moe(torch)
     moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
-    moe_bf16 = phase_bf16_prefill(
-        torch, "moe", moe_cfg, params,
-        {"gmm": (mg, "gmm", 3 * MOE_LAYERS),
-         "flash": (fa, "flash_attention", MOE_LAYERS)}, 8)
+    moe_kernels = {"gmm": (mg, "gmm", 3 * MOE_LAYERS),
+                   "flash": (fa, "flash_attention", MOE_LAYERS)}
+    t_sharded = time.perf_counter()
+    sharded_f32 = sharded_moe(torch, moe_cfg, params, smi)
+    s_sharded += time.perf_counter() - t_sharded
+    moe_bf16 = phase_bf16_prefill(torch, "moe", moe_cfg, params,
+                                  moe_kernels, 8)
+    t_sharded = time.perf_counter()
+    sharded_bf16 = phase_bf16_prefill(
+        torch, "sharded", moe_cfg, params, moe_kernels, 8,
+        step_kw=dict(moe_path="dispatch_sharded", moe_shards=MOE_SHARDS))
+    s_sharded += time.perf_counter() - t_sharded
+    sharded_launches.update(
+        gmm=sharded_f32["gmm"] + sharded_bf16["gmm"],
+        flash_attention=sharded_f32["flash"] + sharded_bf16["flash"])
+    emit({"phase": "sharded", "summary": True, "card": smi,
+          "launches": sharded_launches, "s": s_sharded})
     del params
     ssm_fields = lambda cfg: {
         "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -5150,6 +5420,7 @@ def main() -> int:
         entry["fleet_launches"] = fleet_launches.get(entry["name"], 0)
         entry["sequential_launches"] = sequential_launches.get(
             entry["name"], 0)
+        entry["sharded_launches"] = sharded_launches.get(entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -21,12 +21,13 @@ def _local_factory(*, device=None, **kw):
 
 
 def _mesh_factory(*, mesh=None, strategy: str = "parallel", groups: int = 1,
-                  reduce: str = "flat", acc_dtype=torch.float32, device=None,
-                  **kw):
+                  reduce: str = "flat", acc_dtype=torch.float32,
+                  param_specs=None, device=None, **kw):
     """Default mesh: every rank of the process group on a (W, 1)
     ``("data", "model")`` mesh, the geometry ``launch/train.py --backend
     mesh`` uses. Pass a ``mesh`` to choose the topology. ``groups`` and
-    ``acc_dtype`` are the sequential strategy's."""
+    ``acc_dtype`` are the sequential strategy's; ``param_specs`` shards
+    the params (``distributed.sharding.param_pspecs``)."""
     if mesh is None:
         import torch.distributed as dist
         from repro_torch.launch.mesh import init_distributed, make_mesh
@@ -34,7 +35,8 @@ def _mesh_factory(*, mesh=None, strategy: str = "parallel", groups: int = 1,
         mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"),
                          device)
     return MeshBackend(mesh, strategy=strategy, groups=groups,
-                       acc_dtype=acc_dtype, reduce=reduce)
+                       acc_dtype=acc_dtype, reduce=reduce,
+                       param_specs=param_specs)
 
 
 register_backend("local", _local_factory)

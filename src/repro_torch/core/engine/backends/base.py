@@ -155,6 +155,21 @@ class ExecutionBackend:
             return state
         return self.place_params(state)
 
+    def place_state(self, tree):
+        """A server-optimizer or codec state tree as the round core takes
+        it (identity here; a mesh with sharded params cuts blocks)."""
+        return tree
+
+    def gather_state(self, tree):
+        """The inverse of ``place_state``: whole leaves, for what reads
+        params outside the round core (identity here)."""
+        return tree
+
+    def signature_args(self, args):
+        """A program's inputs as its registry key sees them (identity
+        here; a mesh with sharded params keys on the whole leaves)."""
+        return args
+
     def collect_transport_state(self, state, per_client: bool = False):
         """The inverse of ``place_transport_state`` for a bucket's output
         state: the whole cohort's slots on every rank (identity on one

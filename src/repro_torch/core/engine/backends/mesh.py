@@ -64,18 +64,41 @@ per client axis, innermost first (within each pod, then across pods). On a
 mesh of one rank the parallel strategy gives ``LocalBackend``'s result bit
 for bit.
 
+Sharded parameters (``param_specs``, the spec tree of
+``distributed.sharding.param_pspecs``), on either strategy: sharded at
+rest, gathered at use. Every params-shaped tree that lives across rounds
+holds only this rank's block of each leaf (``ParamLayout``): the params,
+the server optimizer's state, the codec's residuals and per-client slots,
+the downlink's reference and residual. A ``"model"`` axis of any size is
+accepted: the client axes stay ``("pod", "data")`` or ``("data",)``, and
+the ``"model"`` ranks of one client row compute the same rows, alike bit
+for bit. The sequential core works on blocks: each local step gathers
+the whole params for the forward and backward and updates its block from
+the block of the gradients; the weighted sums, the server step and the
+robust aggregators run on blocks; the codecs gather each leaf whose
+encoding reads the whole of it (``Transport.with_layout``). The parallel
+core gathers the params and state at the round's top (its client stack is
+whole on every rank anyway) and keeps blocks of what it returns. Either
+way a sharded run equals the same world's replicated run bit for bit.
+What reads params outside the round core gets whole leaves
+(``gather_state``: eval, the model store's snapshot and checkpoint, the
+trainer's ``params``), so a checkpoint does not depend on the layout.
+Registry keys use the whole leaves' shapes (``signature_args``).
+
 Differences from the reference: where it sends a cohort that does not
 divide among the shards through the unsharded kernel (``mesh.py:227-229``,
 ``transport.py:334-335``), the port splits the cohort unevenly; the sums
 agree within the 1e-6 the reference allows between groupings. The groups
 are looped, not vmapped, and sums are re-associated (ROADMAP Known
-differences 16). Not ported, and refused by name: ``param_specs`` and a
-``"model"`` axis above 1 (ROADMAP A13 (b)), streaming cohorts
-(``make_slab_cores``), the async engine and fleet sub-meshes
-(``fleet_slices``, ``carve_submeshes``) on a mesh (A13 (c)).
+differences 16). The compute is not tensor-parallel: a rank gathers whole
+leaves rather than running column- and row-parallel matmuls (Known
+differences 17; that is ROADMAP A15). Not ported, and refused by name:
+streaming cohorts (``make_slab_cores``), the async engine and fleet
+sub-meshes (``fleet_slices``, ``carve_submeshes``) on a mesh (A13 (c)).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -87,6 +110,7 @@ from repro_torch.core.engine.backends.base import ExecutionBackend, LossFn
 from repro_torch.core.engine.backends.local import (encode_broadcast,
                                                     make_parallel_round_core)
 from repro_torch.core.engine.client import client_update
+from repro_torch.core.engine.transport import Q8_PLANES
 from repro_torch.data.pipeline import (BucketBatch, slice_batch_rows,
                                        slice_clients)
 from repro_torch.device import resolve_device
@@ -95,11 +119,144 @@ from repro_torch.kernels.collectives import (all_gather_axis,
                                              all_gather_rows,
                                              all_reduce_axis,
                                              all_reduce_tiers, axes_size,
-                                             axis_range, rows_of)
+                                             axis_range, block_of,
+                                             gather_leaf, rows_of)
 from repro_torch.optim import tree_leaves, tree_map
 
 STRATEGIES = ("parallel", "sequential")
 REDUCES = ("flat", "grouped")
+
+
+class ParamLayout:
+    """The one place that knows the blocks of a sharded params tree on this
+    rank: each leaf's spec (``tree_leaves`` order), the whole leaf's shape,
+    this rank's block shape and the mesh. ``shapes`` come from the specs
+    (``param_pspecs`` records them) or from the first whole tree placed
+    (``learn``).
+
+    A leaf is whole or this rank's block, told apart by its trailing dims
+    (or, flattened, its size): a split dim makes the block smaller, and
+    where nothing is split the two are one. ``block`` and ``gather``
+    return a leaf of the form they make unchanged; a leaf of neither shape
+    is refused."""
+
+    def __init__(self, specs, mesh):
+        self.specs = tree_leaves(specs)
+        self.mesh = mesh
+        it = iter(range(len(self.specs)))
+        self._index = tree_map(lambda _: next(it), specs)
+        shapes = [getattr(s, "shape", None) for s in self.specs]
+        self.shapes = self.block_shapes = None
+        if not any(x is None for x in shapes):
+            self._set_shapes(shapes)
+
+    def _set_shapes(self, shapes) -> None:
+        # imported here: ``repro_torch.distributed`` imports this module
+        from repro_torch.distributed.sharding import MeshShape, block_shape
+        grid = MeshShape.of(self.mesh)
+        self.shapes = [tuple(x) for x in shapes]
+        self.block_shapes = [block_shape(x, spec, grid)
+                             for x, spec in zip(self.shapes, self.specs)]
+
+    def learn(self, tree) -> None:
+        if self.shapes is None:
+            self._set_shapes([x.shape for x in tree_leaves(tree)])
+
+    def is_whole(self, i: int, x: torch.Tensor) -> bool:
+        """Whether ``x`` (trailing dims; leading dims are per-client slots)
+        is leaf ``i`` whole rather than this rank's block of it."""
+        if self.shapes is None:          # nothing placed yet: whole
+            return True
+        whole, part = self.shapes[i], self.block_shapes[i]
+        tail = tuple(x.shape[max(x.dim() - len(whole), 0):])
+        if tail == whole:
+            return True
+        if tail == part:
+            return False
+        raise ValueError(f"param leaf {i}: shape {tuple(x.shape)} is "
+                         f"neither the whole leaf {whole} nor this rank's "
+                         f"block {part}")
+
+    def is_whole_flat(self, i: int, flat: torch.Tensor) -> bool:
+        """``is_whole`` for a flattened leaf (a q8 plane, a payload's int8
+        plane), by its size."""
+        whole = math.prod(self.shapes[i])
+        if flat.numel() == whole:
+            return True
+        if flat.numel() == math.prod(self.block_shapes[i]):
+            return False
+        raise ValueError(f"param leaf {i}: {flat.numel()} elements are "
+                         f"neither the whole leaf {self.shapes[i]} nor this "
+                         f"rank's block {self.block_shapes[i]}")
+
+    def block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``i``; a block passes through."""
+        if not self.is_whole(i, x):
+            return x
+        return block_of(x, self.specs[i], self.mesh)
+
+    def gather(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole; a whole leaf passes through."""
+        if self.is_whole(i, x):
+            return x
+        return gather_leaf(x, self.specs[i], self.mesh)
+
+    def block_flat(self, i: int, flat: torch.Tensor) -> torch.Tensor:
+        """A flattened leaf -> its block, flattened; a flattened block
+        passes through."""
+        if not self.is_whole_flat(i, flat):
+            return flat
+        return self.block(i, flat.reshape(self.shapes[i])).reshape(-1)
+
+    def gather_flat(self, i: int, flat: torch.Tensor) -> torch.Tensor:
+        """A flattened block -> the flattened whole leaf."""
+        if self.is_whole_flat(i, flat):
+            return flat
+        return self.gather(i, flat.reshape(self.block_shapes[i])
+                           ).reshape(-1)
+
+    def map(self, tree, fn, flat_fn):
+        """Apply ``fn(i, leaf)`` to every params-shaped part of ``tree``
+        (the params, a server state's ``m``/``v``, a codec's residual or
+        per-client slots) and ``flat_fn(i, plane)`` to a q8 store leaf's
+        int8 planes, leaving everything else (step counts, scales, batches,
+        ``()``) as it is. A dict that shares some but not all of a params
+        level's keys, or a container where a param leaf belongs, is
+        refused."""
+        return _map_params_like(tree, self._index, fn, flat_fn)
+
+    def to_blocks(self, tree):
+        return self.map(tree, self.block, self.block_flat)
+
+    def to_whole(self, tree):
+        return self.map(tree, self.gather, self.gather_flat)
+
+
+def _map_params_like(tree, index, fn, flat_fn):
+    if isinstance(index, dict):
+        if isinstance(tree, dict):
+            if tree.keys() == index.keys():
+                return {k: _map_params_like(tree[k], index[k], fn, flat_fn)
+                        for k in tree}
+            if tree.keys() & index.keys():
+                raise ValueError(
+                    f"a params-shaped tree with keys {sorted(tree)} where "
+                    f"the params have {sorted(index)}")
+            return {k: _map_params_like(v, index, fn, flat_fn)
+                    for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(_map_params_like(v, index, fn, flat_fn)
+                              for v in tree)
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return fn(index, tree)
+    if isinstance(tree, dict) and "q8_q" in tree:
+        return {k: (flat_fn(index, v) if k in Q8_PLANES else v)
+                for k, v in tree.items()}
+    if isinstance(tree, (dict, tuple, list)):
+        raise ValueError(f"a {type(tree).__name__} where param leaf {index} "
+                         f"belongs")
+    return tree
 
 
 def loss_share(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -121,37 +278,31 @@ class MeshBackend(ExecutionBackend):
                  acc_dtype: torch.dtype = torch.float32,
                  reduce: str = "flat", param_specs=None, device=None):
         """``mesh``: a DeviceMesh over every rank, with a ``"data"`` axis,
-        an optional ``"pod"`` axis, and any other axis of size 1; None
-        builds the same cores on ``device`` alone (no collective, plain
-        placement), as the reference's ``mesh=None``.
+        an optional ``"pod"`` axis, an optional ``"model"`` axis of any
+        size, and any other axis of size 1; None builds the same cores on
+        ``device`` alone (no collective, plain placement), as the
+        reference's ``mesh=None``.
         ``strategy``: ``"parallel"`` or ``"sequential"``. ``groups``: the
         sequential strategy's client groups (at least one a pod rank).
         ``acc_dtype``: the sequential streaming sum's dtype (f32 keeps
         ``LocalBackend``'s numbers; bf16 halves it). ``reduce``:
         ``"flat"`` for one all-reduce over all client axes, ``"grouped"``
-        for one per axis, innermost first. ``param_specs`` (sharded
-        parameters) is refused."""
+        for one per axis, innermost first. ``param_specs``: the params'
+        spec tree (``distributed.sharding.param_pspecs``): each rank holds
+        its block of every leaf."""
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; known: "
                              f"{STRATEGIES}")
         if reduce not in REDUCES:
             raise ValueError(f"unknown reduce {reduce!r}; known: {REDUCES}")
-        if param_specs is not None:
-            raise ValueError(
-                "param_specs (sharded parameters, FSDP) is not ported yet: "
-                "it comes with ROADMAP A13 (b)")
         names = tuple(mesh.mesh_dim_names) if mesh is not None else ("data",)
-        if "model" in names and axes_size(mesh, ("model",)) > 1:
-            raise ValueError(
-                f"mesh axis 'model' of size {axes_size(mesh, ('model',))}: "
-                f"tensor-parallel parameters are not ported yet: they come "
-                f"with ROADMAP A13 (b)")
         client_axes = ("pod", "data") if "pod" in names else ("data",)
-        extra = [a for a in names
-                 if a not in client_axes and axes_size(mesh, (a,)) > 1]
+        extra = [a for a in names if a not in client_axes + ("model",)
+                 and axes_size(mesh, (a,)) > 1]
         if "data" not in names or extra:
             raise ValueError(f"the mesh {names} needs a 'data' axis, and "
-                             f"every axis but 'pod' and 'data' of size 1")
+                             f"every axis but 'pod', 'data' and 'model' of "
+                             f"size 1")
         self.mesh = mesh
         self.strategy = strategy
         self.groups = max(int(groups), 1)
@@ -163,6 +314,13 @@ class MeshBackend(ExecutionBackend):
                              if reduce == "grouped" else None)
         if strategy == "sequential":
             pods = axes_size(mesh, ("pod",))
+            if pods > 1 and param_specs is not None and any(
+                    "pod" in (e if isinstance(e, tuple) else (e,))
+                    for spec in tree_leaves(param_specs) for e in spec):
+                raise ValueError(
+                    "param_specs shard over 'pod', but the sequential "
+                    "strategy's pods run different client groups: shard "
+                    "over 'pod' with the parallel strategy")
             if self.groups < pods:
                 raise ValueError(
                     f"groups={self.groups} over {pods} 'pod' ranks leaves a "
@@ -170,14 +328,20 @@ class MeshBackend(ExecutionBackend):
         # whether placement split each client's batch over "data" (set by
         # the sequential placement, read by its core)
         self._b_split = None
+        self.param_specs = param_specs
+        self.layout = (ParamLayout(param_specs, mesh)
+                       if param_specs is not None else None)
         self.device = resolve_device(mesh.device_type if mesh is not None
                                      else device)
         if self.device.type == "cuda":
             self.device = torch.device("cuda", torch.cuda.current_device())
 
     def program_signature(self) -> tuple:
-        return ("mesh", self.strategy, self.groups,
-                str(self.acc_dtype).replace("torch.", ""), self.reduce)
+        sig = ("mesh", self.strategy, self.groups,
+               str(self.acc_dtype).replace("torch.", ""), self.reduce)
+        if self.layout is not None:      # the layout shapes the program
+            sig += ("specs",) + tuple(self.layout.specs)
+        return sig
 
     # ------------------------------------------------------------------
     # round core
@@ -190,6 +354,36 @@ class MeshBackend(ExecutionBackend):
             return self._make_sequential_core(
                 loss_fn, aggregator, trim_fraction, server, server_lr,
                 transport, downlink)
+        whole, blocks = self.gather_state, self.constrain_update
+        if self.layout is not None and server is not None:
+            # the server step on this rank's blocks of the params and the
+            # aggregate, and of its own state
+            step = server.step
+            server = server._replace(step=lambda p, agg, state, lr: step(
+                blocks(p), blocks(agg), state, lr))
+        core = self._make_parallel_core(loss_fn, aggregator, trim_fraction,
+                                        server, server_lr, transport,
+                                        downlink)
+        if self.layout is None:
+            return core
+        # per-client slots stay whole through the core: each rank holds
+        # other clients' rows (``collect_transport_state`` cuts blocks)
+        t_blocks = (blocks if transport is None or not transport.ef_slots
+                    else (lambda t: t))
+
+        def sharded_core(params, batches, weights, eta, server_state,
+                         t_state=(), d_state=()):
+            # the params and codec state gathered at the round's top (the
+            # client stack is whole on every rank); blocks of what lives on
+            out = core(whole(params), batches, weights, eta, server_state,
+                       whole(t_state), whole(d_state))
+            return (blocks(out[0]), *out[1:4], t_blocks(out[4]),
+                    blocks(out[5]), out[6])
+
+        return sharded_core
+
+    def _make_parallel_core(self, loss_fn, aggregator, trim_fraction,
+                            server, server_lr, transport, downlink):
         if self.mesh is None:
             return make_parallel_round_core(
                 loss_fn, get_aggregator(aggregator,
@@ -271,6 +465,15 @@ class MeshBackend(ExecutionBackend):
         clients one at a time (``mesh.py:115-153, 188-401``)."""
         if transport is not None and transport.name == "none":
             transport = None          # the identity codec: the plain core
+        layout = self.layout
+        if transport is not None and layout is not None:
+            transport = transport.with_layout(layout)   # whole-leaf encodes
+        # a sharded client gathers the whole params for each step's forward
+        # and backward and updates its block from the gradients' block
+        whole = part = None
+        if layout is not None:
+            whole = lambda tree: layout.map(tree, layout.gather, None)
+            part = lambda tree: layout.map(tree, layout.block, None)
         stream = aggregator in LINEAR_AGGREGATORS
         agg = None if stream else get_aggregator(
             aggregator, trim_fraction=trim_fraction)
@@ -313,7 +516,8 @@ class MeshBackend(ExecutionBackend):
 
             def client(i):
                 res = client_update(loss_fn, params, {
-                    k: v[i] for k, v in batches.items()}, eta, hook)
+                    k: v[i] for k, v in batches.items()}, eta, hook,
+                    whole=whole, part=part)
                 firsts.append(res.first_loss)
                 lasts.append(res.last_loss)
                 return res.params
@@ -466,24 +670,92 @@ class MeshBackend(ExecutionBackend):
                 bb = slice_batch_rows(bb, *self.batch_rows(b))
         return super().place_bucket(bb)
 
+    def place_params(self, params):
+        """Params on the device: this rank's block of each leaf under
+        ``param_specs`` (a block passes through), else whole."""
+        if self.layout is None:
+            return super().place_params(params)
+        self.layout.learn(params)
+        return self.place_state(params)
+
+    def place_state(self, tree):
+        """Every params-shaped part of ``tree`` (params, a server state, a
+        codec's or the downlink's state) on the device as this rank's
+        blocks; other leaves pass. Identity without ``param_specs``."""
+        if self.layout is None:
+            return tree
+        lay, dev = self.layout, self.to_device
+        return lay.map(tree, lambda i, x: dev(lay.block(i, x)),
+                       lambda i, x: dev(lay.block_flat(i, x)))
+
+    def gather_state(self, tree):
+        """The inverse of ``place_state``: every params-shaped part of
+        ``tree`` whole, on every rank (what reads params outside the
+        round core: eval, the store's snapshot and checkpoint)."""
+        if self.layout is None:
+            return tree
+        return self.layout.to_whole(tree)
+
+    def constrain_update(self, tree):
+        """A params-shaped tree mapped onto the specs (the reference's
+        output pinning): blocks of whole leaves; a no-op for blocks and
+        without ``param_specs``."""
+        if self.layout is None:
+            return tree
+        return self.layout.to_blocks(tree)
+
+    def signature_args(self, args):
+        """A program's inputs for its registry key, params-shaped parts as
+        ``meta`` stand-ins of the whole leaves: the key, and so the compile
+        counts, do not depend on the layout."""
+        if self.layout is None:
+            return args
+        lay = self.layout
+
+        def whole(i, x):
+            lead = tuple(x.shape[:x.dim() - len(lay.shapes[i])])
+            return torch.empty(lead + tuple(lay.shapes[i]), dtype=x.dtype,
+                               device="meta")
+
+        return lay.map(args, whole, lambda i, x: torch.empty(
+            (math.prod(lay.shapes[i]),), dtype=x.dtype, device="meta"))
+
     def place_transport_state(self, state, per_client: bool = False):
         """The codec's state on the device; per-client slots (leading
         cohort axis) cut to this rank's clients, whose batches it holds
-        (the reference's ``_cohort_spec``)."""
+        (the reference's ``_cohort_spec``); blocks under ``param_specs``."""
         if not tree_leaves(state):
             return state
         if per_client:
+            if self.layout is not None:
+                # every rank holds every row of its block: whole leaves
+                # before the rows are cut
+                state = self.gather_state(state)
             n = int(tree_leaves(state)[0].shape[0])
             lo, hi = self.rows(n)
             if (lo, hi) != (0, n):
                 state = tree_map(lambda s: s[lo:hi], state)
-        return self.place_params(state)
+            if self.strategy == "parallel":
+                # the parallel core takes whole slots; its rows differ
+                # from rank to rank, so no rank's block could be gathered
+                return super().place_params(state)
+        if self.layout is not None:
+            return self.place_state(state)
+        return super().place_params(state)
 
     def collect_transport_state(self, state, per_client: bool = False):
         """A bucket's per-client slots, this rank's clients, gathered back
-        to the whole cohort's on every rank (other state passes)."""
+        to the whole cohort's on every rank (other state passes); under
+        ``param_specs`` this rank's blocks of the whole cohort's."""
         if not per_client or not tree_leaves(state):
             return state
+        if self.layout is not None:
+            # rows of other ranks hold other blocks: whole leaves first
+            return self.place_state(self._collect_rows(
+                self.gather_state(state)))
+        return self._collect_rows(state)
+
+    def _collect_rows(self, state):
         if self.strategy == "sequential":
             return tree_map(lambda s: all_gather_axis(s, self.mesh, "pod"),
                             state)
@@ -495,8 +767,12 @@ class MeshBackend(ExecutionBackend):
     def bind_downlink(self, codec):
         """Parallel: a bound copy, the int8 decode-apply runs the sharded
         kernel, one slice of the vector a rank. Sequential: the codec
-        itself (each rank reconstructs the whole broadcast once a
-        round)."""
+        itself (each rank reconstructs the whole broadcast once a round),
+        or, under ``param_specs``, a copy that works on this rank's
+        blocks (``DownlinkCodec.with_layout``)."""
+        if codec is not None and self.strategy == "sequential" and \
+                self.layout is not None:
+            return codec.with_layout(self.layout)
         if codec is None or self.strategy == "sequential" or \
                 self.mesh is None:
             return codec

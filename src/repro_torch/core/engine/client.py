@@ -29,22 +29,29 @@ class ClientResult(NamedTuple):
 
 def client_update(loss_fn: LossFn, params: PyTree,
                   client_batches: Dict[str, torch.Tensor],
-                  eta: float, grad_hook: Optional[GradHook] = None
+                  eta: float, grad_hook: Optional[GradHook] = None, *,
+                  whole: Optional[Callable[[PyTree], PyTree]] = None,
+                  part: Optional[Callable[[PyTree], PyTree]] = None
                   ) -> ClientResult:
     """K steps of SGD from the round-start params. Leaves of
     ``client_batches`` have a leading K axis; each update is cast back to
     its weight's dtype. ``grad_hook(grads, loss, batch) -> (grads,
     loss)``, where given, sees each step's gradients and loss before the
     update (the sequential mesh strategy all-reduces them over the ranks
-    that split the client's batch)."""
+    that split the client's batch). ``whole``/``part``, where given: the
+    params are a rank's blocks; each step differentiates the loss at
+    ``whole(params)`` and updates the blocks by ``part(grads)`` (the
+    sequential strategy's sharded parameters)."""
     step_grad = grad_and_value(loss_fn, has_aux=True)
     k = next(iter(client_batches.values())).shape[0]
     p, first = params, None
     for t in range(k):
         batch = {key: v[t] for key, v in client_batches.items()}
-        grads, (loss, _) = step_grad(p, batch)
+        grads, (loss, _) = step_grad(p if whole is None else whole(p), batch)
         if grad_hook is not None:
             grads, loss = grad_hook(grads, loss, batch)
+        if part is not None:
+            grads = part(grads)
         p = tree_map(lambda w, g: (w - eta * g).to(w.dtype), p, grads)
         if t == 0:
             first = loss

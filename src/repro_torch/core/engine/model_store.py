@@ -10,6 +10,9 @@ write it.
 
 ``snapshot`` returns ``(version, tree clients hold)``: the reference loaded
 through the codec's ``load_tree`` when a downlink is set, else ``params``.
+Where the rounds hold sharded params (a mesh's blocks), ``gather`` (set by
+the engine) gives the snapshot and the checkpoint whole leaves, so neither
+depends on the layout.
 Checkpoint payloads keep the reference's key layout (``params``/``server``/
 ``transport``/``downlink`` plus flat counter meta), so a checkpoint of
 either package restores into the other.
@@ -50,6 +53,8 @@ class GlobalModelStore:
         self.transport_state: Any = None
         self.downlink_state: Any = None
         self.downlink = downlink          # DownlinkCodec | None
+        # blocks -> whole leaves (identity unless the params are sharded)
+        self.gather: Callable[[PyTree], PyTree] = lambda tree: tree
         self.version: int = 0
         # cumulative simulated-cost counters (the reference's meta keys)
         self.wall: float = 0.0
@@ -69,17 +74,20 @@ class GlobalModelStore:
         """``(version, params_ref)``: the exact tree clients hold."""
         version = self.version
         dl, state = self.downlink, self.downlink_state
+        params = self.gather(self.params)
         if dl is not None and state is not None:
-            return version, dl.load_tree(state["ref"], like=self.params)
-        return version, self.params
+            return version, dl.load_tree(self.gather(state["ref"]),
+                                         like=params)
+        return version, params
 
     # -- checkpoint payloads (the reference's key layout) -----------------
     def checkpoint_tree(self) -> Dict[str, PyTree]:
         """The store-owned tree; ``None`` and ``()`` entries hold no
         leaves."""
-        return {"params": self.params, "server": self.server_state,
-                "transport": self.transport_state,
-                "downlink": self.downlink_state}
+        g = self.gather
+        return {"params": g(self.params), "server": g(self.server_state),
+                "transport": g(self.transport_state),
+                "downlink": g(self.downlink_state)}
 
     def counters_meta(self) -> Dict[str, Any]:
         """Flat counter meta, the reference's keys."""

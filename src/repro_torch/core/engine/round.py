@@ -452,6 +452,7 @@ class RoundEngine:
         state the private store holds moves over, and so does the codec
         binding, so ``store.snapshot()`` loads through this downlink."""
         store.downlink = self.downlink
+        store.gather = self.backend.gather_state
         store.transport_state = self._store.transport_state
         store.downlink_state = self._store.downlink_state
         self._store = store
@@ -519,6 +520,7 @@ class RoundEngine:
         be = self.backend
         with be.stream_context():
             params = be.place_params(params)
+            server_state = be.place_state(server_state)
             batches = be.place_batches(batches)
             weights = be.place_weights(weights)
             etas, active = be.place_scalars(etas, active)
@@ -535,11 +537,11 @@ class RoundEngine:
             if has_d:
                 if self.downlink_state is None:
                     self.init_downlink_state(params)
-                args += ((t_state, self.downlink_state) if has_t
-                         else self.downlink_state,)
+                d_state = be.place_state(self.downlink_state)
+                args += ((t_state, d_state) if has_t else d_state,)
             elif has_t:
                 args += (t_state,)
-            key = (self._codec_sig,) + _signature(args)
+            key = (self._codec_sig,) + _signature(be.signature_args(args))
             program = self._lookup(key, self._bucket_fn)
             self.dispatch_count += 1
             out = program(*args)

@@ -174,8 +174,9 @@ class FedAvgTrainer:
         self.serving = None
         self.serve_every = 0
 
-    # the store owns the state; these names read and write it
-    params = property(lambda self: self.store.params,
+    # the store owns the state; these names read and write it (``params``
+    # reads whole leaves where a mesh holds sharded blocks)
+    params = property(lambda self: self.store.gather(self.store.params),
                       lambda self, v: setattr(self.store, "params", v))
     server_state = property(
         lambda self: self.store.server_state,
@@ -275,7 +276,7 @@ class FedAvgTrainer:
         etas = np.asarray(list(bucket.etas) + [bucket.etas[-1]] * pad,
                           np.float32)
         self.params, firsts, _lasts, self.server_state = \
-            self.engine.run_bucket(self.params, bb.batches, bb.weights,
+            self.engine.run_bucket(self.store.params, bb.batches, bb.weights,
                                    etas, bb.active, self.server_state)
         if self.runtime.downlink_level_ratios is not None:
             firsts = torch.cat([firsts, self.engine.last_downlink_levels
@@ -291,7 +292,7 @@ class FedAvgTrainer:
         c = min(max(int(self.fed.cohort_chunk), 1), n)
         slabs = (builder.get() for _ in range(-(-n // c)))
         self.params, firsts, _lasts, self.server_state = \
-            self.engine.run_round_chunked(self.params, slabs,
+            self.engine.run_round_chunked(self.store.params, slabs,
                                           bucket.etas[0], self.server_state)
         self.store.advance()
         return firsts

@@ -43,6 +43,15 @@ holds its own client rows, ``reduce`` runs the client-sharded kernels
 the error-feedback sum is all-reduced, and the int8 ``decode_apply`` cuts
 the vector into one slice a rank where the ranks divide it.
 
+Sharded parameters (``MeshBackend(param_specs=...)``, the sequential
+strategy): a codec bound with ``with_layout`` takes trees of this rank's
+blocks. Every encode whose result depends on the whole leaf (the int8
+scales, the top-k selection, an adaptive level's norms, a q8 store's
+scales) gathers the leaf first, so the payload is the whole leaf's;
+decodes and decode-applies return blocks (the int8 decode-apply runs the
+kernel on this rank's block of the payload). The results are the
+replicated run's, bit for bit.
+
 Payloads are lists with one dict per parameter leaf, in ``tree_leaves``
 order. ``encode(..., stacked=True)`` takes leaves with a leading client
 axis and works on the (N, M) rows directly (per-row amax for int8,
@@ -68,6 +77,7 @@ from repro_torch.optim import tree_leaves, tree_map
 PyTree = Any
 
 REF_STORES = ("f32", "q8")
+Q8_PLANES = ("q8_q", "q8_qr")           # a q8 store leaf's int8 planes
 # AdaptiveDownlinkCodec's level policy (the reference's defaults)
 ADAPTIVE_SKIP_RTOL = 1e-3
 ADAPTIVE_BOOST_RTOL = 0.5
@@ -113,6 +123,8 @@ class Transport:
     _mesh = None
     _client_axes: Optional[tuple] = None
     _reduce_tiers: Optional[tuple] = None
+    # the blocks of sharded params (``with_layout``); None: whole leaves
+    _layout = None
 
     def signature(self) -> tuple:
         """What tells two codec configurations apart (the reference keys its
@@ -139,6 +151,26 @@ class Transport:
         t._reduce_tiers = (tuple(tuple(tier) for tier in reduce_tiers)
                            if reduce_tiers else None)
         return t
+
+    def with_layout(self, layout) -> "Transport":
+        """A copy whose (unstacked) encode, decode and decode-apply take
+        trees of this rank's blocks under ``layout``
+        (``backends.mesh.ParamLayout``)."""
+        t = copy.copy(self)
+        t._layout = layout
+        return t
+
+    def _whole(self, i: int, leaf: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole (gathered from the blocks)."""
+        return leaf if self._layout is None else self._layout.gather(i, leaf)
+
+    def _part(self, i: int, x: torch.Tensor, like: torch.Tensor
+              ) -> torch.Tensor:
+        """A decoded whole leaf ``i`` (flat or shaped) in the shape of
+        ``like``: its block under a layout."""
+        if self._layout is None:
+            return x.reshape(like.shape)
+        return self._layout.block(i, x.reshape(self._layout.shapes[i]))
 
     def _mesh_kw(self) -> dict:
         return dict(mesh=self._mesh, client_axes=self._client_axes,
@@ -277,8 +309,8 @@ class Int8Transport(Transport):
 
     def encode(self, delta, stacked=False):
         out = []
-        for leaf in tree_leaves(delta):
-            flat = _flat(leaf, stacked)
+        for i, leaf in enumerate(tree_leaves(delta)):
+            flat = _flat(leaf if stacked else self._whole(i, leaf), stacked)
             if self.levels == 1:
                 q, s = quantize_kv(flat)
                 out.append({"q": q, "s": s})
@@ -292,11 +324,12 @@ class Int8Transport(Transport):
 
     def decode(self, payload, like, stacked=False):
         dec = []
-        for pl, leaf in zip(payload, tree_leaves(like)):
+        for i, (pl, leaf) in enumerate(zip(payload, tree_leaves(like))):
             x = pl["q"].to(torch.float32) * pl["s"]
             if self.levels == 2:
                 x = x + pl["qr"].to(torch.float32) * pl["rs"]
-            dec.append(x.reshape(_shape(x, leaf, stacked)))
+            dec.append(x.reshape(_shape(x, leaf, stacked)) if stacked
+                       else self._part(i, x, leaf))
         return _unflatten(like, dec)
 
     def reduce(self, payloads, weights, like):
@@ -314,9 +347,12 @@ class Int8Transport(Transport):
     def decode_apply(self, payload, ref):
         size = axes_size(self._mesh, self._client_axes)
         out = []
-        for pl, leaf in zip(payload, tree_leaves(ref)):
-            args = (leaf.reshape(-1), pl["q"], pl["s"], pl.get("qr"),
-                    pl.get("rs"))
+        for i, (pl, leaf) in enumerate(zip(payload, tree_leaves(ref))):
+            q, qr = pl["q"], pl.get("qr")
+            if self._layout is not None:    # this rank's block of the planes
+                q = self._layout.block_flat(i, q)
+                qr = None if qr is None else self._layout.block_flat(i, qr)
+            args = (leaf.reshape(-1), q, pl["s"], qr, pl.get("rs"))
             # one slice a rank where the ranks divide the vector (the
             # reference's condition), else the whole vector on every rank
             if self._mesh is not None and leaf.numel() % size == 0:
@@ -355,8 +391,8 @@ class TopKTransport(Transport):
 
     def encode(self, delta, stacked=False):
         out = []
-        for leaf in tree_leaves(delta):
-            flat = _flat(leaf, stacked)
+        for i, leaf in enumerate(tree_leaves(delta)):
+            flat = _flat(leaf if stacked else self._whole(i, leaf), stacked)
             idx = torch.topk(torch.abs(flat), self._k(flat.shape[-1]),
                              dim=-1).indices
             out.append({"v": torch.gather(flat, -1, idx),
@@ -368,12 +404,15 @@ class TopKTransport(Transport):
 
     def decode(self, payload, like, stacked=False):
         dec = []
-        for pl, leaf in zip(payload, tree_leaves(like)):
+        for i, (pl, leaf) in enumerate(zip(payload, tree_leaves(like))):
             v = pl["v"]
-            flat = torch.zeros(v.shape[:-1] + (int(leaf.numel()),),
-                               dtype=torch.float32, device=v.device)
+            m = (int(leaf.numel()) if self._layout is None or stacked
+                 else math.prod(self._layout.shapes[i]))
+            flat = torch.zeros(v.shape[:-1] + (m,), dtype=torch.float32,
+                               device=v.device)
             x = flat.scatter(-1, pl["i"].to(torch.int64), v)
-            dec.append(x.reshape(_shape(x, leaf, stacked)))
+            dec.append(x.reshape(_shape(x, leaf, stacked)) if stacked
+                       else self._part(i, x, leaf))
         return _unflatten(like, dec)
 
     def reduce(self, payloads, weights, like):
@@ -387,10 +426,11 @@ class TopKTransport(Transport):
         return _unflatten(like, out)
 
     def decode_apply(self, payload, ref):
+        # the scatter reads whole-leaf indices: a block's leaf is gathered
         return _unflatten(ref, [
-            kops.topk_delta_apply(leaf.reshape(-1), pl["v"], pl["i"]
-                                  ).reshape(leaf.shape)
-            for pl, leaf in zip(payload, tree_leaves(ref))])
+            self._part(i, kops.topk_delta_apply(
+                self._whole(i, leaf).reshape(-1), pl["v"], pl["i"]), leaf)
+            for i, (pl, leaf) in enumerate(zip(payload, tree_leaves(ref)))])
 
     def encoded_bits(self, params):
         # f32 value + int32 index per kept coordinate
@@ -466,12 +506,37 @@ class DownlinkCodec:
         t.codec = self.codec.with_mesh(mesh, client_axes, reduce_tiers)
         return t
 
+    def with_layout(self, layout) -> "DownlinkCodec":
+        """A copy that takes this rank's blocks of sharded params
+        (``Transport.with_layout``): the broadcast's payload is the whole
+        leaves', reconstruction, residual and a q8 store's planes are
+        blocks."""
+        t = copy.copy(self)
+        t.codec = self.codec.with_layout(layout)
+        t._layout = layout
+        return t
+
+    _layout = None
+
     # -- quantised ref store ---------------------------------------------
     def store_tree(self, tree: PyTree) -> PyTree:
-        """Params-shaped f32-equivalent tree -> stored representation."""
+        """Params-shaped f32-equivalent tree -> stored representation (a
+        q8 leaf's scales are the whole leaf's; its planes, blocks under a
+        layout)."""
         if self.ref_store == "f32":
             return tree
-        return tree_map(_q8_encode, tree)
+        lay = self._layout
+        if lay is None:
+            return tree_map(_q8_encode, tree)
+        it = iter(range(len(lay.specs)))
+
+        def one(x):
+            i = next(it)
+            d = _q8_encode(lay.gather(i, x))
+            return {k: (lay.block_flat(i, v) if k in Q8_PLANES else v)
+                    for k, v in d.items()}
+
+        return tree_map(one, tree)
 
     def load_tree(self, stored: PyTree, like: PyTree) -> PyTree:
         """Stored representation -> params-shaped tree (``like`` gives
@@ -551,10 +616,12 @@ class AdaptiveDownlinkCodec(DownlinkCodec):
             sig = sig + ("ref:" + self.ref_store,)
         return sig
 
-    @staticmethod
-    def _norm(tree) -> torch.Tensor:
-        leaves = [torch.sum(torch.square(leaf.to(torch.float32)))
-                  for leaf in tree_leaves(tree)]
+    def _norm(self, tree) -> torch.Tensor:
+        """The tree's 2-norm, each leaf's sum of squares over the whole
+        leaf."""
+        leaves = [torch.sum(torch.square(self.codec._whole(i, leaf)
+                                         .to(torch.float32)))
+                  for i, leaf in enumerate(tree_leaves(tree))]
         return torch.sqrt(sum(leaves)) if leaves else torch.zeros(())
 
     def _level(self, delta, ref, res) -> torch.Tensor:
@@ -581,13 +648,13 @@ class AdaptiveDownlinkCodec(DownlinkCodec):
         """Level-masked dequantise: level 0 decodes to zero, level 1 the
         primary plane, level 2 both planes."""
         dec = []
-        for pl, leaf in zip(payload, tree_leaves(like)):
+        for i, (pl, leaf) in enumerate(zip(payload, tree_leaves(like))):
             lvl = pl["lvl"]
             x = torch.where(lvl >= 1, pl["q"].to(torch.float32) * pl["s"],
                             0.0)
             x = x + torch.where(lvl >= 2,
                                 pl["qr"].to(torch.float32) * pl["rs"], 0.0)
-            dec.append(x.reshape(leaf.shape))
+            dec.append(self.codec._part(i, x, leaf))
         return _unflatten(like, dec)
 
     def decode_into(self, payload, ref: PyTree) -> PyTree:

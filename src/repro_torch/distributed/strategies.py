@@ -15,23 +15,51 @@ delegates the round (K-step local SGD, aggregation, server step) to a
     in ``acc_dtype`` (bf16 by default, as the reference's).
 
 ``fed_batch_specs`` and ``fed_weight_specs`` give one round's input shapes
-and dtypes (``TensorSpec``). Not ported: the GSPMD sharding arguments
-(``act_spec``, ``client_spmd_axes``, ``param_specs``, ``attn_kv_spec``,
-``moe_shards``, ``moe_spmd_axes``: sharded parameters, ROADMAP A13 (b)),
-refused unless left at their defaults, and ``sharding.py``.
+and dtypes (``TensorSpec``). ``param_specs`` (``sharding.param_pspecs``)
+shards the params on either strategy (``MeshBackend``); ``moe_shards``
+runs the MoE layers' shard-local dispatch (``moe_path="dispatch_sharded"``).
+Tensor-parallel compute is not ported (ROADMAP A15): ``act_spec``,
+``attn_kv_spec``, and ``moe_spmd_axes`` over more than one rank of the
+train step's mesh, are refused by name, and ``client_spmd_axes`` must be
+the backend's client axes.
 
 On one device a serving step is the model call itself.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.engine.backends.mesh import STRATEGIES, MeshBackend
 from repro_torch.core.engine.server import get_server_optimizer
+from repro_torch.kernels.collectives import axes_size
 from repro_torch.models import encdec, registry, transformer
+from repro_torch.models.registry import TensorSpec
+
+
+def refuse_tensor_parallel(**kw) -> None:
+    """``act_spec`` and ``attn_kv_spec`` (activation sharding) are
+    tensor-parallel compute, not ported: refused by name unless None."""
+    bad = [k for k, v in kw.items() if v is not None]
+    if bad:
+        raise ValueError(f"{', '.join(bad)}: activation sharding is "
+                         f"tensor-parallel compute, not ported: it comes "
+                         f"with ROADMAP A15")
+
+
+def check_spmd_axes(spmd_axes, mesh) -> None:
+    """``moe_spmd_axes`` (the mesh axes the MoE token groups spread over)
+    is accepted where its ranks on ``mesh`` number one: every group runs
+    on this rank. Spreading them over ranks is tensor-parallel compute,
+    refused by name."""
+    size = axes_size(mesh, tuple(spmd_axes or ()))
+    if size > 1:
+        raise ValueError(
+            f"moe_spmd_axes {tuple(spmd_axes)} over {size} ranks: MoE token "
+            f"groups spread over ranks are tensor-parallel compute, not "
+            f"ported: they come with ROADMAP A15")
 
 
 # ---------------------------------------------------------------------------
@@ -51,24 +79,22 @@ def make_fed_train_step(cfg: ArchConfig, *, strategy: str = "parallel",
 
     parallel: batches leaves (N, K, b, ...), weights (N,); sequential:
     leaves (G, N/G, K, b, ...), weights (G, N/G), G the groups. The inputs
-    are the whole round's; each rank keeps its clients (and, sequential,
-    its rows of each local batch). ``mesh``: a DeviceMesh (None: one
-    device, ``device``); ``use_kernel_avg`` aggregates through the
-    ``fedavg_reduce`` kernel (parallel) or its streamed weighted sum
-    (sequential)."""
-    gspmd = dict(act_spec=act_spec, client_spmd_axes=client_spmd_axes,
-                 param_specs=param_specs, attn_kv_spec=attn_kv_spec,
-                 moe_spmd_axes=moe_spmd_axes)
-    bad = [k for k, v in gspmd.items() if v is not None]
-    bad += ["moe_shards"] if moe_shards != 1 else []
-    if bad:
-        raise ValueError(f"{', '.join(bad)}: GSPMD sharding arguments are "
-                         f"not ported yet: they come with ROADMAP A13 (b)")
+    and the returned params are the whole round's and whole leaves; each
+    rank keeps its clients (and, sequential, its rows of each local batch)
+    and, with ``param_specs``, its blocks of the params. ``mesh``: a
+    DeviceMesh (None: one device, ``device``); ``use_kernel_avg``
+    aggregates through the ``fedavg_reduce`` kernel (parallel) or its
+    streamed weighted sum (sequential). ``client_spmd_axes``: None or the
+    backend's client axes. ``moe_shards``, ``moe_spmd_axes``: the MoE
+    token groups of ``moe_path="dispatch_sharded"``."""
+    refuse_tensor_parallel(act_spec=act_spec, attn_kv_spec=attn_kv_spec)
+    check_spmd_axes(moe_spmd_axes, mesh)
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: "
                          f"{STRATEGIES}")
     loss_fn = registry.loss_fn(cfg, remat=remat, moe_path=moe_path,
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, moe_shards=moe_shards,
+                               moe_spmd_axes=moe_spmd_axes)
     aggregator = "kernel" if use_kernel_avg else "mean"
     server = get_server_optimizer("avg")     # plain FedAvg at server_lr=1
 
@@ -85,29 +111,34 @@ def make_fed_train_step(cfg: ArchConfig, *, strategy: str = "parallel",
         new_params, first_losses = core(
             backend.place_params(params), batches,
             backend.to_device(weights[lo:hi]), float(eta), ())[:2]
-        return new_params, torch.mean(first_losses)
+        return backend.gather_state(new_params), torch.mean(first_losses)
+
+    def check_axes(backend):
+        if client_spmd_axes is not None and \
+                tuple(client_spmd_axes) != backend.client_axes:
+            raise ValueError(
+                f"client_spmd_axes {tuple(client_spmd_axes)}: the clients "
+                f"spread over the backend's client axes "
+                f"{backend.client_axes}")
+        return backend
 
     if strategy == "parallel":
-        backend = MeshBackend(mesh, strategy="parallel", device=device)
+        backend = check_axes(MeshBackend(mesh, strategy="parallel",
+                                         param_specs=param_specs,
+                                         device=device))
         return lambda params, batches, weights, eta: step(
             backend, params, batches, weights, eta)
 
     def train_step(params, batches, weights, eta):
         # the group count is the weights' leading dim
-        backend = MeshBackend(mesh, strategy="sequential",
-                              groups=weights.shape[0], acc_dtype=acc_dtype,
-                              device=device)
+        backend = check_axes(MeshBackend(
+            mesh, strategy="sequential", groups=weights.shape[0],
+            acc_dtype=acc_dtype, param_specs=param_specs, device=device))
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in batches.items()}
         return step(backend, params, flat, weights.reshape(-1), eta)
 
     return train_step
-
-
-class TensorSpec(NamedTuple):
-    """A tensor's shape and dtype, without its data."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def fed_batch_specs(cfg: ArchConfig, shape: ShapeConfig, *, n_clients: int,
@@ -164,7 +195,9 @@ def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
 
 
 def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
-                      moe_path: str = "dispatch", use_kernel: bool = False):
+                      moe_path: str = "dispatch", use_kernel: bool = False,
+                      act_spec=None, attn_kv_spec=None, moe_shards: int = 1,
+                      moe_spmd_axes=None):
     """Full-sequence prefill: (params, batch) -> (last-token logits (B, V),
     decode states). The readout runs on the last position only, so the
     (B, S, V) logits never exist. ``use_kernel=True`` runs every layer's
@@ -172,7 +205,12 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
     expert FFN through the grouped-matmul kernel, and every mamba layer's
     scan through the SSD kernel. A vlm's batch carries ``patch_embeds``.
     The encoder-decoder's step takes {tokens, audio_embeds} and returns
-    the last-token logits alone, through no kernel, as the reference's."""
+    the last-token logits alone, through no kernel, as the reference's.
+    ``moe_shards``: the token groups of ``moe_path="dispatch_sharded"``
+    (one ``moe_gmm`` call a layer serves them all), every group on this
+    one device, whatever ``moe_spmd_axes`` names; ``act_spec`` and
+    ``attn_kv_spec`` are refused (ROADMAP A15)."""
+    refuse_tensor_parallel(act_spec=act_spec, attn_kv_spec=attn_kv_spec)
     if registry.is_encdec(cfg):
         def encdec_prefill_step(params, batch):
             logits, _ = encdec.forward_encdec(params, cfg, batch["tokens"],
@@ -187,7 +225,8 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
             params, cfg, batch["tokens"], batch.get("patch_embeds"),
             global_window=gw,
             moe_path=moe_path, use_kernel=use_kernel, return_states=True,
-            return_features=True)
+            return_features=True, moe_shards=moe_shards,
+            moe_spmd_axes=moe_spmd_axes)
         logits = transformer._readout(params, cfg, feats[:, -1:])
         return logits[:, 0], states
 

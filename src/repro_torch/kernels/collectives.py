@@ -17,6 +17,13 @@ The sequential strategy reduces over one axis at a time: the client
 groups' sums over ``"pod"`` and each local step's gradients over
 ``"data"`` (``all_reduce_axis``, ``all_gather_axis``); an axis of one
 rank runs no collective.
+
+Sharded parameters (``MeshBackend(param_specs=...)``): ``block_of`` cuts a
+whole leaf to this rank's block under a spec (``distributed.sharding``),
+``gather_leaf`` puts the whole leaf back together from every rank's block,
+one all-gather an axis of the spec. A dim split over a tuple of axes takes
+the first named axis as major, as JAX's ``PartitionSpec``. On a world of
+one rank both are the identity and run no collective.
 """
 from __future__ import annotations
 
@@ -171,3 +178,69 @@ def all_gather_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if axes_size(mesh, (axis,)) == 1:
         return x
     return all_gather_rows(x, mesh, (axis,))
+
+
+# ---------------------------------------------------------------------------
+# parameter blocks (``distributed.sharding`` specs)
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry's axes, major first."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's index, the number of blocks) of a dim split over
+    ``axes``, the first named axis major."""
+    idx, count = 0, 1
+    for a in axes:
+        size = axes_size(mesh, (a,))
+        idx = idx * size + (client_rank(mesh, (a,)) if size > 1 else 0)
+        count *= size
+    return idx, count
+
+
+def block_of(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` under ``spec`` (its
+    trailing dims; leading dims beyond the spec are whole), as a tensor of
+    its own (not a view that keeps the whole leaf alive). ``x`` itself
+    where nothing of it is split."""
+    lead = x.dim() - len(spec)
+    out = x
+    for d, entry in enumerate(spec):
+        i, n = block_index(mesh, _entry_axes(entry))
+        if n == 1:
+            continue
+        size = x.shape[lead + d] // n
+        if size * n != x.shape[lead + d]:
+            raise ValueError(f"dim {lead + d} of {tuple(x.shape)} does not "
+                             f"divide among the {n} ranks of {entry!r}")
+        out = out.narrow(lead + d, i * size, size)
+    return out if out is x else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """Concatenate the blocks of one axis's ranks along ``dim``."""
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * moved.shape[0],) + tuple(moved.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _gather(out, moved, group)
+    return out.movedim(0, dim).contiguous()
+
+
+def gather_leaf(block: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's ``block`` under ``spec``: one
+    all-gather an axis the spec names, the innermost axis of a tuple
+    first. ``block`` itself where nothing of it is split."""
+    lead = block.dim() - len(spec)
+    x = block
+    for d, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):
+            if axes_size(mesh, (a,)) > 1:
+                x = _gather_dim(x, lead + d, mesh, a)
+    return x

@@ -10,12 +10,15 @@ passes them (``init_method="tcp://localhost:<port>"`` or
 ``"file://<path>"``, ``rank``, ``world_size``). A rank's device is
 ``cuda:LOCAL_RANK``.
 
-A ``"model"`` axis larger than 1 is refused: tensor-parallel parameters
-are not ported yet (ROADMAP A13 (b)).
-``make_production_mesh`` (the 256-device dry-run mesh) is not ported.
+A ``"model"`` axis may be larger than 1: ``MeshBackend(param_specs=...)``
+holds each rank's block of the params under the specs of
+``distributed.sharding``, and the ranks of one client row compute alike.
+``make_production_mesh`` gives the reference's 256- and 512-device meshes
+as a ``MeshShape``, for the sharding rules and the dry run's accounting.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Sequence
 
@@ -57,12 +60,11 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     if len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} and axis names {names} differ "
                          f"in length")
-    if "model" in names and shape[names.index("model")] > 1:
-        raise ValueError(
-            f"mesh axis 'model' of size {shape[names.index('model')]}: "
-            f"tensor-parallel parameters are not ported yet: they come "
-            f"with ROADMAP A13 (b); the 'model' axis must be 1")
     dev = init_distributed(device)
+    if math.prod(shape) > dist.get_world_size():
+        raise ValueError(f"mesh shape {shape} spans {math.prod(shape)} "
+                         f"ranks; the process group has "
+                         f"{dist.get_world_size()}")
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
@@ -71,3 +73,15 @@ def make_host_mesh(device: DeviceLike = None):
     """The degenerate 1x1 ``("data", "model")`` mesh (a world of one
     rank), for smoke runs of the mesh code paths."""
     return make_mesh((1, 1), ("data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh, (16, 16) ``("data", "model")`` or
+    (2, 16, 16) ``("pod", "data", "model")``, as a ``MeshShape``: names
+    and sizes only. No 256-rank world exists here, so it serves the
+    sharding rules (``distributed.sharding``) and the dry run's per-device
+    accounting (``launch.dryrun``), never a process group."""
+    from repro_torch.distributed.sharding import MeshShape
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))

@@ -1,7 +1,7 @@
 """Mixture-of-Experts layer: top-k router and expert FFN bank
 (``repro.models.moe``).
 
-Two execution paths, as the reference's:
+Three execution paths, as the reference's:
 
 * ``dense``    — every expert computes every token, combined by the routing
   weights. Exact and simple; the serving loop decodes through it.
@@ -9,10 +9,13 @@ Two execution paths, as the reference's:
   into fixed-capacity slots, the grouped expert FFN, a weighted combine.
   ``use_kernel=True`` runs the FFN through ``kernels.ops.moe_gmm`` (three
   launches of the CUDA grouped matmul on the card).
+* ``dispatch_sharded`` — shard-local dispatch: the tokens split along the
+  sequence into ``shards`` groups, each routed with its own capacity and
+  its own drops (``moe_apply_dispatch_sharded``). The groups' slot blocks
+  stack along the capacity axis, so one ``moe_gmm`` call (three launches)
+  serves every group.
 
-The reference's ``dispatch_sharded`` path waits for the multi-device slice
-and is refused by name. Aux load-balance loss follows Switch/Mixtral:
-E * sum_e f_e * P_e.
+Aux load-balance loss follows Switch/Mixtral: E * sum_e f_e * P_e.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 
-PATHS = ("dense", "dispatch")
+PATHS = ("dense", "dispatch", "dispatch_sharded")
 
 
 def moe_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu"):
@@ -109,12 +112,7 @@ def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False):
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     dev = x.device
-    # the combine gives each token exactly k adds onto zero; for k <= 2 the
-    # sum 0 + a + b equals 0 + b + a, so the card's unordered index_add
-    # repeats bit for bit
-    if dev.type == "cuda" and k > 2:
-        raise ValueError(f"the dispatch combine repeats bit for bit on the "
-                         f"card for top_k <= 2, not {k}")
+    _check_top_k(cfg, dev)
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     w, ids, aux = _route(p, cfg, xf)
@@ -157,14 +155,104 @@ def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False):
     return y.reshape(B, S, d), aux
 
 
+def _check_top_k(cfg: ArchConfig, dev) -> None:
+    # the combine gives each token exactly k adds onto zero; for k <= 2 the
+    # sum 0 + a + b equals 0 + b + a, so the card's unordered index_add
+    # repeats bit for bit
+    if dev.type == "cuda" and cfg.moe.top_k > 2:
+        raise ValueError(f"the dispatch combine repeats bit for bit on the "
+                         f"card for top_k <= 2, not {cfg.moe.top_k}")
+
+
+def moe_apply_dispatch_sharded(p, cfg: ArchConfig, x, *, shards: int,
+                               spmd_axes=None, use_kernel: bool = False,
+                               stacked: bool = True):
+    """Shard-local dispatch (``repro/models/moe.py:125-142``). x: (B, S, d)
+    -> (y, aux). The tokens split along the sequence into ``shards``
+    groups of B x S/shards tokens (b-major within a group); each group
+    routes and fills ``capacity(cfg, B S / shards)`` slots an expert and
+    drops its own overflow; aux is the mean of the groups' aux losses.
+
+    ``stacked`` (the default) runs the groups as one batched dispatch: the
+    groups' (E, C_l, d) slot blocks sit side by side along the capacity
+    axis, (E, shards C_l, d), and one expert FFN (``moe_gmm``: three
+    launches) serves them all. ``stacked=False`` loops
+    ``moe_apply_dispatch`` over the groups (three launches a group).
+    ``spmd_axes`` (the mesh axes the groups spread over, the reference's
+    vmap binding) binds nothing here: every group runs on this rank.
+    ``make_fed_train_step`` refuses axes of more than one rank (ROADMAP
+    A15)."""
+    B, S, d = x.shape
+    if S % shards:
+        raise ValueError(f"sequence {S} does not divide into {shards} "
+                         f"token groups")
+    G, S_l = shards, S // shards
+    if not stacked:
+        ys, auxs = [], []
+        for g in range(G):
+            y, aux = moe_apply_dispatch(p, cfg, x[:, g * S_l:(g + 1) * S_l],
+                                        use_kernel=use_kernel)
+            ys.append(y)
+            auxs.append(aux)
+        return torch.cat(ys, dim=1), torch.mean(torch.stack(auxs))
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    dev = x.device
+    _check_top_k(cfg, dev)
+    T = B * S_l                                   # tokens a group
+    xg = x.reshape(B, G, S_l, d).transpose(0, 1).reshape(G * T, d)
+    # a token's routing does not depend on its group: one call for every
+    # token; the aux loss is each group's, then their mean
+    w, ids, _ = _route(p, cfg, xg)
+    w, ids = w.reshape(G, T, k), ids.reshape(G, T, k)
+    probs = torch.softmax((xg @ p["router"]["kernel"]).to(torch.float32),
+                          dim=-1).reshape(G, T, E)
+    eidx = torch.arange(E, device=dev)
+    f_e = torch.mean((ids[..., 0, None] == eidx).to(torch.float32), dim=1)
+    P_e = torch.mean(probs, dim=1)
+    aux = torch.mean(E * torch.sum(f_e * P_e, dim=-1))
+    cap = capacity(cfg, T)
+
+    flat_ids = ids.reshape(G, T * k)
+    order = torch.argsort(flat_ids, dim=-1, stable=True)
+    sorted_ids = torch.gather(flat_ids, 1, order)
+    counts = torch.sum(sorted_ids[..., None] == eidx, dim=1)    # (G, E)
+    starts = torch.cumsum(counts, -1) - counts
+    rank = torch.arange(T * k, device=dev) - torch.gather(starts, 1,
+                                                          sorted_ids)
+    keep = rank < cap
+    gi = torch.arange(G, device=dev)[:, None]
+    # group g's slots of expert e: [e G C + g C, e G C + (g + 1) C)
+    slot = torch.where(keep, sorted_ids * (G * cap) + gi * cap + rank,
+                       torch.full_like(rank, E * G * cap)).reshape(-1)
+    src = (torch.arange(T, device=dev).repeat_interleave(k)[order]
+           + gi * T).reshape(-1)
+
+    disp = torch.zeros((E * G * cap + 1, d), dtype=x.dtype, device=dev)
+    disp = disp.index_add(0, slot, xg[src])
+    xe = disp[:-1].reshape(E, G * cap, d)
+    if use_kernel:
+        ye = kops.moe_gmm(xe, p["gate"], p["up"], p["down"],
+                          mlp_type=cfg.mlp_type)
+    else:
+        ye = _expert_ffn(p, cfg, xe)
+
+    yf = torch.cat([ye.reshape(E * G * cap, d),
+                    torch.zeros((1, d), dtype=x.dtype, device=dev)])
+    wk = (torch.gather(w.reshape(G, T * k), 1, order) * keep).reshape(-1)
+    y = torch.zeros((G * T, d), dtype=x.dtype, device=dev).index_add(
+        0, src, yf[slot] * wk[:, None])
+    return y.reshape(G, B, S_l, d).transpose(0, 1).reshape(B, S, d), aux
+
+
 def moe_apply(p, cfg: ArchConfig, x, *, path: str = "dispatch",
-              use_kernel: bool = False):
+              use_kernel: bool = False, shards: int = 1, spmd_axes=None):
     if path == "dense":
         return moe_apply_dense(p, cfg, x)
-    if path == "dispatch":
+    if path == "dispatch_sharded" and shards > 1:
+        return moe_apply_dispatch_sharded(p, cfg, x, shards=shards,
+                                          spmd_axes=spmd_axes,
+                                          use_kernel=use_kernel)
+    if path in ("dispatch", "dispatch_sharded"):
         return moe_apply_dispatch(p, cfg, x, use_kernel=use_kernel)
-    if path == "dispatch_sharded":
-        raise ValueError("moe path 'dispatch_sharded' shards the dispatch "
-                         "over a device mesh: it comes with the "
-                         "multi-device slice")
     raise ValueError(f"unknown moe path {path!r}: one of {PATHS}")

@@ -8,6 +8,8 @@ of ``repro.models.registry``:
     init_cache(params, cfg, batch, seq[, audio_embeds=]) -> decode cache
     decode_fn(cfg)(params, cache, token, pos)   -> (logits, cache)
     shapes(cfg, dtype)                          -> params on ``meta``
+    cache_specs(cfg, batch, seq)                -> a decode cache on ``meta``
+    input_specs(cfg, shape)                     -> {name: TensorSpec}
     param_count(cfg)                            -> int (no allocation)
 
 ``init`` draws from an explicit ``torch.Generator`` with the reference's
@@ -18,11 +20,11 @@ the reference's values over through ``bridge.params_from_jax``.
 from __future__ import annotations
 
 import functools
-from typing import Any, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import tree_leaves
@@ -54,10 +56,12 @@ def init(seed_or_generator: Union[int, torch.Generator], cfg: ArchConfig,
 
 
 def loss_fn(cfg: ArchConfig, *, remat: bool = False,
-            moe_path: str = "dispatch", use_kernel: bool = False):
+            moe_path: str = "dispatch", use_kernel: bool = False,
+            moe_shards: int = 1, moe_spmd_axes=None):
     """batch: {tokens, [mask]} plus a vlm's ``patch_embeds`` or the
     encoder-decoder's ``audio_embeds``. The encoder-decoder runs no kernel
-    and ignores ``moe_path`` and ``use_kernel``, as the reference."""
+    and ignores ``moe_path``, ``use_kernel`` and the MoE token groups
+    (``moe_shards``, ``moe_spmd_axes``), as the reference."""
     if is_encdec(cfg):
         def enc_fn(params, batch):
             return encdec.loss_encdec(params, cfg, batch, remat=remat)
@@ -65,12 +69,15 @@ def loss_fn(cfg: ArchConfig, *, remat: bool = False,
 
     def fn(params, batch):
         return transformer.loss_lm(params, cfg, batch, remat=remat,
-                                   moe_path=moe_path, use_kernel=use_kernel)
+                                   moe_path=moe_path, use_kernel=use_kernel,
+                                   moe_shards=moe_shards,
+                                   moe_spmd_axes=moe_spmd_axes)
     return fn
 
 
 def forward_fn(cfg: ArchConfig, *, long_mode: bool = False,
-               moe_path: str = "dispatch", use_kernel: bool = False):
+               moe_path: str = "dispatch", use_kernel: bool = False,
+               moe_shards: int = 1, moe_spmd_axes=None):
     gw = LONG_GLOBAL_WINDOW if long_mode else None
     if is_encdec(cfg):
         def enc_fn(params, batch):
@@ -82,7 +89,9 @@ def forward_fn(cfg: ArchConfig, *, long_mode: bool = False,
         return transformer.forward_lm(params, cfg, batch["tokens"],
                                       batch.get("patch_embeds"),
                                       global_window=gw, moe_path=moe_path,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel,
+                                      moe_shards=moe_shards,
+                                      moe_spmd_axes=moe_spmd_axes)
     return fn
 
 
@@ -102,6 +111,25 @@ def init_cache(params, cfg: ArchConfig, batch: int, max_seq: int,
         device=params["embed"]["embedding"].device)
 
 
+def cache_specs(cfg: ArchConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, enc_batch: Optional[int] = None, *,
+                ring: bool = False, long_mode: bool = False,
+                quant: bool = False) -> PyTree:
+    """A decode cache's tree on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``cache_specs``). The
+    encoder-decoder's runs its encoder on ``meta`` stand-ins."""
+    meta = torch.device("meta")
+    if is_encdec(cfg):
+        audio = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                            dtype=dtype, device=meta)
+        return encdec.init_cache_encdec(shapes(cfg, dtype), cfg, audio,
+                                        max_seq, dtype)
+    gw = LONG_GLOBAL_WINDOW if long_mode else None
+    return transformer.init_cache_lm(cfg, batch, max_seq, dtype, ring=ring,
+                                     global_window=gw, quant=quant,
+                                     device=meta)
+
+
 def decode_fn(cfg: ArchConfig, *, long_mode: bool = False,
               moe_path: str = "dispatch", ring: bool = False):
     gw = LONG_GLOBAL_WINDOW if long_mode else None
@@ -115,6 +143,39 @@ def decode_fn(cfg: ArchConfig, *, long_mode: bool = False,
                                           global_window=gw, moe_path=moe_path,
                                           ring=ring)
     return fn
+
+
+# ---------------------------------------------------------------------------
+# input specs (shape and dtype stand-ins: nothing allocated)
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, without its data."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *,
+                dtype=torch.bfloat16) -> Dict[str, TensorSpec]:
+    """Model inputs for one step of ``shape.kind``: train and prefill the
+    full (global_batch, seq) token batch (a vlm's tokens after its patch
+    prefix, plus ``patch_embeds``; the encoder-decoder's
+    ``audio_embeds``); decode one token a sequence (the cache is
+    ``cache_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.arch_type == "audio":
+            return {"tokens": TensorSpec((B, S), i32),
+                    "audio_embeds": TensorSpec(
+                        (B, cfg.encoder_seq, cfg.d_model), dtype)}
+        patches = cfg.num_patch_tokens if cfg.arch_type == "vlm" else 0
+        specs = {"tokens": TensorSpec((B, S - patches), i32)}
+        if cfg.arch_type == "vlm":
+            specs["patch_embeds"] = TensorSpec(
+                (B, cfg.num_patch_tokens, cfg.d_model), dtype)
+        return specs
+    return {"token": TensorSpec((B,), i32)}
 
 
 # ---------------------------------------------------------------------------

@@ -127,7 +127,8 @@ def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
 
 
 def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
-                 global_window=None, moe_path="dispatch", use_kernel=False):
+                 global_window=None, moe_path="dispatch", use_kernel=False,
+                 moe_shards=1, moe_spmd_axes=None):
     """Full-sequence block. Returns (x, decode state + {aux}): the caller
     pops the MoE aux out of the decode state."""
     if ltype == "mamba":
@@ -144,7 +145,8 @@ def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
     hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
     if "moe" in bp:
         h, aux = moe_lib.moe_apply(bp["moe"], cfg, hn, path=moe_path,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel, shards=moe_shards,
+                                   spmd_axes=moe_spmd_axes)
     else:
         h = layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -256,15 +258,18 @@ def embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds=None):
 def forward_lm(params, cfg: ArchConfig, tokens, patch_embeds=None, *,
                global_window: Optional[int] = None, remat: bool = False,
                moe_path: str = "dispatch", use_kernel: bool = False,
-               return_states: bool = False, return_features: bool = False):
+               return_states: bool = False, return_features: bool = False,
+               moe_shards: int = 1, moe_spmd_axes=None):
     """Full-sequence forward. Returns (logits|features, aux[, decode
     states]); states are stacked over cycles like the params, and aux is
     the MoE load-balance loss summed over the layers (0 for dense).
     ``patch_embeds``: a vlm's (B, P, d) patch embeddings, read ahead of
-    the tokens."""
+    the tokens. ``moe_shards``, ``moe_spmd_axes``: the token groups of
+    ``moe_path="dispatch_sharded"`` (``models/moe.py``)."""
     x, positions, _ = embed_inputs(params, cfg, tokens, patch_embeds)
     kw = dict(global_window=global_window, moe_path=moe_path,
-              use_kernel=use_kernel)
+              use_kernel=use_kernel, moe_shards=moe_shards,
+              moe_spmd_axes=moe_spmd_axes)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
     stack_states = None
@@ -365,14 +370,16 @@ def _chunked_xent(params, cfg: ArchConfig, feats, targets, mask=None):
 
 def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = False, moe_path: str = "dispatch",
-            use_kernel: bool = False):
+            use_kernel: bool = False, moe_shards: int = 1,
+            moe_spmd_axes=None):
     """Next-token LM loss plus ``router_aux_coef`` x the MoE aux. batch:
     {tokens, [patch_embeds], [mask]}. Returns (loss, {"xent", "aux"})."""
     tokens = batch["tokens"]
     patch = batch.get("patch_embeds")
     feats, aux = forward_lm(params, cfg, tokens, patch, remat=remat,
                             moe_path=moe_path, use_kernel=use_kernel,
-                            return_features=True)
+                            return_features=True, moe_shards=moe_shards,
+                            moe_spmd_axes=moe_spmd_axes)
     n_prefix = (patch.shape[1] if patch is not None
                 and cfg.arch_type == "vlm" else 0)
     # tokens[t + 1] is predicted from sequence position n_prefix + t

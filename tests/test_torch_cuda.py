@@ -1797,3 +1797,46 @@ def test_packed_fleet_on_streams_equals_serial_on_the_card(cuda):
         assert a.history.as_dict() == b.history.as_dict()
         assert all(_bytes_equal(x, y) for x, y in
                    zip(tree_leaves(a.params), tree_leaves(b.params)))
+
+
+# ---------------------------------------------------------------------------
+# shard-local MoE dispatch (moe_path="dispatch_sharded") on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_dispatch_sharded_through_the_kernel_matches_cpu(cuda, shards):
+    """Reduced phi3.5-moe's prefill with ``moe_path="dispatch_sharded"``
+    through the kernels on the card against the plain path on the CPU:
+    one stacked ``moe_gmm`` call a layer (three ``gmm`` launches), logits
+    and states within the f32 tolerance, every group's drops alike."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.models import moe, registry
+    from repro_torch.optim import tree_leaves, tree_map
+    from test_torch_mesh_ranks import dropped, routing_ids
+    cfg = get_arch("phi3.5-moe-42b-a6.6b-reduced")
+    params = registry.init(0, cfg, device="cpu")
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64)), dtype=torch.int32)
+    kw = dict(moe_path="dispatch_sharded", moe_shards=shards)
+    cap = moe.capacity(cfg, tokens.numel() // shards)
+    with routing_ids() as want_ids:
+        want_logits, want_states = make_prefill_step(cfg, **kw)(
+            params, {"tokens": tokens})
+    before = tmg.launches
+    with torch.no_grad(), routing_ids() as ids:
+        logits, states = make_prefill_step(cfg, use_kernel=True, **kw)(
+            tree_map(lambda t: t.to(cuda), params),
+            {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    E = cfg.moe.num_experts
+    want_drops = [dropped(i, shards, cap, E) for i in want_ids]
+    drops = [dropped(i, shards, cap, E) for i in ids]
+    assert tmg.launches - before == 3 * cfg.num_layers
+    assert drops == want_drops
+    torch.testing.assert_close(logits.cpu(), want_logits.detach(),
+                               rtol=1e-3, atol=1e-3)
+    for a, b in zip(tree_leaves(states), tree_leaves(want_states)):
+        torch.testing.assert_close(a.cpu(), b.detach(), rtol=2e-4,
+                                   atol=2e-4)

@@ -316,10 +316,14 @@ def test_refusals_name_the_field(meshes):
     tmesh = meshes["host"][0]
     with pytest.raises(ValueError, match="strategy"):
         MeshBackend(tmesh, strategy="ring")
-    with pytest.raises(ValueError, match="'model'.*A13 \(b\)"):
+    # a "model" axis above 1 and param_specs are ported (A13 (b)): the
+    # (1, 2) mesh is refused here only because this world has one rank
+    with pytest.raises(ValueError, match=r"\(1, 2\) spans 2 ranks; the "
+                       r"process group has 1$"):
         make_mesh((1, 2), ("data", "model"), "cpu")
-    with pytest.raises(ValueError, match="param_specs.*A13 \(b\)"):
-        MeshBackend(tmesh, strategy="sequential", param_specs={})
+    specs = {"w": ("model",)}
+    seq = MeshBackend(tmesh, strategy="sequential", param_specs=specs)
+    assert seq.param_specs is specs and "specs" in seq.program_signature()
     with pytest.raises(ValueError, match="reduce"):
         MeshBackend(tmesh, reduce="ring")
     with pytest.raises(NotImplementedError, match="cohort_chunk.*A13"):

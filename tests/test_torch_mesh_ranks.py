@@ -1,5 +1,7 @@
-"""Rank bodies of the multi-rank runs in tests/test_torch_mesh.py and
-tests/test_torch_sequential.py (no tests of its own).
+"""Rank bodies of the multi-rank runs in tests/test_torch_mesh.py,
+tests/test_torch_sequential.py and tests/test_torch_sharding.py, and the
+JAX-free MoE routing helpers those files share with tests/test_torch_cuda.py
+(no tests of its own).
 
 ``spawn`` starts ``world`` gloo ranks on the CPU with
 ``torch.multiprocessing`` (``init_method="file://..."`` in the test's own
@@ -8,6 +10,7 @@ ranks import this module and not the test file, so they import no JAX.
 Each rank returns what it computed; ``spawn`` hands the parent every
 rank's result, to hold against single-process runs.
 """
+import contextlib
 import os
 
 import numpy as np
@@ -25,7 +28,7 @@ from repro_torch.kernels import collectives, ref
 from repro_torch.kernels import delta_codec as dc
 from repro_torch.kernels import fedavg_reduce as fr
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import small
+from repro_torch.models import moe, small
 
 # the meshes of the multi-rank runs: world size -> (shape, axis names)
 MESHES = {2: ((2, 1), ("data", "model")), 4: ((2, 2), ("pod", "data"))}
@@ -57,6 +60,35 @@ SEQ_RUNS = {
 # per-client error feedback on the parallel strategy: 5 rows a round
 PARALLEL_EF_RUN = dict(transport="topk", sampler="fixed_cohort",
                        cohort=(0, 2, 3, 5, 7))
+
+
+@contextlib.contextmanager
+def routing_ids():
+    """The routing ids (tokens, top k) of every ``models.moe._route`` call
+    inside the block, one MoE layer a call, in call order."""
+    route, calls = moe._route, []
+
+    def recording(p, cfg, xf):
+        out = route(p, cfg, xf)
+        calls.append(out[1])
+        return out
+
+    moe._route = recording
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def dropped(ids, groups: int, cap: int, num_experts: int) -> int:
+    """The assignments a dispatch drops over capacity, from one call's
+    routing ids: each of ``groups`` equal runs of rows (the token groups
+    of ``dispatch_sharded``, group-major; 1 for ``dispatch``) keeps at
+    most ``cap`` assignments an expert."""
+    g = ids.reshape(groups, -1)
+    counts = torch.sum(g[..., None] == torch.arange(
+        num_experts, device=ids.device), dim=1)
+    return int(torch.clamp(counts - cap, min=0).sum())
 
 
 def spawn(fn, world: int, tmp_path, *args):
@@ -198,8 +230,10 @@ def seq_refusals(mesh) -> dict:
     out = {}
     tries = {
         "pod": lambda: MeshBackend(mesh, strategy="sequential", groups=1),
-        "param_specs": lambda: MeshBackend(mesh, strategy="sequential",
-                                           param_specs={}),
+        # params sharded over "pod", whose ranks run different groups
+        "param_specs": lambda: MeshBackend(
+            mesh, strategy="sequential", groups=2,
+            param_specs={"w": (("data", "pod"),)}),
         "model": lambda: MeshBackend(
             init_device_mesh("cpu", (1, dist.get_world_size()),
                              mesh_dim_names=("data", "model")),
@@ -314,3 +348,157 @@ def rank_body(rank, world, trainers: bool, wire: bool):
     res["counts"] = dict(collectives.counts)
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# sharded parameters (MeshBackend(param_specs=...)), run by
+# tests/test_torch_sharding.py
+# ---------------------------------------------------------------------------
+
+# name -> (world, mesh shape, axis names, strategy, param_pspecs keywords)
+SHARD_MESHES = {
+    "seq2d": (2, (2, 1), ("data", "model"), "sequential",
+              dict(two_d=True)),
+    "par1d": (4, (2, 2), ("data", "model"), "parallel", dict()),
+    "fsdp_pod": (4, (2, 2), ("pod", "data"), "parallel",
+                 dict(two_d=True, fsdp_axes=("data", "pod"))),
+}
+# FEMNIST runs at run_seq_trainer's traffic (4 a round, b 4, 3 rounds)
+SHARD_RUNS = {
+    "mean": dict(aggregator="mean"),
+    "trimmed_mean+fedavgm": dict(aggregator="trimmed_mean",
+                                 server_optimizer="fedavgm", server_lr=0.5),
+    "int8/int8": dict(transport="int8", downlink="int8"),
+    "topk": dict(transport="topk"),
+    "topk+slots/int8-q8": dict(transport="topk", sampler="fixed_cohort",
+                               cohort=(0, 2, 5, 7), downlink="int8",
+                               downlink_ref="q8"),
+    "int8x2/adaptive+fedyogi": dict(transport="int8x2", downlink="adaptive",
+                                    server_optimizer="fedyogi",
+                                    server_lr=0.1),
+}
+# the checkpointed run: saved after CKPT_AT rounds of the 2-rank run
+CKPT_RUN = dict(transport="int8", downlink="int8", downlink_ref="q8",
+                server_optimizer="fedavgm", server_lr=0.5)
+CKPT_AT = 2
+
+
+def shard_specs(mesh, params, kw):
+    from repro_torch.distributed import sharding
+    return sharding.param_pspecs(None, params, sharding.MeshShape.of(mesh),
+                                 **kw)
+
+
+def placed_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (x for x in _leaves(tree) if isinstance(x, torch.Tensor)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def shard_femnist(backend, rounds=TRAINER_ROUNDS, **fed_kw):
+    """``run_seq_trainer``'s run; returns its results and what the store
+    holds at rest (this rank's bytes of params and server state)."""
+    task, data, params, loss_fn = femnist_setup()
+    fed = FedConfig(total_clients=8, clients_per_round=4, rounds=rounds,
+                    k0=3, eta0=0.3, batch_size=4, k_schedule="rounds",
+                    seed=0, **fed_kw)
+    tr = FedAvgTrainer(loss_fn, params, data, fed,
+                       RuntimeModel(task.model_size_mb, task.runtime, 4),
+                       device="cpu", backend=backend)
+    h = tr.run(rounds)
+    return {"params": tr.params, "history": h,
+            "t_state": tr.store.gather(tr.engine.transport_state),
+            "d_state": tr.store.gather(tr.engine.downlink_state),
+            "server": tr.store.gather(tr.server_state),
+            "counts": (tr.compile_count, tr.shared_count,
+                       tr.dispatch_count),
+            "params_bytes": placed_bytes(tr.store.params),
+            "server_bytes": placed_bytes(tr.store.server_state)}, tr
+
+
+def shard_lm(backend, rounds=2):
+    """``mesh-sequential-cosine.json`` at reduced width (seq 16, b 2),
+    int8 both ways, through ``api.build``."""
+    from pathlib import Path
+    from repro_torch.api.experiment import build
+    from repro_torch.api.spec import ExperimentSpec
+    path = (Path(__file__).resolve().parents[1] / "examples" / "specs"
+            / "mesh-sequential-cosine.json")
+    spec = ExperimentSpec.load(str(path)).with_overrides(
+        f"fed.rounds={rounds}", "data.seq_len=16", "fed.batch_size=2",
+        "transport.name=int8", "transport.downlink=int8")
+    exp = build(spec, backend=backend)
+    h = exp.run(rounds)
+    tr = exp.trainer
+    return {"params": tr.params, "history": h,
+            "counts": (tr.compile_count, tr.shared_count,
+                       tr.dispatch_count),
+            "params_bytes": placed_bytes(tr.store.params)}
+
+
+def layout_check(mesh) -> dict:
+    """``block_of`` and ``gather_leaf`` against a hand-built layout: a
+    (8, 6) leaf split over ("data", "pod") on dim 0 (data major) and over
+    "model" (where the mesh has it) on dim 1."""
+    names = tuple(mesh.mesh_dim_names)
+    x = torch.arange(48, dtype=torch.float32).reshape(8, 6)
+    if "pod" in names:
+        spec = (("data", "pod"), None)
+        d = collectives.client_rank(mesh, ("data",))
+        p = collectives.client_rank(mesh, ("pod",))
+        want = x[(d * 2 + p) * 2:(d * 2 + p + 1) * 2]
+    else:
+        spec = ("data", "model")
+        d = collectives.client_rank(mesh, ("data",))
+        m = collectives.client_rank(mesh, ("model",))
+        nm = collectives.axes_size(mesh, ("model",))
+        w = 6 // nm
+        want = x[d * 4:(d + 1) * 4, m * w:(m + 1) * w]
+    block = collectives.block_of(x, spec, mesh)
+    return {"block": block, "want": want,
+            "gathered": collectives.gather_leaf(block, spec, mesh),
+            "x": x}
+
+
+def shard_rank_body(rank, world, name, tmp):
+    """Every run of ``SHARD_RUNS`` on the mesh ``SHARD_MESHES[name]``
+    without and with ``param_specs``; the sequential mesh adds the LM run
+    and the checkpoint (saved by every rank, rank 0's kept)."""
+    _, shape, names, strategy, rule = SHARD_MESHES[name]
+    mesh = make_mesh(shape, names, "cpu")
+    _, _, params, _ = femnist_setup()
+    specs = shard_specs(mesh, params, rule)
+    groups = 2 if strategy == "sequential" else 1
+    res = {"rank": rank, "layout": layout_check(mesh), "specs": specs}
+    for run, kw in SHARD_RUNS.items():
+        for tag, sp in (("plain", None), ("sharded", specs)):
+            backend = MeshBackend(mesh, strategy=strategy, groups=groups,
+                                  param_specs=sp)
+            res[f"{tag}.{run}"] = shard_femnist(backend, **kw)[0]
+    if strategy == "sequential":
+        from repro_torch.configs import get_arch
+        from repro_torch.models import registry
+        cfg = get_arch("qwen1.5-0.5b-reduced")
+        lm_specs = shard_specs(mesh, registry.shapes(cfg), rule)
+        res["lm_specs"] = lm_specs
+        for tag, sp in (("plain", None), ("sharded", lm_specs)):
+            res[f"{tag}.lm"] = shard_lm(MeshBackend(
+                mesh, strategy="sequential", groups=1, param_specs=sp))
+        for tag, sp in (("plain", None), ("sharded", specs)):
+            _, tr = shard_femnist(MeshBackend(
+                mesh, strategy=strategy, groups=groups, param_specs=sp),
+                rounds=CKPT_AT, **CKPT_RUN)
+            path = os.path.join(tmp, f"ckpt.{tag}.rank{rank}")
+            tr.save_state(path)
+            res[f"ckpt.{tag}"] = path
+    return res

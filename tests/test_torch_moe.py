@@ -235,9 +235,15 @@ def test_moe_apply_matches_reference(name, path, cf, use_kernel):
 
 
 def test_moe_apply_refuses_sharded_and_unknown_paths():
+    """``dispatch_sharded`` is ported (one group is ``dispatch``); a
+    sequence the groups do not divide, token groups over ranks (A15) and
+    unknown paths are refused by name."""
     tcfg, _, tp, _, x = layer_moe(ARCH_NAMES[0])
-    with pytest.raises(ValueError, match="multi-device slice"):
-        tmoe.moe_apply(tp, tcfg, _t(x), path="dispatch_sharded")
+    y1, a1 = tmoe.moe_apply(tp, tcfg, _t(x), path="dispatch_sharded")
+    y0, a0 = tmoe.moe_apply(tp, tcfg, _t(x), path="dispatch")
+    assert torch.equal(y1, y0) and torch.equal(a1, a0)
+    with pytest.raises(ValueError, match="does not divide into 5"):
+        tmoe.moe_apply(tp, tcfg, _t(x), path="dispatch_sharded", shards=5)
     with pytest.raises(ValueError, match="unknown moe path"):
         tmoe.moe_apply(tp, tcfg, _t(x), path="sorted")
 

@@ -403,11 +403,16 @@ def test_fed_train_step_matches_reference_shim(strategy):
 
 
 def test_fed_train_step_refuses_gspmd_arguments():
+    """Activation sharding is tensor-parallel compute (A15), refused by
+    name; ``param_specs``, ``moe_shards`` and the backend's client axes
+    are ported (A13 (b)) and accepted."""
     cfg = get_arch("qwen1.5-0.5b-reduced")
-    for kw in (dict(act_spec=("data",)), dict(param_specs={}),
-               dict(moe_shards=2), dict(client_spmd_axes=("data",))):
-        with pytest.raises(ValueError, match=rf"{next(iter(kw))}.*A13 \(b\)"):
+    for kw in (dict(act_spec=("data",)), dict(attn_kv_spec=("data",))):
+        with pytest.raises(ValueError, match=rf"{next(iter(kw))}.*A15"):
             make_fed_train_step(cfg, device="cpu", **kw)
+    for kw in (dict(param_specs={}), dict(moe_shards=2),
+               dict(client_spmd_axes=("data",))):
+        make_fed_train_step(cfg, device="cpu", **kw)
     with pytest.raises(ValueError, match="strategy"):
         make_fed_train_step(cfg, strategy="ring", device="cpu")
 
@@ -532,14 +537,16 @@ def test_ranks_parallel_per_client_ef_match_local(seq_ranks, world):
 
 
 def test_ranks_refuse_by_name(seq_ranks):
-    """A pod without a group (4 ranks, groups 1), a "model" axis above 1
-    and ``param_specs``, each by name; a cohort the groups do not divide."""
+    """A pod without a group (4 ranks, groups 1) and ``param_specs`` that
+    shard over pods running different groups, each by name; a cohort the
+    groups do not divide. A "model" axis above 1 and ``param_specs`` are
+    ported (A13 (b)): accepted."""
     two, four = seq_ranks[2][0]["refusals"], seq_ranks[4][0]["refusals"]
     assert "pod without a group" in four["pod"] and two["pod"] == ""
+    assert "param_specs shard over 'pod'" in four["param_specs"]
+    assert two["param_specs"] == ""
     for r in (two, four):
-        assert "'model'" in r["model"] and "A13 (b)" in r["model"]
-        assert "param_specs" in r["param_specs"] and \
-            "A13 (b)" in r["param_specs"]
+        assert r["model"] == ""
         assert "not divisible into 3 groups" in r["groups"]
 
 
