@@ -242,16 +242,35 @@ exits non-zero without printing a result:
               built as the scheduler's plans predict, dispatches a bucket,
               shared counts that add up, exact launches; wall seconds,
               rounds/s and peaks, and the leaderboard CSV under ``build/``;
-18. sequential — the mesh's sequential strategy on a one-rank NCCL mesh
-              (run after phase fleet, on phase lm's params): (i)
+18. mesh_paths — the parallel strategy's streaming cohorts, async
+              engine and fleet slices on a one-rank NCCL ``MeshBackend``
+              (run after phase fleet, on phase lm's params), each bitwise
+              its LocalBackend twin: (i) qwen1.5-0.5b at full width, stream
+              (ii)'s traffic, one round (stream (ii)'s first round,
+              ``int8_decompress_reduce_sharded`` once a leaf and slab);
+              CIFAR100 at paper width, kernel aggregator, slabs of 3, one
+              round (stream (i)'s first C = 3 round,
+              ``fedavg_reduce_sharded`` once a leaf and slab);
+              reduced ``fixed-cohort-topk`` in slabs of 2 with per-client
+              slots (``topk_scatter_reduce_sharded``); ms a round and the
+              peak over base; (ii) qwen1.5-0.5b async, async (iii)'s
+              traffic, two applications (``int8_decompress_reduce`` at
+              N = 1 once a leaf a fold), ms an application; (iii) phase
+              fleet's four points with ``backend.name=mesh`` packed on the
+              mesh's one slice, bitwise phase fleet's serial points, counts
+              equal, program keys carrying the slice's ranks; the phase's
+              seconds beside its 45 s budget;
+19. sequential — the mesh's sequential strategy on a one-rank NCCL mesh
+              (run after phase mesh_paths, on phase lm's params): (i)
               ``mesh-sequential-cosine.json`` at full width through
               ``launch.train`` for 3 rounds beside the same spec on
               ``backend.name=local`` (K_r, ids, counters exact, params
               within the CPU tests' parity tolerance); (ii) qwen1.5-0.5b,
               32 clients and 16 a round one at a time, int8 up (aggregate
-              error feedback) and down, 2 rounds at ``acc_dtype`` f32
-              (``int8_decode_apply`` exactly once a leaf a round, one round
-              more checked call by call) and one at bf16 on the plain
+              error feedback) and down, 1 round at ``acc_dtype`` f32
+              (``int8_decode_apply`` exactly once a leaf a round, each
+              call checked against its plain version in that round) and
+              one at bf16 on the plain
               uplink, ms a round and a client and the peak over base;
               (iii) CIFAR100 at paper width one round each (mean at
               groups 1 and 5, trimmed_mean + fedavgm) against
@@ -264,7 +283,9 @@ lm_train and their row at qwen's embedding leaf; every entry with its
 launches in phase spec, ``spec_launches``, in phases stream and async,
 ``stream_launches`` and ``async_launches``, in phases serve_train and
 encdec, ``serve_train_launches`` and ``encdec_launches``, in phase
-fleet's packed run, ``fleet_launches``, and in phase sequential (ii)'s
+fleet's packed run, ``fleet_launches``, in phase mesh_paths,
+``mesh_paths_launches`` (the unsharded kernels' counts include the
+launches their sharded wrappers made), and in phase sequential (ii)'s
 counted run, ``sequential_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -3397,6 +3418,9 @@ LM_ASYNC = dict(aggregation="async", buffer_size=2, staleness_weight="inv",
 LM_ASYNC_HET, LM_ASYNC_APPLIES = 0.8, 4
 # async (i): the checkpoint after this many applications
 ASYNC_SAVE_AT = 4
+# the first rounds of stream (ii) and of stream (i) at C = 3 (host params,
+# loss, K), kept for phase mesh_paths (i)
+STREAM_LM_ROUND1, STREAM_CIFAR_ROUND1 = {}, {}
 # async (ii): tests/test_async.py's base spec
 ORACLE = ("data.kind=paper", "data.task=femnist", "data.clients=16",
           "fed.clients_per_round=8", "fed.rounds=6", "fed.k0=4",
@@ -3450,6 +3474,24 @@ def timed_rounds(torch, engine):
     return ms
 
 
+def keep_first_round(tr, kept: dict):
+    """Instrumentation of this script only: the first streamed round's
+    params of trainer ``tr``, copied to the host into ``kept["params"]``
+    after the round's timing (``timed_rounds``), for phase mesh_paths
+    (i)."""
+    timed = tr.engine.run_round_chunked
+    kept.clear()
+
+    def first_kept(*a):
+        out = timed(*a)
+        if not kept:
+            kept["params"] = _host(out[0])
+        return out
+
+    tr.engine.run_round_chunked = first_kept
+    return tr
+
+
 def _bitwise(a, b) -> bool:
     """Two host trees (``_host``) equal value for value (-0.0 == 0.0)."""
     import numpy as np
@@ -3476,10 +3518,11 @@ def _peak_run(torch, make, run):
     return made, out, kernel_counts(), peak - base, peak, s
 
 
-def _cifar_trainer(torch, task, data, chunk):
+def _cifar_trainer(torch, task, data, chunk, backend=None):
     """(i)'s trainer: CIFAR100 at paper width (U 25, b 32, K0 50, eta0
     0.01, K_r-rounds, the kernel aggregator) in slabs of ``chunk`` (None:
-    dense), its rounds timed (``timed_rounds``, in ``_ms``)."""
+    dense) on ``backend`` (None: local), its rounds timed
+    (``timed_rounds``, in ``_ms``)."""
     from repro_torch.core import FedAvgTrainer, RuntimeModel
     from repro_torch.models import small
     fed = dataclasses.replace(task.fed, k_schedule="rounds",
@@ -3488,7 +3531,8 @@ def _cifar_trainer(torch, task, data, chunk):
     tr = FedAvgTrainer(lambda p, b: small.task_loss(p, task, b),
                        small.init_task_model(0, task), data, fed,
                        RuntimeModel(task.model_size_mb, task.runtime,
-                                    fed.clients_per_round))
+                                    fed.clients_per_round),
+                       backend=backend)
     tr._ms = timed_rounds(torch, tr.engine)
     return tr
 
@@ -3580,8 +3624,13 @@ def stream_cifar(torch, data):
         for chunk in STREAM_CHUNKS:
             label = f"stream (i) C={chunk}"
             tr, h, counts, peak, _, _ = _peak_run(
-                torch, lambda: _cifar_trainer(torch, task, data, chunk),
+                torch, lambda: keep_first_round(
+                    _cifar_trainer(torch, task, data, chunk),
+                    STREAM_CIFAR_ROUND1) if chunk == 3
+                else _cifar_trainer(torch, task, data, chunk),
                 lambda t: t.run(STREAM_ROUNDS))
+            if chunk == 3:
+                STREAM_CIFAR_ROUND1.update(loss=h.train_loss[0], k=h.k[0])
             rows = slab_rows(u, chunk)
             only(counts, {"fedavg_reduce": STREAM_ROUNDS * len(rows)}, label)
             for k, v in counts.items():
@@ -3708,10 +3757,11 @@ def stream_lm(torch, params):
     def make():
         tr = _lm_engine(cfg, params, data, fed)
         tr._ms = timed_rounds(torch, tr.engine)
-        return tr
+        return keep_first_round(tr, STREAM_LM_ROUND1)
 
     tr, h, counts, peak, peak_abs, run_s = _peak_run(
         torch, make, lambda t: t.run(STREAM_ROUNDS))
+    STREAM_LM_ROUND1.update(loss=h.train_loss[0], k=h.k[0])
     want = STREAM_ROUNDS * n_slabs * len(sizes)
     only(counts, {"int8_decompress_reduce": want}, "stream (ii)")
     formula = lm_train_want(fed, sizes, STREAM_ROUNDS)
@@ -4396,6 +4446,10 @@ FLEET_SWEEP = ("fed.k0=64,80", "transport.name=none,int8")
 FEMNIST_PARAMS = 209_662
 FLEET_CSV = (Path(__file__).resolve().parent / "build"
              / "fleet_leaderboard.csv")
+# phase fleet's serial points, kept for phase mesh_paths (iii):
+# (k0, transport) -> (history JSON, host params, (compiles, shared,
+# dispatches))
+FLEET_SERIAL = {}
 
 
 def fleet_plan(points):
@@ -4479,6 +4533,13 @@ def phase_fleet(torch):
     if n_params != FEMNIST_PARAMS:
         raise AssertionError(f"fleet: {n_params} params, want "
                              f"{FEMNIST_PARAMS}")
+    # the serial points, for phase mesh_paths (iii)
+    FLEET_SERIAL.clear()
+    for r in results["serial"].points:
+        exp = built[("serial", r.spec.fed.k0, r.spec.transport.name)]
+        FLEET_SERIAL[r.spec.fed.k0, r.spec.transport.name] = (
+            json.dumps(exp.history.as_dict()), _host(exp.params),
+            (r.compile_count, r.shared_count, r.dispatch_count))
     want = {k: 0 for k in launches["packed"]}
     want["fedavg_reduce"] = (len(points) - n_int8) * rounds
     want["int8_decompress_reduce"] = n_int8 * rounds * leaves
@@ -4537,6 +4598,339 @@ def phase_fleet(torch):
 
 
 # ---------------------------------------------------------------------------
+# the parallel strategy's streaming cohorts, async engine and fleet slices
+# on a one-rank NCCL mesh (phase mesh_paths)
+# ---------------------------------------------------------------------------
+
+MESH_PATHS_BUDGET_S = 45
+# (ii): phase async (iii)'s traffic, two applications
+MESH_ASYNC_APPLIES = 2
+# (i): reduced fixed-cohort-topk in slabs of 2, its rounds
+MESH_TOPK_ROUNDS = 2
+
+
+def sharded_counts():
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    return {"fedavg_reduce_sharded": fr.sharded_launches,
+            **dc.sharded_launches}
+
+
+def zero_sharded_counts():
+    from repro_torch.kernels import delta_codec as dc
+    from repro_torch.kernels import fedavg_reduce as fr
+    fr.sharded_launches = 0
+    for k in dc.sharded_launches:
+        dc.sharded_launches[k] = 0
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def paths_stream_lm(torch, params, mesh, smi):
+    """(i) qwen1.5-0.5b at full width, stream (ii)'s traffic (16 a round
+    in 4 slabs of 4, int8 up), one round on the mesh: bitwise stream
+    (ii)'s first LocalBackend round, ``int8_decompress_reduce_sharded``
+    once a leaf and slab."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.data import make_lm_clients
+    from repro_torch.launch.lm_train_timing import SEQ
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    sizes = [int(t.numel()) for t in tree_leaves(params)]
+    data = make_lm_clients(np.random.default_rng(0),
+                           LM_STREAM["total_clients"], vocab=cfg.vocab_size,
+                           seq_len=SEQ)
+    fed = _lm_fed(rounds=STREAM_ROUNDS, **LM_STREAM)
+    n_slabs = -(-fed.clients_per_round // fed.cohort_chunk)
+
+    def make():
+        zero_sharded_counts()
+        tr = _lm_engine(cfg, params, data, fed, backend=MeshBackend(mesh))
+        tr._ms = timed_rounds(torch, tr.engine)
+        return tr
+
+    tr, h, counts, peak, peak_abs, run_s = _peak_run(
+        torch, make, lambda t: t.run(1))
+    sharded = sharded_counts()
+    want = n_slabs * len(sizes)
+    only(counts, {"int8_decompress_reduce": want}, "mesh_paths (i) qwen")
+    only(sharded, {"int8_decompress_reduce_sharded": want},
+         "mesh_paths (i) qwen, sharded")
+    got = _host(tr.params)
+    kept = STREAM_LM_ROUND1
+    if not _bitwise(got, kept["params"]) or h.train_loss != [kept["loss"]] \
+            or h.k != [kept["k"]]:
+        raise AssertionError(f"mesh_paths (i) qwen: not stream (ii)'s first "
+                             f"round: {_max_diff(got, kept['params'])}, loss "
+                             f"{h.train_loss} vs {kept['loss']}")
+    emit({"phase": "mesh_paths", "what": "(i) qwen1.5-0.5b full width, int8 "
+          "uplink, 16 a round in 4 slabs of 4, one round, 1-rank NCCL mesh",
+          "card": smi, "params": sum(sizes), "leaves": len(sizes),
+          "k": h.k, "loss": h.train_loss, "bitwise_stream_ii_round1": True,
+          "ms_per_round": list(tr._ms), "run_s": run_s,
+          "peak_gb_over_base": peak, "peak_gb": peak_abs,
+          "launches": {**counts, **sharded}})
+    del tr, got
+    _free(torch)
+    return {**counts, **sharded}
+
+
+def paths_stream_cifar(torch, cifar, mesh, smi):
+    """(i) CIFAR100 at paper width, the kernel aggregator, slabs of 3 (a
+    tail of 1), one round on the mesh (cuDNN deterministic): bitwise the
+    first round of stream (i) at C = 3 on LocalBackend,
+    ``fedavg_reduce_sharded`` once a leaf and slab."""
+    from repro_torch.configs import get_paper_task
+    from repro_torch.core.engine.backends import MeshBackend
+    task = get_paper_task("cifar100")
+    rows = slab_rows(task.fed.clients_per_round, 3)
+
+    def make():
+        zero_sharded_counts()
+        return _cifar_trainer(torch, task, cifar, 3, MeshBackend(mesh))
+
+    tr, h, counts, peak, _, _ = _peak_run(torch, make, lambda t: t.run(1))
+    got, ms = _host(tr.params), list(tr._ms)
+    del tr
+    _free(torch)
+    counts = {**counts, **sharded_counts()}
+    want = len(rows) * len(got)
+    only(counts, {"fedavg_reduce": want, "fedavg_reduce_sharded": want},
+         "mesh_paths (i) cifar")
+    kept = STREAM_CIFAR_ROUND1
+    if not _bitwise(got, kept["params"]) or h.train_loss != [kept["loss"]] \
+            or h.k != [kept["k"]]:
+        raise AssertionError(f"mesh_paths (i) cifar: not stream (i)'s first "
+                             f"C = 3 round: {_max_diff(got, kept['params'])}")
+    emit({"phase": "mesh_paths", "what": "(i) cifar100 paper width, kernel "
+          "aggregator, slabs of 3, one round, mesh vs stream (i)'s first "
+          "local round", "card": smi, "slabs": rows, "leaves": len(got),
+          "k": h.k, "loss": h.train_loss, "bitwise_local": True,
+          "ms_per_round": ms, "peak_gb_over_base": peak, "launches": counts,
+          "cudnn_deterministic": True})
+    return counts
+
+
+def paths_stream_topk(torch, mesh, smi):
+    """(i) reduced ``fixed-cohort-topk`` (per-client residual slots) in
+    slabs of 2 for ``MESH_TOPK_ROUNDS`` rounds on the mesh and on
+    LocalBackend: params and slots bitwise, ``topk_scatter_reduce_sharded``
+    once a leaf and slab."""
+    from repro_torch.api import ExperimentSpec, build
+    from repro_torch.core.engine.backends import MeshBackend
+    spec = ExperimentSpec.load(str(SPEC_DIR / "fixed-cohort-topk.json"))
+    d = spec.as_dict()
+    d["fed"].update(rounds=MESH_TOPK_ROUNDS, cohort_chunk=2)
+    spec = ExperimentSpec.from_dict(d)
+    runs = {}
+    for name in ("local", "mesh"):
+        zero_counts()
+        zero_sharded_counts()
+        e = build(spec, **({"backend": MeshBackend(mesh)} if name == "mesh"
+                           else {}))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = e.run()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        runs[name] = (h.train_loss, _host(e.params),
+                      _host(e.trainer.engine.transport_state),
+                      {**kernel_counts(), **sharded_counts()}, s)
+        del e
+        _free(torch)
+    (ll, pl, sl, _, s_l), (lm, pm, sm, cm, s_m) = runs["local"], runs["mesh"]
+    leaves = len(pm)
+    slabs = -(-spec.fed.clients_per_round // 2)
+    want = MESH_TOPK_ROUNDS * slabs * leaves
+    only(cm, {"topk_scatter_reduce": want,
+              "topk_scatter_reduce_sharded": want}, "mesh_paths (i) topk")
+    if ll != lm or not _bitwise(pm, pl) or not _bitwise(sm, sl) or \
+            {t.shape[0] for t in sm.values()} != \
+            {spec.fed.clients_per_round}:
+        raise AssertionError(f"mesh_paths (i) topk: not bitwise its local "
+                             f"slabs: {_max_diff(pm, pl)}")
+    emit({"phase": "mesh_paths", "what": "(i) fixed-cohort-topk reduced, "
+          "per-client slots, slabs of 2, mesh vs local", "card": smi,
+          "rounds": MESH_TOPK_ROUNDS, "loss": lm, "bitwise_local": True,
+          "ms_per_round": s_m * 1e3 / MESH_TOPK_ROUNDS,
+          "local_ms_per_round": s_l * 1e3 / MESH_TOPK_ROUNDS,
+          "launches": cm})
+    return cm
+
+
+def paths_async(torch, params, mesh, smi):
+    """(ii) qwen1.5-0.5b at full width, async (iii)'s traffic (4 in
+    flight, a buffer of 2, int8 with per-slot residuals),
+    ``MESH_ASYNC_APPLIES`` applications on LocalBackend and on the mesh:
+    bitwise (history, params, slots, staleness; compared on the card);
+    the folds run ``int8_decompress_reduce`` at N = 1, once a leaf a
+    fold."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.launch.lm_train_timing import lm_data
+    from repro_torch.optim import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    leaves = len(tree_leaves(params))
+    fed = _lm_fed(rounds=MESH_ASYNC_APPLIES, **LM_ASYNC)
+    data = lm_data(cfg)
+    runs = {}
+    for name in ("local", "mesh"):
+        backend = MeshBackend(mesh) if name == "mesh" else None
+
+        def make():
+            zero_sharded_counts()
+            return _lm_engine(cfg, params, data, fed, LM_ASYNC_HET,
+                              backend=backend)
+
+        tr, h, counts, peak, peak_abs, run_s = _peak_run(
+            torch, make, lambda t: t.run(MESH_ASYNC_APPLIES))
+        only(counts, {"int8_decompress_reduce": _folds(tr) * leaves},
+             f"mesh_paths (ii) {name}")
+        only(sharded_counts(), {}, f"mesh_paths (ii) {name}, sharded")
+        # the trees stay on the card (slots: 4 x 1.86 GB) for the compare
+        runs[name] = dict(h=json.dumps(h.as_dict()),
+                          state=tree_leaves(tr.params)
+                          + tree_leaves(tr.transport_state),
+                          hist=dict(tr.staleness_hist), counts=counts,
+                          run_s=run_s, peak=peak, peak_abs=peak_abs,
+                          folds=_folds(tr), backend=tr.backend.name)
+        del tr
+        _free(torch)
+    loc, m = runs.pop("local"), runs.pop("mesh")
+    same = len(m["state"]) == len(loc["state"]) and all(
+        torch.equal(a, b) for a, b in zip(m["state"], loc["state"]))
+    if m["backend"] != "mesh" or m["h"] != loc["h"] or not same or \
+            m["hist"] != loc["hist"]:
+        raise AssertionError("mesh_paths (ii): the mesh's async run is not "
+                             "LocalBackend's")
+    del loc["state"], m["state"]
+    _free(torch)
+    emit({"phase": "mesh_paths", "what": "(ii) qwen1.5-0.5b full width, "
+          "async int8, 4 in flight, buffer 2, two applications, mesh vs "
+          "local", "card": smi, "applications": MESH_ASYNC_APPLIES,
+          "folds": m["folds"], "staleness_hist": m["hist"],
+          "bitwise_local": True,
+          "ms_per_application": m["run_s"] * 1e3 / MESH_ASYNC_APPLIES,
+          "local_ms_per_application": loc["run_s"] * 1e3
+          / MESH_ASYNC_APPLIES, "peak_gb_over_base": m["peak"],
+          "peak_gb": m["peak_abs"],
+          "int8_decompress_reduce_launches": m["counts"][
+              "int8_decompress_reduce"]})
+    return m["counts"]
+
+
+def paths_fleet(torch, smi):
+    """(iii) phase fleet's four FEMNIST points with ``backend.name=mesh``,
+    packed on the mesh's slices (one rank: one slice, its points one
+    after another): each point's params and history bitwise phase
+    fleet's serial run, its compile, shared and dispatch counts the
+    serial run's, every program key carrying the slice's ranks; the
+    launches: ``fedavg_reduce_sharded`` once a leaf a round of a plain
+    point, ``int8_decompress_reduce_sharded`` once a leaf a round of an
+    int8 point."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.sweep import expand_sweep
+    from repro_torch.launch import fleet
+    base = ExperimentSpec().with_overrides(*FLEET_BASE, "backend.name=mesh")
+    points = fleet.share_k_grid(expand_sweep(*FLEET_SWEEP, base=base))
+    built, build = {}, fleet.build
+
+    def recording(spec, **kw):
+        exp = build(spec, **kw)
+        built[spec.fed.k0, spec.transport.name] = (exp, kw["program_key"])
+        return exp
+
+    _free(torch)
+    zero_counts()
+    zero_sharded_counts()
+    fleet.build = recording
+    try:
+        res = fleet.run_fleet(points=points, packed=True)
+        torch.cuda.synchronize()
+    finally:
+        fleet.build = build
+    launches = {**kernel_counts(), **sharded_counts()}
+    rounds = base.fed.rounds
+    n_int8 = sum(p.spec.transport.name == "int8" for p in points)
+    keys, leaves = {}, None
+    for r in res.points:
+        key = (r.spec.fed.k0, r.spec.transport.name)
+        exp, pk = built[key]
+        hist, params, counts = FLEET_SERIAL[key]
+        got = _host(exp.params)
+        leaves = len(got)
+        if json.dumps(exp.history.as_dict()) != hist or \
+                not _bitwise(got, params) or exp.trainer.engine.backend.name != \
+                "mesh":
+            raise AssertionError(f"fleet on the mesh: {r.label} is not "
+                                 f"phase fleet's serial point: "
+                                 f"{_max_diff(got, params)}")
+        if (r.compile_count, r.shared_count, r.dispatch_count) != counts \
+                or pk[-1] != ("ranks", (0,)):
+            raise AssertionError(f"fleet on the mesh: {r.label} counts "
+                                 f"{r.compile_count, r.shared_count}, "
+                                 f"{r.dispatch_count} vs serial {counts}; "
+                                 f"key {pk[-1]}")
+        keys[r.label] = repr(pk[-1])
+    want_sharded = (len(points) - n_int8) * rounds * leaves
+    want_int8 = n_int8 * rounds * leaves
+    only(launches, {"fedavg_reduce": want_sharded,
+                    "fedavg_reduce_sharded": want_sharded,
+                    "int8_decompress_reduce": want_int8,
+                    "int8_decompress_reduce_sharded": want_int8},
+         "mesh_paths (iii) fleet")
+    if res.compile_count != sum(r.compile_count for r in res.points):
+        raise AssertionError(f"fleet on the mesh: {res.compile_count} built")
+    emit({"phase": "mesh_paths", "what": "(iii) phase fleet's four FEMNIST "
+          "points packed on the mesh's slices (one slice at one rank)",
+          "card": smi, "points": len(points), "rounds": rounds,
+          "compiles": res.compile_count, "shared": res.shared_count,
+          "dispatches": res.dispatch_count,
+          "per_point": {r.label: [r.compile_count, r.shared_count,
+                                  r.dispatch_count] for r in res.points},
+          "program_key_ranks": keys, "bitwise_serial": True,
+          "wall_s": res.wall_s, "launches": launches})
+    del built
+    return launches
+
+
+def phase_mesh_paths(torch, cifar, params, smi):
+    """The parallel strategy's streaming cohorts, async engine and fleet
+    slices on a one-rank NCCL mesh: (i) streamed rounds (qwen1.5-0.5b at
+    full width, CIFAR100, reduced top-k), (ii) the async engine at full
+    width, (iii) the packed fleet, each bitwise its LocalBackend twin.
+    Returns the launches summed over the phase (the unsharded counters
+    count every launch of their kernel, a sharded wrapper's included)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    mesh = init_world1(torch)["data"][0]
+    total = {}
+    try:
+        _add(total, paths_stream_lm(torch, params, mesh, smi))
+        torch.backends.cudnn.deterministic = True
+        _add(total, paths_stream_cifar(torch, cifar, mesh, smi))
+        torch.backends.cudnn.deterministic = det
+        _add(total, paths_stream_topk(torch, mesh, smi))
+        _add(total, paths_async(torch, params, mesh, smi))
+        _add(total, paths_fleet(torch, smi))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        del mesh
+        dist.destroy_process_group()
+    s = time.perf_counter() - t0
+    emit({"phase": "mesh_paths", "summary": True, "card": smi,
+          "launches": total, "s": s, "budget_s": MESH_PATHS_BUDGET_S,
+          "within_budget": s <= MESH_PATHS_BUDGET_S})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # the mesh's sequential strategy
 # ---------------------------------------------------------------------------
 
@@ -4545,9 +4939,10 @@ SEQ_SPEC_ROUNDS = 3
 # tests/test_torch_sequential.py's parity tolerance for this spec's run
 # against LocalBackend (a 1x1 mesh is the local round)
 SEQ_SPEC_TOL = dict(rtol=1e-4, atol=1e-4)
-# (ii): stream (ii)'s traffic, 32 clients and 16 a round, in one group
+# (ii): stream (ii)'s traffic, 32 clients and 16 a round, in one group;
+# the counted f32 round is also the checked one
 LM_SEQUENTIAL = dict(total_clients=32, clients_per_round=16)
-SEQ_ROUNDS = 2
+SEQ_ROUNDS = 1
 # (iii): CIFAR100 at paper width, one round each against LocalBackend
 SEQ_CIFAR = [("mean", dict(), 1), ("mean", dict(), 5),
              ("trimmed_mean+fedavgm", dict(aggregator="trimmed_mean",
@@ -4634,8 +5029,9 @@ def seq_lm(torch, params, mesh, smi):
     uplink with aggregate error feedback and the int8 downlink, for
     ``SEQ_ROUNDS`` rounds at ``acc_dtype`` f32: ``int8_decode_apply``
     exactly once a leaf a round (the broadcast, once a round) and no
-    other kernel, counters exact against the runtime formula; one round
-    more holds every decode-apply call against its plain version. Then
+    other kernel, counters exact against the runtime formula, and every
+    decode-apply call held against its plain version in the same run
+    (the checks are 14 plain calls beside a round of some 15 s). Then
     one round at ``acc_dtype`` bf16 on the plain uplink (the codec's
     decoded sum is f32 whatever ``acc_dtype``, as the reference's), the
     int8 downlink kept. ms a round, ms a client and the allocator's peak
@@ -4663,8 +5059,12 @@ def seq_lm(torch, params, mesh, smi):
             tr._ms = timed_rounds(torch, tr.engine)
             return tr
 
+        checked = acc == torch.float32
         tr, h, counts, peak, peak_abs, run_s = _peak_run(
-            torch, make, lambda t: t.run(rounds))
+            torch, make, lambda t: check_calls(
+                torch, lambda: t.run(rounds), "sequential (ii)")
+            if checked else (t.run(rounds), None))
+        h, seen = h
         name = str(acc).replace("torch.", "")
         only(counts, {"int8_decode_apply": rounds * len(sizes)},
              f"sequential (ii) {name}")
@@ -4688,20 +5088,18 @@ def seq_lm(torch, params, mesh, smi):
                                   for ms in tr._ms],
                 "run_s": run_s, "peak_gb_over_base": peak,
                 "peak_gb": peak_abs, "launches": counts}
-        if acc == torch.float32:
-            # one round more, neither counted nor timed
-            h2, seen = check_calls(torch, lambda: tr.run(1),
-                                   "sequential (ii)")
+        if checked:
             app = seen.get("int8_decode_apply", {})
             if set(seen) != {"int8_decode_apply"} or \
-                    app["calls"] != len(sizes) or \
-                    sorted(app["m"]) != sorted(sizes):
+                    app["calls"] != rounds * len(sizes) or \
+                    sorted(app["m"]) != sorted(sizes * rounds):
                 raise AssertionError(f"sequential (ii): checked round ran "
                                      f"{seen}")
             line["checked_round"] = {k: {
                 "calls": v["calls"], "leaves": len(sizes),
                 "max_abs_err": v["max_abs_err"], "tol": v["tol"]}
                 for k, v in seen.items()}
+            line["checked_in_the_counted_round"] = True
             out = counts
         emit(line)
         del tr
@@ -5268,6 +5666,14 @@ def main() -> int:
                                            "int8_decompress_reduce")):
         raise AssertionError(f"a kernel of phase fleet never ran: "
                              f"{fleet_launches}")
+    # the parallel strategy's streaming cohorts, async engine and fleet
+    # slices on a one-rank NCCL mesh, on phase lm's params
+    mesh_paths_launches = phase_mesh_paths(torch, cifar, params, smi)
+    if not all(mesh_paths_launches.get(k) for k in (
+            "fedavg_reduce_sharded", "int8_decompress_reduce_sharded",
+            "topk_scatter_reduce_sharded", "int8_decompress_reduce")):
+        raise AssertionError(f"a kernel of phase mesh_paths never ran: "
+                             f"{mesh_paths_launches}")
     # the mesh's sequential strategy, on phase lm's params
     sequential_launches = phase_sequential(torch, cifar, params, smi)
     if not sequential_launches["int8_decode_apply"]:
@@ -5421,6 +5827,8 @@ def main() -> int:
         entry["sequential_launches"] = sequential_launches.get(
             entry["name"], 0)
         entry["sharded_launches"] = sharded_launches.get(entry["name"], 0)
+        entry["mesh_paths_launches"] = mesh_paths_launches.get(
+            entry["name"], 0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -48,8 +48,18 @@ reference's: ``(program_key, "async-dispatch" | "async-fold" |
 "async-apply", codec signature, input signature)``. ``compile_count`` and
 ``shared_count`` count them as ``RoundEngine``'s, and ``dispatch_count``
 counts their runs. Serving while training ticks the attached
-``ServingLoop`` after every ``serve_every``-th buffer application. Not
-ported: the engine on a ``MeshBackend`` (ROADMAP A13 (c)).
+``ServingLoop`` after every ``serve_every``-th buffer application.
+
+On a ``MeshBackend`` (the parallel strategy) the engine runs as the
+reference's does (``async_buffer.py:131-135, :177``): unsharded. Every
+rank runs the same event loop from the same seed and computes every
+dispatch group whole (the batches are placed whole, not cut to a rank's
+rows), the codec is never bound to the mesh, and the ranks stay alike bit
+for bit. The backend only places the params: under ``param_specs`` the
+params and the server state are this rank's blocks at rest, gathered for a
+dispatch group (``gather_state``), and the apply runs on blocks; buffer,
+in-flight deltas and residual slots stay whole. Checkpoints hold whole
+leaves and restore through ``place_params``.
 """
 from __future__ import annotations
 
@@ -62,7 +72,7 @@ import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.engine.aggregators import LINEAR_AGGREGATORS
-from repro_torch.core.engine.backends import LocalBackend, MeshBackend
+from repro_torch.core.engine.backends import LocalBackend
 from repro_torch.core.engine.client import make_client_update
 from repro_torch.core.engine.model_store import GlobalModelStore
 from repro_torch.core.engine.policies import get_staleness_weight
@@ -102,10 +112,6 @@ def _refuse(fed: FedConfig, backend, sampler) -> None:
             "the mesh sequential strategy scans a whole synchronous "
             "cohort; async dispatch groups are ragged: use the parallel "
             "strategy")
-    if isinstance(backend, MeshBackend):
-        raise ValueError(
-            "async buffered aggregation on a MeshBackend is not ported "
-            "yet: it comes with ROADMAP A13 (c)")
     if fed.downlink != "none":
         raise ValueError(
             "async clients start from skewed global versions; the "
@@ -123,7 +129,8 @@ class AsyncBufferedEngine:
     surface (``run``, ``save_state``, ``restore_state``, ``history``,
     ``dispatch_count``) on the buffered asynchronous model above.
     ``device``: where it runs (default ``cuda``); ``backend``: a
-    ``LocalBackend`` (default), which brings its device."""
+    ``LocalBackend`` (default) or a parallel ``MeshBackend``, which brings
+    its device."""
 
     def __init__(self, loss_fn: LossFn, init_params: PyTree,
                  data: FederatedData, fed: FedConfig,
@@ -168,10 +175,15 @@ class AsyncBufferedEngine:
         # the store owns params, server state, the residual slots, the
         # version and the cost counters; no downlink, so it serves params
         self.store = GlobalModelStore()
-        self.params = self.backend.place_params(init_params)
-        self.server_state = self.server.init(self.params)
+        be = self.backend
+        # checkpoints and snapshots read whole leaves (blocks at rest on a
+        # mesh with param_specs)
+        self.store.gather = be.gather_state
+        self.params = be.place_params(init_params)
+        self.server_state = self.server.init(self.store.params)
+        whole = self.params
         self.transport_state = (() if transport is None
-                                else transport.init_state(self.params))
+                                else transport.init_state(whole))
         self.store.downlink_state = ()
 
         self.runtime = runtime
@@ -181,7 +193,7 @@ class AsyncBufferedEngine:
             rt = copy.copy(runtime)
             rt._rng = np.random.default_rng()
             rt._rng.bit_generator.state = runtime._rng.bit_generator.state
-            rt.uplink_compression = transport.compression_ratio(self.params)
+            rt.uplink_compression = transport.compression_ratio(whole)
             self.runtime = rt
 
         self._client = torch.func.vmap(make_client_update(loss_fn),
@@ -208,7 +220,7 @@ class AsyncBufferedEngine:
         self._heap: List[Tuple[float, int, int]] = []
         zeros = lambda lead: tree_map(
             lambda p: torch.zeros(lead + tuple(p.shape), dtype=torch.float32,
-                                  device=p.device), self.params)
+                                  device=p.device), whole)
         self._inflight = zeros((self.n,))     # per-slot deltas (n, ...)
         self._slot_client = np.full(self.n, -1, np.int64)
         self._slot_version = np.full(self.n, -1, np.int64)  # version vector
@@ -231,7 +243,8 @@ class AsyncBufferedEngine:
         self.serve_every = 0
 
     # the store owns the state; these names read and write it
-    params = property(lambda self: self.store.params,
+    # (``params`` reads whole leaves where a mesh holds sharded blocks)
+    params = property(lambda self: self.store.gather(self.store.params),
                       lambda self, v: setattr(self.store, "params", v))
     server_state = property(
         lambda self: self.store.server_state,
@@ -275,12 +288,14 @@ class AsyncBufferedEngine:
 
     def _apply_fn(self, params, buffer, buf_weight, server_state):
         """aggregate = params + buffer / buf_weight through the server
-        step; the buffer is zeroed (in place) for the next fill. Returns
-        (params, server_state, buffer)."""
+        step (on this rank's blocks under ``param_specs``); the buffer is
+        zeroed (in place) for the next fill. Returns (params,
+        server_state, buffer)."""
         bw = np.float32(buf_weight)
         inv = float(np.float32(1.0) / bw) if bw > 0 else 0.0
+        # the buffer's blocks beside the params' (itself unsharded)
         aggregate = tree_map(lambda p, b: p.to(torch.float32) + inv * b,
-                             params, buffer)
+                             params, self.backend.place_state(buffer))
         params, server_state = self.server.step(
             params, aggregate, server_state, self.server_lr)
         tree_map(lambda b: b.zero_(), buffer)
@@ -290,7 +305,8 @@ class AsyncBufferedEngine:
         """Run ``fn`` on ``args`` through the program of its key, built on
         a miss (reference ``async_buffer.py:311-321``)."""
         key = ((self._program_key,) if self._program_key else ()) \
-            + (tag, self._codec_sig) + _signature(args)
+            + (tag, self._codec_sig) + _signature(
+                self.backend.signature_args(args))
         exe = self._executables.get(key)
         if exe is None:
             exe, built = self._registry.get_or_build(
@@ -330,7 +346,10 @@ class AsyncBufferedEngine:
                               batch_size=self.fed.batch_size, chunk=m,
                               sampler=self.sampler, round_id=r))
         ids, w = sb.ids, sb.weights
-        batches = self.backend.place_batches(sb.batches)
+        # the whole group on every rank: a mesh's ``place_batches`` would
+        # keep only this rank's rows
+        be = self.backend
+        batches = {key: be.to_device(v) for key, v in sb.batches.items()}
         deltas, first, last = self._run_exe(
             "async-dispatch", self._dispatch_fn,
             (self.params, batches, _eta(eta)))
@@ -382,7 +401,7 @@ class AsyncBufferedEngine:
     def _apply_buffer(self, verbose: bool, eval_every: Optional[int]) -> None:
         self.params, self.server_state, self._buffer = self._run_exe(
             "async-apply", self._apply_fn,
-            (self.params, self._buffer, np.float32(self._buf_weight),
+            (self.store.params, self._buffer, np.float32(self._buf_weight),
              self.server_state))
         self.applied_updates += self._buf_count
         self._version += 1
@@ -516,7 +535,10 @@ class AsyncBufferedEngine:
         tree, meta = self.store.load_checkpoint_tree(
             path, extra_like={"buffer": self._buffer,
                               "inflight": self._inflight})
-        self.store.restore_tree(tree)
+        # params (and server state) as the backend holds them at rest
+        be = self.backend
+        self.store.restore_tree(tree, place_params=be.place_params)
+        self.server_state = be.place_state(self.server_state)
         self._buffer = tree["buffer"]
         self._inflight = tree["inflight"]
         a = meta["async"]

@@ -170,10 +170,13 @@ class ExecutionBackend:
         here; a mesh with sharded params keys on the whole leaves)."""
         return args
 
-    def collect_transport_state(self, state, per_client: bool = False):
+    def collect_transport_state(self, state, per_client: bool = False,
+                                positions=None):
         """The inverse of ``place_transport_state`` for a bucket's output
         state: the whole cohort's slots on every rank (identity on one
-        device)."""
+        device). ``positions``: the cohort position of each row of
+        ``state`` (a streamed round's slabs); on one device they are the
+        cohort in order."""
         return state
 
     # ------------------------------------------------------------------

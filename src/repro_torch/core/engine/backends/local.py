@@ -108,8 +108,16 @@ def make_parallel_slab_cores(loss_fn: LossFn, aggregator: Aggregator,
         return tree_map(lambda a, x: a.add_(x), acc, part)
 
     def slab_core(params, batches, weights, eta, acc, ef):
-        client_params, first_losses, last_losses = client(params, batches,
-                                                          eta)
+        if weights.shape[0]:
+            client_params, first_losses, last_losses = client(params,
+                                                              batches, eta)
+        else:
+            # a mesh rank that holds no row of this slab computes nothing:
+            # empty stacks, so its partials are zeros
+            client_params = tree_map(
+                lambda p: p.new_empty((0,) + tuple(p.shape)), params)
+            first_losses = last_losses = weights.new_empty(
+                (0,), dtype=torch.float32)
         hat_acc, true_acc = acc
         if transport is None:
             hat_acc = fold(hat_acc, aggregator(client_params, weights))

@@ -85,6 +85,28 @@ What reads params outside the round core gets whole leaves
 trainer's ``params``), so a checkpoint does not depend on the layout.
 Registry keys use the whole leaves' shapes (``signature_args``).
 
+Streaming cohorts (``make_slab_cores``, the parallel strategy): each slab
+is placed like a dense round's cohort (``place_slab``: this rank's block
+of the slab's rows and weights), runs the parallel core's client update
+and aggregation on those rows and folds the all-reduced partials into
+sums every rank holds whole. A slab smaller than the world leaves some
+ranks without a row: such a rank computes nothing, adds zero partials and
+joins every collective in the same order as the others (its sharded
+kernels launch nothing). Per-client slots are cut to the rank's rows of
+each slab and gathered back once a round (``collect_transport_state``
+with the rows' cohort positions). Under ``param_specs`` each slab's core
+gathers the params at its top; the finalize keeps blocks.
+
+Fleet sub-meshes (``fleet_slices``): ``carve_submeshes`` cuts the rank
+grid into disjoint DeviceMeshes, built in the same order on every rank;
+one backend a sweep point, cycled over the slices. A rank runs only the
+points of the slice that holds it (``launch.fleet``).
+
+The async engine (``core.engine.async_buffer``) runs on a MeshBackend as
+the reference's does: unsharded, the same event loop on every rank, the
+backend only placing (and, under ``param_specs``, sharding at rest) the
+params.
+
 Differences from the reference: where it sends a cohort that does not
 divide among the shards through the unsharded kernel (``mesh.py:227-229``,
 ``transport.py:334-335``), the port splits the cohort unevenly; the sums
@@ -92,14 +114,13 @@ agree within the 1e-6 the reference allows between groupings. The groups
 are looped, not vmapped, and sums are re-associated (ROADMAP Known
 differences 16). The compute is not tensor-parallel: a rank gathers whole
 leaves rather than running column- and row-parallel matmuls (Known
-differences 17; that is ROADMAP A15). Not ported, and refused by name:
-streaming cohorts (``make_slab_cores``), the async engine and fleet
-sub-meshes (``fleet_slices``, ``carve_submeshes``) on a mesh (A13 (c)).
+differences 17; that is ROADMAP A15).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -107,12 +128,12 @@ import torch
 from repro_torch.core.engine.aggregators import (LINEAR_AGGREGATORS,
                                                  get_aggregator)
 from repro_torch.core.engine.backends.base import ExecutionBackend, LossFn
-from repro_torch.core.engine.backends.local import (encode_broadcast,
-                                                    make_parallel_round_core)
+from repro_torch.core.engine.backends.local import (
+    encode_broadcast, make_parallel_round_core, make_parallel_slab_cores)
 from repro_torch.core.engine.client import client_update
 from repro_torch.core.engine.transport import Q8_PLANES
-from repro_torch.data.pipeline import (BucketBatch, slice_batch_rows,
-                                       slice_clients)
+from repro_torch.data.pipeline import (BucketBatch, SlabBatch,
+                                       slice_batch_rows, slice_clients)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.collectives import (all_gather_axis,
@@ -120,11 +141,60 @@ from repro_torch.kernels.collectives import (all_gather_axis,
                                              all_reduce_axis,
                                              all_reduce_tiers, axes_size,
                                              axis_range, block_of,
-                                             gather_leaf, rows_of)
+                                             gather_leaf, register_span,
+                                             rows_of)
 from repro_torch.optim import tree_leaves, tree_map
 
 STRATEGIES = ("parallel", "sequential")
 REDUCES = ("flat", "grouped")
+
+
+def carve_grid(ranks: np.ndarray, n: int) -> List[np.ndarray]:
+    """The rank grid ``ranks`` (one entry a mesh position) cut along its
+    largest axis (the first of equal ones) into ``g`` contiguous slices,
+    ``g`` the largest divisor of that axis's size with ``g <= n``; every
+    slice keeps all the axes. One slice, the grid itself, where ``g`` is
+    1 (the reference's ``carve_submeshes`` on a device grid,
+    ``mesh.py:51-73``)."""
+    shape = ranks.shape
+    axis = max(range(len(shape)), key=lambda i: shape[i])
+    size = shape[axis]
+    g = max((d for d in range(1, min(n, size) + 1) if size % d == 0),
+            default=1)
+    if g <= 1:
+        return [ranks]
+    step = size // g
+    out = []
+    for i in range(g):
+        idx = [slice(None)] * len(shape)
+        idx[axis] = slice(i * step, (i + 1) * step)
+        out.append(ranks[tuple(idx)])
+    return out
+
+
+def carve_submeshes(mesh, n: int):
+    """Up to ``n`` disjoint sub-meshes of the DeviceMesh ``mesh`` for fleet
+    packing: ``carve_grid`` on its rank grid, each slice a DeviceMesh over
+    those ranks with the same axis names. A mesh that does not split (one
+    rank, or ``n`` 1) returns ``[mesh]``; the caller cycles points over
+    what came back.
+
+    Building a sub-group is collective over the whole world: every rank
+    must call this with the same arguments, and builds every slice (and
+    one group over each slice's ranks, for collectives over all its client
+    axes) in the same order, its own slice or not."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    grids = carve_grid(mesh.mesh.cpu().numpy(), n)
+    if len(grids) == 1:
+        return [mesh]
+    subs = []
+    for grid in grids:
+        sub = DeviceMesh(mesh.device_type, torch.as_tensor(grid),
+                         mesh_dim_names=mesh.mesh_dim_names)
+        register_span(sub, dist.new_group(sorted(grid.reshape(-1).tolist())))
+        subs.append(sub)
+    return subs
 
 
 class ParamLayout:
@@ -355,15 +425,9 @@ class MeshBackend(ExecutionBackend):
                 loss_fn, aggregator, trim_fraction, server, server_lr,
                 transport, downlink)
         whole, blocks = self.gather_state, self.constrain_update
-        if self.layout is not None and server is not None:
-            # the server step on this rank's blocks of the params and the
-            # aggregate, and of its own state
-            step = server.step
-            server = server._replace(step=lambda p, agg, state, lr: step(
-                blocks(p), blocks(agg), state, lr))
         core = self._make_parallel_core(loss_fn, aggregator, trim_fraction,
-                                        server, server_lr, transport,
-                                        downlink)
+                                        self._block_server(server),
+                                        server_lr, transport, downlink)
         if self.layout is None:
             return core
         # per-client slots stay whole through the core: each rank holds
@@ -381,6 +445,16 @@ class MeshBackend(ExecutionBackend):
                     blocks(out[5]), out[6])
 
         return sharded_core
+
+    def _block_server(self, server):
+        """Under ``param_specs``, the server step on this rank's blocks of
+        the params and the aggregate, and of its own state; else
+        ``server``."""
+        if self.layout is None or server is None:
+            return server
+        step, blocks = server.step, self.constrain_update
+        return server._replace(step=lambda p, agg, state, lr: step(
+            blocks(p), blocks(agg), state, lr))
 
     def _make_parallel_core(self, loss_fn, aggregator, trim_fraction,
                             server, server_lr, transport, downlink):
@@ -589,21 +663,80 @@ class MeshBackend(ExecutionBackend):
 
         return round_core
 
-    def make_slab_cores(self, *a, **kw):
+    # ------------------------------------------------------------------
+    # streaming cohorts (the parallel strategy)
+    # ------------------------------------------------------------------
+    def make_slab_cores(self, loss_fn: LossFn, *, aggregator: str = "mean",
+                        server=None, server_lr: float = 1.0, transport=None):
+        """``backends.local.make_parallel_slab_cores`` over this rank's
+        rows of each slab (``place_slab``): the aggregator resolved as the
+        dense round's, the codec bound to the mesh, so every partial is
+        all-reduced and the sums are whole on every rank; each slab's
+        (first, last) losses gathered in client order. Under
+        ``param_specs`` the slab core takes blocks and gathers the params
+        at its top; the finalize's server step runs on blocks and it
+        returns blocks of the params (its residual stays whole)."""
         if self.strategy == "sequential":
             raise ValueError(
                 "cohort_chunk requires the parallel strategy: the grouped "
                 "sequential scan already streams clients without a slab "
                 "decomposition")
-        raise NotImplementedError(
-            "cohort_chunk (streaming cohorts, make_slab_cores) is not ported "
-            "to the MeshBackend yet: it comes with ROADMAP A13 (c)")
+        if self.mesh is None:
+            return make_parallel_slab_cores(
+                loss_fn, get_aggregator(aggregator), server, server_lr,
+                transport=transport)
+        whole, blocks = self.gather_state, self.constrain_update
+        if transport is not None:
+            transport = transport.with_mesh(self.mesh, self.client_axes,
+                                            self.reduce_tiers)
+        slab_core, finalize_core = make_parallel_slab_cores(
+            loss_fn, self._resolve_aggregator(aggregator, 0.1),
+            self._block_server(server), server_lr, transport=transport)
+        mesh, axes = self.mesh, self.client_axes
+
+        def mesh_slab_core(params, batches, weights, eta, acc, ef):
+            acc, first, last, ef = slab_core(whole(params), batches, weights,
+                                             eta, acc, ef)
+            losses = all_gather_rows(torch.stack([first, last], dim=1), mesh,
+                                     axes)
+            return acc, losses[:, 0], losses[:, 1], ef
+
+        def mesh_finalize_core(params, acc, server_state):
+            new_params, server_state, res = finalize_core(whole(params), acc,
+                                                          server_state)
+            return blocks(new_params), server_state, res
+
+        return mesh_slab_core, mesh_finalize_core
+
+    def place_slab(self, sb: SlabBatch) -> SlabBatch:
+        """A host slab (leaves (C, K, b, ...), weights (C,)) -> this rank's
+        block of its rows on the device (``collectives.row_range``; none
+        where the slab has fewer rows than the client ranks), sliced
+        before the copy. ``start``/``stop`` become the cohort positions of
+        this rank's rows; ``ids`` stay the whole slab's. A placed slab
+        passes through."""
+        if self.mesh is None or not isinstance(sb.weights, np.ndarray):
+            return super().place_slab(sb)
+        lo, hi = rows_of(self.mesh, self.client_axes, len(sb.weights))
+        return super().place_slab(dataclasses.replace(
+            sb, batches={k: v[lo:hi] for k, v in sb.batches.items()},
+            weights=sb.weights[lo:hi], start=sb.start + lo,
+            stop=sb.start + hi))
 
     def fleet_slices(self, n: int):
-        raise NotImplementedError(
-            "fleet_slices (carve_submeshes: fleet packing on sub-meshes) is "
-            "not ported to the MeshBackend yet: it comes with ROADMAP A13 "
-            "(c)")
+        """One MeshBackend a packed sweep point on disjoint sub-meshes of
+        this backend's mesh (``carve_submeshes``), cycled where there are
+        fewer slices than points; strategy, groups, ``acc_dtype``,
+        ``reduce`` and ``param_specs`` carry over, and the client axes
+        follow the slice's axis names, which carving keeps. Collective:
+        every rank calls it with the same ``n``."""
+        if self.mesh is None:
+            return [self] * n
+        meshes = carve_submeshes(self.mesh, n)
+        return [MeshBackend(meshes[i % len(meshes)], strategy=self.strategy,
+                            groups=self.groups, acc_dtype=self.acc_dtype,
+                            reduce=self.reduce, param_specs=self.param_specs)
+                for i in range(n)]
 
     # ------------------------------------------------------------------
     # placement: this rank's clients (and, sequential, its batch rows)
@@ -743,26 +876,36 @@ class MeshBackend(ExecutionBackend):
             return self.place_state(state)
         return super().place_params(state)
 
-    def collect_transport_state(self, state, per_client: bool = False):
+    def collect_transport_state(self, state, per_client: bool = False,
+                                positions=None):
         """A bucket's per-client slots, this rank's clients, gathered back
         to the whole cohort's on every rank (other state passes); under
-        ``param_specs`` this rank's blocks of the whole cohort's."""
+        ``param_specs`` this rank's blocks of the whole cohort's.
+        ``positions``: the cohort position of each of this rank's rows
+        (a streamed round's, one block of rows a slab); None: this rank's
+        block of the cohort, in order."""
         if not per_client or not tree_leaves(state):
             return state
         if self.layout is not None:
             # rows of other ranks hold other blocks: whole leaves first
             return self.place_state(self._collect_rows(
-                self.gather_state(state)))
-        return self._collect_rows(state)
+                self.gather_state(state), positions))
+        return self._collect_rows(state, positions)
 
-    def _collect_rows(self, state):
+    def _collect_rows(self, state, positions=None):
         if self.strategy == "sequential":
             return tree_map(lambda s: all_gather_axis(s, self.mesh, "pod"),
                             state)
         if axes_size(self.mesh, self.client_axes) == 1:
             return state
-        return tree_map(lambda s: all_gather_rows(s, self.mesh,
-                                                  self.client_axes), state)
+        mesh, axes = self.mesh, self.client_axes
+        gathered = tree_map(lambda s: all_gather_rows(s, mesh, axes), state)
+        if positions is None:
+            return gathered
+        pos = all_gather_rows(torch.as_tensor(
+            np.asarray(positions, np.int64), device=self.device), mesh, axes)
+        order = torch.argsort(pos)
+        return tree_map(lambda s: s[order], gathered)
 
     def bind_downlink(self, codec):
         """Parallel: a bound copy, the int8 decode-apply runs the sharded

@@ -197,6 +197,14 @@ def _leaf_signature(x) -> Tuple:
     return (), np.asarray(x).dtype.name
 
 
+def _as_rows(tree, rows: int):
+    """Shape-only (``meta``) stand-ins of ``tree``'s leaves with ``rows``
+    leading rows: a slab's key whatever this rank's share of its rows."""
+    return tree_map(lambda x: torch.empty(
+        (rows,) + tuple(x.shape[1:]), dtype=torch.as_tensor(x[:0]).dtype,
+        device="meta"), tree)
+
+
 def _signature(args) -> Tuple:
     """Hashable (structure, leaf shapes and dtypes) key of the registry;
     tensors, numpy arrays and Python numbers alike."""
@@ -576,11 +584,15 @@ class RoundEngine:
         be = self.backend
         with be.stream_context():
             params = be.place_params(params)
+            server_state = be.place_state(server_state)
             t = self.transport
             if t is not None and self.transport_state is None:
                 self.init_transport_state(params)
             per_client = t is not None and t.ef_slots is not None
             agg_ef = t is not None and t.error_feedback and not per_client
+            # the residual whole on every rank for the round (a mesh
+            # with sharded params holds blocks between rounds)
+            state = be.gather_state(self.transport_state) if t else ()
             eta = _eta(eta)
             # the reference's slab key sees its zero-filled f32 sums from
             # the first slab on; the port starts from None, so the key
@@ -589,17 +601,23 @@ class RoundEngine:
                 p.shape, dtype=torch.float32, device="meta"), params)
             acc_sig = (sums, sums if agg_ef else ())
             acc = (None, None)
-            firsts, lasts, ef_parts = [], [], []
+            firsts, lasts, ef_parts, positions = [], [], [], []
             for sb in slabs:
                 sb = be.place_slab(sb)
                 ef = ()
                 if per_client:
-                    ef = tree_map(lambda s: s[sb.start:sb.stop],
-                                  self.transport_state)
+                    ef = tree_map(lambda s: s[sb.start:sb.stop], state)
+                    positions.extend(range(sb.start, sb.stop))
                 elif agg_ef:
-                    ef = self.transport_state
+                    ef = state
+                # keyed on the whole slab's rows (``ids``), so every rank
+                # of a mesh keys alike whatever its share of the slab
+                rows = len(sb.ids)
                 key = ("slab", self._codec_sig) + _signature(
-                    (params, sb.batches, sb.weights, eta, acc_sig, ef))
+                    be.signature_args((params, _as_rows(sb.batches, rows),
+                                       _as_rows(sb.weights, rows), eta,
+                                       acc_sig, _as_rows(ef, rows)
+                                       if per_client else ef)))
                 program = self._lookup(key, self.slab_core)
                 acc, f, l, ef = program(params, sb.batches, sb.weights, eta,
                                         acc, ef)
@@ -610,15 +628,17 @@ class RoundEngine:
             if not firsts:
                 raise ValueError("run_round_chunked got an empty slab stream")
             key = ("slabfin", self._codec_sig) + _signature(
-                (params, acc_sig, server_state))
+                be.signature_args((params, acc_sig, server_state)))
             program = self._lookup(key, self.finalize_core)
             new_params, server_state, new_res = program(params, acc,
                                                         server_state)
             if per_client:
-                self.transport_state = tree_map(
-                    lambda *xs: torch.cat(xs, dim=0), *ef_parts)
+                # this rank's rows of every slab, gathered to the cohort
+                self.transport_state = be.collect_transport_state(
+                    tree_map(lambda *xs: torch.cat(xs, dim=0), *ef_parts),
+                    per_client=True, positions=positions)
             elif agg_ef:
-                self.transport_state = new_res
+                self.transport_state = be.place_state(new_res)
             self.dispatch_count += 1
             return (new_params, torch.cat(firsts)[None],
                     torch.cat(lasts)[None], server_state)

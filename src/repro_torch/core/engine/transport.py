@@ -97,7 +97,9 @@ def _unflatten(like: PyTree, leaves) -> PyTree:
 def _flat(leaf: torch.Tensor, stacked: bool) -> torch.Tensor:
     """f32 view of a leaf as (M,), or as (N, M) rows for a client stack."""
     x = leaf.to(torch.float32)
-    return x.reshape(x.shape[0], -1) if stacked else x.reshape(-1)
+    # explicit row width: a mesh rank may hold no client row (N = 0)
+    return (x.reshape(x.shape[0], math.prod(x.shape[1:])) if stacked
+            else x.reshape(-1))
 
 
 def _add_to(ref: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,20 @@ import torch.distributed as dist
 
 #: collectives run by this process, by kind
 counts = {"all_reduce": 0, "all_gather": 0}
+#: the process group over all the ranks of a mesh that spans less than the
+#: world (a fleet's sub-mesh), by the mesh's ranks (``register_span``)
+_SPANS = {}
+
+
+def _ranks_key(mesh) -> tuple:
+    return tuple(mesh.mesh.reshape(-1).tolist())
+
+
+def register_span(mesh, group) -> None:
+    """Record ``group`` (built by every rank, ``dist.new_group``) as the
+    group over all the ranks of ``mesh``, for collectives over axes that
+    span it (``backends.mesh.carve_submeshes``)."""
+    _SPANS[_ranks_key(mesh)] = group
 
 
 def axes_size(mesh, axes) -> int:
@@ -48,18 +62,21 @@ def axes_size(mesh, axes) -> int:
 
 def client_group(mesh, axes: Sequence[str]):
     """The process group over the mesh axes ``axes`` taken together: one
-    axis's group, or the default group when the axes are the whole mesh
-    (every other axis of size 1)."""
+    axis's group, or, when the axes are the whole mesh (every other axis
+    of size 1), the default group or the group registered for a mesh
+    over part of the world (``register_span``)."""
     axes = tuple(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    if axes_size(mesh, axes) != mesh.size() or \
-            mesh.size() != dist.get_world_size():
-        raise ValueError(f"axes {axes} of the mesh "
-                         f"{tuple(mesh.mesh_dim_names)} "
-                         f"{tuple(mesh.shape)} must span the mesh and the "
-                         f"world")
-    return dist.group.WORLD
+    if axes_size(mesh, axes) == mesh.size():
+        if mesh.size() == dist.get_world_size():
+            return dist.group.WORLD
+        group = _SPANS.get(_ranks_key(mesh))
+        if group is not None:
+            return group
+    raise ValueError(f"axes {axes} of the mesh {tuple(mesh.mesh_dim_names)} "
+                     f"{tuple(mesh.shape)} must span the mesh, and the mesh "
+                     f"the world or a group registered for it")
 
 
 def client_rank(mesh, axes: Sequence[str]) -> int:

@@ -285,7 +285,13 @@ def topk_scatter_reduce_sharded(vals: torch.Tensor, idx: torch.Tensor,
     rank's rows (one launch, zeros for none), then the partials
     all-reduced over ``client_axes`` (flat or by ``reduce_tiers``)."""
     name = "topk_scatter_reduce_sharded"
-    partial = topk_scatter_reduce(vals, idx, weights, size)
-    if vals.is_cuda and vals.numel() and int(size):   # the kernel launched
-        _build.count_launch(sharded_launches, name)
+    _check(vals.dim() == 2, f"{name}: vals must be (n, S), got "
+           f"{tuple(vals.shape)}")
+    if vals.shape[0]:
+        partial = topk_scatter_reduce(vals, idx, weights, size)
+        if vals.is_cuda and vals.numel() and int(size):  # it launched
+            _build.count_launch(sharded_launches, name)
+    else:
+        partial = torch.zeros((int(size),), dtype=torch.float32,
+                              device=vals.device)
     return all_reduce_tiers(partial, mesh, client_axes, reduce_tiers)

@@ -3,6 +3,7 @@
 hand-written kernel on CUDA, the plain version on the CPU."""
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
@@ -56,8 +57,9 @@ def fedavg_reduce_tree_sharded(client_params: PyTree, weights: torch.Tensor,
         return {k: fedavg_reduce_tree_sharded(
             v, weights, mesh=mesh, client_axes=client_axes,
             reduce_tiers=reduce_tiers) for k, v in client_params.items()}
-    n = client_params.shape[0]
-    flat = client_params.reshape(n, -1).contiguous()
+    n = client_params.shape[0]      # 0 on a rank without a client row
+    flat = client_params.reshape(
+        n, math.prod(client_params.shape[1:])).contiguous()
     return fedavg_reduce_sharded(
         flat, weights, mesh=mesh, client_axes=client_axes,
         reduce_tiers=reduce_tiers).reshape(client_params.shape[1:])

@@ -14,8 +14,15 @@ point through two fleet-wide mechanisms:
   * **packing**: points run concurrently on a thread pool, each on its own
     backend slice (``ExecutionBackend.fleet_slices``: on the card, fresh
     ``LocalBackend``s that each own a CUDA stream, so the points' rounds
-    overlap on the card), each with its own prefetch thread. The mesh's
-    sub-mesh slices are not ported (ROADMAP A13 (c)).
+    overlap on the card), each with its own prefetch thread. A mesh spec's
+    slices are ``MeshBackend``s on disjoint sub-meshes
+    (``backends.mesh.carve_submeshes``), cycled over the points: a rank
+    runs only the points of the slice that holds it, one after another
+    in that slice's worker (two threads sharing a process group would
+    order its collectives differently on each rank), while slices on
+    disjoint groups run at once; then every
+    point's result is gathered to every rank, so each holds the whole
+    leaderboard.
 
 The result is one leaderboard and CSV (``CSV_FIELDS``): final and min
 loss, rounds, wall seconds and rounds a second, up- and downlink Mbit,
@@ -41,9 +48,10 @@ import csv
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import ExperimentSpec, build
 from repro_torch.api.sweep import SweepPoint, expand_sweep, spec_program_key
@@ -146,15 +154,34 @@ def share_k_grid(points: Sequence[SweepPoint]) -> List[SweepPoint]:
             for p in points]
 
 
+def _slice_ranks(backend) -> Optional[Tuple[int, ...]]:
+    """The global ranks of a mesh backend's mesh, in mesh order (None for
+    a single-device backend)."""
+    mesh = getattr(backend, "mesh", None)
+    if mesh is None:
+        return None
+    return tuple(int(r) for r in mesh.mesh.reshape(-1).tolist())
+
+
+def _program_key_for(spec: ExperimentSpec, backend) -> Tuple:
+    """A packed point's registry program key: the spec's fingerprint, plus
+    a mesh slice's ranks (the reference adds the slice's device ids,
+    ``fleet.py:137-146``), so points on different sub-meshes never share
+    an entry."""
+    key = spec_program_key(spec)
+    ranks = _slice_ranks(backend)
+    if ranks is not None:
+        key = key + (("ranks", ranks),)
+    return key
+
+
 def _run_point(point: SweepPoint, backend, registry: ExecutableRegistry,
                rounds: Optional[int], verbose: bool,
                device: DeviceLike) -> PointResult:
     """Build and run one point; with a slice backend, everything it issues
     on the card (its build included) goes on the slice's stream. The
-    program key is the spec's fingerprint: the port's slices are
-    single-device (the reference adds a sub-mesh slice's devices; sub-mesh
-    slices come with ROADMAP A13 (c))."""
-    program_key = spec_program_key(point.spec) \
+    program key is ``_program_key_for``'s."""
+    program_key = _program_key_for(point.spec, backend) \
         if registry is not None else None
     ctx = (backend.stream_context() if backend is not None
            else contextlib.nullcontext())
@@ -203,6 +230,36 @@ def _slices_for(points: Sequence[SweepPoint], packed: bool,
     return parent.fleet_slices(len(points))
 
 
+def _lanes(backends: Sequence[Any]) -> Dict[Any, List[int]]:
+    """The point indices that run one after another, by lane, for the
+    lanes this rank runs: a mesh slice's points share its lane (keyed by
+    its ranks), held only by the slice's ranks; any other point is a lane
+    of its own."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    lanes: Dict[Any, List[int]] = {}
+    for i, b in enumerate(backends):
+        ranks = _slice_ranks(b)
+        if ranks is None:
+            lanes[("point", i)] = [i]
+        elif rank in ranks:
+            lanes.setdefault(ranks, []).append(i)
+    return lanes
+
+
+def _gather_points(mine: Dict[int, PointResult], n: int
+                   ) -> List[PointResult]:
+    """Every point's result on every rank: each rank's own points
+    all-gathered, a point taken from the lowest rank that ran it."""
+    every: List[Optional[Dict[int, PointResult]]] = \
+        [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out: Dict[int, PointResult] = {}
+    for part in every:
+        for i, r in part.items():
+            out.setdefault(i, r)
+    return [out[i] for i in range(n)]
+
+
 def run_fleet(base: Optional[ExperimentSpec] = None,
               sweep: Sequence[str] = (), *,
               points: Optional[Sequence[SweepPoint]] = None,
@@ -218,7 +275,10 @@ def run_fleet(base: Optional[ExperimentSpec] = None,
     on backend slices; False runs them one after another (sharing the
     registry all the same). ``share_grid`` pins a fleet-wide
     ``fed.k_grid0`` anchor. ``registry`` defaults to a fresh one.
-    ``device``: where the points run (default ``cuda``)."""
+    ``device``: where the points run (default ``cuda``). A packed mesh
+    fleet is collective: every rank of the world calls it alike, runs its
+    slice's points, and gets every point's result; its counts add up the
+    points' own."""
     if points is None:
         points = expand_sweep(*sweep, base=base)
     points = list(points)
@@ -232,19 +292,28 @@ def run_fleet(base: Optional[ExperimentSpec] = None,
     if dev.type == "cuda":                  # each point's peak_mb reading
         torch.cuda.reset_peak_memory_stats(dev)     # starts from here
     t0 = time.perf_counter()
-    if packed and len(points) > 1:
-        with ThreadPoolExecutor(max_workers=workers or len(points)) as pool:
-            futures = [pool.submit(_run_point, p, b, registry, rounds,
-                                   verbose, device)
-                       for p, b in zip(points, backends)]
-            results = [f.result() for f in futures]
+
+    def run_lane(idx):
+        return {i: _run_point(points[i], backends[i], registry, rounds,
+                              verbose, device) for i in idx}
+
+    lanes = _lanes(backends)
+    mine: Dict[int, PointResult] = {}
+    if packed and len(lanes) > 1:
+        with ThreadPoolExecutor(max_workers=workers or len(lanes)) as pool:
+            for f in [pool.submit(run_lane, idx) for idx in lanes.values()]:
+                mine.update(f.result())
     else:
-        results = [_run_point(p, b, registry, rounds, verbose, device)
-                   for p, b in zip(points, backends)]
+        for idx in lanes.values():
+            mine.update(run_lane(idx))
+    gathered = len(mine) < len(points)    # slices of other ranks ran some
+    results = (_gather_points(mine, len(points)) if gathered
+               else [mine[i] for i in range(len(points))])
     wall = time.perf_counter() - t0
     return FleetResult(
         points=results, wall_s=wall, packed=packed,
-        compile_count=registry.compile_count,
+        compile_count=(sum(r.compile_count for r in results) if gathered
+                       else registry.compile_count),
         shared_count=sum(r.shared_count for r in results),
         dispatch_count=sum(r.dispatch_count for r in results))
 

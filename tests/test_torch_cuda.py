@@ -319,6 +319,79 @@ def test_sharded_wrappers_at_one_rank_equal_unsharded_kernels(
     assert collectives.counts["all_gather"] == before[2]["all_gather"] + 2
 
 
+@pytest.mark.cuda
+def test_sharded_wrappers_without_a_row_return_zeros_and_launch_nothing(
+        nccl_meshes):
+    """A rank that holds no client row (a streamed round's tail slab
+    smaller than the world): each sharded reduce returns zeros of the
+    leaf's size through its collective and launches no kernel. Then one
+    narrow CIFAR100 round on the mesh as one slab of the whole cohort
+    launches each sharded kernel once a leaf: ``fedavg_reduce_sharded``
+    (the kernel aggregator), ``int8_decompress_reduce_sharded`` and
+    ``topk_scatter_reduce_sharded`` (the int8 and top-k uplinks)."""
+    from repro_torch.configs import FedConfig, get_paper_task
+    from repro_torch.core import FedAvgTrainer, RuntimeModel
+    from repro_torch.core.engine.backends import MeshBackend
+    from repro_torch.data import make_paper_task
+    from repro_torch.kernels import collectives
+    from repro_torch.models import small
+    from repro_torch.optim import tree_leaves
+    mesh, axes = nccl_meshes["data"]
+    kw = dict(mesh=mesh, client_axes=axes)
+    cuda = torch.device("cuda")
+    m, none = 1000, torch.empty((0,), device=cuda)
+    counters = lambda: (tfr.launches, tfr.sharded_launches,
+                        dict(tdc.launches), dict(tdc.sharded_launches))
+    before, reduces = counters(), collectives.counts["all_reduce"]
+    outs = [
+        tfr.fedavg_reduce_sharded(torch.empty((0, m), device=cuda), none,
+                                  **kw),
+        tdc.int8_decompress_reduce_sharded(
+            torch.empty((0, m), dtype=torch.int8, device=cuda), none, **kw),
+        tdc.int8_decompress_reduce_sharded(
+            torch.empty((0, m), dtype=torch.int8, device=cuda), none,
+            torch.empty((0, m), dtype=torch.int8, device=cuda), none, **kw),
+        tdc.topk_scatter_reduce_sharded(
+            torch.empty((0, 16), device=cuda),
+            torch.empty((0, 16), dtype=torch.int32, device=cuda), none, m,
+            **kw),
+        tops.fedavg_reduce_tree_sharded(
+            {"w": torch.empty((0, 40, 25), device=cuda)}, none,
+            **kw)["w"].reshape(-1)]
+    torch.cuda.synchronize()
+    for out in outs:
+        assert out.dtype == torch.float32 and torch.equal(
+            out, torch.zeros(m, device=cuda))
+    assert counters() == before
+    assert collectives.counts["all_reduce"] == reduces + len(outs)
+    task = get_paper_task("cifar100")
+    data = make_paper_task("cifar100", np.random.default_rng(1),
+                           num_clients=8, samples_per_client=16)
+    init = small.cnn_init(torch.Generator().manual_seed(1), (32, 32, 3), 100,
+                          channels=(8, 16), hidden=32)
+    leaves = len(tree_leaves(init))
+    for fed_kw, kernel in ((dict(aggregator="kernel"),
+                            "fedavg_reduce_sharded"),
+                           (dict(transport="int8"),
+                            "int8_decompress_reduce_sharded"),
+                           (dict(transport="topk"),
+                            "topk_scatter_reduce_sharded")):
+        fed = FedConfig(total_clients=8, clients_per_round=4, k0=2,
+                        batch_size=4, cohort_chunk=4, **fed_kw)
+        tr = FedAvgTrainer(lambda p, b: small.task_loss(p, task, b), init,
+                           data, fed, RuntimeModel(1.0, task.runtime, 4),
+                           backend=MeshBackend(mesh))
+        before = {"fedavg_reduce_sharded": tfr.sharded_launches,
+                  **tdc.sharded_launches}
+        h = tr.run(1)
+        torch.cuda.synchronize()
+        after = {"fedavg_reduce_sharded": tfr.sharded_launches,
+                 **tdc.sharded_launches}
+        assert {k: v - before[k] for k, v in after.items()} == {
+            k: leaves if k == kernel else 0 for k in after}, kernel
+        assert all(math.isfinite(v) for v in h.train_loss)
+
+
 # ---------------------------------------------------------------------------
 # the wire path's kernels (csrc/delta_codec.cu)
 # ---------------------------------------------------------------------------

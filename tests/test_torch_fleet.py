@@ -203,10 +203,38 @@ def test_local_fleet_slices_fresh_instances():
                for s in slices)
 
 
-def test_mesh_fleet_slices_refused_by_name():
-    be = MeshBackend.__new__(MeshBackend)
-    with pytest.raises(NotImplementedError, match="A13"):
-        be.fleet_slices(4)
+class _RankMesh:
+    """Duck-typed DeviceMesh over a rank grid (no process group)."""
+
+    def __init__(self, ranks, names=("data", "model")):
+        self.mesh = torch.as_tensor(np.asarray(ranks))
+        self.mesh_dim_names = tuple(names)
+        self.device_type = "cpu"
+
+    def size(self, dim=None):
+        return self.mesh.numel() if dim is None else self.mesh.shape[dim]
+
+
+def test_mesh_fleet_slices_cycles_and_preserves_config(monkeypatch):
+    """tests/test_fleet.py's check: a (2, 1) mesh carves into 2 slices,
+    cycled over 4 points, each a MeshBackend with the parent's strategy,
+    reduce, groups, acc_dtype and param_specs (sub-meshes carved from the
+    rank grid, without a process group here)."""
+    from repro_torch.core.engine.backends import mesh as mesh_mod
+    monkeypatch.setattr(mesh_mod, "carve_submeshes", lambda m, n: [
+        _RankMesh(g) for g in mesh_mod.carve_grid(m.mesh.numpy(), n)])
+    specs = {"w": (None,)}
+    be = MeshBackend(_RankMesh(np.arange(2).reshape(2, 1)),
+                     reduce="grouped", acc_dtype=torch.bfloat16,
+                     param_specs=specs)
+    slices = be.fleet_slices(4)          # 2 sub-meshes cycled over 4
+    assert len(slices) == 4
+    assert [s.mesh.mesh.tolist() for s in slices] == [[[0]], [[1]]] * 2
+    assert slices[0].mesh is slices[2].mesh
+    assert all((s.strategy, s.reduce, s.acc_dtype, s.groups,
+                s.param_specs, s.client_axes) == (
+                    "parallel", "grouped", torch.bfloat16, 1, specs,
+                    ("data",)) for s in slices)
 
 
 # ---------------------------------------------------------------------------

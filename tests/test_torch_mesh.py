@@ -326,24 +326,34 @@ def test_refusals_name_the_field(meshes):
     assert seq.param_specs is specs and "specs" in seq.program_signature()
     with pytest.raises(ValueError, match="reduce"):
         MeshBackend(tmesh, reduce="ring")
-    with pytest.raises(NotImplementedError, match="cohort_chunk.*A13"):
-        MeshBackend(tmesh).make_slab_cores(None)
-    with pytest.raises(NotImplementedError, match="carve_submeshes"):
-        MeshBackend(tmesh).fleet_slices(2)
+    # streaming cohorts, the async engine and fleet slices run on the
+    # parallel strategy; the sequential strategy refuses the first two in
+    # the reference's words
+    slab_core, finalize_core = MeshBackend(tmesh).make_slab_cores(None)
+    assert callable(slab_core) and callable(finalize_core)
+    assert [s.mesh for s in MeshBackend(tmesh).fleet_slices(2)] == [tmesh] * 2
+    with pytest.raises(ValueError, match="cohort_chunk requires the "
+                       "parallel strategy"):
+        MeshBackend(tmesh, strategy="sequential").make_slab_cores(None)
     task, params, data = small_setup("femnist")
-    # streaming cohorts and the async engine wait for ROADMAP A13 on a mesh
     fed = FedConfig(total_clients=8, clients_per_round=4, cohort_chunk=2)
-    with pytest.raises(NotImplementedError, match="cohort_chunk.*A13"):
-        _trainer("femnist", params, data, fed, MeshBackend(tmesh))
+    tr = _trainer("femnist", params, data, fed, MeshBackend(tmesh))
+    assert tr.engine.cohort_chunk == 2 and tr.engine.slab_core is not None
+    with pytest.raises(ValueError, match="cohort_chunk requires the "
+                       "parallel strategy"):
+        _trainer("femnist", params, data, fed,
+                 MeshBackend(tmesh, strategy="sequential"))
     from repro_torch.core.engine import AsyncBufferedEngine
     fed = FedConfig(total_clients=8, clients_per_round=4,
                     aggregation="async")
-    with pytest.raises(ValueError, match="MeshBackend.*A13"):
-        ttask = get_paper_task("femnist")
-        AsyncBufferedEngine(lambda p, b: small.task_loss(p, ttask, b),
-                            _torch(params), data, fed,
-                            RuntimeModel(1.0, ttask.runtime, 4),
-                            backend=MeshBackend(tmesh))
+    ttask = get_paper_task("femnist")
+    make = lambda be: AsyncBufferedEngine(
+        lambda p, b: small.task_loss(p, ttask, b), _torch(params), data,
+        fed, RuntimeModel(1.0, ttask.runtime, 4), backend=be)
+    assert make(MeshBackend(tmesh)).backend.name == "mesh"
+    with pytest.raises(ValueError, match="sequential strategy scans a "
+                       "whole synchronous cohort"):
+        make(MeshBackend(tmesh, strategy="sequential"))
     with pytest.raises(ValueError, match="device"):
         RoundEngine(lambda p, b: 0.0, backend=MeshBackend(tmesh),
                     device="cuda")

@@ -502,3 +502,231 @@ def shard_rank_body(rank, world, name, tmp):
             tr.save_state(path)
             res[f"ckpt.{tag}"] = path
     return res
+
+
+# ---------------------------------------------------------------------------
+# streaming cohorts, the async engine and fleet sub-meshes on a mesh, run by
+# tests/test_torch_mesh_paths.py
+# ---------------------------------------------------------------------------
+
+# streamed rounds: narrow FEMNIST, 5 clients a round in slabs of
+# SLAB_C[world]: on 2 ranks slabs of 2, 2 and 1 (rows 1 + 1, 1 + 0: the
+# tail below the world), on 4 ranks slabs of 3 and 2 (1 + 1 + 1 + 0,
+# 1 + 1 + 0 + 0)
+SLAB_C = {2: 2, 4: 3}
+SLAB_ROUNDS = 2
+SLAB_RUNS = {
+    "mean": dict(aggregator="mean"),
+    "kernel": dict(aggregator="kernel"),
+    "int8": dict(transport="int8"),
+    "topk+slots": dict(transport="topk", sampler="fixed_cohort",
+                       cohort=(0, 2, 3, 5, 7)),
+}
+# FSDP (param_specs over "data", 2 ranks) against the replicated twin
+SLAB_SHARDED = {
+    "int8+fedavgm": dict(transport="int8", server_optimizer="fedavgm",
+                         server_lr=0.5),
+    "topk+slots": SLAB_RUNS["topk+slots"],
+}
+FSDP_RULE = dict(two_d=True)
+# the async engine: 4 in flight, a buffer of 2, staleness-weighted, int8
+# with per-slot residuals, heterogeneity 0.7. The checkpointed run: a
+# buffer of 3 at heterogeneity 0 (each group of 4 arrivals applies 3 and
+# leaves 1 or 2 folded), saved after ASYNC_SAVE_AT applications
+ASYNC_RUN = dict(aggregation="async", buffer_size=2, staleness_weight="inv",
+                 max_staleness=4, transport="int8", k_schedule="rounds")
+ASYNC_APPLIES, ASYNC_SAVE_AT, ASYNC_HET = 5, 2, 0.7
+ASYNC_CKPT = dict(buffer_size=3)
+# the packed fleet: 4 FEMNIST points on the 4-rank (2, 2) pod x data
+# mesh's 2 slices of (1, 2)
+FLEET_BASE = ("data.kind=paper", "data.task=femnist", "data.clients=8",
+              "data.samples_per_client=10", "fed.clients_per_round=4",
+              "fed.rounds=3", "fed.batch_size=4", "fed.eval_every=0",
+              "backend.name=mesh")
+FLEET_SWEEP = ("fed.k0=2,3", "transport.name=none,int8")
+
+
+@contextlib.contextmanager
+def kernel_rows():
+    """The client rows of every call of the single-device kernels the
+    sharded wrappers run on a rank's rows (``fedavg_reduce``,
+    ``int8_decompress_reduce``, ``topk_scatter_reduce``), by kernel, in
+    call order: a call with no row would be a launch with none."""
+    seen = {"fedavg_reduce": [], "int8_decompress_reduce": [],
+            "topk_scatter_reduce": []}
+    mods = {"fedavg_reduce": fr, "int8_decompress_reduce": dc,
+            "topk_scatter_reduce": dc}
+    saved = {name: getattr(mod, name) for name, mod in mods.items()}
+
+    def counting(name):
+        fn = saved[name]
+
+        def call(x, *a, **kw):
+            seen[name].append(int(x.shape[0]))
+            return fn(x, *a, **kw)
+        return call
+
+    for name, mod in mods.items():
+        setattr(mod, name, counting(name))
+    try:
+        yield seen
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, saved[name])
+
+
+def run_slabs(backend, chunk, rounds=SLAB_ROUNDS, **fed_kw):
+    """``FedAvgTrainer`` on narrow FEMNIST, 5 clients a round in slabs of
+    ``chunk``; returns its params, History, codec and server state (whole
+    leaves) and counts."""
+    task, data, params, loss_fn = femnist_setup()
+    fed = FedConfig(total_clients=8, clients_per_round=5, rounds=rounds,
+                    k0=3, eta0=0.3, batch_size=4, k_schedule="rounds",
+                    seed=0, cohort_chunk=chunk, **fed_kw)
+    tr = FedAvgTrainer(loss_fn, params, data, fed,
+                       RuntimeModel(task.model_size_mb, task.runtime, 5),
+                       device="cpu", backend=backend)
+    h = tr.run(rounds)
+    return {"params": tr.params, "history": h,
+            "t_state": tr.store.gather(tr.engine.transport_state),
+            "server": tr.store.gather(tr.server_state),
+            "counts": (tr.compile_count, tr.shared_count,
+                       tr.dispatch_count),
+            "params_bytes": placed_bytes(tr.store.params)}
+
+
+def async_engine(backend, het=ASYNC_HET, rounds=ASYNC_APPLIES, **fed_kw):
+    """The async engine on narrow FEMNIST (``ASYNC_RUN``)."""
+    from repro_torch.core.engine import AsyncBufferedEngine
+    task, data, params, loss_fn = femnist_setup()
+    fed = FedConfig(total_clients=8, clients_per_round=4, rounds=rounds,
+                    k0=3, eta0=0.3, batch_size=4, seed=0,
+                    **{**ASYNC_RUN, **fed_kw})
+    return AsyncBufferedEngine(
+        loss_fn, params, data, fed,
+        RuntimeModel(task.model_size_mb, task.runtime, 4,
+                     heterogeneity=het), backend=backend)
+
+
+def async_result(eng) -> dict:
+    return {"params": eng.params, "history": eng.history.as_dict(),
+            "t_state": eng.transport_state,
+            "server": eng.store.gather(eng.server_state),
+            "hist": dict(eng.staleness_hist),
+            "counts": (eng.compile_count, eng.shared_count,
+                       eng.dispatch_count),
+            "params_bytes": placed_bytes(eng.store.params)}
+
+
+def run_async(backend, tmp=None, **fed_kw) -> dict:
+    """``ASYNC_APPLIES`` applications straight; with ``tmp``, the
+    checkpointed run (``ASYNC_CKPT``) straight, and saved after
+    ``ASYNC_SAVE_AT`` (mid-buffer) into ``tmp``, restored into a fresh
+    engine and resumed."""
+    eng = async_engine(backend, **fed_kw)
+    eng.run(ASYNC_APPLIES)
+    out = {"straight": async_result(eng)}
+    if tmp is not None:
+        kw = {**fed_kw, **ASYNC_CKPT}
+        eng = async_engine(backend, 0.0, **kw)
+        eng.run(ASYNC_APPLIES)
+        out["ckpt_straight"] = async_result(eng)
+        a = async_engine(backend, 0.0, **kw)
+        a.run(ASYNC_SAVE_AT)
+        out["mid"] = (a._buf_count, len(a._heap))
+        a.save_state(tmp)
+        b = async_engine(backend, 0.0, **kw)
+        b.restore_state(tmp)
+        b.run(ASYNC_APPLIES)
+        out["resumed"] = async_result(b)
+    return out
+
+
+def fleet_points():
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.sweep import expand_sweep
+    return list(expand_sweep(*FLEET_SWEEP, base=ExperimentSpec()
+                             .with_overrides(*FLEET_BASE)))
+
+
+def fleet_rank_part(mesh) -> dict:
+    """The packed fleet on ``mesh``'s slices (every rank), each point's
+    params and program key recorded where this rank ran it; then every
+    point alone on this rank's slice, a fresh registry each."""
+    from repro_torch.api import experiment
+    from repro_torch.core.engine.backends.mesh import carve_submeshes
+    from repro_torch.launch import fleet
+    points = fleet_points()
+    parent = MeshBackend(mesh)
+    make, build = experiment._make_backend, fleet.build
+    ran = {}
+
+    def recording(spec, **kw):
+        exp = build(spec, **kw)
+        ran[spec.fed.k0, spec.transport.name] = (exp, kw["program_key"])
+        return exp
+
+    experiment._make_backend = lambda spec, device: parent
+    fleet.build = recording
+    try:
+        res = fleet.run_fleet(points=points, packed=True, device="cpu")
+    finally:
+        experiment._make_backend, fleet.build = make, build
+    mine = {key: {"params": exp.params, "key": pk}
+            for key, (exp, pk) in ran.items()}
+    rank = dist.get_rank()
+    slices = carve_submeshes(mesh, len(points))
+    own = next(m for m in slices if rank in m.mesh.reshape(-1).tolist())
+    alone = {}
+    for p in points:
+        exp = build(p.spec, backend=MeshBackend(own), device="cpu")
+        h = exp.run()
+        tr = exp.trainer
+        alone[p.spec.fed.k0, p.spec.transport.name] = {
+            "params": exp.params, "final_loss": float(h.train_loss[-1]),
+            "min_loss": float(min(h.min_train_loss)),
+            "counts": (tr.compile_count, tr.dispatch_count)}
+    return {"points": [(r.label, r.spec.fed.k0, r.spec.transport.name,
+                        r.final_loss, r.min_loss, r.compile_count,
+                        r.shared_count, r.dispatch_count)
+                       for r in res.points],
+            "fleet_counts": (res.compile_count, res.shared_count,
+                             res.dispatch_count),
+            "mine": mine, "alone": alone,
+            "slices": [m.mesh.tolist() for m in slices],
+            "own": own.mesh.tolist()}
+
+
+def paths_rank_body(rank, world, tmp):
+    """On 2 ranks ((2, 1) data x model): the streamed runs (flat), FSDP
+    streamed runs beside their replicated twins, and the async runs
+    (plain, resumed mid-buffer, under FSDP beside its twin). On 4 ranks
+    ((2, 2) pod x data): the streamed runs with grouped reduce, and the
+    packed fleet."""
+    shape, names = MESHES[world]
+    mesh = make_mesh(shape, names, "cpu")
+    chunk = SLAB_C[world]
+    reduce = "flat" if world == 2 else "grouped"
+    res = {"rank": rank}
+    for name, kw in SLAB_RUNS.items():
+        with kernel_rows() as seen:
+            res[f"slabs.{name}"] = run_slabs(
+                MeshBackend(mesh, reduce=reduce), chunk, **kw)
+        res[f"rows.{name}"] = seen
+    if world == 2:
+        _, _, params, _ = femnist_setup()
+        specs = shard_specs(mesh, params, FSDP_RULE)
+        for name, kw in SLAB_SHARDED.items():
+            for tag, sp in (("plain", None), ("sharded", specs)):
+                res[f"fsdp.{tag}.{name}"] = run_slabs(
+                    MeshBackend(mesh, param_specs=sp), chunk, **kw)
+        res["async"] = run_async(MeshBackend(mesh),
+                                 os.path.join(tmp, f"async{rank}"))
+        for tag, sp in (("plain", None), ("sharded", specs)):
+            res[f"async.{tag}"] = run_async(
+                MeshBackend(mesh, param_specs=sp),
+                os.path.join(tmp, f"async_{tag}{rank}"),
+                server_optimizer="fedavgm", server_lr=0.5)
+    else:
+        res["fleet"] = fleet_rank_part(mesh)
+    return res
