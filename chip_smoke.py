@@ -132,7 +132,9 @@ exits non-zero without printing a result:
               reduce on a (1, 1) ("pod", "data") mesh, each bitwise
               against the same rounds on ``LocalBackend``; launch and
               collective counts exact; ms per round, mesh and local, and
-              the all-reduces' device ms per round;
+              the all-reduces' device ms per round; then the same on two
+              gloo ranks on the one card (``RankWorkers``: two processes
+              started here, kept for phase tensor_parallel);
 11. lm_train — federated LM training at full width: ``FedAvgTrainer`` on
               qwen1.5-0.5b (phase lm's f32 params) over
               ``make_lm_clients`` data at the LM specs' traffic (12
@@ -274,7 +276,27 @@ exits non-zero without printing a result:
               uplink, ms a round and a client and the peak over base;
               (iii) CIFAR100 at paper width one round each (mean at
               groups 1 and 5, trimmed_mean + fedavgm) against
-              ``LocalBackend``, bitwise or the measured distance.
+              ``LocalBackend``, bitwise or the measured distance;
+20. tensor_parallel — the tensor-parallel prefill
+              (``make_prefill_step(mesh=...)``): (i) after phase lm,
+              qwen1.5-0.5b at full width on a one-rank NCCL (1, 1)
+              ("data", "model") mesh with ``act_spec`` over the sequence,
+              through flash: logits and states bit for bit phase lm's
+              kernel prefill, no collective; (ii) the two gloo ranks on
+              the one card, a (1, 2) ("data", "model") mesh, params and
+              references by CUDA IPC handle: qwen1.5-0.5b (``act_spec``
+              over the sequence; 24 flash launches on 8 of 16 heads a
+              rank) after phase lm, phi3.5-moe at 8 layers (a token group
+              a rank: 8 flash + 24 ``gmm``) after phase moe, mamba2-780m
+              (48 ``ssd_scan`` on 24 of 48 heads) after phase ssm; each
+              rank's checked prefill holds every kernel call against its
+              plain version, its counted prefill gives ms (host clock,
+              synchronised), launches by path, collectives by kind and
+              bytes and peak memory, and its logits and states are held
+              to the one-process kernel prefill (phase lm's or ssm's;
+              for phi3.5-moe this process's ``dispatch_sharded`` prefill
+              at 2 groups, given the ranks' routing ids, flips counted);
+              the phase's seconds beside its 60 s budget.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
@@ -285,8 +307,9 @@ launches in phase spec, ``spec_launches``, in phases stream and async,
 encdec, ``serve_train_launches`` and ``encdec_launches``, in phase
 fleet's packed run, ``fleet_launches``, in phase mesh_paths,
 ``mesh_paths_launches`` (the unsharded kernels' counts include the
-launches their sharded wrappers made), and in phase sequential (ii)'s
-counted run, ``sequential_launches``);
+launches their sharded wrappers made), in phase sequential (ii)'s
+counted run, ``sequential_launches``, and in phase tensor_parallel's
+counted prefills, both ranks' and (i)'s, ``tensor_parallel_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -1596,7 +1619,7 @@ def run_step(torch, step, params, batch):
 
 def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
              kernels=(FLASH,), seed=7, state_tol=PARITY_TOL, extra=None,
-             cfg=None, gen=None):
+             cfg=None, gen=None, keep=None):
     """One architecture at full width (``arch``, ``n_want`` params): prefill
     B 2 x S 4096 through its kernels (each ``(module, short name, layer
     type)``: the wrapper of that name in ``repro_torch.kernels``, one launch
@@ -1610,7 +1633,9 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
     576 patch embeddings ahead of the tokens. The weights come from seed 0
     on ``gen`` (default: a CPU generator, the weights every device gets; a
     CUDA generator draws them on the card, for a phase whose checks stay on
-    the card). Returns {module: launches} counted over the four kernel
+    the card). ``keep`` (a dict) keeps the batch and the last kernel
+    prefill's logits and states (phase tensor_parallel holds its prefills
+    to them). Returns {module: launches} counted over the four kernel
     prefills, and the f32 params."""
     import importlib
     from repro_torch.configs import get_arch
@@ -1678,6 +1703,8 @@ def phase_lm(torch, phase="lm", arch=LM_ARCH, n_want=LM_PARAMS,
           "states_max_abs_err_vs_plain": max(st_err.values()),
           "states_max_abs_err_by_key": st_err, "states_tol": state_tol,
           "logits_argmax": torch.argmax(logits, -1).tolist()})
+    if keep is not None:
+        keep.update(batch=batch, logits=logits, states=states)
     del states, plain_states, logits, plain_logits
 
     loop = ServingLoop(GlobalModelStore(params=params), cfg, **SERVE)
@@ -2346,7 +2373,8 @@ def _mesh_runs(torch, data, meshes, same):
                 "topk_scatter_reduce_sharded":
                     rounds * leaves * (up == "topk")}
         want_counts = {"all_reduce": rounds * leaves * tiers * (1 + ef),
-                       "all_gather": rounds * (2 + leaves * int8_down)}
+                       "all_gather": rounds * (2 + leaves * int8_down),
+                       "all_gather_dim": 0, "reduce_scatter_dim": 0}
         if launches != want or counts != want_counts:
             raise AssertionError(f"mesh {label}: launches {launches}, "
                                  f"collectives {counts}; want {want}, "
@@ -2424,71 +2452,176 @@ def _sharded_at_leaves(torch, mesh, axes, rows):
     return out
 
 
-def gloo_rank(rank: int, world: int, path: str, out: str) -> None:
-    """One rank of the gloo run on the card (a spawned process): the
-    sharded kernels on its rows, then one CIFAR100 round of the mesh
-    trainer; writes both for the parent."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import torch
-    import torch.distributed as dist
+# ---------------------------------------------------------------------------
+# the gloo ranks on the card: phase mesh's two-rank run and phase
+# tensor_parallel (ii) hand jobs to the same two processes
+# ---------------------------------------------------------------------------
+
+def _next_job(jobs, parent: int):
+    """The next message on a rank's job queue; None once the parent has
+    gone (the rank then exits)."""
+    import queue
+    while True:
+        try:
+            return jobs.get(timeout=10)
+        except queue.Empty:
+            if os.getppid() != parent:
+                return None
+
+
+def rank_worker(rank: int, world: int, pg_path: str, jobs, results,
+                parent: int) -> None:
+    """One gloo rank on the card, a spawned process that lives from its
+    start to ``None`` on its job queue: it joins the gloo group
+    (``file://`` rendezvous), builds the (world,) ("data",) and (1, world)
+    ("data", "model") meshes and loads CIFAR100, then serves jobs: ``("mesh_gloo",)`` (phase mesh's
+    sharded kernels and CIFAR100 round) and ``("tp", spec)`` (a
+    tensor-parallel prefill, ``tp_rank_job``). Reports ("ready" | "ran" |
+    "done", rank, payload), or ("error", rank, traceback) and exits."""
+    import traceback
+    try:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_mesh
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{pg_path}",
+                                rank=rank, world_size=world)
+        meshes = {"data": make_mesh((world,), ("data",), "cuda"),
+                  "model": make_mesh((1, world), ("data", "model"), "cuda")}
+        data, _ = paper_data("cifar100")
+        results.put(("ready", rank, None))
+        while True:
+            job = _next_job(jobs, parent)
+            if job is None:
+                break
+            if job[0] == "mesh_gloo":
+                results.put(("done", rank, gloo_rank_job(
+                    torch, meshes["data"], data)))
+            else:
+                tp_rank_job(torch, meshes["model"], rank, job[1], jobs,
+                            results, parent)
+            # the parent's tensors are released, the cache handed back: the
+            # parent's later phases need the card's memory
+            del job
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.ipc_collect()
+        dist.destroy_process_group()
+    except BaseException:
+        results.put(("error", rank, traceback.format_exc()))
+        raise
+
+
+class RankWorkers:
+    """The ``world`` gloo ranks on the one card (``rank_worker``, spawned
+    by the constructor, which ``main`` calls just before the ranks' first
+    job, so that their start-up overlaps no timed phase; ``close`` ends
+    them). Jobs go to every rank; ``gather`` takes
+    one message of a kind from each, raising on a rank's error or exit.
+    CUDA tensors in a job reach the ranks by IPC handle, with no copy:
+    the parent keeps them alive until the ranks answer."""
+
+    def __init__(self, torch, world: int = GLOO_WORLD):
+        import tempfile
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.world, self.tmp = world, tempfile.mkdtemp()
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(
+            target=rank_worker,
+            args=(r, world, os.path.join(self.tmp, "pg"), self.jobs[r],
+                  self.results, os.getpid()), daemon=True)
+            for r in range(world)]
+        self.t0 = time.perf_counter()
+        for p in self.procs:
+            p.start()
+        self.ready_s = self.ready_wait_s = None
+
+    def send(self, job) -> None:
+        for q in self.jobs:
+            q.put(job)
+
+    def gather(self, kind: str, timeout: float = 900.0) -> list:
+        """One ``kind`` message from every rank, in rank order."""
+        import queue
+        got, deadline = {}, time.perf_counter() + timeout
+        while len(got) < self.world:
+            try:
+                msg = self.results.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in self.procs if not p.is_alive()]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(f"gloo ranks: waiting for {kind!r}"
+                                         f", exit codes "
+                                         f"{[p.exitcode for p in self.procs]}")
+                continue
+            if msg[0] == "error":
+                raise AssertionError(f"gloo rank {msg[1]} failed:\n{msg[2]}")
+            if msg[0] != kind:
+                raise AssertionError(f"gloo rank {msg[1]}: {msg[0]!r}, want "
+                                     f"{kind!r}")
+            got[msg[1]] = msg[2]
+        return [got[r] for r in range(self.world)]
+
+    def ready(self) -> None:
+        """Wait until every rank has started (once): ``ready_s`` from the
+        spawn, ``ready_wait_s`` the part of it the parent waited."""
+        if self.ready_s is None:
+            t = time.perf_counter()
+            self.gather("ready")
+            self.ready_wait_s = time.perf_counter() - t
+            self.ready_s = time.perf_counter() - self.t0
+
+    def close(self) -> None:
+        for q in self.jobs:
+            q.put(None)
+        for p in self.procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        for p in self.procs:
+            if p.exitcode != 0:
+                raise AssertionError(f"gloo ranks exited "
+                                     f"{[p.exitcode for p in self.procs]}")
+
+
+def gloo_rank_job(torch, mesh, data) -> dict:
+    """Phase mesh's work on one gloo rank: the sharded kernels on its rows
+    at every CIFAR100 leaf, then one CIFAR100 round of the mesh trainer;
+    results on the host."""
     from repro_torch.core.engine.backends import MeshBackend
     from repro_torch.kernels.collectives import rows_of
-    from repro_torch.launch.mesh import make_mesh
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{path}",
-                            rank=rank, world_size=world)
-    try:
-        mesh = make_mesh((world,), ("data",), "cuda")
-        res = {"rows": rows_of(mesh, ("data",), 25),
-               "kernels": _sharded_at_leaves(
-                   torch, mesh, ("data",), rows_of(mesh, ("data",), 25))}
-        data, _ = paper_data("cifar100")
-        tr, h, ms, _, _ = run_mesh(torch, data, None, None,
-                                   MeshBackend(mesh), 1)
-        res["params"] = {k: v.cpu() for k, v in leaf_items(tr.params, "")}
-        res["loss"], res["ms"] = h.train_loss, ms
-        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
+    rows = rows_of(mesh, ("data",), 25)
+    res = {"rows": rows,
+           "kernels": _sharded_at_leaves(torch, mesh, ("data",), rows)}
+    tr, h, ms, _, _ = run_mesh(torch, data, None, None, MeshBackend(mesh), 1)
+    res["params"] = {k: v.cpu() for k, v in leaf_items(tr.params, "")}
+    res["loss"], res["ms"] = h.train_loss, ms
+    return res
 
 
-def phase_mesh_gloo(torch, data):
-    """Two gloo ranks spawned on the one card, each launching the CUDA
-    kernels on its rows (25 = 13 + 12) and all-reducing through gloo:
+def phase_mesh_gloo(torch, data, workers):
+    """Two gloo ranks on the one card (``workers``), each launching the
+    CUDA kernels on its rows (25 = 13 + 12) and all-reducing through gloo:
     every sharded kernel at every CIFAR100 leaf within 1e-6 of the
     one-rank result, and one paper-width CIFAR100 round of the mesh
     trainer against the same round on ``LocalBackend``, both with
     deterministic cuDNN (parameters within the port's parity tolerance
     1e-4: each rank's vmapped CNN sees 13 or 12 clients, not 25, and 50
     local steps carry the difference forward)."""
-    import tempfile
-    import torch.multiprocessing as mp
     from repro_torch.kernels import delta_codec as dc
     from repro_torch.kernels import fedavg_reduce as fr
-    tmp = tempfile.mkdtemp()
-    ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=gloo_rank, args=(r, GLOO_WORLD,
-                                                  os.path.join(tmp, "pg"),
-                                                  tmp))
-             for r in range(GLOO_WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(600)
-    for p in procs:
-        if p.is_alive():
-            p.terminate()
-            p.join()
-    if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"gloo ranks exited "
-                             f"{[p.exitcode for p in procs]}")
-    spawn_s = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                        weights_only=False) for r in range(GLOO_WORLD)]
+    workers.ready()
+    workers.send(("mesh_gloo",))
+    ranks = workers.gather("done")
+    ranks_s = time.perf_counter() - t0
     # the one-rank results: the unsharded kernels on all 25 rows
     want = {}
     leaves = [(label, m) for label, _, m in wire_leaf_shapes()
@@ -2532,7 +2665,8 @@ def phase_mesh_gloo(torch, data):
           "kernels_max_abs_err_vs_one_rank": err, "tol": 1e-6,
           "round_params_max_abs_err_vs_local": p_err,
           "round_loss": ranks[0]["loss"], "round_ms": ranks[0]["ms"],
-          "spawn_s": spawn_s})
+          "ranks_s": ranks_s, "ranks_ready_s": workers.ready_s,
+          "ranks_ready_wait_s": workers.ready_wait_s})
     del local
 
 
@@ -5568,6 +5702,242 @@ def phase_encdec(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel prefill (phase tensor_parallel)
+# ---------------------------------------------------------------------------
+
+# the residual stream by sequence block over "model" (the reference dry
+# run's production act_spec, src/repro/launch/dryrun.py:163-166)
+TP_ACT = (None, "model", None)
+# phi3.5-moe's token groups, one a "model" rank
+TP_MOE = dict(moe_path="dispatch_sharded", moe_shards=GLOO_WORLD,
+              moe_spmd_axes=("model",))
+TP_BUDGET_S = 60.0
+# each kernel's plain version and tolerance, for the checked prefill
+TP_PLAIN = {"flash_attention": ("flash_attention_ref", FLASH_TOL),
+            "moe_gmm": ("gmm_ref", GMM_TOL),
+            "ssd_scan": ("ssd_scan_ref", SSD_TOL)}
+TP_WRAPPER = {"flash_attention": "flash_attention", "moe_gmm": "gmm",
+              "ssd_scan": "ssd_scan"}
+
+
+def _first_calls(mods, seen):
+    """Wrap each kernel module's wrapper so that its first call's
+    arguments go to ``seen`` (the rank-local shapes of the prefill).
+    Returns the originals, to restore."""
+    saved = {}
+    for name, mod in mods.items():
+        saved[name] = getattr(mod, TP_WRAPPER[name])
+
+        def call(*a, _k=saved[name], _n=name, **kw):
+            seen.setdefault(_n, (a, kw))
+            return _k(*a, **kw)
+        setattr(mod, TP_WRAPPER[name], call)
+    return saved
+
+
+def _check_calls(torch, mods, seen) -> dict:
+    """Each kernel's wrapper again on its recorded arguments, held against
+    its plain version (f32 tolerances of phase kernel); the largest
+    difference a kernel."""
+    err = {}
+    for name, (a, kw) in seen.items():
+        plain, tol = TP_PLAIN[name]
+        got = getattr(mods[name], TP_WRAPPER[name])(*a, **kw)
+        want = getattr(mods[name], plain)(*a, **kw)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            torch.testing.assert_close(g, w, **tol["float32"])
+            err[name] = max(err.get(name, 0.0), float((g - w).abs().max()))
+    return err
+
+
+def _tol_share(torch, got, want, tol) -> float:
+    """The largest difference as a share of its element's tolerance."""
+    return float(((got - want).abs()
+                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def tp_rank_job(torch, mesh, rank: int, spec: dict, jobs, results,
+                parent: int) -> None:
+    """One rank's tensor-parallel prefill (``make_prefill_step(cfg,
+    use_kernel=True, mesh=mesh, **spec["kw"])``, the whole params and
+    batch by IPC handle), counted and timed: its launches, collectives by
+    kind and bytes, peak memory and (MoE) routing ids; then, uncounted,
+    each kernel's wrapper again on its first call's arguments (the rank's
+    shapes) against its plain version; reported as "ran". Then the
+    parent's one-process prefill arrives ("ref") and the rank's logits and
+    states are held to it: "done" with the differences."""
+    import importlib
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.kernels import collectives
+    cfg, params, batch = spec["cfg"], spec["params"], spec["batch"]
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in spec["kernels"]}
+    step = make_prefill_step(cfg, use_kernel=True, mesh=mesh, **spec["kw"])
+    for mod in mods.values():
+        reset_counts(mod)
+    for kind in collectives.counts:
+        collectives.counts[kind] = collectives.nbytes[kind] = 0
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+    saved = _first_calls(mods, seen)
+    try:
+        with RouteLog(torch) as routes:
+            (logits, states), ms = run_step(torch, step, params, batch)
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, TP_WRAPPER[name], saved[name])
+    ran = {"ms": ms, "launches": {n: m.launches for n, m in mods.items()},
+           "by_path": {n: dict(m.launches_by_path) for n, m in mods.items()},
+           "collectives": dict(collectives.counts),
+           "collective_bytes": dict(collectives.nbytes),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "checked_shapes": {n: [list(t.shape) for t in a
+                                  if hasattr(t, "shape")]
+                              for n, (a, _) in seen.items()},
+           "ids": [ids.cpu() for ids, _ in routes.calls],
+           "margins": [m.cpu() for _, m in routes.calls]}
+    del routes
+    # uncounted: each kernel at this rank's shapes against its plain version
+    ran["checked"] = _check_calls(torch, mods, seen)
+    del seen
+    results.put(("ran", rank, ran))
+    msg = _next_job(jobs, parent)
+    if msg is None:
+        return
+    _, ref_logits, ref_states = msg
+    tol, state_tol = spec["tol"], spec["state_tol"]
+    torch.testing.assert_close(logits, ref_logits, **tol)
+    err = {"logits": float((logits - ref_logits).abs().max())}
+    share = {"logits": _tol_share(torch, logits, ref_logits, tol)}
+    for (path, got), (_, want) in zip(leaf_items(states, ""),
+                                      leaf_items(ref_states, "")):
+        torch.testing.assert_close(got, want, **state_tol)
+        key = path.rsplit(".", 1)[-1]
+        err[key] = max(err.get(key, 0.0), float((got - want).abs().max()))
+        share[key] = max(share.get(key, 0.0),
+                         _tol_share(torch, got, want, state_tol))
+    done = {"max_abs_err": err, "share_of_tol": share,
+            "finite": bool(torch.isfinite(logits).all()),
+            "argmax": torch.argmax(logits, -1).tolist()}
+    del msg, ref_logits, ref_states, logits, states
+    results.put(("done", rank, done))
+
+
+def tp_ranks(torch, workers, label, cfg, params, batch, kw, want, tol,
+             state_tol, smi, ref=None):
+    """Phase tensor_parallel (ii), one model: ``workers``' two gloo ranks
+    run the tensor-parallel kernel prefill on ``params`` (by IPC handle),
+    each held to the one-process kernel prefill ``ref`` (logits, states):
+    phase lm's or ssm's kept prefill, or, for MoE (``ref`` None), this
+    process's ``dispatch_sharded`` prefill at the ranks' token groups
+    taking the ranks' routing ids (``RouteLog``), the flips counted from
+    each run's own ids. ``want``: each rank's launches a prefill.
+    Returns the launches of both ranks' counted prefills."""
+    from types import SimpleNamespace
+    from repro_torch.distributed import make_prefill_step
+    t0 = time.perf_counter()
+    workers.ready()
+    workers.send(("tp", dict(cfg=cfg, params=params, batch=batch, kw=kw,
+                             kernels=list(want), tol=tol,
+                             state_tol=state_tol)))
+    ran = workers.gather("ran")
+    routing, ref_ms = None, None
+    if ref is None:
+        layers = len(ran[0]["ids"])
+        dev = batch["tokens"].device
+        ranks = SimpleNamespace(calls=[
+            (torch.cat([r["ids"][i] for r in ran]).to(dev),
+             torch.cat([r["margins"][i] for r in ran]).to(dev))
+            for i in range(layers)])
+        one = make_prefill_step(cfg, use_kernel=True, moe_path=kw[
+            "moe_path"], moe_shards=kw["moe_shards"])
+        with RouteLog(torch, force=ranks) as own:
+            ref, ref_ms = run_step(torch, one, params, batch)
+        routing = route_flips(torch, ranks, own, layers)
+        del ranks, own
+    workers.send(("ref", ref[0], ref[1]))
+    done = workers.gather("done")
+    del ref
+    for r, res in enumerate(ran):
+        by_path = {n: {p: k for p, k in res["by_path"][n].items() if k}
+                   for n in want}
+        if res["launches"] != want or any(
+                set(by_path[n]) != {F32_PREFILL_PATHS[n]} for n in want):
+            raise AssertionError(f"tensor_parallel {label}: rank {r} "
+                                 f"launches {res['launches']} by path "
+                                 f"{by_path}, want {want}")
+        if not done[r]["finite"]:
+            raise AssertionError(f"tensor_parallel {label}: rank {r}'s "
+                                 f"logits not finite")
+    if any(d["argmax"] != done[0]["argmax"] for d in done):
+        raise AssertionError(f"tensor_parallel {label}: the ranks' logits "
+                             f"differ")
+    s = time.perf_counter() - t0
+    emit({"phase": "tensor_parallel", "part": "(ii) two gloo ranks",
+          "card": smi, "arch": cfg.name, "layers": cfg.num_layers,
+          "dtype": "float32", "batch": int(batch["tokens"].shape[0]),
+          "seq": int(batch["tokens"].shape[1]),
+          "mesh": [1, GLOO_WORLD], "axes": ["data", "model"],
+          "backend": "gloo", "step_kw": {k: v for k, v in kw.items()},
+          "ranks": [{"ms": res["ms"], "launches": res["launches"],
+                     "collectives": res["collectives"],
+                     "collective_bytes": res["collective_bytes"],
+                     "peak_gb": res["peak_gb"],
+                     "kernel_max_abs_err_vs_plain": res["checked"],
+                     "kernel_shapes": res["checked_shapes"],
+                     "max_abs_err_vs_one_process": d["max_abs_err"],
+                     "share_of_tol": d["share_of_tol"]}
+                    for res, d in zip(ran, done)],
+          "tol": tol, "state_tol": state_tol,
+          "one_process_ms": ref_ms, **(routing or {}),
+          "logits_argmax": done[0]["argmax"], "s": s})
+    return {n: sum(res["launches"][n] for res in ran) for n in want}, s
+
+
+def tp_one_rank(torch, cfg, params, kept, smi):
+    """Phase tensor_parallel (i): qwen1.5-0.5b at full width on a one-rank
+    NCCL ("data", "model") mesh, ``act_spec`` over the sequence, through
+    the flash kernel: logits and states bit for bit phase lm's kernel
+    prefill (``kept``), no collective. Returns (launches, seconds)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.kernels import collectives
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    init_world1(torch)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        reset_counts(fa)
+        for kind in collectives.counts:
+            collectives.counts[kind] = collectives.nbytes[kind] = 0
+        step = make_prefill_step(cfg, use_kernel=True, act_spec=TP_ACT,
+                                 mesh=mesh)
+        (logits, states), ms = run_step(torch, step, params, kept["batch"])
+        counts, launches = dict(collectives.counts), fa.launches
+    finally:
+        dist.destroy_process_group()
+    leaves = list(zip(leaf_items(states, ""), leaf_items(kept["states"],
+                                                         "")))
+    same = torch.equal(logits, kept["logits"]) and all(
+        pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in leaves)
+    if not same or any(counts.values()) or \
+            launches != layer_count(cfg, "attn"):
+        raise AssertionError(f"tensor_parallel (i): bit for bit {same}, "
+                             f"collectives {counts}, flash launches "
+                             f"{launches}")
+    s = time.perf_counter() - t0
+    emit({"phase": "tensor_parallel", "part": "(i) one NCCL rank",
+          "card": smi, "arch": cfg.name, "dtype": "float32",
+          "batch": LM_BATCH, "seq": LM_SEQ, "act_spec": list(TP_ACT),
+          "mesh": [1, 1], "ms": ms, "flash_launches": launches,
+          "collectives": counts, "bit_for_bit_vs_phase_lm": same,
+          "state_leaves": len(leaves), "s": s})
+    return {"flash_attention": launches}, s
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5618,15 +5988,32 @@ def main() -> int:
         mesh_launches = phase_mesh(torch, cifar, meshes)
     finally:
         dist.destroy_process_group()
-    phase_mesh_gloo(torch, cifar)
+    # the two gloo ranks of phases mesh and tensor_parallel: they start
+    # here, where phase mesh's gloo part waits for them, and serve both
+    workers = RankWorkers(torch)
+    phase_mesh_gloo(torch, cifar, workers)
     if not all(mesh_launches.values()):
         raise AssertionError(f"a sharded kernel never ran: {mesh_launches}")
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
-    lm_launches, params = phase_lm(torch)
+    kept = {}
+    lm_launches, params = phase_lm(torch, keep=kept)
     flash_launches = lm_launches["flash_attention"]
     lm_cfg = get_arch(LM_ARCH)
+    # phase tensor_parallel: (i) one NCCL rank, (ii) two gloo ranks, each
+    # held to phase lm's kernel prefill; then phi3.5-moe after phase moe
+    # and mamba2-780m after phase ssm
+    tp_launches, tp_s = tp_one_rank(torch, lm_cfg, params, kept, smi)
+    got, s_part = tp_ranks(
+        torch, workers, "qwen", lm_cfg, params, kept["batch"],
+        {"act_spec": TP_ACT}, {"flash_attention": lm_cfg.num_layers},
+        dict(rtol=1e-3, atol=1e-3), PARITY_TOL, smi,
+        ref=(kept["logits"], kept["states"]))
+    _add(tp_launches, got)
+    tp_s += s_part
+    del kept
+    torch.cuda.ipc_collect()
     lm_bf16 = phase_bf16_prefill(
         torch, "lm", lm_cfg, params,
         {"flash": (fa, "flash_attention", lm_cfg.num_layers)}, 7)
@@ -5688,6 +6075,15 @@ def main() -> int:
     _free(torch)
     moe_launches, params = phase_moe(torch)
     moe_cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    got, s_part = tp_ranks(
+        torch, workers, "phi", moe_cfg, params,
+        {"tokens": torch.tensor(_lm_tokens(moe_cfg, MOE_BATCH, MOE_SEQ, 8),
+                                device="cuda")}, TP_MOE,
+        {"flash_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS},
+        dict(rtol=1e-3, atol=1e-3), dict(rtol=2e-4, atol=2e-4), smi)
+    _add(tp_launches, got)
+    tp_s += s_part
+    torch.cuda.ipc_collect()
     moe_kernels = {"gmm": (mg, "gmm", 3 * MOE_LAYERS),
                    "flash": (fa, "flash_attention", MOE_LAYERS)}
     t_sharded = time.perf_counter()
@@ -5713,10 +6109,27 @@ def main() -> int:
         "attn_layers": layer_count(cfg, "attn"),
         "head_dim": cfg.head_dim}
     from repro_torch.kernels import ssd_scan as ss
+    kept = {}
     ssm_launches, params = phase_lm(torch, "ssm", SSM_ARCH, SSM_PARAMS,
-                                    (SSD,), 9, SSM_STATE_TOL, ssm_fields)
+                                    (SSD,), 9, SSM_STATE_TOL, ssm_fields,
+                                    keep=kept)
     ssd_launches = ssm_launches["ssd_scan"]
     ssm_cfg = get_arch(SSM_ARCH)
+    got, s_part = tp_ranks(
+        torch, workers, "mamba", ssm_cfg, params, kept["batch"], {},
+        {"ssd_scan": ssm_cfg.num_layers}, dict(rtol=1e-3, atol=1e-3),
+        SSM_STATE_TOL, smi, ref=(kept["logits"], kept["states"]))
+    _add(tp_launches, got)
+    tp_s += s_part
+    del kept
+    workers.close()
+    torch.cuda.ipc_collect()
+    tp_launches = {{"moe_gmm": "gmm"}.get(k, k): v
+                   for k, v in tp_launches.items()}
+    emit({"phase": "tensor_parallel", "summary": True, "card": smi,
+          "launches": tp_launches, "s": tp_s, "budget_s": TP_BUDGET_S,
+          "within_budget": tp_s <= TP_BUDGET_S,
+          "ranks_ready_s": workers.ready_s})
     ssm_bf16 = phase_bf16_prefill(
         torch, "ssm", ssm_cfg, params,
         {"ssd": (ss, "ssd_scan", ssm_cfg.num_layers)}, 9)
@@ -5829,6 +6242,8 @@ def main() -> int:
         entry["sharded_launches"] = sharded_launches.get(entry["name"], 0)
         entry["mesh_paths_launches"] = mesh_paths_launches.get(
             entry["name"], 0)
+        entry["tensor_parallel_launches"] = tp_launches.get(entry["name"],
+                                                            0)
         if entry["name"] in lm_rows:
             r = lm_rows[entry["name"]]
             entry["lm_leaf"] = {key: r.get(key) for key in (

@@ -112,9 +112,10 @@ divide among the shards through the unsharded kernel (``mesh.py:227-229``,
 ``transport.py:334-335``), the port splits the cohort unevenly; the sums
 agree within the 1e-6 the reference allows between groupings. The groups
 are looped, not vmapped, and sums are re-associated (ROADMAP Known
-differences 16). The compute is not tensor-parallel: a rank gathers whole
-leaves rather than running column- and row-parallel matmuls (Known
-differences 17; that is ROADMAP A15).
+differences 16). A training round's compute is not tensor-parallel: a rank
+gathers whole leaves rather than running column- and row-parallel matmuls
+(Known differences 17; tensor-parallel training is ROADMAP A15 (b); the
+prefill's is ``make_prefill_step(mesh=...)``).
 """
 from __future__ import annotations
 

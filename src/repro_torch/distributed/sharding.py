@@ -23,14 +23,29 @@ Two parameter layouts, as the reference's:
 
 The port holds a rank's block of each leaf and gathers whole leaves where
 they are read (``kernels.collectives.block_of``, ``gather_leaf``;
-``MeshBackend(param_specs=...)``); the compute itself is not tensor-parallel
-(ROADMAP A15).
+``MeshBackend(param_specs=...)``).
+
+The tensor-parallel prefill (``make_prefill_step(mesh=...)``) computes by
+other blocks than the rest layout's even cuts: ``compute_blocks`` gives a
+``"model"`` rank its contiguous ``row_range`` block of query heads (any
+H) and the kv heads those read, of d_ff, of the vocabulary and of the SSM
+heads (``models/ssm.py::in_proj_columns`` maps these to their z, x and
+dt columns of Mamba2's ``in_proj``, with all of B and C). A rank slices
+them from whole leaves.
+``ModelRank`` holds a rank's place under ``act_spec``, ``attn_kv_spec``
+and ``moe_spmd_axes`` and the collectives that move the residual stream
+between its layout and whole tensors.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Sequence, Tuple
+
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import collectives
+from repro_torch.models.attention import HeadBlock, head_block
 
 PyTree = Any
 
@@ -363,3 +378,215 @@ def block_bytes(shapes: PyTree, specs: PyTree, mesh,
         size = itemsize if itemsize is not None else leaf.dtype.itemsize
         total += n * size
     return total
+
+
+# ---------------------------------------------------------------------------
+# compute blocks of a "model" rank (the tensor-parallel prefill)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ComputeBlocks:
+    """One ``"model"`` rank's blocks of a prefill of ``seq_len``
+    positions: (lo, hi) of the sequence, d_model, d_ff, the vocabulary and
+    the SSM heads (``row_range``), its ``HeadBlock``, and every rank's
+    lengths of the blocks that are gathered (``*_sizes``, rank order)."""
+    seq: Tuple[int, int]
+    d: Tuple[int, int]
+    ff: Tuple[int, int]
+    vocab: Tuple[int, int]
+    ssm: Tuple[int, int]
+    heads: HeadBlock
+    seq_sizes: Tuple[int, ...]
+    d_sizes: Tuple[int, ...]
+    vocab_sizes: Tuple[int, ...]
+    kv_sizes: Tuple[int, ...]
+    ssm_sizes: Tuple[int, ...]
+
+
+def compute_blocks(cfg: ArchConfig, seq_len: int, size: int,
+                   rank: int) -> ComputeBlocks:
+    """Rank ``rank`` of ``size`` ``"model"`` ranks' compute blocks."""
+    rr, sizes = collectives.row_range, collectives.range_sizes
+    d_ff = cfg.d_ff if cfg.d_ff else 4 * cfg.d_model
+    ssm_h = cfg.ssm.n_heads(cfg.d_model) if cfg.ssm is not None else 0
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    own = [head_block(H, KV, size, r).own for r in range(size)]
+    return ComputeBlocks(
+        seq=rr(seq_len, size, rank), d=rr(cfg.d_model, size, rank),
+        ff=rr(d_ff, size, rank), vocab=rr(cfg.vocab_size, size, rank),
+        ssm=rr(ssm_h, size, rank), heads=head_block(H, KV, size, rank),
+        seq_sizes=tuple(sizes(seq_len, size)),
+        d_sizes=tuple(sizes(cfg.d_model, size)),
+        vocab_sizes=tuple(sizes(cfg.vocab_size, size)),
+        kv_sizes=tuple(hi - lo for lo, hi in own),
+        ssm_sizes=tuple(sizes(ssm_h, size)))
+
+
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def tensor_parallel_layout(act_spec, attn_kv_spec, moe_spmd_axes,
+                           axis_names: Sequence[str]):
+    """Parse the prefill's specs against a mesh's axes. Returns (layout of
+    the residual stream, the batch axes, whether K/V states are kept by
+    key-sequence block, the MoE token groups' axes). ``act_spec``: (batch,
+    seq, d), its ``"model"`` entry on seq or d (or none); ``attn_kv_spec``:
+    (batch, key seq, kv heads, head dim), ``"model"`` on the key sequence
+    or the kv heads (or none); their batch entries name the same axes.
+    Refused by name: an axis the mesh lacks, ``"model"`` twice in one
+    spec, ``"model"`` on a batch entry, another axis where ``"model"``
+    goes, a spec of the wrong length, and MoE token groups over an axis
+    other than ``"model"``."""
+    names = tuple(axis_names)
+
+    def check(spec, what, n, model_dims):
+        if spec is None:
+            return None, ()
+        spec = tuple(spec)
+        if len(spec) != n:
+            raise ValueError(f"{what} {spec}: {n} entries, one a dim")
+        flat = [a for e in spec for a in _names(e)]
+        for a in flat:
+            if a not in names:
+                raise ValueError(f"{what} {spec} names axis {a!r}, which "
+                                 f"the mesh {names} lacks")
+        if flat.count("model") > 1:
+            raise ValueError(f"{what} {spec} names 'model' twice")
+        model_dim = None
+        for dim, e in enumerate(spec[1:], 1):
+            if not _names(e):
+                continue
+            if _names(e) != ("model",) or dim not in model_dims:
+                raise ValueError(
+                    f"{what} {spec}: dim {dim} is sharded over "
+                    f"{_names(e)}; the tensor-parallel prefill takes "
+                    f"'model' alone on dims {model_dims}")
+            model_dim = dim
+        if "model" in _names(spec[0]):
+            raise ValueError(f"{what} {spec}: 'model' on the batch dim")
+        return model_dim, _names(spec[0])
+
+    a_dim, a_batch = check(act_spec, "act_spec", 3, (1, 2))
+    k_dim, k_batch = check(attn_kv_spec, "attn_kv_spec", 4, (1, 2))
+    if act_spec is not None and attn_kv_spec is not None and k_batch and \
+            k_batch != a_batch:
+        raise ValueError(f"attn_kv_spec's batch axes {k_batch} differ from "
+                         f"act_spec's {a_batch}")
+    moe_axes = tuple(moe_spmd_axes or ())
+    for a in moe_axes:
+        if a not in names:
+            raise ValueError(f"moe_spmd_axes {moe_axes} names axis {a!r}, "
+                             f"which the mesh {names} lacks")
+        if a != "model":
+            raise ValueError(f"moe_spmd_axes {moe_axes}: the token groups "
+                             f"spread over the 'model' ranks, not {a!r}")
+    layout = {1: "seq", 2: "d", None: None}[a_dim]
+    return layout, a_batch or k_batch, k_dim == 1, moe_axes
+
+
+class ModelRank:
+    """This rank's place in the tensor-parallel prefill on ``mesh``: the
+    layout of the residual stream ("seq" or "d": by sequence or d_model
+    block; None: whole on every "model" rank) and its batch axes
+    (``tensor_parallel_layout``), its index among the ``"model"`` ranks
+    (``size``, ``rank``) and among the batch axes' ranks, and the
+    collectives of one prefill. An axis of one rank runs none. ``mesh``
+    None: a model on one device, every block whole, no collective, the
+    specs ignored (they change no value)."""
+
+    def __init__(self, mesh=None, act_spec=None, attn_kv_spec=None,
+                 moe_spmd_axes=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.layout, self.batch_axes, self.kv_seq = None, (), False
+            self.moe_axes, self.size, self.rank = (), 1, 0
+            self.batch_index, self.batch_count = 0, 1
+        else:
+            (self.layout, self.batch_axes, self.kv_seq,
+             self.moe_axes) = tensor_parallel_layout(
+                act_spec, attn_kv_spec, moe_spmd_axes,
+                mesh.mesh_dim_names)
+            self.size = collectives.axes_size(mesh, ("model",))
+            self.rank = (collectives.client_rank(mesh, ("model",))
+                         if self.size > 1 else 0)
+            self.batch_index, self.batch_count = collectives.block_index(
+                mesh, self.batch_axes)
+        if self.size > 1 and \
+                dist.get_rank(mesh.get_group("model")) != self.rank:
+            # the collectives place a block by the rank in the axis's
+            # group; the blocks here are cut by ``rank``
+            raise ValueError(f"'model' rank {self.rank} of the mesh is "
+                             f"rank {dist.get_rank(mesh.get_group('model'))}"
+                             f" of its process group")
+        #: the ranks the MoE token groups spread over
+        self.moe_size = self.size if "model" in self.moe_axes else 1
+        #: sums a block's sum of squares over the ``"model"`` ranks for a
+        #: norm over a dim they split (None where one rank holds it all)
+        self.norm_reduce = self.all_reduce if self.size > 1 else None
+
+    def blocks(self, cfg: ArchConfig, seq_len: int) -> ComputeBlocks:
+        return compute_blocks(cfg, seq_len, self.size, self.rank)
+
+    def batch_rows(self, n: int) -> Tuple[int, int]:
+        """This rank's rows [lo, hi) of a batch of ``n``."""
+        return collectives.row_range(n, self.batch_count, self.batch_index)
+
+    # -- the residual stream: (B_r, S, d) whole, or its layout's block ----
+    def _dim_of_layout(self, b: ComputeBlocks):
+        return {"seq": (1, b.seq, b.seq_sizes),
+                "d": (2, b.d, b.d_sizes)}[self.layout]
+
+    def stream_block(self, x, b: ComputeBlocks):
+        """This rank's block of the whole stream ``x`` (B_r, S, d)."""
+        if self.layout is None or self.size == 1:
+            return x
+        dim, (lo, hi), _ = self._dim_of_layout(b)
+        return x.narrow(dim, lo, hi - lo).contiguous()
+
+    def gather_stream(self, x, b: ComputeBlocks):
+        """The whole stream from every rank's block: one all-gather."""
+        if self.layout is None:
+            return x
+        dim, _, sizes = self._dim_of_layout(b)
+        return collectives.all_gather_dim(x, self.mesh, "model", dim, sizes)
+
+    def reduce_partial(self, h, b: ComputeBlocks):
+        """A row-parallel product's partial sum (B_r, S, d), summed over the
+        ``"model"`` ranks into the stream's layout: a reduce-scatter along
+        its dim, or an all-reduce where the stream is whole."""
+        if self.size == 1:
+            return h
+        if self.layout is None:
+            return collectives.all_reduce_axis(h, self.mesh, "model")
+        dim = self._dim_of_layout(b)[0]
+        return collectives.reduce_scatter_dim(h, self.mesh, "model", dim)
+
+    def all_reduce(self, x):
+        if self.size == 1:
+            return x
+        return collectives.all_reduce_axis(x, self.mesh, "model")
+
+    def gather(self, x, dim: int, sizes):
+        if self.size == 1:
+            return x
+        return collectives.all_gather_dim(x, self.mesh, "model", dim, sizes)
+
+    def gather_batch(self, x, dim: int, n: int):
+        """Every batch rank's rows of ``x`` along ``dim`` (``n`` in all),
+        in order: one all-gather a batch axis of more than one rank, the
+        innermost first."""
+        sizes = collectives.range_sizes(n, self.batch_count)
+        idx, span = self.batch_index, 1
+        for a in reversed(self.batch_axes):
+            asz = collectives.axes_size(self.mesh, (a,))
+            if asz == 1:
+                continue
+            base = idx - idx % (span * asz)
+            part = [sum(sizes[base + j * span:base + (j + 1) * span])
+                    for j in range(asz)]
+            x = collectives.all_gather_dim(x, self.mesh, a, dim, part)
+            span *= asz
+        return x

@@ -18,12 +18,17 @@ delegates the round (K-step local SGD, aggregation, server step) to a
 and dtypes (``TensorSpec``). ``param_specs`` (``sharding.param_pspecs``)
 shards the params on either strategy (``MeshBackend``); ``moe_shards``
 runs the MoE layers' shard-local dispatch (``moe_path="dispatch_sharded"``).
-Tensor-parallel compute is not ported (ROADMAP A15): ``act_spec``,
-``attn_kv_spec``, and ``moe_spmd_axes`` over more than one rank of the
-train step's mesh, are refused by name, and ``client_spmd_axes`` must be
-the backend's client axes.
+The train steps compute no tensor-parallel product (ROADMAP A15 (b)):
+``act_spec``, ``attn_kv_spec``, and ``moe_spmd_axes`` over more than one
+rank of the train step's mesh, are refused by name, and
+``client_spmd_axes`` must be the backend's client axes.
 
-On one device a serving step is the model call itself.
+On one device a serving step is the model call itself. On a mesh
+(``make_prefill_step(mesh=...)``) the prefill is tensor-parallel over the
+``"model"`` ranks (``models/transformer.py::prefill_lm``): ``act_spec``
+sets the residual stream's layout and spreads the batch,
+``attn_kv_spec`` the K/V states' layout, ``moe_spmd_axes`` the ranks the
+MoE token groups spread over.
 """
 from __future__ import annotations
 
@@ -34,32 +39,30 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.engine.backends.mesh import STRATEGIES, MeshBackend
 from repro_torch.core.engine.server import get_server_optimizer
+from repro_torch.distributed.sharding import ModelRank
 from repro_torch.kernels.collectives import axes_size
 from repro_torch.models import encdec, registry, transformer
 from repro_torch.models.registry import TensorSpec
 
 
-def refuse_tensor_parallel(**kw) -> None:
-    """``act_spec`` and ``attn_kv_spec`` (activation sharding) are
-    tensor-parallel compute, not ported: refused by name unless None."""
+def refuse_tensor_parallel(mesh, **kw) -> None:
+    """The train steps' tensor-parallel arguments, refused by name:
+    ``act_spec`` and ``attn_kv_spec`` unless None, and ``moe_spmd_axes``
+    where its ranks on ``mesh`` number more than one (every token group
+    then runs on this rank). Tensor-parallel training is ROADMAP A15
+    (b)."""
+    spmd = tuple(kw.pop("moe_spmd_axes", None) or ())
     bad = [k for k, v in kw.items() if v is not None]
     if bad:
-        raise ValueError(f"{', '.join(bad)}: activation sharding is "
-                         f"tensor-parallel compute, not ported: it comes "
-                         f"with ROADMAP A15")
-
-
-def check_spmd_axes(spmd_axes, mesh) -> None:
-    """``moe_spmd_axes`` (the mesh axes the MoE token groups spread over)
-    is accepted where its ranks on ``mesh`` number one: every group runs
-    on this rank. Spreading them over ranks is tensor-parallel compute,
-    refused by name."""
-    size = axes_size(mesh, tuple(spmd_axes or ()))
+        raise ValueError(f"{', '.join(bad)}: activation sharding in the "
+                         f"train step is tensor-parallel training, not "
+                         f"ported: it comes with ROADMAP A15 (b)")
+    size = axes_size(mesh, spmd)
     if size > 1:
         raise ValueError(
-            f"moe_spmd_axes {tuple(spmd_axes)} over {size} ranks: MoE token "
-            f"groups spread over ranks are tensor-parallel compute, not "
-            f"ported: they come with ROADMAP A15")
+            f"moe_spmd_axes {spmd} over {size} ranks: MoE token groups "
+            f"spread over ranks in the train step are tensor-parallel "
+            f"training, not ported: they come with ROADMAP A15 (b)")
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +90,9 @@ def make_fed_train_step(cfg: ArchConfig, *, strategy: str = "parallel",
     streamed weighted sum (sequential). ``client_spmd_axes``: None or the
     backend's client axes. ``moe_shards``, ``moe_spmd_axes``: the MoE
     token groups of ``moe_path="dispatch_sharded"``."""
-    refuse_tensor_parallel(act_spec=act_spec, attn_kv_spec=attn_kv_spec)
-    check_spmd_axes(moe_spmd_axes, mesh)
+    refuse_tensor_parallel(mesh, act_spec=act_spec,
+                           attn_kv_spec=attn_kv_spec,
+                           moe_spmd_axes=moe_spmd_axes)
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: "
                          f"{STRATEGIES}")
@@ -197,7 +201,7 @@ def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
 def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
                       moe_path: str = "dispatch", use_kernel: bool = False,
                       act_spec=None, attn_kv_spec=None, moe_shards: int = 1,
-                      moe_spmd_axes=None):
+                      moe_spmd_axes=None, mesh=None):
     """Full-sequence prefill: (params, batch) -> (last-token logits (B, V),
     decode states). The readout runs on the last position only, so the
     (B, S, V) logits never exist. ``use_kernel=True`` runs every layer's
@@ -205,12 +209,25 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
     expert FFN through the grouped-matmul kernel, and every mamba layer's
     scan through the SSD kernel. A vlm's batch carries ``patch_embeds``.
     The encoder-decoder's step takes {tokens, audio_embeds} and returns
-    the last-token logits alone, through no kernel, as the reference's.
-    ``moe_shards``: the token groups of ``moe_path="dispatch_sharded"``
-    (one ``moe_gmm`` call a layer serves them all), every group on this
-    one device, whatever ``moe_spmd_axes`` names; ``act_spec`` and
-    ``attn_kv_spec`` are refused (ROADMAP A15)."""
-    refuse_tensor_parallel(act_spec=act_spec, attn_kv_spec=attn_kv_spec)
+    the last-token logits alone, through no kernel, and ignores the specs
+    and the mesh, as the reference's. ``moe_shards``: the token groups of
+    ``moe_path="dispatch_sharded"``.
+
+    ``mesh`` None: one device; the specs change no value, and every
+    token group runs here (one ``moe_gmm`` call a layer serves them all).
+    ``mesh`` a DeviceMesh with a ``"model"`` axis of any size: each rank
+    computes its share of every layer (``transformer.prefill_lm``).
+    ``act_spec`` (batch, seq, d): ``"model"`` on seq or on d, or on
+    neither, sets the residual stream's layout; its batch entry spreads
+    the batch rows over those axes (``row_range``). ``attn_kv_spec``
+    (batch, key seq, kv heads, head dim): ``"model"`` on the key sequence
+    keeps each layer's K/V states by sequence block until the final
+    gather. ``moe_spmd_axes`` ``("model",)``: the token groups spread over
+    the ``"model"`` ranks in contiguous runs. The step takes whole params
+    and the whole batch on every rank and returns whole logits and
+    states on every rank, gathered once at the end; it runs without
+    autograd. A spec that names an axis the mesh lacks, or ``"model"``
+    twice, is refused by name."""
     if registry.is_encdec(cfg):
         def encdec_prefill_step(params, batch):
             logits, _ = encdec.forward_encdec(params, cfg, batch["tokens"],
@@ -219,15 +236,16 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
         return encdec_prefill_step
 
     gw = registry.LONG_GLOBAL_WINDOW if long_mode else None
+    tp = ModelRank(mesh, act_spec, attn_kv_spec, moe_spmd_axes)
 
     def prefill_step(params, batch):
-        feats, _, states = transformer.forward_lm(
-            params, cfg, batch["tokens"], batch.get("patch_embeds"),
-            global_window=gw,
-            moe_path=moe_path, use_kernel=use_kernel, return_states=True,
-            return_features=True, moe_shards=moe_shards,
-            moe_spmd_axes=moe_spmd_axes)
-        logits = transformer._readout(params, cfg, feats[:, -1:])
-        return logits[:, 0], states
+        # the collectives on a mesh carry no gradient
+        with torch.set_grad_enabled(torch.is_grad_enabled() and
+                                    mesh is None):
+            logits, _, states = transformer.prefill_lm(
+                params, cfg, batch["tokens"], batch.get("patch_embeds"), tp,
+                global_window=gw, moe_path=moe_path, use_kernel=use_kernel,
+                moe_shards=moe_shards, moe_spmd_axes=moe_spmd_axes)
+        return logits, states
 
     return prefill_step

@@ -24,6 +24,15 @@ whole leaf to this rank's block under a spec (``distributed.sharding``),
 one all-gather an axis of the spec. A dim split over a tuple of axes takes
 the first named axis as major, as JAX's ``PartitionSpec``. On a world of
 one rank both are the identity and run no collective.
+
+Tensor-parallel compute (the prefill's ``act_spec``): ``all_gather_dim``
+puts a tensor back together along one dim from the blocks of one axis's
+ranks, which may differ in length (``row_range``'s, or any lengths the
+caller names), and ``reduce_scatter_dim`` sums every rank's whole partial
+and keeps this rank's ``row_range`` block of one dim. gloo has no
+reduce-scatter, so it is an all-reduce followed by a slice on every
+backend, one code path for gloo and NCCL. An axis of one rank runs
+neither. ``nbytes`` counts the bytes of each kind's results on this rank.
 """
 from __future__ import annotations
 
@@ -34,7 +43,10 @@ import torch
 import torch.distributed as dist
 
 #: collectives run by this process, by kind
-counts = {"all_reduce": 0, "all_gather": 0}
+counts = {"all_reduce": 0, "all_gather": 0, "all_gather_dim": 0,
+          "reduce_scatter_dim": 0}
+#: bytes of those collectives' results on this rank, by kind
+nbytes = dict.fromkeys(counts, 0)
 #: the process group over all the ranks of a mesh that spans less than the
 #: world (a fleet's sub-mesh), by the mesh's ranks (``register_span``)
 _SPANS = {}
@@ -118,13 +130,19 @@ def all_reduce_tiers(x: torch.Tensor, mesh, client_axes: Sequence[str],
         return x
     for group in groups:
         dist.all_reduce(x, group=group)
-        counts["all_reduce"] += 1
+        _count("all_reduce", x)
     return x
 
 
-def _gather(out: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
+def _count(kind: str, out: torch.Tensor) -> None:
+    counts[kind] += 1
+    nbytes[kind] += out.numel() * out.element_size()
+
+
+def _gather(out: torch.Tensor, x: torch.Tensor, group,
+            kind: str = "all_gather") -> torch.Tensor:
     dist.all_gather_into_tensor(out, x, group=group)
-    counts["all_gather"] += 1
+    _count(kind, out)
     return out
 
 
@@ -261,3 +279,64 @@ def gather_leaf(block: torch.Tensor, spec, mesh) -> torch.Tensor:
             if axes_size(mesh, (a,)) > 1:
                 x = _gather_dim(x, lead + d, mesh, a)
     return x
+
+
+# ---------------------------------------------------------------------------
+# one axis's blocks along a dim (tensor-parallel compute over "model")
+# ---------------------------------------------------------------------------
+
+def range_sizes(n: int, size: int) -> list:
+    """The lengths of the ``row_range`` blocks of ``n`` over ``size``
+    ranks, in rank order."""
+    return [hi - lo for lo, hi in (row_range(n, size, r)
+                                   for r in range(size))]
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axis: str, dim: int,
+                   sizes: Sequence[int]) -> torch.Tensor:
+    """Concatenate along ``dim``, in rank order, the blocks of the ranks of
+    one mesh axis (the ranks that share this rank's place on the other
+    axes), on every one of them. ``sizes``: every rank's block length
+    along ``dim`` (``range_sizes(n, size)`` for ``row_range`` blocks).
+    The blocks are padded to the longest for one
+    ``all_gather_into_tensor``. ``x`` itself where the axis has one
+    rank."""
+    size = axes_size(mesh, (axis,))
+    if size == 1:
+        return x
+    group = mesh.get_group(axis)
+    moved = x.movedim(dim, 0)
+    sizes = [int(s) for s in sizes]
+    if len(sizes) != size or sizes[dist.get_rank(group)] != moved.shape[0]:
+        raise ValueError(f"all_gather_dim: block sizes {sizes} over the "
+                         f"{size} ranks of {axis!r}; this rank holds "
+                         f"{moved.shape[0]}")
+    pad = max(sizes)
+    if moved.shape[0] == pad:
+        block = moved.contiguous()
+    else:
+        block = moved.new_zeros((pad,) + tuple(moved.shape[1:]))
+        block[:moved.shape[0]] = moved
+    out = _gather(block.new_empty((size * pad,) + tuple(block.shape[1:])),
+                  block, group, "all_gather_dim")
+    if any(s != pad for s in sizes):
+        out = torch.cat([out[r * pad:r * pad + s]
+                         for r, s in enumerate(sizes)])
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axis: str,
+                       dim: int) -> torch.Tensor:
+    """Sum every rank's whole partial ``x`` over one mesh axis and keep
+    this rank's ``row_range`` block of ``dim`` (a tensor of its own):
+    an all-reduce in place, then a slice, on gloo and NCCL alike. ``x``
+    itself where the axis has one rank."""
+    size = axes_size(mesh, (axis,))
+    if size == 1:
+        return x
+    group = mesh.get_group(axis)
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    _count("reduce_scatter_dim", x)
+    lo, hi = row_range(x.shape[dim], size, dist.get_rank(group))
+    return x.narrow(dim, lo, hi - lo).contiguous()

@@ -10,10 +10,15 @@ also serve the wire codecs (``core.engine.transport``).
 Decode writes the new token's k/v into the cache tensors in place (the
 reference returns new arrays): a step touches one slot per layer instead of
 copying the whole cache.
+
+In the tensor-parallel prefill ``attention`` runs one ``"model"`` rank's
+share on its ``HeadBlock``: q, k and v of its heads (column blocks of the
+whole leaves), the attention on those heads, and ``wo`` row-parallel.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -21,6 +26,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.collectives import row_range
 from repro_torch.models import layers
 
 # masked scores: finite, as the reference (a -inf row max gives NaN)
@@ -39,16 +45,62 @@ def attn_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu"):
     }
 
 
+@dataclass(frozen=True)
+class HeadBlock:
+    """A rank's attention heads: query heads ``q`` [h0, h1), the kv heads
+    ``kv`` [k0, k1) they read (query head h reads kv head h // ``group``),
+    and the kv heads ``own`` whose decode state this rank keeps, those
+    whose first query head it holds (disjoint over the ranks, together
+    every kv head)."""
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    own: Tuple[int, int]
+    group: int
+
+    def reads(self) -> Tuple[int, ...]:
+        """The kv head each of the rank's query heads reads, as an index
+        into its kv block."""
+        (h0, h1), k0 = self.q, self.kv[0]
+        return tuple(h // self.group - k0 for h in range(h0, h1))
+
+    @property
+    def aligned(self) -> bool:
+        """Whether the rank's query heads read its kv heads in equal
+        contiguous groups, as the flash kernel maps them inside one call
+        (else the kv heads are repeated, one a query head)."""
+        nq, nk = self.q[1] - self.q[0], self.kv[1] - self.kv[0]
+        return nk > 0 and nq % nk == 0 and \
+            self.reads() == tuple(i // (nq // nk) for i in range(nq))
+
+
+def head_block(num_heads: int, num_kv_heads: int, size: int,
+               rank: int) -> HeadBlock:
+    """Rank ``rank`` of ``size`` ``"model"`` ranks' heads (``HeadBlock``):
+    its ``row_range`` block of query heads; one rank holds every head."""
+    G = num_heads // num_kv_heads
+    h0, h1 = row_range(num_heads, size, rank)
+    kv = (h0 // G, (h1 - 1) // G + 1) if h1 > h0 else (h0 // G, h0 // G)
+    return HeadBlock((h0, h1), kv, (-(-h0 // G), -(-h1 // G)), G)
+
+
 def _project_qkv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
     B, S, _ = x.shape
-    hd = cfg.head_dim
-    q = layers.dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
-    k = layers.dense_apply(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    v = layers.dense_apply(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    q = layers.dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads,
+                                               cfg.head_dim)
     if rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
+    return (q,) + _project_kv(p, cfg, x, positions, rope=rope)
+
+
+def _project_kv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
+    """Every kv head's (k, v) of ``x`` (B, S, d) at ``positions``."""
+    B, S, _ = x.shape
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = layers.dense_apply(p["wk"], x).reshape(shape)
+    v = layers.dense_apply(p["wv"], x).reshape(shape)
+    if rope:
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return k, v
 
 
 def _gqa_scores(q, k, softcap_val: Optional[float]):
@@ -116,21 +168,59 @@ def _attend_chunked(q, k, v, softcap_val, window):
 
 def attention(p, cfg: ArchConfig, x, positions, *,
               window: Optional[int] = None, use_kernel: bool = False,
-              rope: bool = True):
+              rope: bool = True, heads: Optional[HeadBlock] = None,
+              kv_rows=None):
     """Full-sequence causal attention (training / prefill). Returns
-    (out, (k, v))."""
-    q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
-    B, S = x.shape[:2]
-    if use_kernel:
-        out = kops.flash_attention(q, k, v, causal=True, window=window,
+    (out, (k, v)).
+
+    ``heads`` (None: every head) is one ``"model"`` rank's share in the
+    tensor-parallel prefill: q, k and v of its heads, the attention on
+    them and ``wo`` row-parallel, so ``out`` is the rank's partial sum,
+    which the caller reduces over the ranks, and (k, v) the kv heads it
+    owns, or with ``kv_rows`` (lo, hi) every kv head at key positions
+    [lo, hi) (``attn_kv_spec``'s key-sequence block). Where its query
+    heads do not read its kv heads in equal groups (``heads.aligned``),
+    each query head gets its own copy of the kv head it reads, so that one
+    kernel call maps them as it maps whole groups."""
+    if heads is None:
+        heads = head_block(cfg.num_heads, cfg.num_kv_heads, 1, 0)
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    (h0, h1), (k0, k1) = heads.q, heads.kv
+    q = layers.dense_apply(p["wq"], x, cols=(h0 * hd, h1 * hd)).reshape(
+        B, S, h1 - h0, hd)
+    k = layers.dense_apply(p["wk"], x, cols=(k0 * hd, k1 * hd)).reshape(
+        B, S, k1 - k0, hd)
+    v = layers.dense_apply(p["wv"], x, cols=(k0 * hd, k1 * hd)).reshape(
+        B, S, k1 - k0, hd)
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    ka, va = k, v
+    if h1 > h0 and not heads.aligned:
+        idx = torch.tensor(heads.reads(), dtype=torch.long, device=x.device)
+        ka, va = k.index_select(2, idx), v.index_select(2, idx)
+    if h1 == h0:                      # more ranks than heads: none here
+        out = q
+    elif use_kernel:
+        out = kops.flash_attention(q, ka, va, causal=True, window=window,
                                    softcap=cfg.attn_logit_softcap)
     elif S > QUERY_CHUNK_THRESHOLD and S % QUERY_CHUNK == 0:
-        out = _attend_chunked(q, k, v, cfg.attn_logit_softcap, window)
+        out = _attend_chunked(q, ka, va, cfg.attn_logit_softcap, window)
     else:
-        mask = causal_mask(S, k.shape[1], window=window, device=x.device)
-        out = _attend_chunk(q, k, v, cfg.attn_logit_softcap, mask)
-    out = layers.dense_apply(p["wo"], out.reshape(B, S, -1))
-    return out, (k, v)
+        mask = causal_mask(S, S, window=window, device=x.device)
+        out = _attend_chunk(q, ka, va, cfg.attn_logit_softcap, mask)
+    out = layers.dense_apply(p["wo"], out.reshape(B, S, (h1 - h0) * hd),
+                             rows=(h0 * hd, h1 * hd))
+    if kv_rows is not None:
+        lo, hi = kv_rows
+        return out, _project_kv(p, cfg, x[:, lo:hi], positions[:, lo:hi],
+                                rope=rope)
+    o0, o1 = heads.own
+    if (o0, o1) == (k0, k1):
+        return out, (k, v)
+    return out, (k[:, :, o0 - k0:o1 - k0].contiguous(),
+                 v[:, :, o0 - k0:o1 - k0].contiguous())
 
 
 def cross_attention_init(gen, cfg: ArchConfig, dtype=torch.float32,

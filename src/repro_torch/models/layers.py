@@ -53,10 +53,27 @@ def dense_init(gen, in_dim, out_dim, *, bias=False, dtype=torch.float32,
     return p
 
 
-def dense_apply(p, x):
-    y = x @ p["kernel"]
+def block(t, dim: int, span=None):
+    """``t``'s block [lo, hi) = ``span`` along ``dim``: ``t`` itself where
+    ``span`` is None or the whole dim (a model on one device reads its
+    leaves whole, so its ops and gradients are the plain ones)."""
+    if span is None or (span[0] == 0 and span[1] == t.shape[dim]):
+        return t
+    return t.narrow(dim, span[0], span[1] - span[0])
+
+
+def dense_apply(p, x, *, cols=None, rows=None):
+    """x @ kernel (+ bias). The tensor-parallel blocks of the whole leaf,
+    each (lo, hi): ``cols``, output columns [lo, hi) (column-parallel, the
+    bias cut alike); ``rows``, ``x`` holds input features [lo, hi)
+    (row-parallel): the result is this rank's partial sum, which the
+    caller reduces over the ranks. A row-parallel leaf has no bias."""
+    y = x @ block(block(p["kernel"], 1, cols), 0, rows)
     if "bias" in p:
-        y = y + p["bias"]
+        if rows is not None:
+            raise ValueError("a row-parallel dense leaf has no bias: each "
+                             "rank would add it to its partial sum")
+        y = y + block(p["bias"], 0, cols)
     return y
 
 
@@ -68,9 +85,16 @@ def rmsnorm_init(dim, dtype=torch.float32, device="cpu"):
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm_apply(p, x, eps=1e-6):
+def rmsnorm_apply(p, x, eps=1e-6, *, all_reduce=None, n=None):
+    """RMSNorm over x's last dim. With ``all_reduce``, x holds a block of
+    the ``n`` normed features (``p`` the block's scale), whose sum of
+    squares ``all_reduce`` sums over the ranks that hold the others."""
     x32 = x.to(torch.float32)
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    if all_reduce is None:
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    else:
+        var = all_reduce(torch.sum(torch.square(x32), dim=-1,
+                                   keepdim=True)) / n
     y = x32 * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
@@ -111,9 +135,10 @@ def embedding_apply(p, ids):
     return F.embedding(ids.long(), p["embedding"])
 
 
-def embedding_attend(p, x):
-    """Tied-readout logits: x @ E^T."""
-    return x @ p["embedding"].T
+def embedding_attend(p, x, rows=None):
+    """Tied-readout logits: x @ E^T; ``rows`` (lo, hi): the logits of the
+    vocabulary block [lo, hi) (E's rows)."""
+    return x @ block(p["embedding"], 0, rows).T
 
 
 # ---------------------------------------------------------------------------
@@ -167,19 +192,22 @@ def mlp_init(gen, d_model, d_ff, mlp_type, dtype=torch.float32, device="cpu"):
     }
 
 
-def mlp_apply(p, x, mlp_type):
+def mlp_apply(p, x, mlp_type, ff=None):
+    """The MLP; ``ff`` (lo, hi): on the d_ff block [lo, hi) only,
+    column-parallel up-projections and a row-parallel ``down``, returning
+    this rank's partial sum, which the caller reduces over the ranks."""
+    up = lambda leaf: dense_apply(leaf, x, cols=ff)
     if mlp_type == "swiglu":
-        h = F.silu(dense_apply(p["gate"], x)) * dense_apply(p["up"], x)
+        h = F.silu(up(p["gate"])) * up(p["up"])
     elif mlp_type == "geglu":
-        h = (F.gelu(dense_apply(p["gate"], x), approximate="tanh")
-             * dense_apply(p["up"], x))
+        h = F.gelu(up(p["gate"]), approximate="tanh") * up(p["up"])
     elif mlp_type == "gelu":
-        h = F.gelu(dense_apply(p["up"], x), approximate="tanh")
+        h = F.gelu(up(p["up"]), approximate="tanh")
     elif mlp_type == "relu2":
-        h = torch.square(F.relu(dense_apply(p["up"], x)))
+        h = torch.square(F.relu(up(p["up"])))
     else:
         raise ValueError(f"unknown mlp_type {mlp_type}")
-    return dense_apply(p["down"], h)
+    return dense_apply(p["down"], h, rows=ff)
 
 
 def softcap(x, cap: Optional[float]):

@@ -13,7 +13,8 @@ Three execution paths, as the reference's:
   sequence into ``shards`` groups, each routed with its own capacity and
   its own drops (``moe_apply_dispatch_sharded``). The groups' slot blocks
   stack along the capacity axis, so one ``moe_gmm`` call (three launches)
-  serves every group.
+  serves every group of a rank; the tensor-parallel prefill spreads the
+  groups over the ``"model"`` ranks (``moe_dispatch_groups``).
 
 Aux load-balance loss follows Switch/Mixtral: E * sum_e f_e * P_e.
 """
@@ -173,36 +174,51 @@ def moe_apply_dispatch_sharded(p, cfg: ArchConfig, x, *, shards: int,
     routes and fills ``capacity(cfg, B S / shards)`` slots an expert and
     drops its own overflow; aux is the mean of the groups' aux losses.
 
-    ``stacked`` (the default) runs the groups as one batched dispatch: the
-    groups' (E, C_l, d) slot blocks sit side by side along the capacity
-    axis, (E, shards C_l, d), and one expert FFN (``moe_gmm``: three
-    launches) serves them all. ``stacked=False`` loops
-    ``moe_apply_dispatch`` over the groups (three launches a group).
-    ``spmd_axes`` (the mesh axes the groups spread over, the reference's
-    vmap binding) binds nothing here: every group runs on this rank.
-    ``make_fed_train_step`` refuses axes of more than one rank (ROADMAP
-    A15)."""
+    ``stacked`` (the default) runs the groups as one batched dispatch
+    (``moe_dispatch_groups``: one expert FFN, three ``moe_gmm`` launches,
+    serves them all). ``stacked=False`` loops ``moe_apply_dispatch`` over
+    the groups (three launches a group). On one device every group runs
+    here, whatever ``spmd_axes`` (the mesh axes the groups spread over,
+    the reference's vmap binding) names; the tensor-parallel prefill
+    (``make_prefill_step(mesh=...)``) spreads them over the ``"model"``
+    ranks it names, each rank calling ``moe_dispatch_groups`` on its own
+    contiguous run of groups."""
     B, S, d = x.shape
     if S % shards:
         raise ValueError(f"sequence {S} does not divide into {shards} "
                          f"token groups")
-    G, S_l = shards, S // shards
     if not stacked:
+        S_l = S // shards
         ys, auxs = [], []
-        for g in range(G):
+        for g in range(shards):
             y, aux = moe_apply_dispatch(p, cfg, x[:, g * S_l:(g + 1) * S_l],
                                         use_kernel=use_kernel)
             ys.append(y)
             auxs.append(aux)
         return torch.cat(ys, dim=1), torch.mean(torch.stack(auxs))
+    y, aux = moe_dispatch_groups(p, cfg, x, shards, use_kernel=use_kernel)
+    return y, torch.mean(aux)
+
+
+def moe_dispatch_groups(p, cfg: ArchConfig, x, groups: int, *,
+                        use_kernel: bool = False):
+    """``groups`` token groups side by side along the sequence of x (B,
+    S, d), S a multiple of ``groups``, as one batched dispatch: the
+    groups' (E, C_l, d) slot blocks sit side by side along the capacity
+    axis, (E, groups C_l, d), and one expert FFN serves them all. Returns
+    (y (B, S, d), each group's aux loss (groups,))."""
+    B, S, d = x.shape
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     dev = x.device
+    if groups == 0:
+        return x, torch.zeros((0,), dtype=torch.float32, device=dev)
     _check_top_k(cfg, dev)
+    G, S_l = groups, S // groups
     T = B * S_l                                   # tokens a group
     xg = x.reshape(B, G, S_l, d).transpose(0, 1).reshape(G * T, d)
     # a token's routing does not depend on its group: one call for every
-    # token; the aux loss is each group's, then their mean
+    # token; the aux loss is each group's
     w, ids, _ = _route(p, cfg, xg)
     w, ids = w.reshape(G, T, k), ids.reshape(G, T, k)
     probs = torch.softmax((xg @ p["router"]["kernel"]).to(torch.float32),
@@ -210,7 +226,7 @@ def moe_apply_dispatch_sharded(p, cfg: ArchConfig, x, *, shards: int,
     eidx = torch.arange(E, device=dev)
     f_e = torch.mean((ids[..., 0, None] == eidx).to(torch.float32), dim=1)
     P_e = torch.mean(probs, dim=1)
-    aux = torch.mean(E * torch.sum(f_e * P_e, dim=-1))
+    aux = E * torch.sum(f_e * P_e, dim=-1)
     cap = capacity(cfg, T)
 
     flat_ids = ids.reshape(G, T * k)

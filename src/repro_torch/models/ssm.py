@@ -11,6 +11,9 @@ the heads.
 same function on the same arguments as ``ssd_chunked``; the reference's
 model keeps ``ssd_chunked`` there and leaves its Pallas ``ssd_scan`` to the
 kernel tests (ROADMAP.md queue C).
+
+In the tensor-parallel prefill ``ssm_forward`` runs one ``"model"`` rank's
+share: its block of SSM heads.
 """
 from __future__ import annotations
 
@@ -63,14 +66,22 @@ def ssm_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu"):
     }
 
 
-def _split_proj(p, cfg: ArchConfig, u):
-    """u: (B, S, d_model) -> z, xBC, dt_raw (views of one projection)."""
-    s, d_inner, n_heads, conv_dim = _dims(cfg)
-    zxbcdt = layers.dense_apply(p["in_proj"], u)
-    z = zxbcdt[..., :d_inner]
-    xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
-    dt_raw = zxbcdt[..., d_inner + conv_dim:]
-    return z, xBC, dt_raw
+def _split_proj(cfg: ArchConfig, zxbcdt, heads: int):
+    """z, xBC, dt_raw: views of an ``in_proj`` product over the columns
+    of ``heads`` SSM heads, ``[z | x | B | C | dt]``."""
+    Dr, N = heads * cfg.ssm.head_dim, cfg.ssm.d_state
+    return (zxbcdt[..., :Dr], zxbcdt[..., Dr:2 * Dr + 2 * N],
+            zxbcdt[..., 2 * Dr + 2 * N:])
+
+
+def in_proj_columns(cfg: ArchConfig, h0: int, h1: int):
+    """The column ranges of ``in_proj`` (``[z | x | B | C | dt]``) that
+    SSM heads [h0, h1) read: (z, x, B and C, dt), each (lo, hi)."""
+    s, d_inner, _, _ = _dims(cfg)
+    P, N = s.head_dim, s.d_state
+    return ((h0 * P, h1 * P), (d_inner + h0 * P, d_inner + h1 * P),
+            (2 * d_inner, 2 * d_inner + 2 * N),
+            (2 * d_inner + 2 * N + h0, 2 * d_inner + 2 * N + h1))
 
 
 def _causal_conv(p, xBC, cfg: ArchConfig):
@@ -91,33 +102,71 @@ def _causal_conv(p, xBC, cfg: ArchConfig):
 ssd_chunked = ssd_scan_ref
 
 
-def ssm_forward(p, cfg: ArchConfig, u, *,
-                use_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
+def _channels(cfg: ArchConfig, t, h0: int, h1: int):
+    """The xBC channels of SSM heads [h0, h1) along t's last dim: their x
+    channels, then all of B and C (``t`` itself for every head)."""
+    s, d_inner, n_heads, _ = _dims(cfg)
+    if (h0, h1) == (0, n_heads):
+        return t
+    P = s.head_dim
+    return torch.cat([t[..., h0 * P:h1 * P], t[..., d_inner:]], dim=-1)
+
+
+def _in_proj(p, cfg: ArchConfig, h0: int, h1: int):
+    """``in_proj``'s leaf for SSM heads [h0, h1): its z, x, B and C, dt
+    columns (``in_proj_columns``) side by side, in ``in_proj``'s own
+    layout (the leaf itself for every head)."""
+    if (h0, h1) == (0, _dims(cfg)[2]):
+        return p["in_proj"]
+    spans = in_proj_columns(cfg, h0, h1)
+    return {k: torch.cat([t[..., lo:hi] for lo, hi in spans], dim=-1)
+            for k, t in p["in_proj"].items()}
+
+
+def ssm_forward(p, cfg: ArchConfig, u, *, use_kernel: bool = False,
+                heads=None, all_reduce=None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward. u: (B, S, d_model). Returns (out, {"ssm":
-    final state in u's dtype, "conv": the last d_conv - 1 raw xBC rows})."""
+    final state in u's dtype, "conv": the last d_conv - 1 raw xBC rows}).
+
+    ``heads`` (h0, h1) (None: every head) is one ``"model"`` rank's share
+    in the tensor-parallel prefill: its heads' z, x and dt columns of
+    ``in_proj`` with all of B and C, the depthwise conv on its channels,
+    the scan on its heads, the gated RMSNorm over the whole d_inner (its
+    sum of squares summed over the ranks by ``all_reduce``) and
+    ``out_proj`` row-parallel. ``out`` is then the rank's partial sum,
+    which the caller reduces, and the states its heads' (the conv state:
+    its x channels, then B and C)."""
     s, d_inner, n_heads, conv_dim = _dims(cfg)
+    h0, h1 = heads if heads is not None else (0, n_heads)
     Bsz, S, _ = u.shape
-    z, xBC_raw, dt_raw = _split_proj(p, cfg, u)
-    xBC = _causal_conv(p, xBC_raw, cfg)
+    P, N = s.head_dim, s.d_state
+    Dr = (h1 - h0) * P                          # the rank's x channels
+    z, xBC_raw, dt_raw = _split_proj(
+        cfg, layers.dense_apply(_in_proj(p, cfg, h0, h1), u), h1 - h0)
+    xBC = _causal_conv({k: _channels(cfg, p[k], h0, h1)
+                        for k in ("conv_w", "conv_b")}, xBC_raw, cfg)
     f32 = torch.float32
-    x = xBC[..., :d_inner].reshape(Bsz, S, n_heads, s.head_dim)
-    B_ = xBC[..., d_inner:d_inner + s.d_state]
-    C_ = xBC[..., d_inner + s.d_state:]
-    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
-    A = -torch.exp(p["A_log"].to(f32))
+    x = xBC[..., :Dr].reshape(Bsz, S, h1 - h0, P)
+    B_ = xBC[..., Dr:Dr + N]
+    C_ = xBC[..., Dr + N:]
+    cut = lambda t: layers.block(t, 0, (h0, h1)).to(f32)
+    dt = F.softplus(dt_raw.to(f32) + cut(p["dt_bias"]))
+    A = -torch.exp(cut(p["A_log"]))
     if use_kernel:
         # x, B and C in their own dtype: the kernel reads the projection's
         # slices in place and widens bf16 to f32 exactly, so a bf16 model
         # takes the tensor-core path and computes what ssd_chunked does
-        y, final_state = ops.ssd_scan(x, dt, A, B_, C_, p["D"].to(f32),
+        y, final_state = ops.ssd_scan(x, dt, A, B_, C_, cut(p["D"]),
                                       chunk=s.chunk_size)
     else:
         y, final_state = ssd_chunked(x.to(f32), dt, A, B_.to(f32),
-                                     C_.to(f32), p["D"].to(f32),
+                                     C_.to(f32), cut(p["D"]),
                                      chunk=s.chunk_size)
-    y = y.reshape(Bsz, S, d_inner).to(u.dtype)
-    y = layers.rmsnorm_apply(p["norm"], y * F.silu(z))
-    out = layers.dense_apply(p["out_proj"], y)
+    y = y.reshape(Bsz, S, Dr).to(u.dtype)
+    y = layers.rmsnorm_apply(
+        {"scale": layers.block(p["norm"]["scale"], 0, (h0 * P, h1 * P))},
+        y * F.silu(z), all_reduce=all_reduce, n=d_inner)
+    out = layers.dense_apply(p["out_proj"], y, rows=(h0 * P, h1 * P))
     # decode-ready states; the conv rows are copied out of the projection
     # so that the (B, S, conv_dim) tensor is freed with the layer
     state = {"ssm": final_state.to(u.dtype),
@@ -143,7 +192,8 @@ def ssm_decode_step(p, cfg: ArchConfig, u, state):
     s, d_inner, n_heads, conv_dim = _dims(cfg)
     Bsz = u.shape[0]
     f32 = torch.float32
-    z, xBC_raw, dt_raw = _split_proj(p, cfg, u)             # (B, 1, *)
+    z, xBC_raw, dt_raw = _split_proj(cfg, layers.dense_apply(p["in_proj"], u),
+                                     n_heads)                 # (B, 1, *)
     window = torch.cat([state["conv"], xBC_raw], dim=1)     # (B, d_conv, cd)
     xBC = F.silu(torch.einsum("btc,tc->bc", window, p["conv_w"])
                  + p["conv_b"])                              # (B, conv_dim)

@@ -20,6 +20,16 @@ states. A mamba block holds ``{"ln", "ssm"}`` (``models/ssm.py``) and its
 decode state is ``{"ssm", "conv"}``. A hybrid's ``attn`` positions all run
 the one block in ``params["shared"]`` (absent from the stack) and each
 keeps its own KV cache.
+
+Every block runs as one ``"model"`` rank (``distributed.sharding.
+ModelRank``) on its blocks (``ComputeBlocks``). A model on one device is
+the one rank of every block, its collectives the identity, so its ops are
+the plain ones. ``prefill_lm`` is also the tensor-parallel prefill: the
+rank's batch rows, the residual stream in its layout, each block's
+column- and row-parallel products on the rank's blocks of heads, d_ff and
+SSM heads, its run of MoE token groups, the readout on its vocabulary
+block; logits and decode states are gathered whole on every rank at the
+end.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.collectives import row_range
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -126,30 +137,100 @@ def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
     return p
 
 
-def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *,
+def _normed(tp, b, kind, p, x):
+    """A block's normed input, whole (B_r, S, d), from the stream ``x`` in
+    its layout: the norm on the rank's rows, then the all-gather; with d
+    sharded, the all-gather first."""
+    if tp.layout == "d":
+        return layers.norm_apply(kind, p, tp.gather_stream(x, b))
+    return tp.gather_stream(layers.norm_apply(kind, p, x), b)
+
+
+def _moe_groups(tp, seq_len: int, moe_path: str, shards: int):
+    """(this rank's token range [t0, t1), every rank's token counts or
+    None, whether the groups spread over the ranks): a spread rank holds
+    a contiguous run of the ``shards`` groups (``row_range``); unspread,
+    every rank runs every token."""
+    if moe_path != "dispatch_sharded" or shards <= 1 or tp.moe_size == 1:
+        return (0, seq_len), None, False
+    if seq_len % shards:
+        raise ValueError(f"sequence {seq_len} does not divide into "
+                         f"{shards} token groups")
+    S_l = seq_len // shards
+    runs = [row_range(shards, tp.moe_size, j) for j in range(tp.moe_size)]
+    g0, g1 = runs[tp.rank]
+    return (g0 * S_l, g1 * S_l), [(hi - lo) * S_l for lo, hi in runs], True
+
+
+def _moe_sublayer(bp, cfg: ArchConfig, x, tp, b, *, moe_path, use_kernel,
+                  shards, spmd_axes, n_batch):
+    """The MoE sublayer of one rank: its token groups over the whole batch
+    (the groups of ``moe_apply_dispatch_sharded``), routed and dispatched
+    here through one stacked expert FFN, the outputs put back into the
+    stream's layout. Returns (h in the layout, aux: the layer's whole aux,
+    or where the groups spread, this rank's share of it). Where the
+    stream is split by sequence blocks that are this rank's groups, no
+    token moves."""
+    S = sum(b.seq_sizes)
+    (t0, t1), sizes, spread = _moe_groups(tp, S, moe_path, shards)
+    kind = cfg.norm_type
+    split_batch = tp.batch_count > 1
+    in_place = spread and tp.layout == "seq" and not split_batch and \
+        all(n == m for n, m in zip(sizes, b.seq_sizes))
+    if in_place:
+        xin = layers.norm_apply(kind, bp["ln2"], x)
+    else:
+        hn = _normed(tp, b, kind, bp["ln2"], x)
+        if split_batch:
+            hn = tp.gather_batch(hn, 0, n_batch)
+        xin = layers.block(hn, 1, (t0, t1))
+    if spread:
+        y, aux = moe_lib.moe_dispatch_groups(
+            bp["moe"], cfg, xin, (t1 - t0) * shards // S,
+            use_kernel=use_kernel)
+        aux = torch.sum(aux) / shards
+    else:
+        y, aux = moe_lib.moe_apply(bp["moe"], cfg, xin, path=moe_path,
+                                   use_kernel=use_kernel, shards=shards,
+                                   spmd_axes=spmd_axes)
+    if in_place:
+        return y, aux
+    if spread:
+        y = tp.gather(y, 1, sizes)
+    if split_batch:
+        y = layers.block(y, 0, tp.batch_rows(n_batch))
+    return tp.stream_block(y, b), aux
+
+
+def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *, tp, b,
                  global_window=None, moe_path="dispatch", use_kernel=False,
-                 moe_shards=1, moe_spmd_axes=None):
-    """Full-sequence block. Returns (x, decode state + {aux}): the caller
-    pops the MoE aux out of the decode state."""
+                 moe_shards=1, moe_spmd_axes=None, n_batch=1):
+    """Full-sequence block of the ``"model"`` rank ``tp`` on its blocks
+    ``b``: x and the returned x in the stream's layout, each row-parallel
+    partial reduced back into it. Returns (x, decode state + {aux}): the
+    caller pops the MoE aux out of the decode state."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if ltype == "mamba":
         h, state = ssm_lib.ssm_forward(
-            bp["ssm"], cfg, layers.norm_apply(cfg.norm_type, bp["ln"], x),
-            use_kernel=use_kernel)
-        state["aux"] = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + h, state
-    window = _layer_window(cfg, ltype, global_window)
+            bp["ssm"], cfg, _normed(tp, b, cfg.norm_type, bp["ln"], x),
+            use_kernel=use_kernel, heads=b.ssm, all_reduce=tp.norm_reduce)
+        state["aux"] = zero
+        return x + tp.reduce_partial(h, b), state
     h, (k, v) = attention.attention(
-        bp["attn"], cfg, layers.norm_apply(cfg.norm_type, bp["ln1"], x),
-        positions, window=window, use_kernel=use_kernel)
-    x = x + h
-    hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
+        bp["attn"], cfg, _normed(tp, b, cfg.norm_type, bp["ln1"], x),
+        positions, window=_layer_window(cfg, ltype, global_window),
+        use_kernel=use_kernel, heads=b.heads,
+        kv_rows=b.seq if tp.kv_seq else None)
+    x = x + tp.reduce_partial(h, b)
     if "moe" in bp:
-        h, aux = moe_lib.moe_apply(bp["moe"], cfg, hn, path=moe_path,
-                                   use_kernel=use_kernel, shards=moe_shards,
-                                   spmd_axes=moe_spmd_axes)
+        h, aux = _moe_sublayer(bp, cfg, x, tp, b, moe_path=moe_path,
+                               use_kernel=use_kernel, shards=moe_shards,
+                               spmd_axes=moe_spmd_axes, n_batch=n_batch)
     else:
-        h = layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = tp.reduce_partial(layers.mlp_apply(
+            bp["mlp"], _normed(tp, b, cfg.norm_type, bp["ln2"], x),
+            cfg.mlp_type, ff=b.ff), b)
+        aux = zero
     return x + h, {"k": k, "v": v, "aux": aux}
 
 
@@ -255,21 +336,17 @@ def embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds=None):
     return x, positions, n_prefix
 
 
-def forward_lm(params, cfg: ArchConfig, tokens, patch_embeds=None, *,
-               global_window: Optional[int] = None, remat: bool = False,
-               moe_path: str = "dispatch", use_kernel: bool = False,
-               return_states: bool = False, return_features: bool = False,
-               moe_shards: int = 1, moe_spmd_axes=None):
-    """Full-sequence forward. Returns (logits|features, aux[, decode
-    states]); states are stacked over cycles like the params, and aux is
-    the MoE load-balance loss summed over the layers (0 for dense).
-    ``patch_embeds``: a vlm's (B, P, d) patch embeddings, read ahead of
-    the tokens. ``moe_shards``, ``moe_spmd_axes``: the token groups of
-    ``moe_path="dispatch_sharded"`` (``models/moe.py``)."""
-    x, positions, _ = embed_inputs(params, cfg, tokens, patch_embeds)
-    kw = dict(global_window=global_window, moe_path=moe_path,
-              use_kernel=use_kernel, moe_shards=moe_shards,
-              moe_spmd_axes=moe_spmd_axes)
+def _one_device():
+    """The ``ModelRank`` of a model on one device (imported here: the
+    ``distributed`` package imports this module)."""
+    from repro_torch.distributed.sharding import ModelRank
+    return ModelRank(None)
+
+
+def _run_layers(params, cfg: ArchConfig, x, positions, kw, *, remat=False,
+            return_states=False):
+    """Every cycle, then the tail, from the stream ``x``: (x, the MoE aux
+    summed over the layers, decode states stacked over cycles or None)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
     stack_states = None
@@ -298,11 +375,107 @@ def forward_lm(params, cfg: ArchConfig, tokens, patch_embeds=None, *,
                 spec[i], x, positions, **kw)
             aux = aux + st.pop("aux")
             tail_states[f"b{i}"] = st
+    return x, aux, (
+        {"stack": stack_states, "tail": tail_states} if return_states
+        else None)
+
+
+def forward_lm(params, cfg: ArchConfig, tokens, patch_embeds=None, *,
+               global_window: Optional[int] = None, remat: bool = False,
+               moe_path: str = "dispatch", use_kernel: bool = False,
+               return_states: bool = False, return_features: bool = False,
+               moe_shards: int = 1, moe_spmd_axes=None):
+    """Full-sequence forward on one device. Returns (logits|features,
+    aux[, decode states]); states are stacked over cycles like the
+    params, and aux is the MoE load-balance loss summed over the layers
+    (0 for dense). ``patch_embeds``: a vlm's (B, P, d) patch embeddings,
+    read ahead of the tokens. ``moe_shards``, ``moe_spmd_axes``: the token
+    groups of ``moe_path="dispatch_sharded"`` (``models/moe.py``)."""
+    x, positions, _ = embed_inputs(params, cfg, tokens, patch_embeds)
+    tp = _one_device()
+    kw = dict(tp=tp, b=tp.blocks(cfg, x.shape[1]),
+              global_window=global_window, moe_path=moe_path,
+              use_kernel=use_kernel, moe_shards=moe_shards,
+              moe_spmd_axes=moe_spmd_axes, n_batch=x.shape[0])
+    x, aux, states = _run_layers(params, cfg, x, positions, kw, remat=remat,
+                             return_states=return_states)
     out = x if return_features else _readout(params, cfg, x)
     if return_states:
-        return out, aux, {"stack": stack_states, "tail": tail_states}
+        return out, aux, states
     return out, aux
 
+
+def _last_logits(params, cfg: ArchConfig, x, tp, b):
+    """Last-token logits (B_r, V) from the stream in its layout: the last
+    position gathered whole, the readout on the rank's vocabulary block
+    (the tied embedding's rows or ``lm_head``'s columns) with the final
+    softcap, then the blocks all-gathered."""
+    last = x[:, -1:]
+    if tp.layout == "seq":          # the last rank that holds a row has it
+        last = tp.gather(last, 1, [min(n, 1) for n in b.seq_sizes])[:, -1:]
+    elif tp.layout == "d":
+        last = tp.gather(last, 2, b.d_sizes)
+    logits = _readout(params, cfg, last, vocab=b.vocab)
+    return tp.gather(logits, 2, b.vocab_sizes)[:, 0]
+
+
+def _gather_states(tree, cfg: ArchConfig, tp, b, n_batch: int):
+    """Whole decode states from every rank's blocks: K/V by the kv heads
+    each rank owns (or, ``attn_kv_spec`` over the key sequence, by its
+    sequence block), SSM states by head, conv states by the x channels of
+    each rank's heads with B and C taken once; then the batch rows. One
+    all-gather a leaf and axis."""
+    return {k: (v if v is None else
+                _gather_states(v, cfg, tp, b, n_batch) if isinstance(v, dict)
+                else _gather_leaf(k, v, cfg, tp, b, n_batch))
+            for k, v in tree.items()}
+
+
+def _gather_leaf(key, t, cfg, tp, b, n_batch):
+    nd = t.dim()
+    if key in ("k", "v"):
+        t = (tp.gather(t, nd - 3, b.seq_sizes) if tp.kv_seq
+             else tp.gather(t, nd - 2, b.kv_sizes))
+        return tp.gather_batch(t, nd - 4, n_batch)
+    if key == "ssm":
+        return tp.gather_batch(tp.gather(t, nd - 3, b.ssm_sizes), nd - 4,
+                               n_batch)
+    if tp.size > 1:                                       # "conv"
+        P = cfg.ssm.head_dim
+        xr = (b.ssm[1] - b.ssm[0]) * P
+        t = torch.cat([tp.gather(t[..., :xr], nd - 1,
+                                 [n * P for n in b.ssm_sizes]),
+                       t[..., xr:]], dim=-1)
+    return tp.gather_batch(t, nd - 3, n_batch)
+
+
+def prefill_lm(params, cfg: ArchConfig, tokens, patch_embeds, tp, *,
+               global_window: Optional[int] = None,
+               moe_path: str = "dispatch", use_kernel: bool = False,
+               moe_shards: int = 1, moe_spmd_axes=None):
+    """The prefill of the ``"model"`` rank ``tp`` (``distributed.sharding.
+    ModelRank``; ``ModelRank(None)``: one device). ``params``, ``tokens``
+    (B, S) and ``patch_embeds`` are whole; the rank reads its batch rows
+    and its blocks of each leaf. Returns (last-token logits (B, V), the MoE aux
+    summed over the layers, decode states stacked over cycles as
+    ``forward_lm``'s), whole and the same on every rank."""
+    n_batch = tokens.shape[0]
+    rows = tp.batch_rows(n_batch)
+    x, positions, _ = embed_inputs(
+        params, cfg, layers.block(tokens, 0, rows),
+        None if patch_embeds is None else layers.block(patch_embeds, 0,
+                                                       rows))
+    b = tp.blocks(cfg, x.shape[1])
+    kw = dict(tp=tp, b=b, global_window=global_window, moe_path=moe_path,
+              use_kernel=use_kernel, moe_shards=moe_shards,
+              moe_spmd_axes=moe_spmd_axes, n_batch=n_batch)
+    x, aux, states = _run_layers(params, cfg, tp.stream_block(x, b), positions,
+                             kw, return_states=True)
+    logits = tp.gather_batch(_last_logits(params, cfg, x, tp, b), 0, n_batch)
+    if cfg.moe is not None and _moe_groups(tp, sum(b.seq_sizes), moe_path,
+                                           moe_shards)[2]:
+        aux = tp.all_reduce(aux)
+    return logits, aux, _gather_states(states, cfg, tp, b, n_batch)
 
 # ---------------------------------------------------------------------------
 # loss
@@ -326,12 +499,14 @@ LOSS_CHUNK = 512
 LOSS_CHUNK_MIN_ELEMENTS = 1 << 28      # B*S*V above this triggers chunking
 
 
-def _readout(params, cfg: ArchConfig, x):
+def _readout(params, cfg: ArchConfig, x, vocab=None):
+    """Logits of the features x; ``vocab`` (lo, hi): of that vocabulary
+    block only (the tied embedding's rows or ``lm_head``'s columns)."""
     x = layers.norm_apply(cfg.norm_type, params["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = layers.embedding_attend(params["embed"], x)
+        logits = layers.embedding_attend(params["embed"], x, rows=vocab)
     else:
-        logits = layers.dense_apply(params["lm_head"], x)
+        logits = layers.dense_apply(params["lm_head"], x, cols=vocab)
     return layers.softcap(logits, cfg.final_logit_softcap)
 
 

@@ -1913,3 +1913,58 @@ def test_dispatch_sharded_through_the_kernel_matches_cpu(cuda, shards):
     for a, b in zip(tree_leaves(states), tree_leaves(want_states)):
         torch.testing.assert_close(a.cpu(), b.detach(), rtol=2e-4,
                                    atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel prefill on two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_tensor_parallel_prefill_on_two_gloo_ranks_on_the_card(cuda,
+                                                                tmp_path):
+    """Two gloo ranks spawned on the one card, a (1, 2) ("data", "model")
+    mesh, ``use_kernel=True``: reduced qwen2-7b with the stream by
+    sequence block (flash on each rank's 2 of 4 heads), reduced
+    phi3.5-moe with a token group a rank (flash and three ``gmm``
+    launches a layer on each rank's group) and reduced mamba2-780m with
+    the stream whole (``ssd_scan`` on each rank's 4 of 8 heads), each
+    rank's logits and states within the f32 tolerance of the one-process
+    kernel prefill on the card, every launch counted on each rank."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_prefill_step
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves, tree_map
+    from test_torch_mesh_ranks import spawn, tp_rank_body
+    moe = dict(moe_path="dispatch_sharded", moe_shards=2,
+               moe_spmd_axes=("model",))
+    runs = {"qwen2-7b-reduced": ({"act_spec": (None, "model", None)},
+                                 {"flash_attention": 2}),
+            "phi3.5-moe-42b-a6.6b-reduced": (moe, {"flash_attention": 2,
+                                                   "gmm": 6}),
+            "mamba2-780m-reduced": ({}, {"ssd_scan": 2})}
+    models, tokens = {}, {}
+    for i, arch in enumerate(runs):
+        cfg = get_arch(arch)
+        models[arch] = (cfg, registry.init(torch.Generator().manual_seed(0),
+                                           cfg, device="cpu"))
+        tokens[arch] = torch.tensor(np.random.default_rng(i).integers(
+            0, cfg.vocab_size, (2, 64)), dtype=torch.int32)
+    ranks = spawn(tp_rank_body, 2, tmp_path, models,
+                  [(arch, (1, 2), arch, {"tokens": tokens[arch]},
+                    dict(kw, use_kernel=True))
+                   for arch, (kw, _) in runs.items()], "cuda")
+    for arch, (kw, want) in runs.items():
+        cfg, params = models[arch]
+        one = {k: v for k, v in kw.items()
+               if k not in ("act_spec", "moe_spmd_axes")}
+        with torch.no_grad():
+            logits, states = make_prefill_step(cfg, use_kernel=True, **one)(
+                tree_map(lambda t: t.to(cuda), params),
+                {"tokens": tokens[arch].to(cuda)})
+        for res in ranks:
+            got, got_states, _, launches = res[arch]
+            assert {k: v for k, v in launches.items() if v} == want
+            torch.testing.assert_close(got, logits.cpu(), rtol=2e-4,
+                                       atol=2e-4)
+            for a, b in zip(tree_leaves(got_states), tree_leaves(states)):
+                torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)

@@ -1,5 +1,7 @@
 """Rank bodies of the multi-rank runs in tests/test_torch_mesh.py,
-tests/test_torch_sequential.py and tests/test_torch_sharding.py, and the
+tests/test_torch_sequential.py, tests/test_torch_sharding.py,
+tests/test_torch_mesh_paths.py and tests/test_torch_tensor_parallel.py
+(and the card's in tests/test_torch_cuda.py), and the
 JAX-free MoE routing helpers those files share with tests/test_torch_cuda.py
 (no tests of its own).
 
@@ -24,6 +26,7 @@ from repro_torch.core.engine.backends import MeshBackend
 from repro_torch.core.engine.round import RoundEngine
 from repro_torch.core.engine.transport import Int8Transport
 from repro_torch.data import make_paper_task, pipeline
+from repro_torch.distributed import make_prefill_step
 from repro_torch.kernels import collectives, ref
 from repro_torch.kernels import delta_codec as dc
 from repro_torch.kernels import fedavg_reduce as fr
@@ -730,3 +733,44 @@ def paths_rank_body(rank, world, tmp):
     else:
         res["fleet"] = fleet_rank_part(mesh)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel prefill
+# ---------------------------------------------------------------------------
+
+def tp_rank_body(rank, world, models, cases, device="cpu"):
+    """One rank of the tensor-parallel prefill's meshes: every case
+    ``(key, shape, arch, batch, kw)`` through ``make_prefill_step(cfg,
+    mesh=..., **kw)`` on the ([pod,] data, model) mesh of ``shape`` (built
+    once a shape, in the cases' order, over this world) and
+    ``models[arch]`` = (cfg, whole params). Returns {key: (logits, states,
+    that case's collectives by kind, its kernel launches by wrapper)}, on
+    the CPU (where the plain versions run and count no launch)."""
+    from repro_torch.kernels import flash_attention, moe_gmm, ssd_scan
+    mods = {"flash_attention": flash_attention, "gmm": moe_gmm,
+            "ssd_scan": ssd_scan}
+    meshes, out = {}, {}
+    for key, shape, arch, batch, kw in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(
+                shape, ("pod", "data", "model")[-len(shape):], device)
+        cfg, params = models[arch]
+        if device != "cpu":
+            params = _to(params, device)
+            batch = _to(batch, device)
+        for kind in collectives.counts:
+            collectives.counts[kind] = 0
+        before = {k: m.launches for k, m in mods.items()}
+        logits, states = make_prefill_step(cfg, mesh=meshes[shape], **kw)(
+            params, batch)
+        out[key] = (logits.cpu(), _to(states, "cpu"),
+                    dict(collectives.counts),
+                    {k: m.launches - before[k] for k, m in mods.items()})
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)

@@ -235,9 +235,10 @@ def test_moe_apply_matches_reference(name, path, cf, use_kernel):
 
 
 def test_moe_apply_refuses_sharded_and_unknown_paths():
-    """``dispatch_sharded`` is ported (one group is ``dispatch``); a
-    sequence the groups do not divide, token groups over ranks (A15) and
-    unknown paths are refused by name."""
+    """``dispatch_sharded`` is ported (one group is ``dispatch``; token
+    groups over ranks run in the tensor-parallel prefill,
+    ``tests/test_torch_tensor_parallel.py``); a sequence the groups do not
+    divide and unknown paths are refused by name."""
     tcfg, _, tp, _, x = layer_moe(ARCH_NAMES[0])
     y1, a1 = tmoe.moe_apply(tp, tcfg, _t(x), path="dispatch_sharded")
     y0, a0 = tmoe.moe_apply(tp, tcfg, _t(x), path="dispatch")
