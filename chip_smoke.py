@@ -268,7 +268,7 @@ exits non-zero without printing a result:
               ``launch.train`` for 3 rounds beside the same spec on
               ``backend.name=local`` (K_r, ids, counters exact, params
               within the CPU tests' parity tolerance); (ii) qwen1.5-0.5b,
-              32 clients and 16 a round one at a time, int8 up (aggregate
+              16 clients and 8 a round one at a time, int8 up (aggregate
               error feedback) and down, 1 round at ``acc_dtype`` f32
               (``int8_decode_apply`` exactly once a leaf a round, each
               call checked against its plain version in that round) and
@@ -2475,8 +2475,9 @@ def rank_worker(rank: int, world: int, pg_path: str, jobs, results,
     start to ``None`` on its job queue: it joins the gloo group
     (``file://`` rendezvous), builds the (world,) ("data",) and (1, world)
     ("data", "model") meshes and loads CIFAR100, then serves jobs: ``("mesh_gloo",)`` (phase mesh's
-    sharded kernels and CIFAR100 round) and ``("tp", spec)`` (a
-    tensor-parallel prefill, ``tp_rank_job``). Reports ("ready" | "ran" |
+    sharded kernels and CIFAR100 round), ``("tp", spec)`` (a
+    tensor-parallel prefill, ``tp_rank_job``) and ``("tpd", spec)`` (a
+    tensor-parallel decode, ``tpd_rank_job``). Reports ("ready" | "ran" |
     "done", rank, payload), or ("error", rank, traceback) and exits."""
     import traceback
     try:
@@ -2501,6 +2502,9 @@ def rank_worker(rank: int, world: int, pg_path: str, jobs, results,
             if job[0] == "mesh_gloo":
                 results.put(("done", rank, gloo_rank_job(
                     torch, meshes["data"], data)))
+            elif job[0] == "tpd":
+                tpd_rank_job(torch, meshes["model"], rank, job[1], jobs,
+                             results, parent)
             else:
                 tp_rank_job(torch, meshes["model"], rank, job[1], jobs,
                             results, parent)
@@ -5073,9 +5077,10 @@ SEQ_SPEC_ROUNDS = 3
 # tests/test_torch_sequential.py's parity tolerance for this spec's run
 # against LocalBackend (a 1x1 mesh is the local round)
 SEQ_SPEC_TOL = dict(rtol=1e-4, atol=1e-4)
-# (ii): stream (ii)'s traffic, 32 clients and 16 a round, in one group;
-# the counted f32 round is also the checked one
-LM_SEQUENTIAL = dict(total_clients=32, clients_per_round=16)
+# (ii): 16 clients and 8 a round, in one group (stream (ii)'s 16 of 32 until
+# phase tensor_parallel's decode needed the seconds); the counted f32 round
+# is also the checked one
+LM_SEQUENTIAL = dict(total_clients=16, clients_per_round=8)
 SEQ_ROUNDS = 1
 # (iii): CIFAR100 at paper width, one round each against LocalBackend
 SEQ_CIFAR = [("mean", dict(), 1), ("mean", dict(), 5),
@@ -5158,8 +5163,8 @@ def seq_spec(torch, smi):
 
 
 def seq_lm(torch, params, mesh, smi):
-    """(ii) qwen1.5-0.5b at full width (phase lm's params), 32 clients and
-    16 a round in one group, b 4, seq 32, K_r-rounds from k0 8, the int8
+    """(ii) qwen1.5-0.5b at full width (phase lm's params), 16 clients and
+    8 a round in one group, b 4, seq 32, K_r-rounds from k0 8, the int8
     uplink with aggregate error feedback and the int8 downlink, for
     ``SEQ_ROUNDS`` rounds at ``acc_dtype`` f32: ``int8_decode_apply``
     exactly once a leaf a round (the broadcast, once a round) and no
@@ -5210,7 +5215,7 @@ def seq_lm(torch, params, mesh, smi):
                                  f"!= {formula} or loss {h.train_loss}")
         ks, losses = list(h.k), list(h.train_loss)
         line = {"phase": "sequential", "what": f"(ii) qwen1.5-0.5b full "
-                f"width, 16 clients a round one at a time, acc_dtype "
+                f"width, 8 clients a round one at a time, acc_dtype "
                 f"{name}", "card": smi, "arch": cfg.name,
                 "params": sum(sizes), "leaves": len(sizes),
                 "clients": fed.total_clients, "u": fed.clients_per_round,
@@ -5896,11 +5901,13 @@ def tp_ranks(torch, workers, label, cfg, params, batch, kw, want, tol,
     return {n: sum(res["launches"][n] for res in ran) for n in want}, s
 
 
-def tp_one_rank(torch, cfg, params, kept, smi):
+def tp_one_rank(torch, cfg, params, kept, smi, prompt):
     """Phase tensor_parallel (i): qwen1.5-0.5b at full width on a one-rank
     NCCL ("data", "model") mesh, ``act_spec`` over the sequence, through
     the flash kernel: logits and states bit for bit phase lm's kernel
-    prefill (``kept``), no collective. Returns (launches, seconds)."""
+    prefill (``kept``), no collective. Then (iii-a) on the same mesh, the
+    decode of ``prompt`` (``tpd_one_rank``). Returns (launches, seconds of
+    (i), seconds of (iii-a), its one-device decode)."""
     import torch.distributed as dist
     from repro_torch.distributed import make_prefill_step
     from repro_torch.kernels import collectives
@@ -5917,6 +5924,9 @@ def tp_one_rank(torch, cfg, params, kept, smi):
                                  mesh=mesh)
         (logits, states), ms = run_step(torch, step, params, kept["batch"])
         counts, launches = dict(collectives.counts), fa.launches
+        s = time.perf_counter() - t0
+        s_decode, one = tpd_one_rank(torch, cfg, params, prompt, mesh,
+                                     smi)
     finally:
         dist.destroy_process_group()
     leaves = list(zip(leaf_items(states, ""), leaf_items(kept["states"],
@@ -5928,14 +5938,248 @@ def tp_one_rank(torch, cfg, params, kept, smi):
         raise AssertionError(f"tensor_parallel (i): bit for bit {same}, "
                              f"collectives {counts}, flash launches "
                              f"{launches}")
-    s = time.perf_counter() - t0
     emit({"phase": "tensor_parallel", "part": "(i) one NCCL rank",
           "card": smi, "arch": cfg.name, "dtype": "float32",
           "batch": LM_BATCH, "seq": LM_SEQ, "act_spec": list(TP_ACT),
           "mesh": [1, 1], "ms": ms, "flash_launches": launches,
           "collectives": counts, "bit_for_bit_vs_phase_lm": same,
           "state_leaves": len(leaves), "s": s})
-    return {"flash_attention": launches}, s
+    return {"flash_attention": launches}, s, s_decode, one
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel decode (phase tensor_parallel part (iii))
+# ---------------------------------------------------------------------------
+
+# SERVE's traffic: a batch of 4, a prompt of 16 teacher-forced tokens,
+# then 16 greedy tokens
+TPD_NEW = 16
+TPD_BUDGET_S = 15.0
+
+
+def every_launch() -> dict:
+    """Every kernel wrapper's launch count, the sharded ones too."""
+    return {**all_launches(), **sharded_counts()}
+
+
+def greedy_decode(torch, step, params, cache, prompt, new: int, feed=None):
+    """``prompt`` (B, P) teacher-forced through ``step``, then ``new``
+    more steps, each fed the argmax of the step before (or ``feed``'s
+    next column). Returns (every step's logits (P + new, B, V), the
+    argmax ids from position P - 1 on (B, new + 1), ms a step on the host
+    clock between synchronisations)."""
+    P = prompt.shape[1]
+    logits, ids = [], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        for pos in range(P + new):
+            tok = (prompt[:, pos] if pos < P else ids[pos - P]
+                   if feed is None else feed[:, pos - P])
+            out, cache = step(params, cache, tok, pos)
+            logits.append(out)
+            if pos >= P - 1:
+                ids.append(torch.argmax(out, -1).to(torch.int32))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / (P + new)
+    return torch.stack(logits), torch.stack(ids, 1), ms
+
+
+def _cache_errs(torch, got, want, tol) -> dict:
+    """The largest difference of two caches by leaf name, each held to
+    ``tol``."""
+    err = {}
+    for (path, a), (_, b) in zip(leaf_items(got, ""), leaf_items(want, "")):
+        torch.testing.assert_close(a, b, **tol)
+        key = path.rsplit(".", 1)[-1]
+        err[key] = max(err.get(key, 0.0), float((a - b).abs().max()))
+    return err
+
+
+def _per_token(counts: dict, steps: int) -> dict:
+    return {k: v / steps for k, v in counts.items() if v}
+
+
+def tpd_rank_job(torch, mesh, rank: int, spec: dict, jobs, results,
+                 parent: int) -> None:
+    """One rank's tensor-parallel decode (``make_serve_step(cfg,
+    mesh=mesh)``, the whole params by IPC handle, the cache from
+    ``init_cache(mesh=)``): the prompt and ``TPD_NEW`` greedy tokens,
+    counted and timed (ms a step, collectives by kind and bytes, launches
+    of every kernel, the cache's bytes, peak memory, MoE routing ids);
+    reported as "ran". Then the parent's one-process decode on the same
+    ids arrives ("ref") and the rank's logits and gathered cache are held
+    to it: "done" with the differences."""
+    from repro_torch.distributed import make_serve_step, sharding
+    from repro_torch.kernels import collectives
+    from repro_torch.models import registry
+    cfg, params, prompt = spec["cfg"], spec["params"], spec["prompt"]
+    B, P = prompt.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = registry.init_cache(params, cfg, B, P + TPD_NEW, mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh, moe_path=spec["moe_path"])
+    for kind in collectives.counts:
+        collectives.counts[kind] = collectives.nbytes[kind] = 0
+    before = every_launch()
+    with RouteLog(torch) as routes:
+        logits, ids, ms = greedy_decode(torch, step, params, cache, prompt,
+                                        TPD_NEW)
+    steps = P + TPD_NEW
+    layout = cache.layout
+    ran = {"ms_per_token": ms,
+           "launches": {k: v - before[k] for k, v in every_launch().items()},
+           "collectives_per_token": _per_token(collectives.counts, steps),
+           "collective_bytes_per_token": _per_token(collectives.nbytes,
+                                                    steps),
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for _, t in leaf_items(cache, "")),
+           "whole_cache_bytes": layout.whole_bytes(),
+           "layouts": sorted({f"{k}: {v}" for k, v in leaf_items(
+               layout.specs, "")}),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ids": ids.cpu(),
+           # one tensor each: a queue moves each tensor through a shared
+           # memory segment of its own
+           "routes": ([torch.stack([i for i, _ in routes.calls]).cpu(),
+                       torch.stack([m for _, m in routes.calls]).cpu()]
+                      if routes.calls else None)}
+    del routes
+    results.put(("ran", rank, ran))
+    msg = _next_job(jobs, parent)
+    if msg is None:
+        return
+    _, ref_logits, ref_cache = msg
+    torch.testing.assert_close(logits, ref_logits, **spec["tol"])
+    err = {"logits": float((logits - ref_logits).abs().max())}
+    err.update(_cache_errs(torch, sharding.gather_cache(cache), ref_cache,
+                           spec["state_tol"]))
+    done = {"max_abs_err": err, "finite": bool(torch.isfinite(logits).all())}
+    del msg, ref_logits, ref_cache, logits, cache
+    results.put(("done", rank, done))
+
+
+def tpd_ranks(torch, workers, label, cfg, params, prompt, moe_path, tol,
+              state_tol, smi, ref=None):
+    """Phase tensor_parallel (iii-b), one model: ``workers``' two gloo
+    ranks decode ``prompt`` and ``TPD_NEW`` greedy tokens on ``params``
+    (by IPC handle) from their cache blocks; this process then decodes the
+    same ids in one process (MoE: taking rank 0's routing ids, the flips
+    counted from each run's own) and each rank is held to it: logits
+    within ``tol``, the gathered cache within ``state_tol``, greedy ids
+    the one-process argmax wherever its top-2 margin exceeds 2 x ``tol``,
+    no kernel launched. ``ref``: a one-process greedy decode of the same
+    prompt (``tpd_one_rank``'s), which is that decode where the ranks'
+    ids are its ids (no MoE). Returns the seconds."""
+    from types import SimpleNamespace
+    from repro_torch.distributed import make_serve_step
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    workers.ready()
+    workers.send(("tpd", dict(cfg=cfg, params=params, prompt=prompt,
+                              moe_path=moe_path, tol=tol,
+                              state_tol=state_tol)))
+    ran = workers.gather("ran")
+    ids = ran[0]["ids"]
+    if any(not torch.equal(r["ids"], ids) for r in ran):
+        raise AssertionError(f"tensor_parallel (iii-b) {label}: the ranks' "
+                             f"greedy ids differ")
+    B, P = prompt.shape
+    t_ran = time.perf_counter() - t0
+    force = (SimpleNamespace(calls=list(zip(
+        *(t.cuda().unbind(0) for t in ran[0]["routes"]))))
+        if cfg.moe is not None else None)
+    if ref is not None and force is None and torch.equal(
+            ref[1][:, :-1].cpu(), ids[:, :-1]):
+        ref, own_ids, cache, ref_ms = ref
+    else:
+        cache = registry.init_cache(params, cfg, B, P + TPD_NEW)
+        with RouteLog(torch, force=force) as own:
+            ref, own_ids, ref_ms = greedy_decode(
+                torch, make_serve_step(cfg, moe_path=moe_path), params,
+                cache, prompt, TPD_NEW, feed=ids[:, :-1].cuda())
+    routing = (route_flips(torch, force, own,
+                           layer_count(cfg, "attn") * (P + TPD_NEW))
+               if force is not None else {})
+    top2 = torch.topk(ref[P - 1:], 2, -1).values
+    sure = ((top2[..., 0] - top2[..., 1])
+            > 2 * (tol["atol"] + tol["rtol"] * top2[..., 0].abs())).T.cpu()
+    if not torch.equal(own_ids.cpu()[sure], ids[sure]):
+        raise AssertionError(f"tensor_parallel (iii-b) {label}: greedy ids "
+                             f"differ from the one-process decode's where "
+                             f"the margin exceeds the tolerance")
+    t_ref = time.perf_counter() - t0 - t_ran
+    workers.send(("ref", ref, cache))
+    done = workers.gather("done")
+    del ref, cache
+    for r, (res, d) in enumerate(zip(ran, done)):
+        if any(res["launches"].values()) or not d["finite"]:
+            raise AssertionError(f"tensor_parallel (iii-b) {label}: rank "
+                                 f"{r} launches {res['launches']}, finite "
+                                 f"{d['finite']}")
+    s = time.perf_counter() - t0
+    emit({"phase": "tensor_parallel", "part": "(iii-b) decode, two gloo "
+          "ranks", "card": smi, "arch": cfg.name, "layers": cfg.num_layers,
+          "dtype": "float32", "batch": B, "prompt": P, "new_tokens": TPD_NEW,
+          "mesh": [1, GLOO_WORLD], "axes": ["data", "model"],
+          "backend": "gloo", "moe_path": moe_path,
+          "cache_layouts": ran[0]["layouts"],
+          "ranks": [{k: res[k] for k in (
+              "ms_per_token", "collectives_per_token",
+              "collective_bytes_per_token", "cache_bytes",
+              "whole_cache_bytes", "peak_gb")}
+              | {"cache_share": res["cache_bytes"]
+                 / res["whole_cache_bytes"],
+                 "launches": sum(res["launches"].values()),
+                 "max_abs_err_vs_one_process": d["max_abs_err"]}
+              for res, d in zip(ran, done)],
+          "one_process_ms_per_token": ref_ms, "tol": tol,
+          "state_tol": state_tol, "ids": ids[0].tolist(),
+          "ids_sure": int(sure.sum()), "ids_checked": int(sure.numel()),
+          **routing, "ranks_s": t_ran, "one_process_s": t_ref,
+          "check_s": s - t_ran - t_ref, "s": s})
+    return s
+
+
+def tpd_one_rank(torch, cfg, params, prompt, mesh, smi) -> float:
+    """Phase tensor_parallel (iii-a): qwen1.5-0.5b's decode at full width
+    on the one-rank NCCL ("data", "model") mesh ``mesh`` from
+    ``init_cache(mesh=)``, and the one-device decode: logits at every
+    step, greedy ids and the gathered cache bit for bit, no collective,
+    no kernel launch. Returns (the seconds, the one-device decode: logits,
+    ids, cache, ms a step)."""
+    from repro_torch.distributed import make_serve_step, sharding
+    from repro_torch.kernels import collectives
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    B, P = prompt.shape
+    whole = registry.init_cache(params, cfg, B, P + TPD_NEW)
+    want, want_ids, ms_one = greedy_decode(torch, make_serve_step(cfg),
+                                           params, whole, prompt, TPD_NEW)
+    cache = registry.init_cache(params, cfg, B, P + TPD_NEW, mesh=mesh)
+    for kind in collectives.counts:
+        collectives.counts[kind] = collectives.nbytes[kind] = 0
+    before = every_launch()
+    got, ids, ms = greedy_decode(torch, make_serve_step(cfg, mesh=mesh),
+                                 params, cache, prompt, TPD_NEW)
+    counts = dict(collectives.counts)
+    launches = sum(v - before[k] for k, v in every_launch().items())
+    leaves = list(zip(leaf_items(sharding.gather_cache(cache), ""),
+                      leaf_items(whole, "")))
+    same = torch.equal(got, want) and torch.equal(ids, want_ids) and all(
+        pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in leaves)
+    if not same or any(counts.values()) or launches:
+        raise AssertionError(f"tensor_parallel (iii-a): bit for bit {same}, "
+                             f"collectives {counts}, launches {launches}")
+    s = time.perf_counter() - t0
+    emit({"phase": "tensor_parallel", "part": "(iii-a) decode, one NCCL "
+          "rank", "card": smi, "arch": cfg.name, "dtype": "float32",
+          "batch": B, "prompt": P, "new_tokens": TPD_NEW, "mesh": [1, 1],
+          "ms_per_token": ms, "one_device_ms_per_token": ms_one,
+          "collectives": counts, "launches": launches,
+          "bit_for_bit_vs_one_device": same, "cache_leaves": len(leaves),
+          "ids": ids[0].tolist(), "s": s})
+    return s, (want, want_ids, whole, ms_one)
 
 
 def main() -> int:
@@ -6004,7 +6248,11 @@ def main() -> int:
     # phase tensor_parallel: (i) one NCCL rank, (ii) two gloo ranks, each
     # held to phase lm's kernel prefill; then phi3.5-moe after phase moe
     # and mamba2-780m after phase ssm
-    tp_launches, tp_s = tp_one_rank(torch, lm_cfg, params, kept, smi)
+    # part (iii), the decode: SERVE's batch and prompt on every model
+    tpd_prompt = lambda cfg, seed: torch.tensor(_lm_tokens(
+        cfg, SERVE["batch"], SERVE["prompt_len"], seed), device="cuda")
+    tp_launches, tp_s, tpd_s, one = tp_one_rank(
+        torch, lm_cfg, params, kept, smi, tpd_prompt(lm_cfg, 12))
     got, s_part = tp_ranks(
         torch, workers, "qwen", lm_cfg, params, kept["batch"],
         {"act_spec": TP_ACT}, {"flash_attention": lm_cfg.num_layers},
@@ -6012,7 +6260,10 @@ def main() -> int:
         ref=(kept["logits"], kept["states"]))
     _add(tp_launches, got)
     tp_s += s_part
-    del kept
+    tpd_s += tpd_ranks(torch, workers, "qwen", lm_cfg, params,
+                       tpd_prompt(lm_cfg, 12), "dispatch",
+                       dict(rtol=1e-3, atol=1e-3), PARITY_TOL, smi, ref=one)
+    del kept, one
     torch.cuda.ipc_collect()
     lm_bf16 = phase_bf16_prefill(
         torch, "lm", lm_cfg, params,
@@ -6083,6 +6334,9 @@ def main() -> int:
         dict(rtol=1e-3, atol=1e-3), dict(rtol=2e-4, atol=2e-4), smi)
     _add(tp_launches, got)
     tp_s += s_part
+    tpd_s += tpd_ranks(torch, workers, "phi", moe_cfg, params,
+                       tpd_prompt(moe_cfg, 13), "dispatch",
+                       dict(rtol=1e-3, atol=1e-3), PARITY_TOL, smi)
     torch.cuda.ipc_collect()
     moe_kernels = {"gmm": (mg, "gmm", 3 * MOE_LAYERS),
                    "flash": (fa, "flash_attention", MOE_LAYERS)}
@@ -6121,14 +6375,21 @@ def main() -> int:
         SSM_STATE_TOL, smi, ref=(kept["logits"], kept["states"]))
     _add(tp_launches, got)
     tp_s += s_part
+    tpd_s += tpd_ranks(torch, workers, "mamba", ssm_cfg, params,
+                       tpd_prompt(ssm_cfg, 14), "dispatch",
+                       dict(rtol=1e-3, atol=1e-3), SSM_STATE_TOL, smi)
     del kept
     workers.close()
     torch.cuda.ipc_collect()
     tp_launches = {{"moe_gmm": "gmm"}.get(k, k): v
                    for k, v in tp_launches.items()}
+    # the decode launches no kernel: the launches are the prefills'
     emit({"phase": "tensor_parallel", "summary": True, "card": smi,
-          "launches": tp_launches, "s": tp_s, "budget_s": TP_BUDGET_S,
-          "within_budget": tp_s <= TP_BUDGET_S,
+          "launches": tp_launches, "s": tp_s + tpd_s,
+          "budget_s": TP_BUDGET_S,
+          "within_budget": tp_s + tpd_s <= TP_BUDGET_S,
+          "decode_s": tpd_s, "decode_budget_s": TPD_BUDGET_S,
+          "decode_within_budget": tpd_s <= TPD_BUDGET_S,
           "ranks_ready_s": workers.ready_s})
     ssm_bf16 = phase_bf16_prefill(
         torch, "ssm", ssm_cfg, params,

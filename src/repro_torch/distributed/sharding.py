@@ -35,17 +35,26 @@ them from whole leaves.
 ``ModelRank`` holds a rank's place under ``act_spec``, ``attn_kv_spec``
 and ``moe_spmd_axes`` and the collectives that move the residual stream
 between its layout and whole tensors.
+
+The tensor-parallel decode (``make_serve_step(mesh=...)``) keeps each
+rank's block of every decode-cache leaf in ``cache_pspecs``' layout
+between steps: ``CacheLayout`` holds each leaf's spec and block shape,
+allocates the blocks (``CacheBlocks``, which carry their layout) and
+``gather_cache`` puts them together; ``DecodeRank`` is a rank's place in
+the step (its batch rows by ``serve_input_pspecs``, each K/V block's
+``KVPlace``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import collectives
-from repro_torch.models.attention import HeadBlock, head_block
+from repro_torch.models.attention import QUANT_SCALES, HeadBlock, head_block
 
 PyTree = Any
 
@@ -590,3 +599,143 @@ class ModelRank:
             x = collectives.all_gather_dim(x, self.mesh, a, dim, part)
             span *= asz
         return x
+
+
+# ---------------------------------------------------------------------------
+# the decode cache's blocks, and a "model" rank's place in the decode step
+# ---------------------------------------------------------------------------
+
+class CacheBlocks(dict):
+    """A decode cache as this rank's blocks: the cache's dict of leaves,
+    each leaf this rank's block under ``layout`` (a ``CacheLayout``)."""
+    layout = None
+
+
+class CacheLayout:
+    """A decode cache's layout on a mesh (``cache_pspecs``): for every
+    leaf of the whole cache ``shapes`` (a tree of tensors on ``meta``,
+    ``registry.cache_specs``), its spec (``specs``) and this rank's block
+    shape (``blocks``). ``mesh``: a DeviceMesh, or None (one device:
+    every block whole)."""
+
+    def __init__(self, cfg: ArchConfig, shapes: PyTree, mesh):
+        self.cfg, self.shapes, self.mesh = cfg, shapes, mesh
+        self.mesh_shape = MeshShape.of(mesh)
+        self.specs = cache_pspecs(cfg, shapes, self.mesh_shape)
+        self.blocks = _map_with_path(
+            lambda keys, spec: block_shape(
+                _leaf_at(shapes, keys).shape, spec, self.mesh_shape),
+            self.specs)
+        #: the cache's batch (B)
+        self.batch = next(int(t.shape[-3 if keys[-1] == "conv" else -4])
+                          for keys, t in iter_leaves(shapes))
+
+    def _new(self, tree) -> CacheBlocks:
+        out = CacheBlocks(tree)
+        out.layout = self
+        return out
+
+    def init(self, device) -> CacheBlocks:
+        """This rank's blocks of a fresh cache on ``device``: zeros, the
+        quantised cache's scales ones (``models/transformer.py::
+        _block_cache``); the whole cache is never built."""
+        def make(keys, leaf):
+            fill = torch.ones if keys[-1] in QUANT_SCALES else torch.zeros
+            return fill(_leaf_at(self.blocks, keys), dtype=leaf.dtype,
+                        device=device)
+        return self._new(_map_with_path(make, self.shapes))
+
+    def map(self, fn) -> CacheBlocks:
+        """This rank's blocks from ``fn(keys, spec)`` a leaf."""
+        return self._new(_map_with_path(fn, self.specs))
+
+    def block_bytes(self) -> int:
+        """Bytes of this rank's blocks."""
+        return block_bytes(self.shapes, self.specs, self.mesh_shape)
+
+    def whole_bytes(self) -> int:
+        """Bytes of the whole cache."""
+        return sum(t.numel() * t.element_size()
+                   for _, t in iter_leaves(self.shapes))
+
+
+def _leaf_at(tree: PyTree, keys: Tuple[str, ...]):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+def gather_cache(cache: PyTree) -> PyTree:
+    """The whole cache from every rank's blocks (``CacheBlocks``): one
+    ``collectives.gather_leaf`` a leaf (one all-gather an axis of its
+    spec). For checks: the decode step never holds the whole cache. A
+    cache of one device (a plain dict) is returned as it is."""
+    layout = getattr(cache, "layout", None)
+    if layout is None:
+        return cache
+    return _map_with_path(
+        lambda keys, t: collectives.gather_leaf(
+            t, _leaf_at(layout.specs, keys), layout.mesh), dict(cache))
+
+
+class DecodeRank(ModelRank):
+    """This rank's place in the tensor-parallel decode step on ``mesh``
+    (``make_serve_step(mesh=...)``): the residual stream (B_r, 1, d) whole
+    on every ``"model"`` rank; the batch rows split evenly over the serve
+    batch axes where ``batch`` divides them (``serve_input_pspecs``), else
+    whole on every batch rank; the compute blocks of a one-token step
+    (``blocks``, from the cache length); and each cache leaf's place
+    (``kv_place``) under its ``cache_pspecs`` spec. ``mesh`` None: one
+    device, every block whole, no collective."""
+
+    def __init__(self, mesh, batch: int):
+        super().__init__(mesh)
+        shape = MeshShape.of(mesh)
+        if mesh is not None and serve_input_pspecs(batch, shape)[0] \
+                is not None:
+            self.batch_axes = tuple(a for a in serve_batch_axes(shape)
+                                    if a in shape.axis_names)
+            self.batch_index, self.batch_count = collectives.block_index(
+                mesh, self.batch_axes)
+
+    def gather_entry(self, x, dim: int, entry):
+        """``x`` whole along ``dim`` from the blocks of a spec entry's
+        axes (``collectives.gather_leaf``: one all-gather an axis of more
+        than one rank, the innermost first)."""
+        return collectives.gather_leaf(
+            x, PSpec(*([entry] + [None] * (x.dim() - 1 - dim))), self.mesh)
+
+    def kv_place(self, spec: PSpec, shape, b: ComputeBlocks):
+        """The place of a layer's K/V cache block under ``spec`` (its
+        ``cache_pspecs`` spec; ``shape``: the whole leaf's shape, (...,
+        B, L, KV, hd)): kv heads over ``"model"`` (this rank's block is
+        the kv heads it owns, ``HeadBlock.own``), the head dim, the key
+        sequence (over ``"model"``, or the batch axes and ``"model"``), or
+        whole."""
+        from repro_torch.models.attention import KVPlace
+        L, KV, hd = (int(n) for n in tuple(shape)[-3:])
+        s_e, kv_e, hd_e = tuple(spec)[-3:]
+        to_heads = None
+        if self.size > 1:
+            sizes = b.kv_sizes
+            to_heads = lambda t: self.gather(t, t.dim() - 2, sizes)
+        if kv_e == "model":
+            n = KV // self.size
+            span = (self.rank * n, (self.rank + 1) * n)
+            if span != b.heads.own or span != b.heads.kv:
+                raise ValueError(f"kv heads over 'model': rank "
+                                 f"{self.rank}'s block {span} is not the kv "
+                                 f"heads it owns {b.heads.own} and reads "
+                                 f"{b.heads.kv}")
+            return KVPlace(L, 2, span, to_heads)
+        if hd_e == "model":
+            n = hd // self.size
+            return KVPlace(L, 3, (self.rank * n, (self.rank + 1) * n),
+                           to_heads,
+                           lambda t, d: self.gather_entry(t, d, hd_e))
+        if s_e is not None:
+            idx, count = collectives.block_index(self.mesh, _names(s_e))
+            n = L // count
+            return KVPlace(L, 1, (idx * n, (idx + 1) * n), to_heads,
+                           lambda t, d: self.gather_entry(t, d, s_e))
+        return KVPlace(L, None, (0, 0), to_heads)

@@ -23,12 +23,16 @@ The train steps compute no tensor-parallel product (ROADMAP A15 (b)):
 rank of the train step's mesh, are refused by name, and
 ``client_spmd_axes`` must be the backend's client axes.
 
-On one device a serving step is the model call itself. On a mesh
-(``make_prefill_step(mesh=...)``) the prefill is tensor-parallel over the
-``"model"`` ranks (``models/transformer.py::prefill_lm``): ``act_spec``
-sets the residual stream's layout and spreads the batch,
+On one device a serving step is the model call itself. On a mesh both
+serving steps are tensor-parallel over the ``"model"`` ranks. The prefill
+(``make_prefill_step(mesh=...)``, ``models/transformer.py::prefill_lm``):
+``act_spec`` sets the residual stream's layout and spreads the batch,
 ``attn_kv_spec`` the K/V states' layout, ``moe_spmd_axes`` the ranks the
-MoE token groups spread over.
+MoE token groups spread over. The decode step (``make_serve_step(mesh=
+...)``, ``transformer.decode_step_lm``) runs each rank's share of every
+layer for one token over its blocks of the cache, kept in
+``sharding.cache_pspecs``' layout between steps
+(``registry.init_cache(..., mesh=)``).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.engine.backends.mesh import STRATEGIES, MeshBackend
 from repro_torch.core.engine.server import get_server_optimizer
-from repro_torch.distributed.sharding import ModelRank
+from repro_torch.distributed.sharding import DecodeRank, ModelRank
 from repro_torch.kernels.collectives import axes_size
 from repro_torch.models import encdec, registry, transformer
 from repro_torch.models.registry import TensorSpec
@@ -191,17 +195,62 @@ def fed_weight_specs(n_clients: int,
 # ---------------------------------------------------------------------------
 
 def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
-                    moe_path: str = "dispatch", ring: bool = False):
+                    moe_path: str = "dispatch", ring: bool = False,
+                    mesh=None):
     """One greedy-decode step: (params, cache, token, pos) -> (logits,
-    cache), the cache updated in place."""
-    return registry.decode_fn(cfg, long_mode=long_mode, moe_path=moe_path,
-                              ring=ring)
+    cache), the cache updated in place.
+
+    ``mesh`` None: one device. ``mesh`` a DeviceMesh with a ``"model"``
+    axis of any size: each rank computes its share of every layer for the
+    token (``transformer.decode_step_lm``): its query heads and the kv
+    heads they read, its d_ff block and every expert's, its SSM heads,
+    its vocabulary block. ``cache`` is this rank's blocks in
+    ``cache_pspecs``' layout (``registry.init_cache(..., mesh=mesh)``),
+    kept so between steps and written in place; the whole cache is never
+    held. The step takes whole params, the whole token batch (B,) and a
+    Python-int ``pos`` on every rank; the batch rows spread over the serve
+    batch axes where B divides them (``serve_input_pspecs``), else every
+    batch rank decodes all of them. Logits (B, V) come back whole on
+    every rank, gathered once at the readout. It runs without autograd.
+    A mesh without ``"model"`` and a cache not laid out on the step's
+    mesh are refused by name. The encoder-decoder's step ignores the mesh
+    and decodes whole on every rank, as its prefill does."""
+    if mesh is None or registry.is_encdec(cfg):
+        return registry.decode_fn(cfg, long_mode=long_mode,
+                                  moe_path=moe_path, ring=ring)
+    if "model" not in tuple(mesh.mesh_dim_names):
+        raise ValueError(f"make_serve_step: the mesh's axes "
+                         f"{tuple(mesh.mesh_dim_names)} have no 'model' "
+                         f"axis for the tensor-parallel decode")
+    gw = registry.LONG_GLOBAL_WINDOW if long_mode else None
+    ranks: Dict[int, DecodeRank] = {}
+
+    def serve_step(params, cache, token, pos):
+        layout = getattr(cache, "layout", None)
+        if layout is None or layout.mesh is not mesh:
+            raise ValueError(
+                "make_serve_step(mesh=): the cache must be this rank's "
+                "blocks on the step's mesh, from registry.init_cache(..., "
+                "mesh=mesh) or make_prefill_step(..., cache_blocks=True)")
+        B = int(token.shape[0])
+        if layout.batch != B:
+            raise ValueError(f"make_serve_step(mesh=): a batch of {B} "
+                             f"tokens, the cache's of {layout.batch}")
+        if B not in ranks:
+            ranks[B] = DecodeRank(mesh, B)
+        with torch.no_grad():
+            return transformer.decode_step_lm(
+                params, cfg, cache, token, int(pos), global_window=gw,
+                moe_path=moe_path, ring=ring, tp=ranks[B])
+
+    return serve_step
 
 
 def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
                       moe_path: str = "dispatch", use_kernel: bool = False,
                       act_spec=None, attn_kv_spec=None, moe_shards: int = 1,
-                      moe_spmd_axes=None, mesh=None):
+                      moe_spmd_axes=None, mesh=None,
+                      cache_blocks: bool = False):
     """Full-sequence prefill: (params, batch) -> (last-token logits (B, V),
     decode states). The readout runs on the last position only, so the
     (B, S, V) logits never exist. ``use_kernel=True`` runs every layer's
@@ -245,7 +294,8 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
             logits, _, states = transformer.prefill_lm(
                 params, cfg, batch["tokens"], batch.get("patch_embeds"), tp,
                 global_window=gw, moe_path=moe_path, use_kernel=use_kernel,
-                moe_shards=moe_shards, moe_spmd_axes=moe_spmd_axes)
+                moe_shards=moe_shards, moe_spmd_axes=moe_spmd_axes,
+                cache_blocks=cache_blocks)
         return logits, states
 
     return prefill_step

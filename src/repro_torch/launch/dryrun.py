@@ -68,14 +68,17 @@ def all_cases() -> Iterator[Tuple[str, str, bool]]:
                 yield arch, shape, multi_pod
 
 
-def case_plan(arch_name: str, shape_name: str,
-              multi_pod: bool) -> Dict[str, Any]:
+def case_plan(arch_name: str, shape_name: str, multi_pod: bool,
+              mesh=None) -> Dict[str, Any]:
     """The case's choices and, for each argument group (``"params"``,
     ``"batches"``, ...), its leaves (with ``shape`` and ``dtype``) and
     their specs, two trees alike, as the reference's ``build_case`` makes
-    them without overrides."""
+    them without overrides. ``mesh``: the production mesh (None), or
+    another (a ``MeshShape`` or a DeviceMesh) whose ranks hold the same
+    layouts at its sizes."""
     cfg, shape = get_arch(arch_name), get_shape(shape_name)
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    mesh = (make_production_mesh(multi_pod=multi_pod) if mesh is None
+            else sharding.MeshShape.of(mesh))
     two_d = cfg.name in SEQUENTIAL_ARCHS
     strategy = "sequential" if two_d else "parallel"
     fsdp_axes = ("data", "pod") if (two_d and multi_pod) else ("data",)

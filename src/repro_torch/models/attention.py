@@ -13,13 +13,16 @@ copying the whole cache.
 
 In the tensor-parallel prefill ``attention`` runs one ``"model"`` rank's
 share on its ``HeadBlock``: q, k and v of its heads (column blocks of the
-whole leaves), the attention on those heads, and ``wo`` row-parallel.
+whole leaves), the attention on those heads, and ``wo`` row-parallel. In
+the tensor-parallel decode ``attention_decode`` and
+``attention_decode_quant`` do, over the rank's block of the cache, which
+``KVPlace`` says how to write and read.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -256,34 +259,138 @@ def _decode_valid(L: int, pos: int, window: Optional[int], ring: bool,
     return valid
 
 
-def _decode_attend(p, cfg, x, q, kd, vd, pos, window, ring):
-    B = x.shape[0]
-    scores = _gqa_scores(q, kd, cfg.attn_logit_softcap)       # (B,KV,G,1,L)
-    valid = _decode_valid(kd.shape[1], pos, window, ring, x.device)
-    scores = scores.masked_fill(~valid, MASKED)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_combine(probs, vd)
-    return layers.dense_apply(p["wo"], out.reshape(B, 1, -1))
+@dataclass(frozen=True)
+class KVPlace:
+    """Where one rank keeps a layer's K/V decode cache (B, L, KV, hd)
+    between steps (``distributed.sharding.cache_pspecs``' layout), and the
+    collectives that reach it. ``length``: the whole cache's L. ``dim``:
+    the dim the ranks split, 1 (the key sequence), 2 (the kv heads) or 3
+    (the head dim), and ``span`` this rank's block of it; None: whole on
+    this rank. ``to_heads(t)``: the new slot's kv heads that each rank
+    owns (``HeadBlock.own``) put together along t's dim -2, every kv head
+    on every rank (an all-gather; None where one rank owns them all).
+    ``gather(t, dim)``: cache blocks stacked on a leading dim made whole
+    along ``dim`` (an all-gather; None where ``dim`` is not split). One
+    device: ``KVPlace(L)``."""
+    length: int
+    dim: Optional[int] = None
+    span: Tuple[int, int] = (0, 0)
+    to_heads: Optional[Callable] = None
+    gather: Optional[Callable] = None
+
+
+def _all_heads(place: KVPlace, ts):
+    """The new slot's values ``ts`` (each (B, 1, own, .)) over every kv
+    head: one ``to_heads`` for them all."""
+    if place.to_heads is None:
+        return list(ts)
+    return list(torch.unbind(place.to_heads(torch.stack(ts)), 0))
+
+
+def _put_slot(place: KVPlace, t, own, whole, slot: int) -> None:
+    """Write the new slot into this rank's block ``t`` of a value leaf:
+    its own kv heads (``dim`` 2), its head-dim block of every head (3),
+    every head where its key block holds ``slot`` (1), or the whole
+    slot."""
+    if place.dim == 2:
+        t[:, slot] = own[:, 0].to(t.dtype)
+    elif place.dim == 1:
+        lo, hi = place.span
+        if lo <= slot < hi:
+            t[:, slot - lo] = whole[:, 0].to(t.dtype)
+    elif place.dim == 3:
+        t[:, slot] = layers.block(whole[:, 0], 2, place.span).to(t.dtype)
+    else:
+        t[:, slot] = whole[:, 0].to(t.dtype)
+
+
+def _read(place: KVPlace, ts, kv: Tuple[int, int]):
+    """The kv heads ``kv`` (k0, k1) of value leaves ``ts`` over the whole
+    key length, whole head dim: the blocks gathered (one ``gather`` for
+    them all) where the ranks split L or hd, then cut to ``kv``."""
+    if place.gather is not None:
+        ts = torch.unbind(place.gather(torch.stack(ts), place.dim + 1), 0)
+    if place.dim == 2:
+        if place.span != kv:
+            raise ValueError(f"the rank's cache block holds kv heads "
+                             f"{place.span}, its query heads read {kv}")
+        return list(ts)
+    return [layers.block(t, 2, kv) for t in ts]
+
+
+def _decode_project(p, cfg: ArchConfig, x, pos: int, heads: HeadBlock,
+                    rope: bool):
+    """q of the rank's query heads, k and v of the kv heads it owns, at
+    position ``pos``: column blocks of the whole leaves (the leaves
+    themselves for every head)."""
+    B, hd = x.shape[0], cfg.head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    (h0, h1), (o0, o1) = heads.q, heads.own
+    q = layers.dense_apply(p["wq"], x, cols=(h0 * hd, h1 * hd)).reshape(
+        B, 1, h1 - h0, hd)
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.dense_apply(p["wk"], x, cols=(o0 * hd, o1 * hd)).reshape(
+        B, 1, o1 - o0, hd)
+    v = layers.dense_apply(p["wv"], x, cols=(o0 * hd, o1 * hd)).reshape(
+        B, 1, o1 - o0, hd)
+    if rope:
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _decode_attend(p, cfg, x, q, kd, vd, pos, window, ring, heads):
+    """The rank's query heads over its kv heads' whole-length keys, then
+    ``wo`` row-parallel: the rank's partial (every head: the output)."""
+    B, hd = x.shape[0], cfg.head_dim
+    h0, h1 = heads.q
+    out = q
+    if h1 > h0:
+        if not heads.aligned:
+            idx = torch.tensor(heads.reads(), dtype=torch.long,
+                               device=x.device)
+            kd, vd = kd.index_select(2, idx), vd.index_select(2, idx)
+        scores = _gqa_scores(q, kd, cfg.attn_logit_softcap)  # (B,KV,G,1,L)
+        valid = _decode_valid(kd.shape[1], pos, window, ring, x.device)
+        scores = scores.masked_fill(~valid, MASKED)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = _gqa_combine(probs, vd)
+    return layers.dense_apply(p["wo"], out.reshape(B, 1, (h1 - h0) * hd),
+                              rows=(h0 * hd, h1 * hd))
 
 
 def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos: int, *,
                      window: Optional[int] = None, rope: bool = True,
-                     ring: bool = False):
+                     ring: bool = False, heads: Optional[HeadBlock] = None,
+                     place: Optional[KVPlace] = None):
     """One-token decode. x: (B,1,d); cache_k/v: (B,Smax|W,KV,hd); pos: int.
 
     ``ring=True`` (windowed layers): the cache holds the last W tokens as a
     ring buffer, the new k/v landing at slot ``pos % W``; keys are stored
     post-RoPE, so slot order never matters.
 
+    ``heads`` and ``place`` (None: every head, the whole cache) are one
+    ``"model"`` rank's share in the tensor-parallel decode: q of its query
+    heads and k, v of the kv heads it owns; the new slot written into its
+    cache blocks ``cache_k``/``cache_v`` as ``place`` keeps them; its
+    query heads over the kv heads they read, gathered whole along the key
+    sequence or head dim where the ranks split those; ``wo``
+    row-parallel, so ``out`` is the rank's partial sum, which the caller
+    reduces over the ranks.
+
     Writes the new k/v into ``cache_k``/``cache_v`` in place and returns
     (out, cache_k, cache_v)."""
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
-    slot = pos % cache_k.shape[1] if ring else pos
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    out = _decode_attend(p, cfg, x, q, cache_k, cache_v, pos, window, ring)
+    if heads is None:
+        heads = head_block(cfg.num_heads, cfg.num_kv_heads, 1, 0)
+    if place is None:
+        place = KVPlace(cache_k.shape[1])
+    q, k, v = _decode_project(p, cfg, x, pos, heads, rope)
+    slot = pos % place.length if ring else pos
+    whole = _all_heads(place, (k, v)) if place.dim != 2 else (None, None)
+    for t, own, w in zip((cache_k, cache_v), (k, v), whole):
+        _put_slot(place, t, own, w, slot)
+    kd, vd = _read(place, (cache_k, cache_v), heads.kv)
+    out = _decode_attend(p, cfg, x, q, kd, vd, pos, window, ring, heads)
     return out, cache_k, cache_v
 
 
@@ -318,24 +425,45 @@ def dequantize_kv_residual(q, scale, qr, rscale, dtype):
 
 
 QUANT_KEYS = ("k", "ks", "kr", "krs", "v", "vs", "vr", "vrs")
+#: the int8 value leaves of the quantised cache, and their scales
+QUANT_VALUES = ("k", "kr", "v", "vr")
+QUANT_SCALES = ("ks", "krs", "vs", "vrs")
 
 
-def attention_decode_quant(p, cfg: ArchConfig, x, cache: Dict[str, torch.Tensor],
-                           pos: int, *, window: Optional[int] = None,
-                           rope: bool = True, ring: bool = False):
+def attention_decode_quant(p, cfg: ArchConfig, x,
+                           cache: Dict[str, torch.Tensor], pos: int, *,
+                           window: Optional[int] = None, rope: bool = True,
+                           ring: bool = False,
+                           heads: Optional[HeadBlock] = None,
+                           place: Optional[KVPlace] = None):
     """attention_decode against a two-level int8 cache
     {k,ks,kr,krs,v,vs,vr,vrs} with per-(token, head) f32 scales. Writes the
-    new slot in place and returns (out, cache)."""
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
-    slot = pos % cache["k"].shape[1] if ring else pos
-    vals = (*quantize_kv_residual(k), *quantize_kv_residual(v))
-    for name, val in zip(QUANT_KEYS, vals):
-        cache[name][:, slot] = val[:, 0].to(cache[name].dtype)
-    kd = dequantize_kv_residual(cache["k"], cache["ks"], cache["kr"],
-                                cache["krs"], x.dtype)
-    vd = dequantize_kv_residual(cache["v"], cache["vs"], cache["vr"],
-                                cache["vrs"], x.dtype)
-    out = _decode_attend(p, cfg, x, q, kd, vd, pos, window, ring)
+    new slot in place and returns (out, cache). ``heads`` and ``place`` as
+    ``attention_decode``'s: the int8 values follow ``place``; the scales
+    are whole over the ranks, each kv head's from the rank that owns it
+    (which quantises over its whole head dim); int8 is gathered at use,
+    then dequantised."""
+    if heads is None:
+        heads = head_block(cfg.num_heads, cfg.num_kv_heads, 1, 0)
+    if place is None:
+        place = KVPlace(cache["k"].shape[1])
+    q, k, v = _decode_project(p, cfg, x, pos, heads, rope)
+    slot = pos % place.length if ring else pos
+    new = dict(zip(QUANT_KEYS, (*quantize_kv_residual(k),
+                                *quantize_kv_residual(v))))
+    own = [new[n] for n in QUANT_VALUES]
+    whole = (_all_heads(place, own) if place.dim != 2
+             else [None] * len(own))
+    for name, o, w in zip(QUANT_VALUES, own, whole):
+        _put_slot(place, cache[name], o, w, slot)
+    for name, s in zip(QUANT_SCALES,
+                       _all_heads(place, [new[n] for n in QUANT_SCALES])):
+        cache[name][:, slot] = s[:, 0].to(cache[name].dtype)
+    kq, kr, vq, vr = _read(place, [cache[n] for n in QUANT_VALUES],
+                           heads.kv)
+    ks, krs, vs, vrs = (layers.block(cache[n], 2, heads.kv)
+                        for n in QUANT_SCALES)
+    kd = dequantize_kv_residual(kq, ks, kr, krs, x.dtype)
+    vd = dequantize_kv_residual(vq, vs, vr, vrs, x.dtype)
+    out = _decode_attend(p, cfg, x, q, kd, vd, pos, window, ring, heads)
     return out, cache

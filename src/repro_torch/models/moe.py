@@ -72,26 +72,30 @@ def _route(p, cfg: ArchConfig, xf):
     return w.to(xf.dtype), ids, aux
 
 
-def _expert_ffn(p, cfg: ArchConfig, xe):
+def _expert_ffn(p, cfg: ArchConfig, xe, ff=None):
     """xe: (E, C, d) -> (E, C, d) through each expert's gated FFN, in xe's
-    dtype."""
+    dtype. ``ff`` (lo, hi): on every expert's d_ff block [lo, hi) only
+    (gate and up columns, down rows), the rank's partial sum in the
+    tensor-parallel decode, which the caller reduces over the ranks."""
+    up = layers.block(p["up"], 2, ff)
     if cfg.mlp_type == "swiglu":
-        h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["gate"]))
-        h = h * torch.einsum("ecd,edf->ecf", xe, p["up"])
+        h = F.silu(torch.einsum("ecd,edf->ecf", xe,
+                                layers.block(p["gate"], 2, ff)))
+        h = h * torch.einsum("ecd,edf->ecf", xe, up)
     else:  # gelu fallback
-        h = F.gelu(torch.einsum("ecd,edf->ecf", xe, p["up"]),
-                   approximate="tanh")
-    return torch.einsum("ecf,efd->ecd", h, p["down"])
+        h = F.gelu(torch.einsum("ecd,edf->ecf", xe, up), approximate="tanh")
+    return torch.einsum("ecf,efd->ecd", h, layers.block(p["down"], 1, ff))
 
 
-def moe_apply_dense(p, cfg: ArchConfig, x) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """All experts on all tokens. x: (B, S, d) -> (y, aux)."""
+def moe_apply_dense(p, cfg: ArchConfig, x, ff=None) -> Tuple[torch.Tensor,
+                                                             torch.Tensor]:
+    """All experts on all tokens. x: (B, S, d) -> (y, aux); ``ff``: the
+    experts' d_ff block (``_expert_ffn``)."""
     B, S, d = x.shape
     m = cfg.moe
     xf = x.reshape(-1, d)
     w, ids, aux = _route(p, cfg, xf)
-    outs = _expert_ffn(p, cfg, xf.expand((m.num_experts,) + xf.shape))
+    outs = _expert_ffn(p, cfg, xf.expand((m.num_experts,) + xf.shape), ff)
     # outs: (E, T, d); combine weighted by routing
     comb = torch.zeros((xf.shape[0], m.num_experts), dtype=x.dtype,
                        device=x.device).scatter_add(1, ids, w)
@@ -107,8 +111,13 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False):
-    """Capacity-based sorted dispatch. x: (B, S, d) -> (y, aux)."""
+def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False,
+                       ff=None):
+    """Capacity-based sorted dispatch. x: (B, S, d) -> (y, aux); ``ff``:
+    the experts' d_ff block (``_expert_ffn``; the plain FFN only)."""
+    if use_kernel and ff is not None:
+        raise ValueError("moe_apply_dispatch: a d_ff block (ff=) runs the "
+                         "plain expert FFN, not the grouped-matmul kernel")
     B, S, d = x.shape
     m = cfg.moe
     E, k = m.num_experts, m.top_k
@@ -146,7 +155,7 @@ def moe_apply_dispatch(p, cfg: ArchConfig, x, *, use_kernel: bool = False):
         ye = kops.moe_gmm(xe, p["gate"], p["up"], p["down"],
                           mlp_type=cfg.mlp_type)
     else:
-        ye = _expert_ffn(p, cfg, xe)
+        ye = _expert_ffn(p, cfg, xe, ff)
 
     yf = torch.cat([ye.reshape(E * cap, d),
                     torch.zeros((1, d), dtype=x.dtype, device=dev)])
@@ -262,13 +271,21 @@ def moe_dispatch_groups(p, cfg: ArchConfig, x, groups: int, *,
 
 
 def moe_apply(p, cfg: ArchConfig, x, *, path: str = "dispatch",
-              use_kernel: bool = False, shards: int = 1, spmd_axes=None):
+              use_kernel: bool = False, shards: int = 1, spmd_axes=None,
+              ff=None):
+    """The MoE layer on ``path``; ``ff`` (dense and dispatch): the experts'
+    d_ff block of a ``"model"`` rank in the tensor-parallel decode, which
+    returns the rank's partial sum (the router whole: every rank routes
+    alike)."""
     if path == "dense":
-        return moe_apply_dense(p, cfg, x)
+        return moe_apply_dense(p, cfg, x, ff)
     if path == "dispatch_sharded" and shards > 1:
+        if ff is not None:
+            raise ValueError("dispatch_sharded token groups take no d_ff "
+                             "block (ff=)")
         return moe_apply_dispatch_sharded(p, cfg, x, shards=shards,
                                           spmd_axes=spmd_axes,
                                           use_kernel=use_kernel)
     if path in ("dispatch", "dispatch_sharded"):
-        return moe_apply_dispatch(p, cfg, x, use_kernel=use_kernel)
+        return moe_apply_dispatch(p, cfg, x, use_kernel=use_kernel, ff=ff)
     raise ValueError(f"unknown moe path {path!r}: one of {PATHS}")

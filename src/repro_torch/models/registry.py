@@ -5,7 +5,7 @@ of ``repro.models.registry``:
     init(seed_or_generator, cfg, dtype, device) -> params
     loss_fn(cfg)(params, batch)                 -> (scalar, metrics)
     forward_fn(cfg)(params, batch)              -> (logits, aux)
-    init_cache(params, cfg, batch, seq[, audio_embeds=]) -> decode cache
+    init_cache(params, cfg, batch, seq[, audio_embeds=, mesh=]) -> decode cache
     decode_fn(cfg)(params, cache, token, pos)   -> (logits, cache)
     shapes(cfg, dtype)                          -> params on ``meta``
     cache_specs(cfg, batch, seq)                -> a decode cache on ``meta``
@@ -98,13 +98,22 @@ def forward_fn(cfg: ArchConfig, *, long_mode: bool = False,
 def init_cache(params, cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.float32, audio_embeds=None, *,
                ring: bool = False, long_mode: bool = False,
-               quant: bool = False):
+               quant: bool = False, mesh=None):
     """A zeroed decode cache on the device of ``params``; the
     encoder-decoder's runs its encoder over ``audio_embeds`` (B, S_enc, d)
-    first and holds every layer's cross (k, v)."""
+    first and holds every layer's cross (k, v). ``mesh`` (a DeviceMesh
+    with a ``"model"`` axis): this rank's blocks of the cache in
+    ``cache_pspecs``' layout (``distributed.sharding.CacheLayout``), the
+    whole cache never built; the encoder-decoder ignores it and holds its
+    cache whole, as its decode does."""
     if is_encdec(cfg):
         return encdec.init_cache_encdec(params, cfg, audio_embeds, max_seq,
                                         dtype)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import CacheLayout
+        return CacheLayout(cfg, cache_specs(
+            cfg, batch, max_seq, dtype, ring=ring, long_mode=long_mode,
+            quant=quant), mesh).init(params["embed"]["embedding"].device)
     gw = LONG_GLOBAL_WINDOW if long_mode else None
     return transformer.init_cache_lm(
         cfg, batch, max_seq, dtype, ring=ring, global_window=gw, quant=quant,

@@ -13,7 +13,8 @@ model keeps ``ssd_chunked`` there and leaves its Pallas ``ssd_scan`` to the
 kernel tests (ROADMAP.md queue C).
 
 In the tensor-parallel prefill ``ssm_forward`` runs one ``"model"`` rank's
-share: its block of SSM heads.
+share: its block of SSM heads; in the tensor-parallel decode
+``ssm_decode_step`` does.
 """
 from __future__ import annotations
 
@@ -185,31 +186,54 @@ def ssm_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
     }
 
 
-def ssm_decode_step(p, cfg: ArchConfig, u, state):
+def ssm_decode_step(p, cfg: ArchConfig, u, state, *, heads=None,
+                    all_reduce=None, conv_window=None):
     """One-token recurrent step. u: (B, 1, d_model). Returns (out,
     new_state); ``state`` is not written (the model's decode copies the new
-    state into its cache)."""
+    state into its cache).
+
+    ``heads`` (h0, h1) (None: every head) is one ``"model"`` rank's share
+    in the tensor-parallel decode, as ``ssm_forward``'s: ``state`` holds
+    its heads' SSM state (B, h1 - h0, N, P) and its channels' conv window
+    (B, d_conv - 1, its x channels then B and C); its heads' z, x and dt
+    columns of ``in_proj`` with all of B and C, the conv on its channels,
+    the state update on its heads, the gated RMSNorm's sum of squares
+    summed over the ranks by ``all_reduce``, ``out_proj`` row-parallel.
+    ``out`` is then the rank's partial sum, and the new states its heads'
+    and its channels'. ``conv_window`` (None: ``state["conv"]`` then the
+    new row): a function of the raw new row (B, 1, its channels) that
+    returns the whole conv window (B, d_conv, its channels), for a conv
+    state kept in another layout than the rank's channels."""
     s, d_inner, n_heads, conv_dim = _dims(cfg)
+    h0, h1 = heads if heads is not None else (0, n_heads)
     Bsz = u.shape[0]
     f32 = torch.float32
-    z, xBC_raw, dt_raw = _split_proj(cfg, layers.dense_apply(p["in_proj"], u),
-                                     n_heads)                 # (B, 1, *)
-    window = torch.cat([state["conv"], xBC_raw], dim=1)     # (B, d_conv, cd)
-    xBC = F.silu(torch.einsum("btc,tc->bc", window, p["conv_w"])
-                 + p["conv_b"])                              # (B, conv_dim)
-    x = xBC[:, :d_inner].reshape(Bsz, n_heads, s.head_dim)
-    B_ = xBC[:, d_inner:d_inner + s.d_state]
-    C_ = xBC[:, d_inner + s.d_state:]
-    dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"].to(f32))
-    A = -torch.exp(p["A_log"].to(f32))                      # (H,)
-    decay = torch.exp(dt * A)                               # (B, H)
+    P, N = s.head_dim, s.d_state
+    Dr = (h1 - h0) * P                          # the rank's x channels
+    z, xBC_raw, dt_raw = _split_proj(
+        cfg, layers.dense_apply(_in_proj(p, cfg, h0, h1), u),
+        h1 - h0)                                               # (B, 1, *)
+    window = (torch.cat([state["conv"], xBC_raw], dim=1)   # (B, d_conv, c)
+              if conv_window is None else conv_window(xBC_raw))
+    xBC = F.silu(torch.einsum("btc,tc->bc", window,
+                              _channels(cfg, p["conv_w"], h0, h1))
+                 + _channels(cfg, p["conv_b"], h0, h1))
+    x = xBC[:, :Dr].reshape(Bsz, h1 - h0, P)
+    B_ = xBC[:, Dr:Dr + N]
+    C_ = xBC[:, Dr + N:]
+    cut = lambda t: layers.block(t, 0, (h0, h1)).to(f32)
+    dt = F.softplus(dt_raw[:, 0].to(f32) + cut(p["dt_bias"]))
+    A = -torch.exp(cut(p["A_log"]))                         # (H_r,)
+    decay = torch.exp(dt * A)                               # (B, H_r)
     st = state["ssm"].to(f32)
     st = st * decay[..., None, None] + torch.einsum(
         "bh,bn,bhp->bhnp", dt, B_.to(f32), x.to(f32))
     y = torch.einsum("bn,bhnp->bhp", C_.to(f32), st)
-    y = y + x.to(f32) * p["D"].to(f32)[None, :, None]
-    y = y.reshape(Bsz, 1, d_inner).to(u.dtype)
-    y = layers.rmsnorm_apply(p["norm"], y * F.silu(z))
-    out = layers.dense_apply(p["out_proj"], y)
+    y = y + x.to(f32) * cut(p["D"])[None, :, None]
+    y = y.reshape(Bsz, 1, Dr).to(u.dtype)
+    y = layers.rmsnorm_apply(
+        {"scale": layers.block(p["norm"]["scale"], 0, (h0 * P, h1 * P))},
+        y * F.silu(z), all_reduce=all_reduce, n=d_inner)
+    out = layers.dense_apply(p["out_proj"], y, rows=(h0 * P, h1 * P))
     new_state = {"ssm": st.to(state["ssm"].dtype), "conv": window[:, 1:, :]}
     return out, new_state

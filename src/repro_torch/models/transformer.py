@@ -29,7 +29,12 @@ rank's batch rows, the residual stream in its layout, each block's
 column- and row-parallel products on the rank's blocks of heads, d_ff and
 SSM heads, its run of MoE token groups, the readout on its vocabulary
 block; logits and decode states are gathered whole on every rank at the
-end.
+end (or the states kept as the rank's blocks of the cache layout,
+``cache_blocks``). ``decode_step_lm`` is also the tensor-parallel decode
+(``distributed.sharding.DecodeRank``): the rank's batch rows, the stream
+(B_r, 1, d) whole, each block on its heads, d_ff and SSM heads over its
+blocks of the cache (``sharding.CacheLayout``), the logits gathered whole
+from its vocabulary block.
 """
 from __future__ import annotations
 
@@ -234,34 +239,102 @@ def _block_apply(bp, cfg: ArchConfig, ltype: str, x, positions, *, tp, b,
     return x + h, {"k": k, "v": v, "aux": aux}
 
 
-def _block_decode(bp, cfg: ArchConfig, ltype: str, x, state, pos, *,
-                  global_window=None, moe_path="dense", ring=False):
-    """One token through one block; writes its cache slot (a mamba block:
-    its SSM and conv states) in place."""
+def _conv_window(tp, cfg: ArchConfig, b, conv, spec):
+    """The conv window of the rank's channels (its x channels, then B and
+    C) from its rest block ``conv``, which is cut evenly over conv_dim
+    (``spec``'s channel entry ``"model"``) or whole: (a function of the
+    rank's raw new row that returns its window (B, d_conv, channels), for
+    ``ssm_decode_step``; a list that then holds the next whole window (B,
+    d_conv - 1, conv_dim)). One all-gather a step puts every rank's rest
+    block and its new row's x channels together; B and C are every
+    rank's."""
+    nxt = []
+    if tp.size == 1:
+        def window(row):
+            w = torch.cat([conv, row], dim=1)
+            nxt.append(w[:, 1:])
+            return w
+        return window, nxt
+    P = cfg.ssm.head_dim
+    cut = spec[-1] == "model"
+
+    def window(row):
+        B, t, c = conv.shape
+        xr = (b.ssm[1] - b.ssm[0]) * P
+        mine = row[:, 0, :xr]
+        if cut:
+            mine = torch.cat([conv.reshape(B, t * c), mine], dim=1)
+        parts = tp.gather(mine, 1, [(t * c if cut else 0) + n * P
+                                    for n in b.ssm_sizes])
+        olds, xs, off = [], [], 0
+        for n in b.ssm_sizes:
+            if cut:
+                olds.append(parts[:, off:off + t * c].reshape(B, t, c))
+                off += t * c
+            xs.append(parts[:, off:off + n * P])
+            off += n * P
+        old = torch.cat(olds, dim=-1) if cut else conv
+        new = torch.cat([torch.cat(xs, dim=1)[:, None], row[..., xr:]],
+                        dim=-1)
+        w = torch.cat([old, new], dim=1)
+        nxt.append(w[:, 1:])
+        return ssm_lib._channels(cfg, w, *b.ssm)
+    return window, nxt
+
+
+def _block_decode(bp, cfg: ArchConfig, ltype: str, x, state, pos, *, tp, b,
+                  rest=None, global_window=None, moe_path="dense",
+                  ring=False, n_batch=1):
+    """One token through one block on the ``"model"`` rank ``tp`` and its
+    blocks ``b``: x (B_r, 1, d) whole, each row-parallel partial
+    all-reduced over the ranks. Writes its slot of ``state``, this rank's
+    cache blocks (a mamba block: its SSM and conv states), in place.
+    ``rest``: the block's cache specs and whole shapes ((specs, shapes),
+    each {leaf: ...}), None on one device (every block whole)."""
     if ltype == "mamba":
+        spec = rest[0] if rest is not None else {"ssm": (None,) * 4,
+                                                 "conv": (None,) * 3}
+        window, nxt = _conv_window(tp, cfg, b, state["conv"], spec["conv"])
+        ssm_rest = tp.size == 1 or spec["ssm"][-3] == "model"
+        st = state["ssm"] if ssm_rest else layers.block(state["ssm"], 1,
+                                                        b.ssm)
         h, new = ssm_lib.ssm_decode_step(
             bp["ssm"], cfg, layers.norm_apply(cfg.norm_type, bp["ln"], x),
-            state)
-        state["ssm"].copy_(new["ssm"])
-        state["conv"].copy_(new["conv"])
-        return x + h, state
+            {"ssm": st}, heads=b.ssm, all_reduce=tp.norm_reduce,
+            conv_window=window)
+        state["ssm"].copy_(new["ssm"] if ssm_rest else
+                           tp.gather(new["ssm"], 1, b.ssm_sizes))
+        conv = state["conv"]
+        conv.copy_(nxt[0] if tp.size == 1 or spec["conv"][-1] != "model"
+                   else nxt[0][..., tp.rank * conv.shape[-1]:
+                               (tp.rank + 1) * conv.shape[-1]])
+        return x + tp.all_reduce(h), state
     window = _layer_window(cfg, ltype, global_window)
     use_ring = ring and window is not None
+    place = (attention.KVPlace(state["k"].shape[1]) if rest is None else
+             tp.kv_place(rest[0]["k"], rest[1]["k"].shape, b))
     xn = layers.norm_apply(cfg.norm_type, bp["ln1"], x)
+    kw = dict(window=window, ring=use_ring, heads=b.heads, place=place)
     if "ks" in state:        # two-level int8 cache (Q-KV)
-        h, state = attention.attention_decode_quant(
-            bp["attn"], cfg, xn, state, pos, window=window, ring=use_ring)
+        h, state = attention.attention_decode_quant(bp["attn"], cfg, xn,
+                                                    state, pos, **kw)
     else:
         h, _, _ = attention.attention_decode(
-            bp["attn"], cfg, xn, state["k"], state["v"], pos, window=window,
-            ring=use_ring)
-    x = x + h
+            bp["attn"], cfg, xn, state["k"], state["v"], pos, **kw)
+    x = x + tp.all_reduce(h)
     hn = layers.norm_apply(cfg.norm_type, bp["ln2"], x)
     if "moe" in bp:
-        h, _ = moe_lib.moe_apply(bp["moe"], cfg, hn, path=moe_path)
+        # dispatch routes the whole batch, as one device does: its
+        # capacity and drops are the whole batch's
+        whole = tp.batch_count > 1 and moe_path != "dense"
+        h, _ = moe_lib.moe_apply(
+            bp["moe"], cfg, tp.gather_batch(hn, 0, n_batch) if whole
+            else hn, path=moe_path, ff=b.ff)
+        if whole:
+            h = layers.block(h, 0, tp.batch_rows(n_batch))
     else:
-        h = layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type)
-    return x + h, state
+        h = layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type, ff=b.ff)
+    return x + tp.all_reduce(h), state
 
 
 # ---------------------------------------------------------------------------
@@ -449,16 +522,63 @@ def _gather_leaf(key, t, cfg, tp, b, n_batch):
     return tp.gather_batch(t, nd - 3, n_batch)
 
 
+def _held_as_block(key: str, spec, tp, n_batch: int) -> bool:
+    """Whether the prefill's state leaf ``key`` on this rank is already
+    its block under ``spec`` (``cache_pspecs``): the same batch rows, and
+    the kv heads it owns over ``"model"`` where the kv heads are split
+    there (the SSM heads alike), or one ``"model"`` rank."""
+    from repro_torch.distributed.sharding import _names
+    from repro_torch.kernels.collectives import axes_size
+
+    def split(axes):
+        return tuple(a for a in axes if axes_size(tp.mesh, (a,)) > 1)
+
+    be = spec[-3] if key == "conv" else spec[-4]
+    mine = split(tp.batch_axes) if tp.batch_count > 1 else ()
+    if split(_names(be)) != mine or n_batch % max(tp.batch_count, 1):
+        return False
+    if tp.size == 1:
+        return True
+    if key in ("k", "v"):
+        return not tp.kv_seq and spec[-2] == "model"
+    return key == "ssm" and spec[-3] == "model"
+
+
+def _state_blocks(states, cfg: ArchConfig, tp, b, n_batch: int, dtype):
+    """The decode states as this rank's blocks in ``cache_pspecs``' layout
+    of their own shapes (a ``CacheBlocks``): a leaf the rank holds as its
+    block stays as it is; any other is gathered whole (``_gather_leaf``)
+    and cut, one leaf at a time, so the whole states never exist
+    together."""
+    from repro_torch.distributed.sharding import CacheLayout
+    from repro_torch.kernels.collectives import block_of
+    layout = CacheLayout(cfg, init_cache_lm(cfg, n_batch, sum(b.seq_sizes),
+                                            dtype, device="meta"), tp.mesh)
+
+    def leaf(keys, spec):
+        t = states
+        for k in keys:
+            t = t[k]
+        if _held_as_block(keys[-1], spec, tp, n_batch):
+            return t
+        return block_of(_gather_leaf(keys[-1], t, cfg, tp, b, n_batch),
+                        spec, tp.mesh)
+    return layout.map(leaf)
+
+
 def prefill_lm(params, cfg: ArchConfig, tokens, patch_embeds, tp, *,
                global_window: Optional[int] = None,
                moe_path: str = "dispatch", use_kernel: bool = False,
-               moe_shards: int = 1, moe_spmd_axes=None):
+               moe_shards: int = 1, moe_spmd_axes=None,
+               cache_blocks: bool = False):
     """The prefill of the ``"model"`` rank ``tp`` (``distributed.sharding.
     ModelRank``; ``ModelRank(None)``: one device). ``params``, ``tokens``
     (B, S) and ``patch_embeds`` are whole; the rank reads its batch rows
     and its blocks of each leaf. Returns (last-token logits (B, V), the MoE aux
     summed over the layers, decode states stacked over cycles as
-    ``forward_lm``'s), whole and the same on every rank."""
+    ``forward_lm``'s), whole and the same on every rank; ``cache_blocks``:
+    the states as this rank's blocks in ``cache_pspecs``' layout of their
+    own shapes instead (``_state_blocks``)."""
     n_batch = tokens.shape[0]
     rows = tp.batch_rows(n_batch)
     x, positions, _ = embed_inputs(
@@ -475,6 +595,9 @@ def prefill_lm(params, cfg: ArchConfig, tokens, patch_embeds, tp, *,
     if cfg.moe is not None and _moe_groups(tp, sum(b.seq_sizes), moe_path,
                                            moe_shards)[2]:
         aux = tp.all_reduce(aux)
+    if cache_blocks:
+        return logits, aux, _state_blocks(states, cfg, tp, b, n_batch,
+                                          x.dtype)
     return logits, aux, _gather_states(states, cfg, tp, b, n_batch)
 
 # ---------------------------------------------------------------------------
@@ -618,19 +741,51 @@ def init_cache_lm(cfg: ArchConfig, batch: int, max_seq: int,
     return cache
 
 
+def _cache_len(tree) -> int:
+    """The longest key length of a cache's K/V leaves (1 without any)."""
+    n = 1
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            n = max(n, _cache_len(v))
+        elif key == "k":
+            n = max(n, int(v.shape[-3]))
+    return n
+
+
 def decode_step_lm(params, cfg: ArchConfig, cache, token, pos: int, *,
                    global_window: Optional[int] = None,
-                   moe_path: str = "dispatch", ring: bool = False):
+                   moe_path: str = "dispatch", ring: bool = False, tp=None):
     """One decode step. token: (B,) int; pos: int position. MoE layers run
     ``moe_path`` without the kernel (one token a sequence), as the
     reference's.
 
+    ``tp``: the ``"model"`` rank (``distributed.sharding.DecodeRank``;
+    None: one device). Each rank embeds its batch rows, runs every block
+    on its heads, d_ff and SSM heads over its cache blocks (``cache`` a
+    ``CacheBlocks`` and its layout), the readout on its vocabulary block,
+    and gathers the logits whole (and the batch rows, where they are
+    split), the same on every rank.
+
     Writes each layer's new k/v (a mamba layer's SSM and conv states) into
     ``cache`` in place and returns (logits (B, V), cache) — the same dict."""
-    x = layers.embedding_apply(params["embed"], token[:, None])   # (B,1,d)
+    tp = tp if tp is not None else _one_device()
+    layout = getattr(cache, "layout", None) if tp.mesh is not None else None
+    n_batch = token.shape[0]
+    x = layers.embedding_apply(
+        params["embed"],
+        layers.block(token, 0, tp.batch_rows(n_batch))[:, None])  # (B,1,d)
+    b = tp.blocks(cfg, _cache_len(cache if layout is None
+                                  else layout.shapes))
     spec = cycle_spec(cfg)
     shared = params.get("shared")
-    kw = dict(global_window=global_window, moe_path=moe_path, ring=ring)
+    kw = dict(tp=tp, b=b, global_window=global_window, moe_path=moe_path,
+              ring=ring, n_batch=n_batch)
+
+    def rest(part, i):
+        if layout is None:
+            return None
+        return layout.specs[part][f"b{i}"], layout.shapes[part][f"b{i}"]
+
     if "stack" in params:
         for c in range(cycle_counts(cfg)[0]):
             cparams, ccache = _index(params["stack"], c), \
@@ -638,11 +793,13 @@ def decode_step_lm(params, cfg: ArchConfig, cache, token, pos: int, *,
             for i, lt in enumerate(spec):
                 x, _ = _block_decode(
                     _block_params(cfg, lt, cparams, i, shared), cfg, lt, x,
-                    ccache[f"b{i}"], pos, **kw)
+                    ccache[f"b{i}"], pos, rest=rest("stack", i), **kw)
     if "tail" in params:
         for i in range(cfg.num_layers % len(spec)):
             x, _ = _block_decode(
                 _block_params(cfg, spec[i], params["tail"], i, shared), cfg,
-                spec[i], x, cache["tail"][f"b{i}"], pos, **kw)
-    logits = _readout(params, cfg, x)
-    return logits[:, 0], cache
+                spec[i], x, cache["tail"][f"b{i}"], pos,
+                rest=rest("tail", i), **kw)
+    logits = tp.gather(_readout(params, cfg, x, vocab=b.vocab), 2,
+                       b.vocab_sizes)
+    return tp.gather_batch(logits[:, 0], 0, n_batch), cache

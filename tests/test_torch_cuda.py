@@ -1968,3 +1968,50 @@ def test_tensor_parallel_prefill_on_two_gloo_ranks_on_the_card(cuda,
                                        atol=2e-4)
             for a, b in zip(tree_leaves(got_states), tree_leaves(states)):
                 torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_decode_on_two_gloo_ranks_on_the_card(cuda,
+                                                               tmp_path):
+    """Two gloo ranks spawned on the one card, a (1, 2) ("data", "model")
+    mesh: reduced qwen2-7b (kv heads over "model", dispatch) and reduced
+    mamba2-780m (SSM heads over "model", the conv window cut evenly)
+    decode a teacher-forced prompt of 8 tokens from
+    ``init_cache(mesh=)`` on the card; each rank's logits at every step
+    and its gathered cache within the f32 tolerance of the one-process
+    decode on the card, the ranks bit for bit alike, no kernel launched."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_serve_step
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves, tree_map
+    from test_torch_mesh_ranks import spawn, tpd_rank_body
+    archs = ("qwen2-7b-reduced", "mamba2-780m-reduced")
+    models, tokens = {}, {}
+    for i, arch in enumerate(archs):
+        cfg = get_arch(arch)
+        models[arch] = (cfg, registry.init(torch.Generator().manual_seed(0),
+                                           cfg, device="cpu"))
+        tokens[arch] = torch.tensor(np.random.default_rng(i).integers(
+            0, cfg.vocab_size, (4, 8)), dtype=torch.int32)
+    ranks = spawn(tpd_rank_body, 2, tmp_path, models,
+                  [(arch, "decode", (1, 2), arch, tokens[arch],
+                    dict(max_seq=8)) for arch in archs], "cuda")
+    for arch in archs:
+        cfg, params = models[arch]
+        params = tree_map(lambda t: t.to(cuda), params)
+        cache = registry.init_cache(params, cfg, 4, 8)
+        step = make_serve_step(cfg)
+        want = []
+        with torch.no_grad():
+            for pos in range(8):
+                logits, cache = step(params, cache, tokens[arch][:, pos].to(
+                    cuda), pos)
+                want.append(logits.cpu())
+        for res in ranks:
+            got, got_cache, _, _, _, launches = res[arch]
+            assert not any(launches)
+            assert torch.equal(got, ranks[0][arch][0])
+            torch.testing.assert_close(got, torch.stack(want), rtol=2e-4,
+                                       atol=2e-4)
+            for a, b in zip(tree_leaves(got_cache), tree_leaves(cache)):
+                torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)

@@ -1,7 +1,7 @@
 """Rank bodies of the multi-rank runs in tests/test_torch_mesh.py,
 tests/test_torch_sequential.py, tests/test_torch_sharding.py,
-tests/test_torch_mesh_paths.py and tests/test_torch_tensor_parallel.py
-(and the card's in tests/test_torch_cuda.py), and the
+tests/test_torch_mesh_paths.py, tests/test_torch_tensor_parallel.py and
+tests/test_torch_tp_decode.py (and the card's in tests/test_torch_cuda.py), and the
 JAX-free MoE routing helpers those files share with tests/test_torch_cuda.py
 (no tests of its own).
 
@@ -26,12 +26,13 @@ from repro_torch.core.engine.backends import MeshBackend
 from repro_torch.core.engine.round import RoundEngine
 from repro_torch.core.engine.transport import Int8Transport
 from repro_torch.data import make_paper_task, pipeline
-from repro_torch.distributed import make_prefill_step
+from repro_torch.distributed import (make_prefill_step, make_serve_step,
+                                     sharding)
 from repro_torch.kernels import collectives, ref
 from repro_torch.kernels import delta_codec as dc
 from repro_torch.kernels import fedavg_reduce as fr
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import moe, small
+from repro_torch.models import moe, registry, small
 
 # the meshes of the multi-rank runs: world size -> (shape, axis names)
 MESHES = {2: ((2, 1), ("data", "model")), 4: ((2, 2), ("pod", "data"))}
@@ -774,3 +775,100 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return None if tree is None else tree.to(device)
+
+
+def _leaf_shapes(tree) -> dict:
+    return {"/".join(k): tuple(t.shape) for k, t in sharding.iter_leaves(tree)}
+
+
+def tpd_rank_body(rank, world, models, cases, device="cpu"):
+    """One rank of the tensor-parallel decode's meshes. Each case ``(key,
+    kind, shape, arch, tokens, kw)`` on the ([pod,] data, model) mesh of
+    ``shape`` (built once a shape, in the cases' order) and
+    ``models[arch]`` = (cfg, whole params):
+
+    * ``"decode"``: ``registry.init_cache(..., mesh=)`` of ``kw``'s
+      ``max_seq``, ``ring``, ``quant`` and ``long_mode``, then
+      ``make_serve_step(cfg, mesh=...)`` teacher-forced through every
+      column of ``tokens`` (B, T). Returns (logits (T, B, V), the gathered
+      cache, every step's collectives by kind, the blocks' shapes, the
+      whole cache's shapes, every step's kernel launches);
+    * ``"handover"``: ``make_prefill_step(cfg, mesh=..., **kw)`` on the
+      batch ``tokens`` with ``cache_blocks`` True and False: (the blocks
+      gathered, the whole states, the blocks' shapes, each call's
+      collectives by kind);
+    * ``"dryrun"``: ``launch.dryrun.case_plan``'s cache bytes a rank for
+      ``kw``'s arch and shape on this mesh, and the bytes of the blocks
+      ``init_cache(mesh=)`` allocates on ``meta`` ((plan, allocated)).
+
+    Results on the CPU."""
+    from repro_torch.kernels import flash_attention, moe_gmm, ssd_scan
+    mods = (flash_attention, moe_gmm, ssd_scan)
+    meshes, out = {}, {}
+    for key, kind, shape, arch, tokens, kw in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(
+                shape, ("pod", "data", "model")[-len(shape):], device)
+        mesh = meshes[shape]
+        if kind == "dryrun":
+            out[key] = _dryrun_bytes(mesh, **kw)
+            continue
+        cfg, params = models[arch]
+        if device != "cpu":
+            params, tokens = _to(params, device), tokens.to(device)
+        if kind == "handover":
+            for kind_ in collectives.counts:
+                collectives.counts[kind_] = 0
+            logits, blocks = make_prefill_step(
+                cfg, mesh=mesh, cache_blocks=True, **kw)(
+                    params, {"tokens": tokens})
+            counts = dict(collectives.counts)
+            for kind_ in collectives.counts:
+                collectives.counts[kind_] = 0
+            whole = make_prefill_step(cfg, mesh=mesh, **kw)(
+                params, {"tokens": tokens})[1]
+            out[key] = (_to(sharding.gather_cache(blocks), "cpu"),
+                        _to(whole, "cpu"), _leaf_shapes(blocks),
+                        (counts, dict(collectives.counts)))
+            continue
+        B, T = tokens.shape
+        opts = {k: kw[k] for k in ("ring", "long_mode") if k in kw}
+        cache = registry.init_cache(params, cfg, B, kw["max_seq"],
+                                    quant=kw.get("quant", False), mesh=mesh,
+                                    **opts)
+        step = make_serve_step(cfg, mesh=mesh,
+                               moe_path=kw.get("moe_path", "dispatch"),
+                               **opts)
+        logits, counts, launches = [], [], []
+        for pos in range(T):
+            for kind_ in collectives.counts:
+                collectives.counts[kind_] = 0
+            before = [m.launches for m in mods]
+            got, same = step(params, cache, tokens[:, pos], pos)
+            assert same is cache
+            logits.append(got.cpu())
+            counts.append(dict(collectives.counts))
+            launches.append(sum(m.launches for m in mods) - sum(before))
+        out[key] = (torch.stack(logits),
+                    _to(dict(sharding.gather_cache(cache)), "cpu"),
+                    counts, _leaf_shapes(cache),
+                    _leaf_shapes(cache.layout.shapes), launches)
+    return out
+
+
+def _dryrun_bytes(mesh, arch, shape):
+    """(the cache bytes a rank that ``case_plan`` counts for ``arch`` at
+    the decode ``shape`` on ``mesh``, the bytes of the blocks
+    ``init_cache(mesh=)`` allocates for it on ``meta``)."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    plan = dryrun.case_plan(arch, shape, False, mesh=mesh)
+    leaves, specs = plan["groups"]["cache"]
+    counted = sharding.block_bytes(leaves, specs,
+                                   sharding.MeshShape.of(mesh))
+    cfg, s = get_arch(arch), get_shape(shape)
+    blocks = registry.init_cache(
+        registry.shapes(cfg, dryrun.DTYPE), cfg, s.global_batch, s.seq_len,
+        dryrun.DTYPE, long_mode=s.name == "long_500k", mesh=mesh)
+    return counted, sum(t.numel() * t.element_size()
+                        for _, t in sharding.iter_leaves(blocks))
