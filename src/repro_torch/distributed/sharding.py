@@ -42,7 +42,10 @@ between steps: ``CacheLayout`` holds each leaf's spec and block shape,
 allocates the blocks (``CacheBlocks``, which carry their layout) and
 ``gather_cache`` puts them together; ``DecodeRank`` is a rank's place in
 the step (its batch rows by ``serve_input_pspecs``, each K/V block's
-``KVPlace``).
+``KVPlace``). The encoder-decoder's prefill and decode run on a
+``DecodeRank`` too; its cross cache (``xk``/``xv``, over the encoder
+sequence) takes the K/V places, its blocks computed by the encoder run
+(``CacheLayout.init(given=)``) and never written by a step.
 """
 from __future__ import annotations
 
@@ -635,14 +638,26 @@ class CacheLayout:
         out.layout = self
         return out
 
-    def init(self, device) -> CacheBlocks:
+    def init(self, device, given=None) -> CacheBlocks:
         """This rank's blocks of a fresh cache on ``device``: zeros, the
         quantised cache's scales ones (``models/transformer.py::
-        _block_cache``); the whole cache is never built."""
+        _block_cache``); the whole cache is never built. ``given``: a
+        subtree of blocks computed elsewhere, taken as they are (the
+        encoder-decoder's ``cross`` ``xk``/``xv``, filled by the encoder
+        run and never written by a step), each checked against its block
+        shape and dtype."""
         def make(keys, leaf):
-            fill = torch.ones if keys[-1] in QUANT_SCALES else torch.zeros
-            return fill(_leaf_at(self.blocks, keys), dtype=leaf.dtype,
-                        device=device)
+            shape = _leaf_at(self.blocks, keys)
+            block = _leaf_at(given, keys) if given is not None and \
+                keys[0] in given else None
+            if block is None:
+                fill = torch.ones if keys[-1] in QUANT_SCALES else torch.zeros
+                return fill(shape, dtype=leaf.dtype, device=device)
+            if tuple(block.shape) != shape or block.dtype != leaf.dtype:
+                raise ValueError(f"cache leaf {'/'.join(keys)}: a block "
+                                 f"{tuple(block.shape)} {block.dtype}, its "
+                                 f"layout's {shape} {leaf.dtype}")
+            return block
         return self._new(_map_with_path(make, self.shapes))
 
     def map(self, fn) -> CacheBlocks:
@@ -711,7 +726,9 @@ class DecodeRank(ModelRank):
         B, L, KV, hd)): kv heads over ``"model"`` (this rank's block is
         the kv heads it owns, ``HeadBlock.own``), the head dim, the key
         sequence (over ``"model"``, or the batch axes and ``"model"``), or
-        whole."""
+        whole. The encoder-decoder's cross leaves ``xk``/``xv`` take the
+        same places over L = the encoder sequence; ``to_heads`` then goes
+        unused (no slot is written in them)."""
         from repro_torch.models.attention import KVPlace
         L, KV, hd = (int(n) for n in tuple(shape)[-3:])
         s_e, kv_e, hd_e = tuple(spec)[-3:]

@@ -24,15 +24,18 @@ rank of the train step's mesh, are refused by name, and
 ``client_spmd_axes`` must be the backend's client axes.
 
 On one device a serving step is the model call itself. On a mesh both
-serving steps are tensor-parallel over the ``"model"`` ranks. The prefill
-(``make_prefill_step(mesh=...)``, ``models/transformer.py::prefill_lm``):
-``act_spec`` sets the residual stream's layout and spreads the batch,
-``attn_kv_spec`` the K/V states' layout, ``moe_spmd_axes`` the ranks the
-MoE token groups spread over. The decode step (``make_serve_step(mesh=
-...)``, ``transformer.decode_step_lm``) runs each rank's share of every
-layer for one token over its blocks of the cache, kept in
-``sharding.cache_pspecs``' layout between steps
-(``registry.init_cache(..., mesh=)``).
+serving steps are tensor-parallel over the ``"model"`` ranks, for every
+arch. The prefill (``make_prefill_step(mesh=...)``,
+``models/transformer.py::prefill_lm``): ``act_spec`` sets the residual
+stream's layout and spreads the batch, ``attn_kv_spec`` the K/V states'
+layout, ``moe_spmd_axes`` the ranks the MoE token groups spread over. The
+decode step (``make_serve_step(mesh=...)``, ``transformer.decode_step_lm``)
+runs each rank's share of every layer for one token over its blocks of
+the cache, kept in ``sharding.cache_pspecs``' layout between steps
+(``registry.init_cache(..., mesh=)``). The encoder-decoder's prefill and
+decode (``models/encdec.py::prefill_encdec``, ``decode_step_encdec``) run
+its encoder and decoder on the same blocks, its self and cross caches as
+blocks alike; its prefill ignores the specs, as the reference's.
 """
 from __future__ import annotations
 
@@ -202,20 +205,21 @@ def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
 
     ``mesh`` None: one device. ``mesh`` a DeviceMesh with a ``"model"``
     axis of any size: each rank computes its share of every layer for the
-    token (``transformer.decode_step_lm``): its query heads and the kv
-    heads they read, its d_ff block and every expert's, its SSM heads,
-    its vocabulary block. ``cache`` is this rank's blocks in
-    ``cache_pspecs``' layout (``registry.init_cache(..., mesh=mesh)``),
-    kept so between steps and written in place; the whole cache is never
-    held. The step takes whole params, the whole token batch (B,) and a
-    Python-int ``pos`` on every rank; the batch rows spread over the serve
-    batch axes where B divides them (``serve_input_pspecs``), else every
-    batch rank decodes all of them. Logits (B, V) come back whole on
-    every rank, gathered once at the readout. It runs without autograd.
-    A mesh without ``"model"`` and a cache not laid out on the step's
-    mesh are refused by name. The encoder-decoder's step ignores the mesh
-    and decodes whole on every rank, as its prefill does."""
-    if mesh is None or registry.is_encdec(cfg):
+    token (``transformer.decode_step_lm``, ``encdec.decode_step_encdec``):
+    its query heads and the kv heads they read, its d_ff block and every
+    expert's, its SSM heads, its vocabulary block. ``cache`` is this
+    rank's blocks in ``cache_pspecs``' layout (``registry.init_cache(...,
+    mesh=mesh)``; the encoder-decoder's cross blocks too, read and never
+    written), kept so between steps and written in place; the whole cache
+    is never held. The step takes whole params, the whole token batch
+    (B,) and a Python-int ``pos`` on every rank; the batch rows spread
+    over the serve batch axes where B divides them
+    (``serve_input_pspecs``), else every batch rank decodes all of them.
+    Logits (B, V) come back whole on every rank, gathered once at the
+    readout. It runs without autograd. A mesh without ``"model"`` and a
+    cache not laid out on the step's mesh are refused by name, for every
+    arch."""
+    if mesh is None:
         return registry.decode_fn(cfg, long_mode=long_mode,
                                   moe_path=moe_path, ring=ring)
     if "model" not in tuple(mesh.mesh_dim_names):
@@ -239,6 +243,9 @@ def make_serve_step(cfg: ArchConfig, *, long_mode: bool = False,
         if B not in ranks:
             ranks[B] = DecodeRank(mesh, B)
         with torch.no_grad():
+            if registry.is_encdec(cfg):
+                return encdec.decode_step_encdec(params, cfg, cache, token,
+                                                 int(pos), tp=ranks[B])
             return transformer.decode_step_lm(
                 params, cfg, cache, token, int(pos), global_window=gw,
                 moe_path=moe_path, ring=ring, tp=ranks[B])
@@ -257,10 +264,7 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
     attention through the flash kernel, on the ``dispatch`` MoE path every
     expert FFN through the grouped-matmul kernel, and every mamba layer's
     scan through the SSD kernel. A vlm's batch carries ``patch_embeds``.
-    The encoder-decoder's step takes {tokens, audio_embeds} and returns
-    the last-token logits alone, through no kernel, and ignores the specs
-    and the mesh, as the reference's. ``moe_shards``: the token groups of
-    ``moe_path="dispatch_sharded"``.
+    ``moe_shards``: the token groups of ``moe_path="dispatch_sharded"``.
 
     ``mesh`` None: one device; the specs change no value, and every
     token group runs here (one ``moe_gmm`` call a layer serves them all).
@@ -276,12 +280,26 @@ def make_prefill_step(cfg: ArchConfig, *, long_mode: bool = False,
     and the whole batch on every rank and returns whole logits and
     states on every rank, gathered once at the end; it runs without
     autograd. A spec that names an axis the mesh lacks, or ``"model"``
-    twice, is refused by name."""
+    twice, is refused by name.
+
+    The encoder-decoder's step takes {tokens, audio_embeds} and returns
+    the last-token logits (B, V) alone, through no kernel, and ignores
+    the specs and the MoE arguments, as the reference's. On a mesh each
+    rank runs the encoder and the decoder on its heads, d_ff and
+    vocabulary blocks (``encdec.prefill_encdec``), the stream whole on
+    every ``"model"`` rank, its batch rows as the decode step's
+    (``serve_input_pspecs``)."""
     if registry.is_encdec(cfg):
+        ranks: Dict[int, DecodeRank] = {}
+
         def encdec_prefill_step(params, batch):
-            logits, _ = encdec.forward_encdec(params, cfg, batch["tokens"],
-                                              batch["audio_embeds"])
-            return logits[:, -1]
+            B = int(batch["tokens"].shape[0])
+            if B not in ranks:
+                ranks[B] = DecodeRank(mesh, B)
+            with torch.set_grad_enabled(torch.is_grad_enabled() and
+                                        mesh is None):
+                return encdec.prefill_encdec(params, cfg, batch["tokens"],
+                                             batch["audio_embeds"], ranks[B])
         return encdec_prefill_step
 
     gw = registry.LONG_GLOBAL_WINDOW if long_mode else None

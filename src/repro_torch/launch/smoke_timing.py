@@ -26,8 +26,9 @@ import sys
 import time
 from pathlib import Path
 
-TP_KEYS = ("part", "arch", "s", "ms_per_token", "decode_s", "within_budget",
-           "decode_within_budget")
+TP_KEYS = ("part", "arch", "s", "prefill_ms", "ms_per_token", "decode_s",
+           "encdec_s", "within_budget", "decode_within_budget",
+           "encdec_within_budget")
 
 
 def digest(log: Path) -> dict:

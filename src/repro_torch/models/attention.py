@@ -16,7 +16,10 @@ share on its ``HeadBlock``: q, k and v of its heads (column blocks of the
 whole leaves), the attention on those heads, and ``wo`` row-parallel. In
 the tensor-parallel decode ``attention_decode`` and
 ``attention_decode_quant`` do, over the rank's block of the cache, which
-``KVPlace`` says how to write and read.
+``KVPlace`` says how to write and read. The encoder-decoder's
+``bidirectional_attention`` (its encoder) and ``cross_attention`` (over
+the rank's blocks of the cross cache, which ``cross_attention_kv``
+computes) take the same ``HeadBlock`` and ``KVPlace``.
 """
 from __future__ import annotations
 
@@ -84,15 +87,6 @@ def head_block(num_heads: int, num_kv_heads: int, size: int,
     h0, h1 = row_range(num_heads, size, rank)
     kv = (h0 // G, (h1 - 1) // G + 1) if h1 > h0 else (h0 // G, h0 // G)
     return HeadBlock((h0, h1), kv, (-(-h0 // G), -(-h1 // G)), G)
-
-
-def _project_qkv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
-    B, S, _ = x.shape
-    q = layers.dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads,
-                                               cfg.head_dim)
-    if rope:
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-    return (q,) + _project_kv(p, cfg, x, positions, rope=rope)
 
 
 def _project_kv(p, cfg: ArchConfig, x, positions, *, rope: bool = True):
@@ -169,6 +163,43 @@ def _attend_chunked(q, k, v, softcap_val, window):
     return torch.cat(outs, dim=1)
 
 
+def _head_project(p, cfg: ArchConfig, x, heads: HeadBlock):
+    """q of the rank's query heads and k, v of the kv heads they read, of
+    ``x`` (B, S, d), no rope: column blocks of the whole leaves (the leaves
+    themselves for every head)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    (h0, h1), (k0, k1) = heads.q, heads.kv
+    q = layers.dense_apply(p["wq"], x, cols=(h0 * hd, h1 * hd)).reshape(
+        B, S, h1 - h0, hd)
+    k = layers.dense_apply(p["wk"], x, cols=(k0 * hd, k1 * hd)).reshape(
+        B, S, k1 - k0, hd)
+    v = layers.dense_apply(p["wv"], x, cols=(k0 * hd, k1 * hd)).reshape(
+        B, S, k1 - k0, hd)
+    return q, k, v
+
+
+def _per_query_head(heads: HeadBlock, k, v):
+    """k, v of the kv heads the rank reads, as its query heads map them:
+    as they are where they read them in equal contiguous groups
+    (``heads.aligned``), else one copy of the kv head each query head
+    reads."""
+    if heads.q[1] > heads.q[0] and not heads.aligned:
+        idx = torch.tensor(heads.reads(), dtype=torch.long, device=k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k, v
+
+
+def _head_out(p, cfg: ArchConfig, heads: HeadBlock, out):
+    """``wo`` row-parallel over the rank's heads' outputs ``out`` (B, S,
+    heads, hd): its partial sum (every head: the output)."""
+    B, S = out.shape[:2]
+    h0, h1 = heads.q
+    hd = cfg.head_dim
+    return layers.dense_apply(p["wo"], out.reshape(B, S, (h1 - h0) * hd),
+                              rows=(h0 * hd, h1 * hd))
+
+
 def attention(p, cfg: ArchConfig, x, positions, *,
               window: Optional[int] = None, use_kernel: bool = False,
               rope: bool = True, heads: Optional[HeadBlock] = None,
@@ -187,22 +218,13 @@ def attention(p, cfg: ArchConfig, x, positions, *,
     kernel call maps them as it maps whole groups."""
     if heads is None:
         heads = head_block(cfg.num_heads, cfg.num_kv_heads, 1, 0)
-    B, S, _ = x.shape
-    hd = cfg.head_dim
-    (h0, h1), (k0, k1) = heads.q, heads.kv
-    q = layers.dense_apply(p["wq"], x, cols=(h0 * hd, h1 * hd)).reshape(
-        B, S, h1 - h0, hd)
-    k = layers.dense_apply(p["wk"], x, cols=(k0 * hd, k1 * hd)).reshape(
-        B, S, k1 - k0, hd)
-    v = layers.dense_apply(p["wv"], x, cols=(k0 * hd, k1 * hd)).reshape(
-        B, S, k1 - k0, hd)
+    S = x.shape[1]
+    (h0, h1), k0 = heads.q, heads.kv[0]
+    q, k, v = _head_project(p, cfg, x, heads)
     if rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    ka, va = k, v
-    if h1 > h0 and not heads.aligned:
-        idx = torch.tensor(heads.reads(), dtype=torch.long, device=x.device)
-        ka, va = k.index_select(2, idx), v.index_select(2, idx)
+    ka, va = _per_query_head(heads, k, v)
     if h1 == h0:                      # more ranks than heads: none here
         out = q
     elif use_kernel:
@@ -213,17 +235,30 @@ def attention(p, cfg: ArchConfig, x, positions, *,
     else:
         mask = causal_mask(S, S, window=window, device=x.device)
         out = _attend_chunk(q, ka, va, cfg.attn_logit_softcap, mask)
-    out = layers.dense_apply(p["wo"], out.reshape(B, S, (h1 - h0) * hd),
-                             rows=(h0 * hd, h1 * hd))
+    out = _head_out(p, cfg, heads, out)
     if kv_rows is not None:
         lo, hi = kv_rows
         return out, _project_kv(p, cfg, x[:, lo:hi], positions[:, lo:hi],
                                 rope=rope)
     o0, o1 = heads.own
-    if (o0, o1) == (k0, k1):
+    if (o0, o1) == heads.kv:
         return out, (k, v)
     return out, (k[:, :, o0 - k0:o1 - k0].contiguous(),
                  v[:, :, o0 - k0:o1 - k0].contiguous())
+
+
+def bidirectional_attention(p, cfg: ArchConfig, x, *,
+                            heads: Optional[HeadBlock] = None):
+    """The encoder's self-attention: every position attends to every
+    other (no mask, no rope), on the plain path. ``heads`` (None: every
+    head) as ``attention``'s: q, k and v of the rank's heads, ``wo``
+    row-parallel, so the result is its partial sum."""
+    if heads is None:
+        heads = head_block(cfg.num_heads, cfg.num_kv_heads, 1, 0)
+    q, k, v = _head_project(p, cfg, x, heads)
+    out = q if heads.q[1] == heads.q[0] else _attend_chunk(
+        q, *_per_query_head(heads, k, v), None, None)
+    return _head_out(p, cfg, heads, out)
 
 
 def cross_attention_init(gen, cfg: ArchConfig, dtype=torch.float32,
@@ -231,23 +266,63 @@ def cross_attention_init(gen, cfg: ArchConfig, dtype=torch.float32,
     return attn_init(gen, cfg, dtype, device)
 
 
-def cross_attention(p, cfg: ArchConfig, x, enc_kv):
-    """Decoder-to-encoder attention: no mask, no rope. x: (B,Sq,d); enc_kv:
-    the precomputed (k, v), each (B,Senc,KV,hd)."""
+def cross_attention(p, cfg: ArchConfig, x, enc_kv, *,
+                    heads: Optional[HeadBlock] = None,
+                    place: Optional[KVPlace] = None):
+    """Decoder-to-encoder attention: no mask, no rope. x: (B,Sq,d);
+    enc_kv: the precomputed (k, v), each (B,Senc,KV,hd).
+
+    ``heads`` and ``place`` (None: every head, the whole cross cache) are
+    one ``"model"`` rank's share: q of its query heads; ``enc_kv`` its
+    blocks of the cross (k, v) as ``place`` keeps them (the kv heads its
+    query heads read, or its block of the head dim or the encoder
+    sequence, gathered whole by ``_read``: every rank takes part in that
+    gather); ``wo`` row-parallel, so the result is its partial sum. The
+    cross cache is read, never written."""
+    if heads is None:
+        heads = head_block(cfg.num_heads, cfg.num_kv_heads, 1, 0)
+    if place is None:
+        place = KVPlace(enc_kv[0].shape[1])
     B, Sq, _ = x.shape
-    q = layers.dense_apply(p["wq"], x).reshape(B, Sq, cfg.num_heads,
-                                               cfg.head_dim)
-    out = _attend_chunk(q, *enc_kv, None, None)
-    return layers.dense_apply(p["wo"], out.reshape(B, Sq, -1))
+    hd = cfg.head_dim
+    h0, h1 = heads.q
+    q = layers.dense_apply(p["wq"], x, cols=(h0 * hd, h1 * hd)).reshape(
+        B, Sq, h1 - h0, hd)
+    k, v = _read(place, enc_kv, heads.kv)
+    out = q if h1 == h0 else _attend_chunk(
+        q, *_per_query_head(heads, k, v), None, None)
+    return _head_out(p, cfg, heads, out)
 
 
-def cross_attention_kv(p, cfg: ArchConfig, enc_out):
+def cross_attention_kv(p, cfg: ArchConfig, enc_out,
+                       place: Optional[KVPlace] = None):
     """The encoder's (k, v) for cross attention, computed once a sequence
-    and read by every decode step."""
+    and read by every decode step. ``place`` (None: every kv head, whole):
+    one rank's block as ``place`` keeps it, computed straight from
+    ``enc_out`` with no collective: the kv heads ``span`` (dim 2: its
+    columns of ``wk``/``wv``), its head-dim block of every kv head (dim
+    3: those columns of each head), or its rows ``span`` of the encoder
+    sequence (dim 1)."""
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    dim, span = (None, None) if place is None else (place.dim, place.span)
+    if dim == 1:
+        enc_out = layers.block(enc_out, 1, span)
     B, Senc, _ = enc_out.shape
-    shape = (B, Senc, cfg.num_kv_heads, cfg.head_dim)
-    return (layers.dense_apply(p["wk"], enc_out).reshape(shape),
-            layers.dense_apply(p["wv"], enc_out).reshape(shape))
+
+    def project(leaf):
+        if dim == 2:
+            lo, hi = span
+            return layers.dense_apply(leaf, enc_out, cols=(
+                lo * hd, hi * hd)).reshape(B, Senc, hi - lo, hd)
+        if dim == 3:
+            lo, hi = span
+            cut = {k: t.unflatten(-1, (KV, hd))[..., lo:hi].flatten(-2)
+                   for k, t in leaf.items()}
+            return layers.dense_apply(cut, enc_out).reshape(B, Senc, KV,
+                                                            hi - lo)
+        return layers.dense_apply(leaf, enc_out).reshape(B, Senc, KV, hd)
+
+    return project(p["wk"]), project(p["wv"])
 
 
 def _decode_valid(L: int, pos: int, window: Optional[int], ring: bool,
@@ -342,21 +417,15 @@ def _decode_project(p, cfg: ArchConfig, x, pos: int, heads: HeadBlock,
 def _decode_attend(p, cfg, x, q, kd, vd, pos, window, ring, heads):
     """The rank's query heads over its kv heads' whole-length keys, then
     ``wo`` row-parallel: the rank's partial (every head: the output)."""
-    B, hd = x.shape[0], cfg.head_dim
-    h0, h1 = heads.q
     out = q
-    if h1 > h0:
-        if not heads.aligned:
-            idx = torch.tensor(heads.reads(), dtype=torch.long,
-                               device=x.device)
-            kd, vd = kd.index_select(2, idx), vd.index_select(2, idx)
+    if heads.q[1] > heads.q[0]:
+        kd, vd = _per_query_head(heads, kd, vd)
         scores = _gqa_scores(q, kd, cfg.attn_logit_softcap)  # (B,KV,G,1,L)
         valid = _decode_valid(kd.shape[1], pos, window, ring, x.device)
         scores = scores.masked_fill(~valid, MASKED)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = _gqa_combine(probs, vd)
-    return layers.dense_apply(p["wo"], out.reshape(B, 1, (h1 - h0) * hd),
-                              rows=(h0 * hd, h1 * hd))
+    return _head_out(p, cfg, heads, out)
 
 
 def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos: int, *,

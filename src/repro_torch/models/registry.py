@@ -104,11 +104,12 @@ def init_cache(params, cfg: ArchConfig, batch: int, max_seq: int,
     first and holds every layer's cross (k, v). ``mesh`` (a DeviceMesh
     with a ``"model"`` axis): this rank's blocks of the cache in
     ``cache_pspecs``' layout (``distributed.sharding.CacheLayout``), the
-    whole cache never built; the encoder-decoder ignores it and holds its
-    cache whole, as its decode does."""
+    whole cache never built; the encoder-decoder's runs its encoder on
+    the ``"model"`` ranks and computes this rank's cross blocks from it
+    (``encdec.init_cache_encdec``)."""
     if is_encdec(cfg):
         return encdec.init_cache_encdec(params, cfg, audio_embeds, max_seq,
-                                        dtype)
+                                        dtype, mesh=mesh)
     if mesh is not None:
         from repro_torch.distributed.sharding import CacheLayout
         return CacheLayout(cfg, cache_specs(
@@ -125,18 +126,14 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int,
                 ring: bool = False, long_mode: bool = False,
                 quant: bool = False) -> PyTree:
     """A decode cache's tree on the ``meta`` device: shapes and dtypes,
-    nothing allocated (the reference's ``cache_specs``). The
-    encoder-decoder's runs its encoder on ``meta`` stand-ins."""
-    meta = torch.device("meta")
+    nothing allocated (the reference's ``cache_specs``); the
+    encoder-decoder's holds its cross (k, v) over the encoder sequence."""
     if is_encdec(cfg):
-        audio = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
-                            dtype=dtype, device=meta)
-        return encdec.init_cache_encdec(shapes(cfg, dtype), cfg, audio,
-                                        max_seq, dtype)
+        return encdec.cache_shapes(cfg, batch, max_seq, dtype)
     gw = LONG_GLOBAL_WINDOW if long_mode else None
     return transformer.init_cache_lm(cfg, batch, max_seq, dtype, ring=ring,
                                      global_window=gw, quant=quant,
-                                     device=meta)
+                                     device=torch.device("meta"))
 
 
 def decode_fn(cfg: ArchConfig, *, long_mode: bool = False,

@@ -2015,3 +2015,53 @@ def test_tensor_parallel_decode_on_two_gloo_ranks_on_the_card(cuda,
                                        atol=2e-4)
             for a, b in zip(tree_leaves(got_cache), tree_leaves(cache)):
                 torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_encdec_on_two_gloo_ranks_on_the_card(cuda,
+                                                              tmp_path):
+    """Two gloo ranks spawned on the one card, a (1, 2) ("data", "model")
+    mesh: reduced whisper-tiny (both caches by kv heads, 2 of 4 a rank)
+    prefills a prompt of 5 tokens over its 16 audio frames, then runs
+    ``init_cache(mesh=)`` and decodes 8 teacher-forced tokens on the card;
+    each rank's prefill logits, logits at every step and gathered cache
+    within the f32 tolerance of the one-process steps on the card, the
+    ranks bit for bit alike, no kernel launched."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_prefill_step, make_serve_step
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves, tree_map
+    from test_torch_mesh_ranks import spawn, tpe_rank_body
+    arch = "whisper-tiny-reduced"
+    cfg = get_arch(arch)
+    params = registry.init(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 8)),
+                          dtype=torch.int32)
+    audio = torch.tensor(rng.normal(size=(4, cfg.encoder_seq, cfg.d_model))
+                         .astype(np.float32) * 0.1)
+    ranks = spawn(tpe_rank_body, 2, tmp_path, {arch: (cfg, params)},
+                  [(arch, (1, 2), arch, tokens, audio, 5, 8)], "cuda")
+    card = tree_map(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        prefill = make_prefill_step(cfg)(
+            card, {"tokens": tokens[:, :5].to(cuda),
+                   "audio_embeds": audio.to(cuda)})
+        cache = registry.init_cache(card, cfg, 4, 8,
+                                    audio_embeds=audio.to(cuda))
+        step = make_serve_step(cfg)
+        want = []
+        for pos in range(8):
+            logits, cache = step(card, cache, tokens[:, pos].to(cuda), pos)
+            want.append(logits.cpu())
+    for res in ranks:
+        got_pl, got, got_cache, _, _, _, launches = res[arch]
+        assert launches == 0
+        assert torch.equal(got, ranks[0][arch][1])
+        torch.testing.assert_close(got_pl, prefill.cpu(), rtol=2e-4,
+                                   atol=2e-4)
+        torch.testing.assert_close(got, torch.stack(want), rtol=2e-4,
+                                   atol=2e-4)
+        for a, b in zip(tree_leaves(got_cache), tree_leaves(cache)):
+            torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)

@@ -1,7 +1,8 @@
 """Rank bodies of the multi-rank runs in tests/test_torch_mesh.py,
 tests/test_torch_sequential.py, tests/test_torch_sharding.py,
-tests/test_torch_mesh_paths.py, tests/test_torch_tensor_parallel.py and
-tests/test_torch_tp_decode.py (and the card's in tests/test_torch_cuda.py), and the
+tests/test_torch_mesh_paths.py, tests/test_torch_tensor_parallel.py,
+tests/test_torch_tp_decode.py and tests/test_torch_tp_encdec.py (and the
+card's in tests/test_torch_cuda.py), and the
 JAX-free MoE routing helpers those files share with tests/test_torch_cuda.py
 (no tests of its own).
 
@@ -867,8 +868,66 @@ def _dryrun_bytes(mesh, arch, shape):
     counted = sharding.block_bytes(leaves, specs,
                                    sharding.MeshShape.of(mesh))
     cfg, s = get_arch(arch), get_shape(shape)
+    audio = (torch.empty((s.global_batch, cfg.encoder_seq, cfg.d_model),
+                         dtype=dryrun.DTYPE, device="meta")
+             if registry.is_encdec(cfg) else None)
     blocks = registry.init_cache(
         registry.shapes(cfg, dryrun.DTYPE), cfg, s.global_batch, s.seq_len,
-        dryrun.DTYPE, long_mode=s.name == "long_500k", mesh=mesh)
+        dryrun.DTYPE, audio, long_mode=s.name == "long_500k", mesh=mesh)
     return counted, sum(t.numel() * t.element_size()
                         for _, t in sharding.iter_leaves(blocks))
+
+
+def _zero_counts():
+    for kind in collectives.counts:
+        collectives.counts[kind] = 0
+
+
+def tpe_rank_body(rank, world, models, cases, device="cpu"):
+    """One rank of the encoder-decoder's tensor-parallel meshes. Each case
+    ``(key, shape, arch, tokens, audio, prompt, max_seq)`` on the ([pod,]
+    data, model) mesh of ``shape`` (built once a shape, in the cases'
+    order) and ``models[arch]`` = (cfg, whole params):
+    ``make_prefill_step(cfg, mesh=...)`` on {the first ``prompt`` columns
+    of tokens (B, T), audio}; ``registry.init_cache(...,
+    audio_embeds=audio, mesh=)``; then ``make_serve_step(cfg, mesh=...)``
+    teacher-forced through every column of ``tokens``. Returns {key:
+    (the prefill's logits, the decode's logits (T, B, V), the gathered
+    cache, the collectives by kind of the prefill, of ``init_cache`` and
+    of every step, the blocks' shapes, the whole cache's shapes, the
+    kernel launches of all of it)}, on the CPU."""
+    from repro_torch.kernels import flash_attention, moe_gmm, ssd_scan
+    mods = (flash_attention, moe_gmm, ssd_scan)
+    meshes, out = {}, {}
+    for key, shape, arch, tokens, audio, prompt, max_seq in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(
+                shape, ("pod", "data", "model")[-len(shape):], device)
+        mesh = meshes[shape]
+        cfg, params = models[arch]
+        if device != "cpu":
+            params = _to(params, device)
+            tokens, audio = tokens.to(device), audio.to(device)
+        before = sum(m.launches for m in mods)
+        B, T = tokens.shape
+        _zero_counts()
+        prefill = make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": tokens[:, :prompt], "audio_embeds": audio})
+        counts = [dict(collectives.counts)]
+        _zero_counts()
+        cache = registry.init_cache(params, cfg, B, max_seq,
+                                    audio_embeds=audio, mesh=mesh)
+        counts.append(dict(collectives.counts))
+        step = make_serve_step(cfg, mesh=mesh)
+        logits = []
+        for pos in range(T):
+            _zero_counts()
+            got, same = step(params, cache, tokens[:, pos], pos)
+            assert same is cache
+            logits.append(got.cpu())
+            counts.append(dict(collectives.counts))
+        out[key] = (prefill.cpu(), torch.stack(logits),
+                    _to(dict(sharding.gather_cache(cache)), "cpu"), counts,
+                    _leaf_shapes(cache), _leaf_shapes(cache.layout.shapes),
+                    sum(m.launches for m in mods) - before)
+    return out

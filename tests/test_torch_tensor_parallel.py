@@ -677,9 +677,32 @@ def test_prefill_refuses_specs_it_cannot_place(kw, match):
         make_prefill_step(cfg, mesh=Mesh(), **kw)
 
 
-def test_encdec_step_ignores_the_specs():
-    """The encoder-decoder step ignores the specs and the mesh, as the
-    reference's (``src/repro/distributed/strategies.py:167-174``)."""
+def test_encdec_step_ignores_the_specs(mesh1, monkeypatch):
+    """The encoder-decoder step ignores the specs, as the reference's
+    (``src/repro/distributed/strategies.py:167-174``): specs it would
+    refuse for a decoder arch are taken; and it computes on the mesh's
+    ranks (``encdec.prefill_encdec`` on a ``DecodeRank`` of the step's
+    mesh), on a world of one rank bit for bit the step without a mesh,
+    no collective run."""
+    from repro_torch.models import encdec as tencdec
     cfg = get_arch("whisper-tiny-reduced")
-    step = make_prefill_step(cfg, mesh=Mesh(), act_spec=(None, "x", None))
-    assert step.__name__ == "encdec_prefill_step"
+    bad = dict(act_spec=(None, "x", None), attn_kv_spec=("pod", "model"),
+               moe_spmd_axes=("data",))
+    make_prefill_step(cfg, mesh=Mesh(), **bad)
+    params = treg.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 6)),
+                                    dtype=torch.int32),
+             "audio_embeds": torch.tensor(rng.normal(size=(
+                 2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+    ranks, prefill = [], tencdec.prefill_encdec
+    monkeypatch.setattr(tencdec, "prefill_encdec", lambda *a: (
+        ranks.append(a[-1]), prefill(*a))[1])
+    for kind in collectives.counts:
+        collectives.counts[kind] = 0
+    got = make_prefill_step(cfg, mesh=mesh1, **bad)(params, batch)
+    assert not any(collectives.counts.values())
+    assert [tp.mesh for tp in ranks] == [mesh1]
+    with torch.no_grad():
+        want = make_prefill_step(cfg)(params, batch)
+    assert got.shape == (2, cfg.vocab_size) and torch.equal(got, want)

@@ -656,12 +656,12 @@ class NoModel:
 
 
 def test_serve_step_refuses_a_mesh_without_model():
-    """A mesh without a ``"model"`` axis is refused by name; the
-    encoder-decoder's step ignores the mesh, as its prefill does."""
-    with pytest.raises(ValueError, match="no 'model' axis"):
-        make_serve_step(get_arch("qwen2-7b-reduced"), mesh=NoModel())
-    step = make_serve_step(get_arch("whisper-tiny-reduced"), mesh=NoModel())
-    assert step.__name__ == "enc_fn"
+    """A mesh without a ``"model"`` axis is refused by name, for every
+    arch: the encoder-decoder's step too, which decodes on the
+    ``"model"`` ranks like the rest."""
+    for arch in ("qwen2-7b-reduced", "whisper-tiny-reduced"):
+        with pytest.raises(ValueError, match="no 'model' axis"):
+            make_serve_step(get_arch(arch), mesh=NoModel())
 
 
 class Mesh14:
@@ -691,7 +691,8 @@ HANDOVER_SEQ = 12
 DRYRUN_CASES = [("qwen2-7b", "decode_32k"), ("gemma2-27b", "decode_32k"),
                 ("nemotron-4-340b", "decode_32k"),
                 ("mamba2-780m", "decode_32k"), ("zamba2-7b", "long_500k"),
-                ("mixtral-8x22b", "long_500k")]
+                ("mixtral-8x22b", "long_500k"),
+                ("whisper-tiny", "decode_32k")]
 
 
 def handover_kw(cfg, shape):
