@@ -139,7 +139,7 @@ exits non-zero without printing a result:
               qwen1.5-0.5b (phase lm's f32 params) over
               ``make_lm_clients`` data at the LM specs' traffic (12
               clients, 4 a round, b 4, seq 32, K_r-rounds, beta 0.05 s),
-              3 rounds each of (a) int8 uplink, (b) int8 both ways, (c) a
+              2 rounds each of (a) int8 uplink, (b) int8 both ways, (c) a
               fixed cohort [0, 3, 5, 9] with top-k 0.25 and per-client
               error feedback, (d) no codec, the kernel aggregator; ms per
               round, ms per local step (CUDA events around the vmapped
@@ -180,7 +180,7 @@ exits non-zero without printing a result:
               18, the allocator's peak dense over C = 3 at least 4x, ms a
               round; (ii) qwen1.5-0.5b at full width (phase lm's params)
               at the LM specs' traffic with the int8 uplink, 32 clients,
-              16 a round in 4 slabs of 4, 2 rounds: 14 x 4 x 2
+              16 a round in 4 slabs of 4, 1 round: 14 x 4 x 1
               ``int8_decompress_reduce`` launches, counters exact, ms a
               round, peak; one slab round more holds every call at the 14
               leaf sizes against its plain version; one round of U 4 as one
@@ -325,9 +325,36 @@ exits non-zero without printing a result:
               logits at every step and gathered cache within rtol = atol =
               2e-4 of the one-process run, the ids rule of (iii-b), ms a
               prefill, an ``init_cache`` and a decode step, collectives by
-              kind and bytes, the cache share and the peak, no launch.
-              The phase's seconds beside its 60 s budget, part (iii)'s
-              beside 15 s and part (iv)'s beside 10 s.
+              kind and bytes, the cache share and the peak, no launch;
+              (v) tensor-parallel training (``make_fed_train_step(mesh=,
+              act_spec=...)``) at lm_train's traffic (clients 0-3 of
+              ``make_lm_clients(default_rng(0), 12, ...)``, b 4, seq 32,
+              K 2, eta 0.05, f32) with the reference dry run's
+              arguments: parallel, the stream by sequence block, the
+              clients over "data" and the ``fedavg_reduce`` kernel
+              aggregating; sequential, a client's batch over "data", one
+              group of 2 clients, ``param_specs``, an f32 sum: (v-a)
+              qwen1.5-0.5b at full width and depth on the one-rank NCCL
+              mesh of (i), each round bit for bit the round without the
+              specs, the same collectives, none over "model", 14
+              ``fedavg_reduce_sharded`` launches (one a leaf) on the
+              parallel round;
+              (v-b) on the two gloo ranks, params by IPC handle:
+              qwen1.5-0.5b at 4 of 24 layers (both rounds) after (iv-b),
+              mamba2-780m at 4 of 48 layers (parallel) before they close;
+              each rank's new params and mean loss within rtol = atol =
+              2e-4 of this process's round and each leaf's update (new
+              minus round-start params) within 1e-2 of the leaf's largest
+              update (plus two f32 roundings of its largest weight) of
+              this process's, the ranks bit for bit alike,
+              ms a round, collectives a local step by kind and bytes
+              (forward, backward and the partials' sum), the blocked
+              leaves' gather bytes, the peak, one
+              ``fedavg_reduce_sharded`` launch a leaf on each parallel
+              round.
+              The phase's seconds beside its 80 s budget (60 s for
+              parts (i)-(iv), 20 s for part (v)), part (iii)'s beside
+              15 s, part (iv)'s beside 10 s and part (v)'s beside 20 s.
 
 The line before the last is the kernels summary (``flash_attention``,
 ``gmm`` and ``ssd_scan`` with their f32 and bf16 rows, paths and launches;
@@ -340,7 +367,8 @@ fleet's packed run, ``fleet_launches``, in phase mesh_paths,
 ``mesh_paths_launches`` (the unsharded kernels' counts include the
 launches their sharded wrappers made), in phase sequential (ii)'s
 counted run, ``sequential_launches``, and in phase tensor_parallel's
-counted prefills, both ranks' and (i)'s, ``tensor_parallel_launches``);
+counted prefills, both ranks' and (i)'s, and its training rounds' (part
+(v): ``fedavg_reduce_sharded``), ``tensor_parallel_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -2541,6 +2569,9 @@ def rank_worker(rank: int, world: int, pg_path: str, jobs, results,
             elif job[0] == "tpe":
                 tpe_rank_job(torch, meshes["model"], rank, job[1], jobs,
                              results, parent)
+            elif job[0] == "tpt":
+                tpt_rank_job(torch, meshes["model"], rank, job[1], jobs,
+                             results, parent)
             else:
                 tp_rank_job(torch, meshes["model"], rank, job[1], jobs,
                             results, parent)
@@ -2723,7 +2754,8 @@ LM_TRAIN_SOURCES = {
     "b": "examples/specs/local-int8-downlink.json",
     "c": "examples/specs/fixed-cohort-topk.json",
     "d": "local-int8-decayK's traffic, no transport, aggregator kernel"}
-LM_TRAIN_ROUNDS = 3
+# 2 rounds (3 until phase tensor_parallel's training needed the seconds)
+LM_TRAIN_ROUNDS = 2
 # the wire path's kernel entry points in kernels.ops
 WIRE_ENTRIES = {"int8_decompress_reduce": "int8_delta_reduce",
                 "int8_decode_apply": "int8_delta_apply",
@@ -2906,8 +2938,8 @@ def run_lm_train(torch, label, cfg, params, data):
         return call
 
     make_update = local.make_client_update
-    local.make_client_update = lambda fn: timed("client_update",
-                                                make_update(fn))
+    local.make_client_update = lambda *a: timed("client_update",
+                                                make_update(*a))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -3584,8 +3616,11 @@ STREAM_CHUNKS = (None, 25, 3)
 STREAM_TOL = dict(rtol=2e-4, atol=2e-4)
 STREAM_MOVE, STREAM_MOVE_MEAN = 0.1, 0.01
 # (ii): qwen1.5-0.5b, the LM specs' traffic (lm_train (a)) at 32 clients,
-# 16 a round in slabs of 4
+# 16 a round in slabs of 4 (dense at 16, ~135 GB, would not fit the card),
+# STREAM_LM_ROUNDS rounds (2 until phase tensor_parallel's training needed
+# the seconds)
 LM_STREAM = dict(total_clients=32, clients_per_round=16, cohort_chunk=4)
+STREAM_LM_ROUNDS = 1
 # async (iii): 12 clients, 4 in flight, a buffer of 2
 LM_ASYNC = dict(aggregation="async", buffer_size=2, staleness_weight="inv",
                 max_staleness=4)
@@ -3912,7 +3947,7 @@ def _lm_engine(cfg, params, data, fed, het=0.0, backend=None):
 
 def stream_lm(torch, params):
     """(ii) qwen1.5-0.5b at full width (phase lm's params), int8 uplink,
-    16 clients a round in slabs of 4 for ``STREAM_ROUNDS`` rounds; one
+    16 clients a round in slabs of 4 for ``STREAM_LM_ROUNDS`` rounds; one
     checked slab round more; one round of U = 4 as one slab against the
     dense U = 4 round. Returns the launches."""
     import numpy as np
@@ -3925,7 +3960,7 @@ def stream_lm(torch, params):
     data = make_lm_clients(np.random.default_rng(0),
                            LM_STREAM["total_clients"], vocab=cfg.vocab_size,
                            seq_len=SEQ)
-    fed = _lm_fed(rounds=STREAM_ROUNDS, **LM_STREAM)
+    fed = _lm_fed(rounds=STREAM_LM_ROUNDS, **LM_STREAM)
     n_slabs = -(-fed.clients_per_round // fed.cohort_chunk)
 
     def make():
@@ -3934,11 +3969,11 @@ def stream_lm(torch, params):
         return keep_first_round(tr, STREAM_LM_ROUND1)
 
     tr, h, counts, peak, peak_abs, run_s = _peak_run(
-        torch, make, lambda t: t.run(STREAM_ROUNDS))
+        torch, make, lambda t: t.run(STREAM_LM_ROUNDS))
     STREAM_LM_ROUND1.update(loss=h.train_loss[0], k=h.k[0])
-    want = STREAM_ROUNDS * n_slabs * len(sizes)
+    want = STREAM_LM_ROUNDS * n_slabs * len(sizes)
     only(counts, {"int8_decompress_reduce": want}, "stream (ii)")
-    formula = lm_train_want(fed, sizes, STREAM_ROUNDS)
+    formula = lm_train_want(fed, sizes, STREAM_LM_ROUNDS)
     got = {key: getattr(h, key) for key in formula}
     if got != formula or not all(math.isfinite(v) for v in h.train_loss):
         raise AssertionError(f"stream (ii): counters {got} != {formula} "
@@ -4819,7 +4854,7 @@ def paths_stream_lm(torch, params, mesh, smi):
     data = make_lm_clients(np.random.default_rng(0),
                            LM_STREAM["total_clients"], vocab=cfg.vocab_size,
                            seq_len=SEQ)
-    fed = _lm_fed(rounds=STREAM_ROUNDS, **LM_STREAM)
+    fed = _lm_fed(rounds=STREAM_LM_ROUNDS, **LM_STREAM)
     n_slabs = -(-fed.clients_per_round // fed.cohort_chunk)
 
     def make():
@@ -5959,11 +5994,12 @@ def tp_one_rank(torch, cfg, params, kept, smi, prompt, whisper):
     NCCL ("data", "model") mesh, ``act_spec`` over the sequence, through
     the flash kernel: logits and states bit for bit phase lm's kernel
     prefill (``kept``), no collective. Then (iii-a) on the same mesh, the
-    decode of ``prompt`` (``tpd_one_rank``), and (iv-a) whisper-tiny's
+    decode of ``prompt`` (``tpd_one_rank``), (iv-a) whisper-tiny's
     prefill and decode (``tpe_one_rank``; ``whisper``: its cfg, params on
-    the card and traffic). Returns (launches, seconds of (i), seconds of
+    the card and traffic) and (v-a) a training round of each strategy
+    (``tpt_one_rank``). Returns (launches, seconds of (i), seconds of
     (iii-a), its one-device decode, seconds of (iv-a), its one-device
-    prefill and decode)."""
+    prefill and decode, seconds of (v-a))."""
     import torch.distributed as dist
     from repro_torch.distributed import make_prefill_step
     from repro_torch.kernels import collectives
@@ -5984,6 +6020,8 @@ def tp_one_rank(torch, cfg, params, kept, smi, prompt, whisper):
         s_decode, one = tpd_one_rank(torch, cfg, params, prompt, mesh,
                                      smi)
         s_encdec, w_one = tpe_one_rank(torch, *whisper, mesh, smi)
+        train_launches, s_train = tpt_one_rank(torch, cfg, params, mesh,
+                                               smi)
     finally:
         dist.destroy_process_group()
     leaves = list(zip(leaf_items(states, ""), leaf_items(kept["states"],
@@ -6001,7 +6039,9 @@ def tp_one_rank(torch, cfg, params, kept, smi, prompt, whisper):
           "mesh": [1, 1], "ms": ms, "flash_launches": launches,
           "collectives": counts, "bit_for_bit_vs_phase_lm": same,
           "state_leaves": len(leaves), "s": s})
-    return {"flash_attention": launches}, s, s_decode, one, s_encdec, w_one
+    return ({"flash_attention": launches,
+             "fedavg_reduce_sharded": train_launches}, s, s_decode, one,
+            s_encdec, w_one, s_train)
 
 
 # ---------------------------------------------------------------------------
@@ -6469,6 +6509,329 @@ def tpe_ranks(torch, workers, cfg, params, traffic, one, smi) -> float:
     return s
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel training (phase tensor_parallel part (v))
+# ---------------------------------------------------------------------------
+
+# lm_train's traffic (``launch/lm_train_timing.py``: make_lm_clients(
+# default_rng(0), 12, vocab, seq 32)), one round: clients 0-3, b 4, K 2
+# local steps, eta 0.05 (lm_train's first round), f32
+TPT_CLIENTS, TPT_B, TPT_K, TPT_ETA = 4, 4, 2, 0.05
+TPT_LAYERS = 4                 # the gloo ranks' depth, of 24 and of 48
+TPT_BUDGET_S = 20.0
+# (v-b) holds each leaf's update (new - round-start params) to one
+# process's within TPT_UPDATE_RTOL of the leaf's largest update, plus
+# TPT_UPDATE_ULPS roundings of its largest weight (what f32 params can
+# resolve): a step that updates nothing, or updates by a wrong gradient,
+# fails where the params' own 2e-4 could not tell
+TPT_UPDATE_RTOL, TPT_UPDATE_ULPS = 1e-2, 2
+# the reference dry run's arguments (src/repro/launch/dryrun.py:119-146):
+# parallel, the stream by sequence block and the clients over "data";
+# sequential, a client's batch over "data", one group of 2 clients, the
+# params at rest in param_pspecs' blocks
+TPT_RUNS = {
+    "parallel": dict(act_spec=(None, "model", None),
+                     client_spmd_axes=("data",), use_kernel_avg=True),
+    "sequential": dict(strategy="sequential",
+                       act_spec=("data", "model", None),
+                       acc_dtype="float32", param_specs=True)}
+TPT_SPECS = ("act_spec", "attn_kv_spec", "moe_spmd_axes")
+_TPT_DATA = {}                 # lm_data by vocabulary, made once
+
+
+def tpt_traffic(torch, cfg, strategy: str):
+    """(batches, weights, eta) of one round at lm_train's traffic: the
+    first K x b windows of clients 0-3 (parallel: (4, K, b, 32) tokens,
+    weights 1/4) or of clients 0-1 as one group (sequential: (1, 2, K, b,
+    32), weights 1/2), on the host."""
+    import numpy as np
+    from repro_torch.launch.lm_train_timing import lm_data
+    if cfg.vocab_size not in _TPT_DATA:
+        _TPT_DATA[cfg.vocab_size] = lm_data(cfg)
+    data = _TPT_DATA[cfg.vocab_size]
+    n = TPT_CLIENTS if strategy == "parallel" else 2
+    x = np.stack([data.client_x[c][:TPT_K * TPT_B].reshape(
+        TPT_K, TPT_B, -1) for c in range(n)])
+    w = np.full((n,), 1.0 / n, np.float32)
+    if strategy == "sequential":
+        x, w = x[None], w[None]
+    return {"tokens": x}, w, TPT_ETA
+
+
+def tpt_step(torch, cfg, params, mesh, kw, specs: bool):
+    """``make_fed_train_step`` of one ``TPT_RUNS`` entry on ``mesh`` (None:
+    one process, on the params' device), with or without the
+    tensor-parallel specs; ``param_specs`` True takes ``param_pspecs`` on
+    the mesh."""
+    from repro_torch.distributed import make_fed_train_step, sharding
+    from repro_torch.optim import tree_leaves
+    kw = {k: v for k, v in kw.items() if specs or k not in TPT_SPECS}
+    if "acc_dtype" in kw:
+        kw["acc_dtype"] = getattr(torch, kw["acc_dtype"])
+    if kw.get("param_specs"):
+        kw["param_specs"] = sharding.param_pspecs(
+            cfg, params, sharding.MeshShape.of(mesh))
+    if mesh is None:
+        kw.pop("client_spmd_axes", None)
+    return make_fed_train_step(cfg, mesh=mesh,
+                               device=tree_leaves(params)[0].device, **kw)
+
+
+def tpt_round(torch, step, params, traffic):
+    """One round, its ms on the host clock between synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    new, loss = step(params, *traffic)
+    torch.cuda.synchronize()
+    return new, float(loss), (time.perf_counter() - t) * 1e3
+
+
+def tpt_one_rank(torch, cfg, params, mesh, smi):
+    """Phase tensor_parallel (v-a): qwen1.5-0.5b at full width and depth
+    on the one-rank NCCL (1, 1) mesh of (i), one round of each
+    ``TPT_RUNS`` strategy with the dry run's specs and again without
+    them: bit for bit, the same collectives (the backend's own, over axes
+    of one rank), none over "model"; the parallel round's
+    ``fedavg_reduce_sharded`` launches. Returns (launches, seconds)."""
+    from repro_torch.kernels import collectives
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.optim import tree_leaves
+    t0 = time.perf_counter()
+    launches = 0
+    for strategy, kw in TPT_RUNS.items():
+        traffic = tpt_traffic(torch, cfg, strategy)
+        runs = []
+        for specs in (False, True):
+            for kind in collectives.counts:
+                collectives.counts[kind] = 0
+            fr.sharded_launches = 0
+            new, loss, ms = tpt_round(torch, tpt_step(
+                torch, cfg, params, mesh, kw, specs), params, traffic)
+            runs.append((new, loss, ms, dict(collectives.counts),
+                         fr.sharded_launches))
+            del new
+            _free(torch)
+        (p0, l0, ms0, c0, k0), (p1, l1, ms1, c1, k1) = runs
+        same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(p0), tree_leaves(p1)))
+        want_k = len(tree_leaves(params)) if kw.get("use_kernel_avg") else 0
+        if not same or c1 != c0 or c1["all_gather_dim"] or \
+                c1["reduce_scatter_dim"] or k1 != want_k or k0 != want_k:
+            raise AssertionError(
+                f"tensor_parallel (v-a) {strategy}: bit for bit {same}, "
+                f"collectives {c1} vs {c0}, fedavg_reduce_sharded "
+                f"launches {k1}, {k0}, want {want_k}")
+        launches += k1
+        emit({"phase": "tensor_parallel", "part": "(v-a) training, one "
+              "NCCL rank", "card": smi, "arch": cfg.name,
+              "layers": cfg.num_layers, "dtype": "float32",
+              "strategy": strategy, "clients": len(traffic[1].reshape(-1)),
+              "b": TPT_B, "k": TPT_K, "seq": int(traffic[0]["tokens"]
+                                                 .shape[-1]),
+              "step_kw": {k: v for k, v in kw.items() if k != "strategy"},
+              "mesh": [1, 1], "ms": ms1, "ms_without_specs": ms0,
+              "loss": l1, "bit_for_bit_vs_without_specs": same,
+              "collectives": c1, "fedavg_reduce_sharded_launches": k1})
+        del runs, p0, p1
+        _free(torch)
+    return launches, time.perf_counter() - t0
+
+
+def _fingerprint(torch, tree) -> list:
+    """Two int64 sums a leaf of its bits (plain and position-weighted,
+    modulo a prime): equal trees give equal fingerprints, and a changed
+    bit changes them."""
+    from repro_torch.optim import tree_leaves
+    out = []
+    for t in tree_leaves(tree):
+        v = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(v.numel(), device=v.device) % 1_000_003
+        out.append((int(v.sum()), int((v * pos).sum())))
+        del v, pos
+    return out
+
+
+def tpt_rank_job(torch, mesh, rank: int, spec: dict, jobs, results,
+                 parent: int) -> None:
+    """One rank's tensor-parallel training rounds: each ``spec["runs"]``
+    entry through ``tpt_step`` on ``mesh`` with the whole params by IPC
+    handle, timed, with its collectives by kind and bytes in each local
+    step (between successive calls of the ``"model"`` grad hook, the
+    hook's own sums and gathers included), the bytes of the blocked
+    leaves' gather after the K steps, its ``fedavg_reduce_sharded``
+    launches and the peak; reported as "ran". The parent's one-process
+    rounds then arrive ("ref"); each rank's new params and mean loss are
+    held to them, and each leaf's update (new minus ``params``) to
+    theirs (``TPT_UPDATE_RTOL``): "done" with the differences and the
+    params' fingerprint (the ranks' compared in the parent)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import collectives
+    from repro_torch.kernels import fedavg_reduce as fr
+    cfg, params = spec["cfg"], spec["params"]
+    hook, gather = sharding.ModelGrads.hook, sharding.ModelGrads.gather
+    marks, moved = [], []
+
+    def snapshot():
+        return dict(collectives.counts), dict(collectives.nbytes)
+
+    def counted_hook(self, gather=False):
+        inner = hook(self, gather)
+
+        def call(grads, loss, batch):
+            out = inner(grads, loss, batch)
+            marks.append(snapshot())
+            return out
+        return call
+
+    def counted_gather(self, tree):
+        before = dict(collectives.nbytes)
+        out = gather(self, tree)
+        moved.append(collectives.nbytes["all_gather_dim"]
+                     - before["all_gather_dim"])
+        return out
+
+    sharding.ModelGrads.hook = counted_hook
+    sharding.ModelGrads.gather = counted_gather
+    ran, news = {}, {}
+    try:
+        for label, (kw, traffic) in spec["runs"].items():
+            for kind in collectives.counts:
+                collectives.counts[kind] = collectives.nbytes[kind] = 0
+            fr.sharded_launches = 0
+            marks.clear()
+            moved.clear()
+            torch.cuda.reset_peak_memory_stats()
+            step = tpt_step(torch, cfg, params, mesh, kw, True)
+            news[label] = tpt_round(torch, step, params, traffic)
+            steps, prev = [], ({k: 0 for k in collectives.counts},) * 2
+            for m in marks:
+                steps.append(({k: m[0][k] - prev[0][k] for k in m[0]},
+                              {k: m[1][k] - prev[1][k] for k in m[1]}))
+                prev = m
+            n = max(len(steps), 1)
+            ran[label] = {
+                "ms": news[label][2], "steps": len(steps),
+                "collectives_per_step": {
+                    k: sum(s[0][k] for s in steps) / n
+                    for k in collectives.counts},
+                "collective_bytes_per_step": {
+                    k: sum(s[1][k] for s in steps) / n
+                    for k in collectives.counts},
+                "round_collectives": dict(collectives.counts),
+                "round_collective_bytes": dict(collectives.nbytes),
+                "gather_bytes": sum(moved),
+                "fedavg_reduce_sharded_launches": fr.sharded_launches,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del step
+            _free(torch)
+    finally:
+        sharding.ModelGrads.hook, sharding.ModelGrads.gather = hook, gather
+    results.put(("ran", rank, ran))
+    msg = _next_job(jobs, parent)
+    if msg is None:
+        return
+    done = {}
+    for label, (ref_params, ref_loss) in msg[1].items():
+        new, loss, _ = news.pop(label)
+        err, rel, least = 0.0, 0.0, math.inf
+        for (path, a), (_, b), (_, p0) in zip(leaf_items(new, ""),
+                                              leaf_items(ref_params, ""),
+                                              leaf_items(params, "")):
+            torch.testing.assert_close(a, b, **PARITY_TOL,
+                                       msg=lambda m: f"{label} {path}: {m}")
+            err = max(err, float((a - b).abs().max()))
+            # the update itself, which PARITY_TOL alone cannot resolve
+            ref_d = float((b - p0).abs().max())
+            d_err = float(((a - p0) - (b - p0)).abs().max())
+            tol = TPT_UPDATE_RTOL * ref_d + TPT_UPDATE_ULPS * \
+                torch.finfo(p0.dtype).eps * float(p0.abs().max())
+            if not d_err <= tol:
+                raise AssertionError(
+                    f"{label} {path}: the update differs from one process's "
+                    f"by {d_err}, max |update| {ref_d}, tolerance {tol}")
+            rel = max(rel, d_err / ref_d if ref_d else 0.0)
+            least = min(least, ref_d)
+        if abs(loss - ref_loss) > PARITY_TOL["atol"] + \
+                PARITY_TOL["rtol"] * abs(ref_loss):
+            raise AssertionError(f"{label}: loss {loss}, one process "
+                                 f"{ref_loss}")
+        done[label] = {"max_abs_err": err, "loss": loss,
+                       "loss_one_process": ref_loss,
+                       "update_max_rel_err": rel,
+                       "least_leaf_max_update": least,
+                       "fingerprint": _fingerprint(torch, new)}
+        del new
+    del msg
+    results.put(("done", rank, done))
+
+
+def tpt_ranks(torch, workers, label, cfg, params, runs, smi):
+    """Phase tensor_parallel (v-b), one model: ``workers``' two gloo ranks
+    on the (1, 2) mesh train one round of each ``runs`` entry ({name:
+    ``TPT_RUNS`` entry}) on ``params`` (by IPC handle), each rank held to
+    this process's round without the specs at rtol = atol = 2e-4 (each
+    leaf's update at ``TPT_UPDATE_RTOL``), the ranks' params bit for bit
+    alike (their fingerprints), the parallel
+    rounds' ``fedavg_reduce_sharded`` launches one a leaf on each rank.
+    Returns (launches of both ranks, seconds)."""
+    from repro_torch.optim import tree_leaves
+    t0 = time.perf_counter()
+    job = {name: (kw, tpt_traffic(torch, cfg, kw.get("strategy",
+                                                     "parallel")))
+           for name, kw in runs.items()}
+    workers.ready()
+    workers.send(("tpt", dict(cfg=cfg, params=params, runs=job)))
+    ran = workers.gather("ran")
+    refs, ref_ms = {}, {}
+    for name, (kw, traffic) in job.items():
+        new, loss, ref_ms[name] = tpt_round(torch, tpt_step(
+            torch, cfg, params, None, kw, False), params, traffic)
+        refs[name] = (new, loss)
+    workers.send(("ref", refs))
+    done = workers.gather("done")
+    del refs
+    _free(torch)
+    n_leaves = len(tree_leaves(params))
+    launches = 0
+    for name, (kw, _) in job.items():
+        want = n_leaves if kw.get("use_kernel_avg") else 0
+        got = [r[name]["fedavg_reduce_sharded_launches"] for r in ran]
+        if any(g != want for g in got):
+            raise AssertionError(f"tensor_parallel (v-b) {label} {name}: "
+                                 f"fedavg_reduce_sharded launches {got}, "
+                                 f"want {want} a rank")
+        launches += sum(got)
+        if any(d[name]["fingerprint"] != done[0][name]["fingerprint"]
+               for d in done):
+            raise AssertionError(f"tensor_parallel (v-b) {label} {name}: "
+                                 f"the ranks' params differ")
+        emit({"phase": "tensor_parallel", "part": "(v-b) training, two "
+              "gloo ranks", "card": smi, "arch": cfg.name,
+              "layers": cfg.num_layers, "dtype": "float32", "run": name,
+              "step_kw": {k: v for k, v in kw.items()},
+              "clients": TPT_CLIENTS if name == "parallel" else 2,
+              "b": TPT_B, "k": TPT_K, "mesh": [1, GLOO_WORLD],
+              "axes": ["data", "model"], "backend": "gloo",
+              "ranks": [{**r[name], **{k: v for k, v in d[name].items()
+                                       if k != "fingerprint"}}
+                        for r, d in zip(ran, done)],
+              "ranks_bit_for_bit": True, "tol": PARITY_TOL,
+              "update_tol": {"rtol_of_leaf_max_update": TPT_UPDATE_RTOL,
+                             "f32_roundings_of_leaf_max": TPT_UPDATE_ULPS},
+              "one_process_ms": ref_ms[name]})
+    return launches, time.perf_counter() - t0
+
+
+def tpt_cut(cfg, params, layers: int):
+    """``cfg`` and views of ``params`` cut to the first ``layers`` layers
+    (the stack's leading slices; no copy)."""
+    from repro_torch.optim import tree_map
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    out = dict(params)
+    out["stack"] = tree_map(lambda t: t[:layers], params["stack"])
+    return cut, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6544,7 +6907,7 @@ def main() -> int:
     whisper = whisper_weights(torch)
     w_card = (whisper[0], tree_map(lambda t: t.cuda(), whisper[1]),
               whisper_traffic(torch, whisper[0]))
-    tp_launches, tp_s, tpd_s, one, tpe_s, w_one = tp_one_rank(
+    tp_launches, tp_s, tpd_s, one, tpe_s, w_one, tpt_s = tp_one_rank(
         torch, lm_cfg, params, kept, smi, tpd_prompt(lm_cfg, 12), w_card)
     got, s_part = tp_ranks(
         torch, workers, "qwen", lm_cfg, params, kept["batch"],
@@ -6557,6 +6920,12 @@ def main() -> int:
                        tpd_prompt(lm_cfg, 12), "dispatch",
                        dict(rtol=1e-3, atol=1e-3), PARITY_TOL, smi, ref=one)
     tpe_s += tpe_ranks(torch, workers, *w_card, w_one, smi)
+    # part (v-b): tensor-parallel training on the ranks, qwen at 4 layers
+    got, s_part = tpt_ranks(torch, workers, "qwen",
+                            *tpt_cut(lm_cfg, params, TPT_LAYERS), TPT_RUNS,
+                            smi)
+    _add(tp_launches, {"fedavg_reduce_sharded": got})
+    tpt_s += s_part
     del kept, one, w_card, w_one
     torch.cuda.ipc_collect()
     lm_bf16 = phase_bf16_prefill(
@@ -6672,16 +7041,25 @@ def main() -> int:
     tpd_s += tpd_ranks(torch, workers, "mamba", ssm_cfg, params,
                        tpd_prompt(ssm_cfg, 14), "dispatch",
                        dict(rtol=1e-3, atol=1e-3), SSM_STATE_TOL, smi)
+    got, s_part = tpt_ranks(torch, workers, "mamba",
+                            *tpt_cut(ssm_cfg, params, TPT_LAYERS),
+                            {"parallel": TPT_RUNS["parallel"]}, smi)
+    _add(tp_launches, {"fedavg_reduce_sharded": got})
+    tpt_s += s_part
     del kept
     workers.close()
     torch.cuda.ipc_collect()
     tp_launches = {{"moe_gmm": "gmm"}.get(k, k): v
                    for k, v in tp_launches.items()}
-    # the decode launches no kernel: the launches are the prefills'
+    # the decode launches no kernel: the launches are the prefills' and
+    # the training rounds' aggregations
     emit({"phase": "tensor_parallel", "summary": True, "card": smi,
-          "launches": tp_launches, "s": tp_s + tpd_s + tpe_s,
-          "budget_s": TP_BUDGET_S,
-          "within_budget": tp_s + tpd_s + tpe_s <= TP_BUDGET_S,
+          "launches": tp_launches, "s": tp_s + tpd_s + tpe_s + tpt_s,
+          "budget_s": TP_BUDGET_S + TPT_BUDGET_S,
+          "within_budget": tp_s + tpd_s + tpe_s + tpt_s <= TP_BUDGET_S
+          + TPT_BUDGET_S,
+          "train_s": tpt_s, "train_budget_s": TPT_BUDGET_S,
+          "train_within_budget": tpt_s <= TPT_BUDGET_S,
           "decode_s": tpd_s, "decode_budget_s": TPD_BUDGET_S,
           "decode_within_budget": tpd_s <= TPD_BUDGET_S,
           "encdec_s": tpe_s, "encdec_budget_s": TPE_BUDGET_S,

@@ -39,7 +39,7 @@ def encode_broadcast(downlink, params, d_state):
 
 def make_parallel_round_core(loss_fn: LossFn, aggregator: Aggregator,
                              server, server_lr: float, *, transport=None,
-                             downlink=None):
+                             downlink=None, grad_hook=None, collect=None):
     """round_core(params, batches{(N,K,b,...)}, weights(N,), eta,
     server_state, t_state=(), d_state=())
     -> (new_params, first_losses (N,), last_losses (N,), server_state,
@@ -50,8 +50,11 @@ def make_parallel_round_core(loss_fn: LossFn, aggregator: Aggregator,
     the codec state ``t_state``. ``downlink``: the clients start from the
     reconstruction of the compressed broadcast, threading ``d_state``;
     ``level`` is the round's adaptive level (-1 for fixed-rate codecs),
-    None without a downlink."""
-    client = torch.func.vmap(make_client_update(loss_fn),
+    None without a downlink. ``grad_hook``: ``client_update``'s, inside
+    the vmap; ``collect``: applied to the stacked client params after the
+    K steps, outside it (the tensor-parallel step's blocked leaves put
+    back together, ``sharding.ModelGrads``)."""
+    client = torch.func.vmap(make_client_update(loss_fn, grad_hook),
                              in_dims=(None, 0, None))
 
     def round_core(params, batches, weights, eta, server_state, t_state=(),
@@ -62,6 +65,8 @@ def make_parallel_round_core(loss_fn: LossFn, aggregator: Aggregator,
                 downlink, params, d_state)
         client_params, first_losses, last_losses = client(params, batches,
                                                           eta)
+        if collect is not None:
+            client_params = collect(client_params)
         if transport is None:
             aggregate = aggregator(client_params, weights)
         else:

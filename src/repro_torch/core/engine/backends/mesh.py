@@ -30,7 +30,7 @@ per-rank kernel plus a collective:
 clients of a group one after another, each client's K steps with one
 parameter set in memory. The reference vmaps the groups and scans the
 clients (``mesh.py:237-401``); the port loops over both with the unvmapped
-client update (a collective cannot run under ``torch.func.vmap``):
+client update (one client in memory at a time):
 
   * the groups spread over the ``"pod"`` ranks in contiguous blocks
     (hierarchical FL); with no ``"pod"`` axis every rank runs every group,
@@ -70,9 +70,10 @@ rest, gathered at use. Every params-shaped tree that lives across rounds
 holds only this rank's block of each leaf (``ParamLayout``): the params,
 the server optimizer's state, the codec's residuals and per-client slots,
 the downlink's reference and residual. A ``"model"`` axis of any size is
-accepted: the client axes stay ``("pod", "data")`` or ``("data",)``, and
-the ``"model"`` ranks of one client row compute the same rows, alike bit
-for bit. The sequential core works on blocks: each local step gathers
+accepted: the client axes stay ``("pod", "data")`` or ``("data",)``; the
+``"model"`` ranks of one client row compute the same rows, alike bit for
+bit, unless the round core is given ``model_grads`` (below). The
+sequential core works on blocks: each local step gathers
 the whole params for the forward and backward and updates its block from
 the block of the gradients; the weighted sums, the server step and the
 robust aggregators run on blocks; the codecs gather each leaf whose
@@ -107,15 +108,31 @@ the reference's does: unsharded, the same event loop on every rank, the
 backend only placing (and, under ``param_specs``, sharding at rest) the
 params.
 
+Tensor-parallel training (``make_round_core(model_grads=...)``, built by
+``distributed.make_fed_train_step(mesh=, act_spec=...)``): the loss runs on
+a ``ModelRank``'s blocks (``transformer.loss_lm(tp=)``), so each
+``"model"`` rank of a client row computes its share of every layer,
+forward and backward. Both cores take the rank's grad hook
+(``ModelGrads.hook``: the partial gradients summed over ``"model"`` each
+local step; under the parallel strategy inside the vmap) and put each
+client's blocked leaves back together from their owners after its K
+steps (``ModelGrads.gather``: on the parallel core's client stack,
+outside the vmap; on each sequential client's result). Under
+``param_specs`` the sequential core still gathers the whole params each
+step and cuts the rank's compute blocks from them; its hook gathers the
+blocked gradients too, since ``part`` cuts rest blocks. Every rank ends
+each step with the same params.
+
 Differences from the reference: where it sends a cohort that does not
 divide among the shards through the unsharded kernel (``mesh.py:227-229``,
 ``transport.py:334-335``), the port splits the cohort unevenly; the sums
 agree within the 1e-6 the reference allows between groupings. The groups
 are looped, not vmapped, and sums are re-associated (ROADMAP Known
-differences 16). A training round's compute is not tensor-parallel: a rank
-gathers whole leaves rather than running column- and row-parallel matmuls
-(Known differences 17; tensor-parallel training is ROADMAP A15 (b); the
-prefill's is ``make_prefill_step(mesh=...)``).
+differences 16). Tensor-parallel training computes by blocks of ranks,
+not under GSPMD, and sums partial gradients in another order (Known
+differences 22); without ``model_grads`` a rank gathers whole leaves
+rather than running column- and row-parallel matmuls (Known differences
+17).
 """
 from __future__ import annotations
 
@@ -330,6 +347,17 @@ def _map_params_like(tree, index, fn, flat_fn):
     return tree
 
 
+def _chain(first, then):
+    """Two ``client_update`` grad hooks, one after the other (``then``
+    may be None)."""
+    if then is None:
+        return first
+
+    def hook(grads, loss, batch):
+        return then(*first(grads, loss, batch), batch)
+    return hook
+
+
 def loss_share(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """This rank's share of a split local batch's loss denominator: the
     next-token mask tokens where the batch carries a ``mask`` (the LM
@@ -420,15 +448,23 @@ class MeshBackend(ExecutionBackend):
     def make_round_core(self, loss_fn: LossFn, *, aggregator: str = "mean",
                         trim_fraction: float = 0.1, server=None,
                         server_lr: float = 1.0, transport=None,
-                        downlink=None):
+                        downlink=None, model_grads=None):
+        """The round core (``make_parallel_round_core``'s contract).
+        ``model_grads``: the tensor-parallel train step's gradients on the
+        ``"model"`` ranks (``distributed.sharding.ModelGrads``, for a
+        ``loss_fn`` on a ``ModelRank``): each local step's partial
+        gradients summed over ``"model"`` (``client_update``'s grad hook),
+        and the blocked leaves of each client's result put back together
+        from their owners once after the K steps."""
         if self.strategy == "sequential":
             return self._make_sequential_core(
                 loss_fn, aggregator, trim_fraction, server, server_lr,
-                transport, downlink)
+                transport, downlink, model_grads)
         whole, blocks = self.gather_state, self.constrain_update
         core = self._make_parallel_core(loss_fn, aggregator, trim_fraction,
                                         self._block_server(server),
-                                        server_lr, transport, downlink)
+                                        server_lr, transport, downlink,
+                                        model_grads)
         if self.layout is None:
             return core
         # per-client slots stay whole through the core: each rank holds
@@ -458,7 +494,8 @@ class MeshBackend(ExecutionBackend):
             blocks(p), blocks(agg), state, lr))
 
     def _make_parallel_core(self, loss_fn, aggregator, trim_fraction,
-                            server, server_lr, transport, downlink):
+                            server, server_lr, transport, downlink,
+                            model_grads=None):
         if self.mesh is None:
             return make_parallel_round_core(
                 loss_fn, get_aggregator(aggregator,
@@ -468,9 +505,11 @@ class MeshBackend(ExecutionBackend):
             # a bound copy: reduce() runs the client-sharded kernels
             transport = transport.with_mesh(self.mesh, self.client_axes,
                                             self.reduce_tiers)
+        tp = {} if model_grads is None else dict(
+            grad_hook=model_grads.hook(), collect=model_grads.gather)
         core = make_parallel_round_core(
             loss_fn, self._resolve_aggregator(aggregator, trim_fraction),
-            server, server_lr, transport=transport, downlink=downlink)
+            server, server_lr, transport=transport, downlink=downlink, **tp)
         mesh, axes = self.mesh, self.client_axes
 
         def mesh_core(params, batches, weights, eta, server_state,
@@ -535,7 +574,8 @@ class MeshBackend(ExecutionBackend):
         return hook
 
     def _make_sequential_core(self, loss_fn, aggregator, trim_fraction,
-                              server, server_lr, transport, downlink):
+                              server, server_lr, transport, downlink,
+                              model_grads=None):
         """round_core with ``make_parallel_round_core``'s contract, the
         clients one at a time (``mesh.py:115-153, 188-401``)."""
         if transport is not None and transport.name == "none":
@@ -587,6 +627,14 @@ class MeshBackend(ExecutionBackend):
                                  f"{g_hi - g_lo} groups")
             ng = n // (g_hi - g_lo)
             hook = self._data_hook()
+            if model_grads is not None:
+                # the "model" ranks' partials summed first (under
+                # param_specs the blocked spans gathered too: ``part`` cuts
+                # rest blocks), then the "data" ranks' shares
+                hook = _chain(model_grads.hook(gather=layout is not None),
+                              hook)
+            collect = (model_grads.gather if model_grads is not None and
+                       layout is None else (lambda p: p))
             firsts, lasts = [], []
 
             def client(i):
@@ -595,7 +643,7 @@ class MeshBackend(ExecutionBackend):
                     whole=whole, part=part)
                 firsts.append(res.first_loss)
                 lasts.append(res.last_loss)
-                return res.params
+                return collect(res.params)
 
             new_t = t_state
             if transport is None and stream:

@@ -58,10 +58,12 @@ def client_update(loss_fn: LossFn, params: PyTree,
     return ClientResult(p, first, loss)
 
 
-def make_client_update(loss_fn: LossFn):
-    """Bind ``loss_fn``: returns update(params, batches, eta) ->
-    ClientResult."""
+def make_client_update(loss_fn: LossFn,
+                       grad_hook: Optional[GradHook] = None):
+    """Bind ``loss_fn`` (and ``grad_hook``): returns update(params,
+    batches, eta) -> ClientResult."""
     def update(params, client_batches, eta):
-        return client_update(loss_fn, params, client_batches, eta)
+        return client_update(loss_fn, params, client_batches, eta,
+                             grad_hook)
 
     return update

@@ -36,6 +36,12 @@ them from whole leaves.
 and ``moe_spmd_axes`` and the collectives that move the residual stream
 between its layout and whole tensors.
 
+Tensor-parallel training (``make_fed_train_step(mesh=...)``) runs the same
+blocks with autograd on, on a ``ModelRank(train=True)``; ``ModelGrads``
+sorts each param leaf's gradient into full, partial (summed over
+``"model"`` every local step) and blocked (gathered from its owners after
+the K steps).
+
 The tensor-parallel decode (``make_serve_step(mesh=...)``) keeps each
 rank's block of every decode-cache leaf in ``cache_pspecs``' layout
 between steps: ``CacheLayout`` holds each leaf's spec and block shape,
@@ -58,6 +64,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import collectives
 from repro_torch.models.attention import QUANT_SCALES, HeadBlock, head_block
+from repro_torch.models import attention, layers
+from repro_torch.models import ssm as ssm_lib
 
 PyTree = Any
 
@@ -442,10 +450,11 @@ def _names(entry) -> Tuple[str, ...]:
 
 def tensor_parallel_layout(act_spec, attn_kv_spec, moe_spmd_axes,
                            axis_names: Sequence[str]):
-    """Parse the prefill's specs against a mesh's axes. Returns (layout of
-    the residual stream, the batch axes, whether K/V states are kept by
-    key-sequence block, the MoE token groups' axes). ``act_spec``: (batch,
-    seq, d), its ``"model"`` entry on seq or d (or none); ``attn_kv_spec``:
+    """Parse the tensor-parallel specs against a mesh's axes. Returns
+    (layout of the residual stream, the batch axes, whether K/V states are
+    kept by key-sequence block, the MoE token groups' axes).
+    ``act_spec``: (batch, seq, d), its ``"model"`` entry on seq or d (or
+    none); ``attn_kv_spec``:
     (batch, key seq, kv heads, head dim), ``"model"`` on the key sequence
     or the kv heads (or none); their batch entries name the same axes.
     Refused by name: an axis the mesh lacks, ``"model"`` twice in one
@@ -474,7 +483,7 @@ def tensor_parallel_layout(act_spec, attn_kv_spec, moe_spmd_axes,
             if _names(e) != ("model",) or dim not in model_dims:
                 raise ValueError(
                     f"{what} {spec}: dim {dim} is sharded over "
-                    f"{_names(e)}; the tensor-parallel prefill takes "
+                    f"{_names(e)}; a tensor-parallel step takes "
                     f"'model' alone on dims {model_dims}")
             model_dim = dim
         if "model" in _names(spec[0]):
@@ -500,17 +509,24 @@ def tensor_parallel_layout(act_spec, attn_kv_spec, moe_spmd_axes,
 
 
 class ModelRank:
-    """This rank's place in the tensor-parallel prefill on ``mesh``: the
-    layout of the residual stream ("seq" or "d": by sequence or d_model
-    block; None: whole on every "model" rank) and its batch axes
-    (``tensor_parallel_layout``), its index among the ``"model"`` ranks
-    (``size``, ``rank``) and among the batch axes' ranks, and the
-    collectives of one prefill. An axis of one rank runs none. ``mesh``
+    """This rank's place in the tensor-parallel prefill or train step on
+    ``mesh``: the layout of the residual stream ("seq" or "d": by
+    sequence or d_model block; None: whole on every "model" rank) and its
+    batch axes (``tensor_parallel_layout``), its index among the
+    ``"model"`` ranks (``size``, ``rank``) and among the batch axes'
+    ranks, and the collectives of one prefill or loss, differentiable
+    (``kernels.collectives``: each call site's backward is the adjoint of
+    its place in the layer). An axis of one rank runs none. ``mesh``
     None: a model on one device, every block whole, no collective, the
-    specs ignored (they change no value)."""
+    specs ignored (they change no value).
+
+    ``train``: the train step's rank. The backend has already placed the
+    batch's rows on this rank (the batch axes' split), so the rank reads
+    all of them and gathers none back; K/V states are not kept, so
+    ``attn_kv_spec`` sets no value."""
 
     def __init__(self, mesh=None, act_spec=None, attn_kv_spec=None,
-                 moe_spmd_axes=None):
+                 moe_spmd_axes=None, train: bool = False):
         self.mesh = mesh
         if mesh is None:
             self.layout, self.batch_axes, self.kv_seq = None, (), False
@@ -526,6 +542,8 @@ class ModelRank:
                          if self.size > 1 else 0)
             self.batch_index, self.batch_count = collectives.block_index(
                 mesh, self.batch_axes)
+        if train:
+            self.batch_index, self.batch_count, self.kv_seq = 0, 1, False
         if self.size > 1 and \
                 dist.get_rank(mesh.get_group("model")) != self.rank:
             # the collectives place a block by the rank in the axis's
@@ -537,7 +555,7 @@ class ModelRank:
         self.moe_size = self.size if "model" in self.moe_axes else 1
         #: sums a block's sum of squares over the ``"model"`` ranks for a
         #: norm over a dim they split (None where one rank holds it all)
-        self.norm_reduce = self.all_reduce if self.size > 1 else None
+        self.norm_reduce = self._norm_sum if self.size > 1 else None
 
     def blocks(self, cfg: ArchConfig, seq_len: int) -> ComputeBlocks:
         return compute_blocks(cfg, seq_len, self.size, self.rank)
@@ -552,18 +570,26 @@ class ModelRank:
                 "d": (2, b.d, b.d_sizes)}[self.layout]
 
     def stream_block(self, x, b: ComputeBlocks):
-        """This rank's block of the whole stream ``x`` (B_r, S, d)."""
+        """This rank's block of the whole stream ``x`` (B_r, S, d), which
+        every rank holds alike (backward: the blocks' cotangents
+        all-gathered)."""
         if self.layout is None or self.size == 1:
             return x
-        dim, (lo, hi), _ = self._dim_of_layout(b)
-        return x.narrow(dim, lo, hi - lo).contiguous()
-
-    def gather_stream(self, x, b: ComputeBlocks):
-        """The whole stream from every rank's block: one all-gather."""
-        if self.layout is None:
-            return x
         dim, _, sizes = self._dim_of_layout(b)
-        return collectives.all_gather_dim(x, self.mesh, "model", dim, sizes)
+        return collectives.block_dim(x, self.mesh, "model", dim, sizes)
+
+    def gather_stream(self, x, b: ComputeBlocks, partial: bool = True):
+        """The whole stream from every rank's block: one all-gather.
+        ``partial``: its readers are the rank's column blocks (backward:
+        their cotangents reduce-scattered; with the stream whole, Megatron's
+        ``enter``); else they compute alike on every rank (backward: this
+        rank's block of the cotangent)."""
+        if self.layout is None:
+            return collectives.enter(x, self.mesh, "model") \
+                if partial and self.size > 1 else x
+        dim, _, sizes = self._dim_of_layout(b)
+        return collectives.gather_dim(x, self.mesh, "model", dim, sizes,
+                                      partial)
 
     def reduce_partial(self, h, b: ComputeBlocks):
         """A row-parallel product's partial sum (B_r, S, d), summed over the
@@ -572,19 +598,28 @@ class ModelRank:
         if self.size == 1:
             return h
         if self.layout is None:
-            return collectives.all_reduce_axis(h, self.mesh, "model")
-        dim = self._dim_of_layout(b)[0]
-        return collectives.reduce_scatter_dim(h, self.mesh, "model", dim)
+            return collectives.all_reduce_sum(h, self.mesh, "model")
+        dim, _, sizes = self._dim_of_layout(b)
+        return collectives.reduce_scatter_sum(h, self.mesh, "model", dim,
+                                              sizes)
 
     def all_reduce(self, x):
+        """The sum of every rank's partial, which every rank then reads
+        alike."""
         if self.size == 1:
             return x
-        return collectives.all_reduce_axis(x, self.mesh, "model")
+        return collectives.all_reduce_sum(x, self.mesh, "model")
+
+    def _norm_sum(self, x):
+        return collectives.all_reduce_sum(x, self.mesh, "model",
+                                          partial=True)
 
     def gather(self, x, dim: int, sizes):
+        """Every rank's block along ``dim``, whole on every rank, whose
+        readers compute alike."""
         if self.size == 1:
             return x
-        return collectives.all_gather_dim(x, self.mesh, "model", dim, sizes)
+        return collectives.gather_dim(x, self.mesh, "model", dim, sizes)
 
     def gather_batch(self, x, dim: int, n: int):
         """Every batch rank's rows of ``x`` along ``dim`` (``n`` in all),
@@ -599,9 +634,216 @@ class ModelRank:
             base = idx - idx % (span * asz)
             part = [sum(sizes[base + j * span:base + (j + 1) * span])
                     for j in range(asz)]
-            x = collectives.all_gather_dim(x, self.mesh, a, dim, part)
+            x = collectives.gather_dim(x, self.mesh, a, dim, part)
             span *= asz
         return x
+
+
+# ---------------------------------------------------------------------------
+# the train step's gradients on the "model" ranks
+# ---------------------------------------------------------------------------
+
+_NORMS = ("ln1", "ln2", "ln")
+
+
+def _leaf_reads(keys, cfg: ArchConfig, b: ComputeBlocks, layout,
+                moe_spread: bool):
+    """What one ``"model"`` rank of the train step reads of the param
+    leaf at ``keys`` (its compute blocks ``b``): None where every rank
+    computes the leaf's whole gradient alike (it reads the leaf whole on
+    a tensor every rank holds alike); ``"all"`` where it reads it whole
+    for a share of the work (a norm on its sequence block or under a
+    partial cotangent, the MoE router and banks on its token groups), so
+    its gradient is a partial; else (dim, [(lo, hi), ...]): the blocks
+    along ``dim`` (from the end) it reads alone or with some others, from
+    the ``param_blocks`` tables of the layers that cut them."""
+    last, parent = keys[-1], keys[-2] if len(keys) > 1 else ""
+    if keys[0] in ("embed", "final_norm", "lm_head"):
+        return None
+    if "moe" in keys:
+        return "all" if moe_spread else None
+    if parent in _NORMS:
+        # a norm whose output every rank reads alike (the whole stream
+        # entering the blocks, or the whole MoE input) gets whole
+        # cotangents; a sequence block, or a partial cotangent, a share
+        whole_moe = (parent == "ln2" and cfg.moe is not None and
+                     keys[0] != "shared" and not moe_spread)
+        if layout is None or (layout == "d" and whole_moe):
+            return None
+        return "all"
+    if "ssm" in keys:
+        table = ssm_lib.head_param_blocks(cfg, *b.ssm)
+    else:
+        table = {**attention.head_param_blocks(cfg, b.heads),
+                 **layers.mlp_param_blocks(b.ff)}
+    blk = table.get(last, table.get(parent))
+    if blk is None:
+        raise ValueError(f"param leaf {'/'.join(keys)}: no rule for its "
+                         f"blocks on the 'model' ranks")
+    return blk
+
+
+@dataclass(frozen=True)
+class LeafSplit:
+    """A param leaf's blocks along ``dim`` (from the end) in the train
+    step: ``shared``, the spans more than one ``"model"`` rank reads (their
+    gradients are partials, summed every local step), and ``owned[r]``,
+    the spans rank ``r`` alone reads (its gradient there is whole, its
+    update the only one; every other rank's copy goes stale)."""
+    dim: int
+    shared: Tuple[Tuple[int, int], ...]
+    owned: Tuple[Tuple[Tuple[int, int], ...], ...]
+
+    def pieces(self, n: int):
+        """[lo, hi) spans covering [0, n) in order, each (lo, hi, owner):
+        a rank, "shared", or None (no rank reads it)."""
+        marks = {}
+        for lo, hi in self.shared:
+            marks[lo] = (hi, "shared")
+        for r, spans in enumerate(self.owned):
+            for lo, hi in spans:
+                marks[lo] = (hi, r)
+        out, at = [], 0
+        for lo in sorted(marks):
+            hi, who = marks[lo]
+            if lo > at:
+                out.append((at, lo, None))
+            out.append((lo, hi, who))
+            at = hi
+        if at < n:
+            out.append((at, n, None))
+        return out
+
+
+def _split_of(reads, n: int, size: int, dim: int) -> LeafSplit:
+    """A ``LeafSplit`` from every rank's reads (``_leaf_reads``) of a leaf
+    of extent ``n`` along ``dim``."""
+    if any(r == "all" for r in reads):
+        return LeafSplit(dim, ((0, n),), ((),) * size)
+    spans = [[(lo, hi) for lo, hi in r[1] if hi > lo] for r in reads]
+    cuts = sorted({0, n} | {e for s in spans for span in s for e in span})
+    shared, owned = [], [[] for _ in range(size)]
+
+    def add(out, lo, hi):
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+
+    for lo, hi in zip(cuts, cuts[1:]):
+        who = [r for r, s in enumerate(spans)
+               if any(a <= lo and hi <= c for a, c in s)]
+        if len(who) > 1:
+            add(shared, lo, hi)
+        elif who:
+            add(owned[who[0]], lo, hi)
+    return LeafSplit(dim, tuple(shared), tuple(tuple(o) for o in owned))
+
+
+class ModelGrads:
+    """The gradients of the train step on the ``"model"`` ranks of the
+    rank ``tp`` (a ``ModelRank``): each param leaf of ``params`` (a tree
+    of tensors or of their shapes) is
+
+    * *full*: every rank computed its whole gradient alike (the embedding,
+      the final norm and readout, which run on the whole stream; the norms
+      of a whole stream; the MoE leaves where every rank runs every
+      token): nothing is done;
+    * *partial*: each rank's gradient is a share (``LeafSplit.shared``: a
+      kv head that several ranks' query heads read, Mamba2's B and C
+      columns and conv channels, the norms on a sequence block or under a
+      partial cotangent, the router and expert banks over token groups):
+      summed over ``"model"`` every local step (``hook``), one all-reduce
+      of all of them a dtype;
+    * *blocked*: disjoint column or row blocks (``LeafSplit.owned``), each
+      rank's SGD step updating its own; ``gather`` puts the clients'
+      blocked leaves back together from their owners, one all-gather a
+      leaf, once after the K steps.
+
+    ``moe_spread``: whether the MoE token groups spread over the ranks."""
+
+    def __init__(self, cfg: ArchConfig, tp: ModelRank, params: PyTree,
+                 moe_spread: bool):
+        self.mesh, self.rank = tp.mesh, tp.rank
+        size = tp.size
+        # a leaf's blocks do not depend on the sequence: any length will do
+        blocks = [compute_blocks(cfg, 0, size, r) for r in range(size)]
+        self.splits = {}
+        for keys, leaf in iter_leaves(params):
+            reads = [_leaf_reads(keys, cfg, b, tp.layout, moe_spread)
+                     for b in blocks]
+            if reads[0] is None:
+                continue
+            dim = -1 if reads[0] == "all" else reads[0][0]
+            self.splits[keys] = _split_of(reads, int(leaf.shape[dim]), size,
+                                          dim)
+
+    def _map(self, fn, tree):
+        return _map_with_path(
+            lambda keys, t: fn(self.splits[keys], t) if keys in self.splits
+            else t, tree)
+
+    def hook(self, gather: bool = False):
+        """``client_update``'s grad hook: the shared spans of every leaf's
+        gradient summed over ``"model"`` (one all-reduce a dtype; it runs
+        under ``torch.func.vmap`` too); ``gather``: the owned spans too,
+        from their owners (the sequential strategy under ``param_specs``,
+        whose step cuts rest blocks out of the whole gradient)."""
+        def hook(grads, loss, batch):
+            grads = self._sum_shared(grads)
+            return (self.gather(grads) if gather else grads), loss
+        return hook
+
+    def _sum_shared(self, tree):
+        parts = {}
+        for keys, t in iter_leaves(tree):
+            split = self.splits.get(keys)
+            for lo, hi in (split.shared if split is not None else ()):
+                parts.setdefault(t.dtype, []).append(
+                    t.narrow(split.dim, lo, hi - lo).reshape(-1))
+        if not parts:
+            return tree
+        sums = {dt: iter(torch.split(
+            collectives.all_reduce_sum(torch.cat(ps), self.mesh, "model"),
+            [p.shape[0] for p in ps])) for dt, ps in parts.items()}
+
+        def splice(split, t):
+            if not split.shared:
+                return t
+            out = []
+            for lo, hi, who in split.pieces(t.shape[split.dim]):
+                piece = t.narrow(split.dim, lo, hi - lo)
+                out.append(next(sums[t.dtype]).reshape(piece.shape)
+                           if who == "shared" else piece)
+            return torch.cat(out, dim=split.dim)
+        return self._map(splice, tree)
+
+    def gather(self, tree):
+        """Every leaf's owned spans from their owners (one all-gather a
+        leaf with any), on whatever leading dims the leaves carry (a stack
+        of clients, of cycles); outside ``torch.func.vmap``."""
+        def fill(split, t):
+            if not any(split.owned):
+                return t
+            dim = t.dim() + split.dim
+            mine = [t.narrow(dim, lo, hi - lo)
+                    for lo, hi in split.owned[self.rank]]
+            sizes = [sum(hi - lo for lo, hi in o) for o in split.owned]
+            mine = (torch.cat(mine, dim) if mine else
+                    t.narrow(dim, 0, 0))
+            got = collectives.all_gather_dim(mine, self.mesh, "model", dim,
+                                             sizes)
+            base = [sum(sizes[:r]) for r in range(len(sizes))]
+            off = list(base)
+            out = []
+            for lo, hi, who in split.pieces(t.shape[dim]):
+                if isinstance(who, int):
+                    out.append(got.narrow(dim, off[who], hi - lo))
+                    off[who] += hi - lo
+                else:
+                    out.append(t.narrow(dim, lo, hi - lo))
+            return torch.cat(out, dim)
+        return self._map(fill, tree)
 
 
 # ---------------------------------------------------------------------------

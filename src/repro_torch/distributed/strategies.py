@@ -18,9 +18,13 @@ delegates the round (K-step local SGD, aggregation, server step) to a
 and dtypes (``TensorSpec``). ``param_specs`` (``sharding.param_pspecs``)
 shards the params on either strategy (``MeshBackend``); ``moe_shards``
 runs the MoE layers' shard-local dispatch (``moe_path="dispatch_sharded"``).
-The train steps compute no tensor-parallel product (ROADMAP A15 (b)):
-``act_spec``, ``attn_kv_spec``, and ``moe_spmd_axes`` over more than one
-rank of the train step's mesh, are refused by name, and
+On a mesh the train steps are tensor-parallel over the ``"model"`` ranks,
+on both strategies: each client's local steps run each rank's share of
+every layer, forward and backward (``transformer.loss_lm(tp=)``), the
+gradients through the collectives, the partial ones summed and the
+blocked leaves gathered back (``sharding.ModelGrads``); ``act_spec`` sets
+the stream's layout, ``moe_spmd_axes`` the ranks the token groups spread
+over. A spec the layout cannot place is refused by name, and
 ``client_spmd_axes`` must be the backend's client axes.
 
 On one device a serving step is the model call itself. On a mesh both
@@ -46,35 +50,33 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.engine.backends.mesh import STRATEGIES, MeshBackend
 from repro_torch.core.engine.server import get_server_optimizer
-from repro_torch.distributed.sharding import DecodeRank, ModelRank
-from repro_torch.kernels.collectives import axes_size
+from repro_torch.distributed.sharding import (DecodeRank, ModelGrads,
+                                              ModelRank,
+                                              tensor_parallel_layout)
 from repro_torch.models import encdec, registry, transformer
 from repro_torch.models.registry import TensorSpec
-
-
-def refuse_tensor_parallel(mesh, **kw) -> None:
-    """The train steps' tensor-parallel arguments, refused by name:
-    ``act_spec`` and ``attn_kv_spec`` unless None, and ``moe_spmd_axes``
-    where its ranks on ``mesh`` number more than one (every token group
-    then runs on this rank). Tensor-parallel training is ROADMAP A15
-    (b)."""
-    spmd = tuple(kw.pop("moe_spmd_axes", None) or ())
-    bad = [k for k, v in kw.items() if v is not None]
-    if bad:
-        raise ValueError(f"{', '.join(bad)}: activation sharding in the "
-                         f"train step is tensor-parallel training, not "
-                         f"ported: it comes with ROADMAP A15 (b)")
-    size = axes_size(mesh, spmd)
-    if size > 1:
-        raise ValueError(
-            f"moe_spmd_axes {spmd} over {size} ranks: MoE token groups "
-            f"spread over ranks in the train step are tensor-parallel "
-            f"training, not ported: they come with ROADMAP A15 (b)")
 
 
 # ---------------------------------------------------------------------------
 # federated train steps
 # ---------------------------------------------------------------------------
+
+def _check_train_specs(mesh, strategy: str, act_spec, attn_kv_spec,
+                       moe_spmd_axes) -> None:
+    """The train step's specs on ``mesh``, refused by name where
+    ``tensor_parallel_layout`` refuses them, or where ``act_spec``'s batch
+    entry names other axes than those the strategy splits a client's
+    batch over (none on the parallel strategy, whose clients spread over
+    the client axes; ``"data"`` on the sequential)."""
+    batch_axes = tensor_parallel_layout(act_spec, attn_kv_spec,
+                                        moe_spmd_axes,
+                                        mesh.mesh_dim_names)[1]
+    allowed = ("data",) if strategy == "sequential" else ()
+    if any(a not in allowed for a in batch_axes):
+        raise ValueError(
+            f"act_spec's batch axes {batch_axes}: the {strategy} strategy "
+            f"splits a client's batch over {allowed or 'no axis'}")
+
 
 def make_fed_train_step(cfg: ArchConfig, *, strategy: str = "parallel",
                         remat: bool = True, moe_path: str = "dispatch",
@@ -89,25 +91,58 @@ def make_fed_train_step(cfg: ArchConfig, *, strategy: str = "parallel",
 
     parallel: batches leaves (N, K, b, ...), weights (N,); sequential:
     leaves (G, N/G, K, b, ...), weights (G, N/G), G the groups. The inputs
-    and the returned params are the whole round's and whole leaves; each
-    rank keeps its clients (and, sequential, its rows of each local batch)
-    and, with ``param_specs``, its blocks of the params. ``mesh``: a
-    DeviceMesh (None: one device, ``device``); ``use_kernel_avg``
-    aggregates through the ``fedavg_reduce`` kernel (parallel) or its
-    streamed weighted sum (sequential). ``client_spmd_axes``: None or the
-    backend's client axes. ``moe_shards``, ``moe_spmd_axes``: the MoE
-    token groups of ``moe_path="dispatch_sharded"``."""
-    refuse_tensor_parallel(mesh, act_spec=act_spec,
-                           attn_kv_spec=attn_kv_spec,
-                           moe_spmd_axes=moe_spmd_axes)
+    and the returned params are the whole round's and whole leaves, the
+    same on every rank; each rank keeps its clients (and, sequential, its
+    rows of each local batch) and, with ``param_specs``, its blocks of the
+    params. ``mesh``: a DeviceMesh (None: one device, ``device``, where
+    the specs change no value); ``use_kernel_avg`` aggregates through the
+    ``fedavg_reduce`` kernel (parallel) or its streamed weighted sum
+    (sequential). ``client_spmd_axes``: None or the backend's client axes.
+    ``moe_shards``, ``moe_spmd_axes``: the MoE token groups of
+    ``moe_path="dispatch_sharded"``.
+
+    On a mesh whose ``"model"`` axis has more than one rank, each client's
+    local steps are tensor-parallel (``sharding.ModelRank(train=True)``,
+    ``transformer.loss_lm(tp=)``): each rank runs its share of every
+    layer, forward and backward, on its compute blocks, the gradients
+    flowing through the collectives; ``act_spec`` sets the residual
+    stream's layout (``"model"`` on the sequence, on d, or on neither),
+    its batch entry the axes the strategy already splits a client's batch
+    over; ``attn_kv_spec`` sets no value (no K/V state is kept);
+    ``moe_spmd_axes`` ``("model",)`` spreads the token groups over the
+    ranks. Partial gradients are summed over ``"model"`` every local step
+    and each client's blocked leaves gathered from their owners after its
+    K steps (``sharding.ModelGrads``), so every rank ends each step with
+    the same params. A world of one rank is the step on one device. The
+    encoder-decoder ignores the specs and computes whole, as the
+    reference's loss."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: "
                          f"{STRATEGIES}")
-    loss_fn = registry.loss_fn(cfg, remat=remat, moe_path=moe_path,
-                               use_kernel=use_kernel, moe_shards=moe_shards,
-                               moe_spmd_axes=moe_spmd_axes)
+    if mesh is not None and not registry.is_encdec(cfg):
+        _check_train_specs(mesh, strategy, act_spec, attn_kv_spec,
+                           moe_spmd_axes)
     aggregator = "kernel" if use_kernel_avg else "mean"
     server = get_server_optimizer("avg")     # plain FedAvg at server_lr=1
+    loss_kw = dict(remat=remat, moe_path=moe_path, use_kernel=use_kernel,
+                   moe_shards=moe_shards, moe_spmd_axes=moe_spmd_axes)
+    # built at the first call: the rank's place reads the process groups,
+    # its gradients' classes the params' leaves
+    built = {}
+
+    def model_rank(params):
+        if not built:
+            tp = None
+            if mesh is not None and not registry.is_encdec(cfg):
+                tp = ModelRank(mesh, act_spec, attn_kv_spec, moe_spmd_axes,
+                               train=True)
+                if tp.size == 1:
+                    tp = None
+            built["loss"] = registry.loss_fn(cfg, tp=tp, **loss_kw)
+            built["grads"] = None if tp is None else ModelGrads(
+                cfg, tp, params,
+                transformer.moe_spreads(tp, moe_path, moe_shards))
+        return built["loss"], built["grads"]
 
     def step(backend, params, batches, weights, eta):
         """One round on this rank's clients and batch rows."""
@@ -117,8 +152,10 @@ def make_fed_train_step(cfg: ArchConfig, *, strategy: str = "parallel",
                     else (0, b))
         batches = {k: backend.to_device(v[lo:hi, :, blo:bhi])
                    for k, v in batches.items()}
+        loss_fn, grads = model_rank(params)
         core = backend.make_round_core(loss_fn, aggregator=aggregator,
-                                       server=server, server_lr=1.0)
+                                       server=server, server_lr=1.0,
+                                       model_grads=grads)
         new_params, first_losses = core(
             backend.place_params(params), batches,
             backend.to_device(weights[lo:hi]), float(eta), ())[:2]

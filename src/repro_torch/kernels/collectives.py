@@ -33,6 +33,22 @@ and keeps this rank's ``row_range`` block of one dim. gloo has no
 reduce-scatter, so it is an all-reduce followed by a slice on every
 backend, one code path for gloo and NCCL. An axis of one rank runs
 neither. ``nbytes`` counts the bytes of each kind's results on this rank.
+
+The block path's collectives (``distributed.sharding.ModelRank``) are
+``torch.autograd.Function``s (``gather_dim``, ``reduce_scatter_sum``,
+``block_dim``, ``all_reduce_sum``, ``enter``), so a loss on the
+``"model"`` ranks differentiates through them, under ``torch.func.grad``
+and ``torch.func.vmap`` too: each has a ``vmap`` rule that runs one
+collective on the whole batch (the vmapped dim moved to the front, the
+collective's dim counted from the end), and its backward is its adjoint,
+itself such a Function. A cotangent is *partial* where each rank holds a
+share of it, summed over the ranks (a rank's column blocks read a whole
+input), and *whole* where every rank holds all of it alike. So an
+all-gather whose readers are column blocks has a reduce-scatter for its
+backward, and one whose readers compute alike on every rank takes this
+rank's block; a row-parallel sum into a whole stream has the identity,
+Megatron's ``enter`` the all-reduce. Their forwards are the plain
+functions', bit for bit; no Function writes into its input.
 """
 from __future__ import annotations
 
@@ -325,18 +341,225 @@ def all_gather_dim(x: torch.Tensor, mesh, axis: str, dim: int,
     return out.movedim(0, dim).contiguous()
 
 
+def _reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int,
+                    sizes: Sequence[int]) -> torch.Tensor:
+    group = mesh.get_group(axis)
+    buf = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, group=group)
+    _count("reduce_scatter_dim", buf)
+    lo, hi = _span(sizes, dist.get_rank(group))
+    return buf.narrow(dim, lo, hi - lo).contiguous()
+
+
 def reduce_scatter_dim(x: torch.Tensor, mesh, axis: str,
                        dim: int) -> torch.Tensor:
     """Sum every rank's whole partial ``x`` over one mesh axis and keep
     this rank's ``row_range`` block of ``dim`` (a tensor of its own):
-    an all-reduce in place, then a slice, on gloo and NCCL alike. ``x``
+    an all-reduce of a copy, then a slice, on gloo and NCCL alike. ``x``
     itself where the axis has one rank."""
     size = axes_size(mesh, (axis,))
     if size == 1:
         return x
-    group = mesh.get_group(axis)
-    x = x.contiguous()
-    dist.all_reduce(x, group=group)
-    _count("reduce_scatter_dim", x)
-    lo, hi = row_range(x.shape[dim], size, dist.get_rank(group))
+    return _reduce_scatter(x, mesh, axis, dim,
+                           range_sizes(x.shape[dim], size))
+
+
+def _span(sizes: Sequence[int], rank: int) -> Tuple[int, int]:
+    """Rank ``rank``'s block [lo, hi) of blocks of ``sizes``, rank order."""
+    lo = sum(int(s) for s in sizes[:rank])
+    return lo, lo + int(sizes[rank])
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    buf = x.clone(memory_format=torch.contiguous_format)
+    return all_reduce_tiers(buf, mesh, (axis,))
+
+
+def _block(x: torch.Tensor, mesh, axis: str, dim: int,
+           sizes: Sequence[int]) -> torch.Tensor:
+    lo, hi = _span(sizes, dist.get_rank(mesh.get_group(axis)))
     return x.narrow(dim, lo, hi - lo).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the block path's collectives as autograd Functions (grad- and vmap-aware)
+# ---------------------------------------------------------------------------
+
+def _batched(fn, in_dims, x, *args):
+    """A ``vmap`` rule: ``fn`` once on the whole batch, the vmapped dim
+    moved to the front (every dim argument counts from the end)."""
+    if in_dims[0] is None:
+        return fn(x, *args), None
+    return fn(x.movedim(in_dims[0], 0), *args), 0
+
+
+class _Gather(torch.autograd.Function):
+    """``all_gather_dim``; backward: the partial cotangents summed, this
+    rank's block (``partial``), or this rank's block of the whole
+    cotangent."""
+
+    @staticmethod
+    def forward(x, mesh, axis, dim, sizes, partial):
+        return all_gather_dim(x, mesh, axis, dim, sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:5]
+        ctx.partial = inputs[5]
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = _ReduceScatter if ctx.partial else _Block
+        return (fn.apply(g, *ctx.args),) + (None,) * 5
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis, dim, sizes, partial):
+        return _batched(all_gather_dim, in_dims, x, mesh, axis, dim, sizes)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Every rank's partial summed, this rank's block of ``sizes`` kept;
+    backward: the blocks' cotangents all-gathered (every rank's partial
+    gets the whole cotangent)."""
+
+    @staticmethod
+    def forward(x, mesh, axis, dim, sizes):
+        return _reduce_scatter(x, mesh, axis, dim, sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_Gather.apply(g, *ctx.args, True),) + (None,) * 4
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis, dim, sizes):
+        return _batched(_reduce_scatter, in_dims, x, mesh, axis, dim, sizes)
+
+
+class _Block(torch.autograd.Function):
+    """This rank's block of ``sizes`` of a tensor every rank holds whole
+    alike; backward: the blocks' cotangents all-gathered."""
+
+    @staticmethod
+    def forward(x, mesh, axis, dim, sizes):
+        return _block(x, mesh, axis, dim, sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_Gather.apply(g, *ctx.args, False),) + (None,) * 4
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis, dim, sizes):
+        return _batched(_block, in_dims, x, mesh, axis, dim, sizes)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over one axis's ranks; backward: the identity where every
+    rank reads the sum alike (``enter``), an all-reduce where each reads
+    it for its own block (``partial``)."""
+
+    @staticmethod
+    def forward(x, mesh, axis, partial):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axis, ctx.partial = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return _AllReduce.apply(g, ctx.mesh, ctx.axis, True), None, \
+                None, None
+        return _Enter.apply(g, ctx.mesh, ctx.axis), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis, partial):
+        return _batched(_all_reduce, in_dims, x, mesh, axis)
+
+
+class _Enter(torch.autograd.Function):
+    """The identity, where a whole tensor every rank holds alike enters
+    the rank's column blocks; backward: the partial cotangents summed
+    (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(x, mesh, axis):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axis = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduce.apply(g, ctx.mesh, ctx.axis, False), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axis):
+        return x.view_as(x), in_dims[0]
+
+
+def _from_end(x: torch.Tensor, dim: int) -> int:
+    return dim - x.dim() if dim >= 0 else dim
+
+
+def gather_dim(x: torch.Tensor, mesh, axis: str, dim: int,
+               sizes: Sequence[int], partial: bool = False) -> torch.Tensor:
+    """``all_gather_dim``, differentiable: ``partial`` where the gathered
+    tensor's readers on each rank are its column blocks (their cotangents
+    are summed and scattered back), else its readers compute alike on
+    every rank (each takes its block of the cotangent)."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return _Gather.apply(x, mesh, axis, _from_end(x, dim),
+                         tuple(int(s) for s in sizes), partial)
+
+
+def reduce_scatter_sum(x: torch.Tensor, mesh, axis: str, dim: int,
+                       sizes: Sequence[int]) -> torch.Tensor:
+    """``reduce_scatter_dim`` into the blocks of ``sizes``, differentiable
+    (backward: the blocks' cotangents all-gathered)."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, _from_end(x, dim),
+                                tuple(int(s) for s in sizes))
+
+
+def block_dim(x: torch.Tensor, mesh, axis: str, dim: int,
+              sizes: Sequence[int]) -> torch.Tensor:
+    """This rank's block of ``sizes`` along ``dim`` (a tensor of its own)
+    of ``x``, which every rank of ``axis`` holds whole alike;
+    differentiable (backward: the blocks' cotangents all-gathered)."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return _Block.apply(x, mesh, axis, _from_end(x, dim),
+                        tuple(int(s) for s in sizes))
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str,
+                   partial: bool = False) -> torch.Tensor:
+    """The sum of ``x`` over one axis's ranks (a tensor of its own),
+    differentiable: the backward is the identity where every rank reads
+    the sum alike, and an all-reduce where each rank reads it for its own
+    block of the work (``partial``: a norm's sum of squares over a split
+    dim)."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return _AllReduce.apply(x, mesh, axis, partial)
+
+
+def enter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, which every rank of ``axis`` holds alike, as the input of
+    the rank's column blocks: the identity forward, the partial
+    cotangents all-reduced backward."""
+    if axes_size(mesh, (axis,)) == 1:
+        return x
+    return _Enter.apply(x, mesh, axis)

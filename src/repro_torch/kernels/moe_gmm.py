@@ -115,19 +115,21 @@ def gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _Gmm(torch.autograd.Function):
     """Forward through the kernel (the plain version on the CPU); backward
-    by autograd through the plain version."""
+    by autograd through the plain version (``torch.func.vjp``: under plain
+    autograd and under ``torch.func.grad`` alike)."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
+    def forward(x, w):
         return gmm_forward(x, w)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = gmm_ref(*leaves)
-        return torch.autograd.grad(out, leaves, g)
+        _, vjp = torch.func.vjp(gmm_ref, *ctx.saved_tensors)
+        return vjp(g)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -142,24 +142,28 @@ def topk_delta_apply(ref: torch.Tensor, vals: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     """Forward through the kernel (the plain version on the CPU); backward
     by autograd through the plain version, as the reference's custom VJP
-    differentiates its jnp oracle."""
+    differentiates its jnp oracle (``torch.func.vjp``: it runs under
+    plain autograd and under ``torch.func.grad``, as in ``layers.remat``'s
+    recomputation)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, softcap)
+    def forward(q, k, v, causal, window, softcap):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:3])
+        ctx.opts = inputs[3:]
+
+    @staticmethod
     def backward(ctx, g):
         causal, window, softcap = ctx.opts
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = flash_attention_ref(*leaves, causal=causal, window=window,
-                                      softcap=softcap)
-        grads = torch.autograd.grad(out, leaves, g)
-        return (*grads, None, None, None)
+        _, vjp = torch.func.vjp(
+            lambda q, k, v: flash_attention_ref(
+                q, k, v, causal=causal, window=window, softcap=softcap),
+            *ctx.saved_tensors)
+        return (*vjp(g), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -208,21 +212,23 @@ def moe_gmm(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
 class _SsdScan(torch.autograd.Function):
     """Forward through the kernel (the plain version on the CPU); backward
     by autograd through the plain version (the reference's Pallas scan has
-    no backward kernel; its model differentiates ``ssd_chunked``)."""
+    no backward kernel; its model differentiates ``ssd_chunked``), by
+    ``torch.func.vjp`` as ``_FlashAttention``'s."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, b, c, D, chunk):
-        ctx.save_for_backward(x, dt, A, b, c, D)
-        ctx.chunk = chunk
+    def forward(x, dt, A, b, c, D, chunk):
         return _ssd.ssd_scan(x, dt, A, b, c, D, chunk=chunk)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:6])
+        ctx.chunk = inputs[6]
+
+    @staticmethod
     def backward(ctx, gy, gstate):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            outs = ssd_scan_ref(*leaves, chunk=ctx.chunk)
-        grads = torch.autograd.grad(outs, leaves, (gy, gstate))
-        return (*grads, None)
+        _, vjp = torch.func.vjp(
+            lambda *a: ssd_scan_ref(*a, chunk=ctx.chunk), *ctx.saved_tensors)
+        return (*vjp((gy, gstate)), None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

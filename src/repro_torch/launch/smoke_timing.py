@@ -28,7 +28,8 @@ from pathlib import Path
 
 TP_KEYS = ("part", "arch", "s", "prefill_ms", "ms_per_token", "decode_s",
            "encdec_s", "within_budget", "decode_within_budget",
-           "encdec_within_budget")
+           "encdec_within_budget", "strategy", "run", "ms", "train_s",
+           "train_within_budget")
 
 
 def digest(log: Path) -> dict:

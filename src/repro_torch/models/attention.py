@@ -28,7 +28,6 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
@@ -155,12 +154,25 @@ def _attend_chunked(q, k, v, softcap_val, window):
         mask = causal_mask(QUERY_CHUNK, S, off, window, q.device)
         q_i = q[:, off:off + QUERY_CHUNK]
         if torch.is_grad_enabled():
-            outs.append(torch.utils.checkpoint.checkpoint(
-                _attend_chunk, q_i, k, v, softcap_val, mask,
-                use_reentrant=False))
+            outs.append(layers.remat(_attend_chunk, q_i, k, v, softcap_val,
+                                     mask))
         else:
             outs.append(_attend_chunk(q_i, k, v, softcap_val, mask))
     return torch.cat(outs, dim=1)
+
+
+def head_param_blocks(cfg: ArchConfig, heads: HeadBlock):
+    """The blocks of the attention leaves that a rank of ``heads`` reads,
+    {leaf: (dim from the end, [(lo, hi)])}: the columns of ``wq`` of its
+    query heads and of ``wk``, ``wv`` of the kv heads they read, the rows
+    of ``wo`` of its query heads. ``_head_project`` and ``_head_out`` cut
+    these; the train step's gradients on the ranks
+    (``sharding.ModelGrads``) read them."""
+    hd = cfg.head_dim
+    q = (heads.q[0] * hd, heads.q[1] * hd)
+    kv = (heads.kv[0] * hd, heads.kv[1] * hd)
+    return {"wq": (-1, [q]), "wk": (-1, [kv]), "wv": (-1, [kv]),
+            "wo": (-2, [q])}
 
 
 def _head_project(p, cfg: ArchConfig, x, heads: HeadBlock):
@@ -170,12 +182,10 @@ def _head_project(p, cfg: ArchConfig, x, heads: HeadBlock):
     B, S, _ = x.shape
     hd = cfg.head_dim
     (h0, h1), (k0, k1) = heads.q, heads.kv
-    q = layers.dense_apply(p["wq"], x, cols=(h0 * hd, h1 * hd)).reshape(
-        B, S, h1 - h0, hd)
-    k = layers.dense_apply(p["wk"], x, cols=(k0 * hd, k1 * hd)).reshape(
-        B, S, k1 - k0, hd)
-    v = layers.dense_apply(p["wv"], x, cols=(k0 * hd, k1 * hd)).reshape(
-        B, S, k1 - k0, hd)
+    blk = head_param_blocks(cfg, heads)
+    q = layers.dense_block(p["wq"], x, blk["wq"]).reshape(B, S, h1 - h0, hd)
+    k = layers.dense_block(p["wk"], x, blk["wk"]).reshape(B, S, k1 - k0, hd)
+    v = layers.dense_block(p["wv"], x, blk["wv"]).reshape(B, S, k1 - k0, hd)
     return q, k, v
 
 
@@ -195,9 +205,9 @@ def _head_out(p, cfg: ArchConfig, heads: HeadBlock, out):
     heads, hd): its partial sum (every head: the output)."""
     B, S = out.shape[:2]
     h0, h1 = heads.q
-    hd = cfg.head_dim
-    return layers.dense_apply(p["wo"], out.reshape(B, S, (h1 - h0) * hd),
-                              rows=(h0 * hd, h1 * hd))
+    return layers.dense_block(p["wo"],
+                              out.reshape(B, S, (h1 - h0) * cfg.head_dim),
+                              head_param_blocks(cfg, heads)["wo"])
 
 
 def attention(p, cfg: ArchConfig, x, positions, *,

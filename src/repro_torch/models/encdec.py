@@ -34,7 +34,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers
@@ -121,11 +120,8 @@ def encode(params, cfg: ArchConfig, audio_embeds, tp=None):
     pos = layers.sinusoidal_positions(S, cfg.d_model, audio_embeds.device)
     x = audio_embeds + pos[None].to(audio_embeds.dtype)
     for bp in tr._unbind(params["enc_stack"]):
-        if torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                _enc_block, bp, cfg, x, tp, b, use_reentrant=False)
-        else:
-            x = _enc_block(bp, cfg, x, tp, b)
+        x = (layers.remat(_enc_block, bp, cfg, x, tp, b)
+             if torch.is_grad_enabled() else _enc_block(bp, cfg, x, tp, b))
     return layers.norm_apply(cfg.norm_type, params["enc_norm"], x)
 
 
@@ -180,9 +176,8 @@ def forward_encdec(params, cfg: ArchConfig, tokens, audio_embeds, *,
     b = tp.blocks(cfg, x.shape[1])
     for bp in tr._unbind(params["dec_stack"]):
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                _dec_block, bp, cfg, x, positions, enc_out, tp, b,
-                use_reentrant=False)
+            x = layers.remat(_dec_block, bp, cfg, x, positions, enc_out, tp,
+                             b)
         else:
             x = _dec_block(bp, cfg, x, positions, enc_out, tp, b)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -77,6 +77,82 @@ def dense_apply(p, x, *, cols=None, rows=None):
     return y
 
 
+def dense_block(p, x, blk):
+    """``dense_apply`` on the block ``blk`` = (dim from the end, [(lo, hi)])
+    of a layer's ``param_blocks`` table: -1, output columns; -2, the
+    kernel's rows (row-parallel)."""
+    dim, (span,) = blk
+    return dense_apply(p, x, cols=span) if dim == -1 else \
+        dense_apply(p, x, rows=span)
+
+
+# ---------------------------------------------------------------------------
+# recomputation
+# ---------------------------------------------------------------------------
+
+def _map_tensors(tree, fn):
+    """``tree`` (dicts, lists and tuples of anything) with each tensor
+    ``t`` replaced by ``fn(t)``, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(*inputs)``, a tensor or a tuple of tensors, computed without
+    keeping its activations; the backward runs it again under
+    ``torch.func.vjp`` for its floating inputs. It runs under plain
+    autograd, ``torch.func.grad`` and ``torch.func.vmap`` (its ``vmap``
+    rule generated), where ``torch.utils.checkpoint`` cannot (its
+    saved-tensor hooks)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *inputs):
+        return fn(*inputs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn, ctx.tuple_out = inputs[0], isinstance(output, tuple)
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        live = [i for i, t in enumerate(inputs) if t.is_floating_point()]
+
+        def fn(*floats):
+            full = list(inputs)
+            for i, t in zip(live, floats):
+                full[i] = t
+            return ctx.fn(*full)
+        _, vjp = torch.func.vjp(fn, *(inputs[i] for i in live))
+        out = [None] * len(inputs)
+        for i, g in zip(live, vjp(grads if ctx.tuple_out else grads[0])):
+            out[i] = g
+        return (None, *out)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` (a tensor or a tuple of tensors), recomputed in the
+    backward instead of kept: the reference's ``jax.checkpoint``. The
+    tensors in ``args`` (nested in dicts, lists and tuples) are its
+    inputs; everything else in them is passed as it is. A collective in
+    ``fn`` runs again in the backward, in the same order on every
+    rank."""
+    tensors = []
+    _map_tensors(args, tensors.append)
+
+    def run(*inputs):
+        it = iter(inputs)
+        return fn(*_map_tensors(args, lambda _: next(it)))
+    return _Remat.apply(run, *tensors)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -192,22 +268,31 @@ def mlp_init(gen, d_model, d_ff, mlp_type, dtype=torch.float32, device="cpu"):
     }
 
 
+def mlp_param_blocks(ff=None):
+    """The blocks of the MLP's leaves that the d_ff block ``ff`` (lo, hi)
+    reads, {leaf: (dim from the end, [(lo, hi)])}: ``gate`` and ``up`` by
+    column, ``down`` by row. ``mlp_apply`` cuts these; the train step's
+    gradients on the ranks (``sharding.ModelGrads``) read them."""
+    return {"gate": (-1, [ff]), "up": (-1, [ff]), "down": (-2, [ff])}
+
+
 def mlp_apply(p, x, mlp_type, ff=None):
     """The MLP; ``ff`` (lo, hi): on the d_ff block [lo, hi) only,
     column-parallel up-projections and a row-parallel ``down``, returning
     this rank's partial sum, which the caller reduces over the ranks."""
-    up = lambda leaf: dense_apply(leaf, x, cols=ff)
+    blk = mlp_param_blocks(ff)
+    up = lambda name: dense_block(p[name], x, blk[name])
     if mlp_type == "swiglu":
-        h = F.silu(up(p["gate"])) * up(p["up"])
+        h = F.silu(up("gate")) * up("up")
     elif mlp_type == "geglu":
-        h = F.gelu(up(p["gate"]), approximate="tanh") * up(p["up"])
+        h = F.gelu(up("gate"), approximate="tanh") * up("up")
     elif mlp_type == "gelu":
-        h = F.gelu(up(p["up"]), approximate="tanh")
+        h = F.gelu(up("up"), approximate="tanh")
     elif mlp_type == "relu2":
-        h = torch.square(F.relu(up(p["up"])))
+        h = torch.square(F.relu(up("up")))
     else:
         raise ValueError(f"unknown mlp_type {mlp_type}")
-    return dense_apply(p["down"], h, rows=ff)
+    return dense_block(p["down"], h, blk["down"])
 
 
 def softcap(x, cap: Optional[float]):

@@ -57,11 +57,13 @@ def init(seed_or_generator: Union[int, torch.Generator], cfg: ArchConfig,
 
 def loss_fn(cfg: ArchConfig, *, remat: bool = False,
             moe_path: str = "dispatch", use_kernel: bool = False,
-            moe_shards: int = 1, moe_spmd_axes=None):
+            moe_shards: int = 1, moe_spmd_axes=None, tp=None):
     """batch: {tokens, [mask]} plus a vlm's ``patch_embeds`` or the
-    encoder-decoder's ``audio_embeds``. The encoder-decoder runs no kernel
-    and ignores ``moe_path``, ``use_kernel`` and the MoE token groups
-    (``moe_shards``, ``moe_spmd_axes``), as the reference."""
+    encoder-decoder's ``audio_embeds``. ``tp``: the train step's
+    ``"model"`` rank (``transformer.loss_lm``). The encoder-decoder runs
+    no kernel and ignores ``moe_path``, ``use_kernel``, the MoE token
+    groups (``moe_shards``, ``moe_spmd_axes``) and ``tp``, as the
+    reference."""
     if is_encdec(cfg):
         def enc_fn(params, batch):
             return encdec.loss_encdec(params, cfg, batch, remat=remat)
@@ -71,7 +73,7 @@ def loss_fn(cfg: ArchConfig, *, remat: bool = False,
         return transformer.loss_lm(params, cfg, batch, remat=remat,
                                    moe_path=moe_path, use_kernel=use_kernel,
                                    moe_shards=moe_shards,
-                                   moe_spmd_axes=moe_spmd_axes)
+                                   moe_spmd_axes=moe_spmd_axes, tp=tp)
     return fn
 
 

@@ -75,14 +75,25 @@ def _split_proj(cfg: ArchConfig, zxbcdt, heads: int):
             zxbcdt[..., 2 * Dr + 2 * N:])
 
 
-def in_proj_columns(cfg: ArchConfig, h0: int, h1: int):
-    """The column ranges of ``in_proj`` (``[z | x | B | C | dt]``) that
-    SSM heads [h0, h1) read: (z, x, B and C, dt), each (lo, hi)."""
-    s, d_inner, _, _ = _dims(cfg)
+def head_param_blocks(cfg: ArchConfig, h0: int, h1: int):
+    """The blocks of the mamba leaves that SSM heads [h0, h1) read, {leaf:
+    (dim from the end, [(lo, hi), ...])}: ``in_proj``'s z, x, B and C, dt
+    columns (``[z | x | B | C | dt]``), the conv's x channels then all of
+    B and C, the heads' entries of ``A_log``, ``D``, ``dt_bias``, the
+    gated norm's scale over their channels and ``out_proj``'s rows.
+    ``ssm_forward`` and ``ssm_decode_step`` cut these; the train step's
+    gradients on the ranks (``sharding.ModelGrads``) read them."""
+    s, d_inner, _, conv_dim = _dims(cfg)
     P, N = s.head_dim, s.d_state
-    return ((h0 * P, h1 * P), (d_inner + h0 * P, d_inner + h1 * P),
-            (2 * d_inner, 2 * d_inner + 2 * N),
-            (2 * d_inner + 2 * N + h0, 2 * d_inner + 2 * N + h1))
+    x = (h0 * P, h1 * P)
+    heads = (-1, [(h0, h1)])
+    conv = (-1, [x, (d_inner, conv_dim)])
+    return {"in_proj": (-1, [x, (d_inner + h0 * P, d_inner + h1 * P),
+                             (2 * d_inner, 2 * d_inner + 2 * N),
+                             (2 * d_inner + 2 * N + h0,
+                              2 * d_inner + 2 * N + h1)]),
+            "conv_w": conv, "conv_b": conv, "A_log": heads, "D": heads,
+            "dt_bias": heads, "norm": (-1, [x]), "out_proj": (-2, [x])}
 
 
 def _causal_conv(p, xBC, cfg: ArchConfig):
@@ -106,20 +117,19 @@ ssd_chunked = ssd_scan_ref
 def _channels(cfg: ArchConfig, t, h0: int, h1: int):
     """The xBC channels of SSM heads [h0, h1) along t's last dim: their x
     channels, then all of B and C (``t`` itself for every head)."""
-    s, d_inner, n_heads, _ = _dims(cfg)
-    if (h0, h1) == (0, n_heads):
+    if (h0, h1) == (0, _dims(cfg)[2]):
         return t
-    P = s.head_dim
-    return torch.cat([t[..., h0 * P:h1 * P], t[..., d_inner:]], dim=-1)
+    return torch.cat([t[..., lo:hi] for lo, hi in
+                      head_param_blocks(cfg, h0, h1)["conv_w"][1]], dim=-1)
 
 
 def _in_proj(p, cfg: ArchConfig, h0: int, h1: int):
     """``in_proj``'s leaf for SSM heads [h0, h1): its z, x, B and C, dt
-    columns (``in_proj_columns``) side by side, in ``in_proj``'s own
+    columns (``head_param_blocks``) side by side, in ``in_proj``'s own
     layout (the leaf itself for every head)."""
     if (h0, h1) == (0, _dims(cfg)[2]):
         return p["in_proj"]
-    spans = in_proj_columns(cfg, h0, h1)
+    spans = head_param_blocks(cfg, h0, h1)["in_proj"][1]
     return {k: torch.cat([t[..., lo:hi] for lo, hi in spans], dim=-1)
             for k, t in p["in_proj"].items()}
 
@@ -164,10 +174,11 @@ def ssm_forward(p, cfg: ArchConfig, u, *, use_kernel: bool = False,
                                      C_.to(f32), cut(p["D"]),
                                      chunk=s.chunk_size)
     y = y.reshape(Bsz, S, Dr).to(u.dtype)
+    blk = head_param_blocks(cfg, h0, h1)
     y = layers.rmsnorm_apply(
-        {"scale": layers.block(p["norm"]["scale"], 0, (h0 * P, h1 * P))},
+        {"scale": layers.block(p["norm"]["scale"], 0, blk["norm"][1][0])},
         y * F.silu(z), all_reduce=all_reduce, n=d_inner)
-    out = layers.dense_apply(p["out_proj"], y, rows=(h0 * P, h1 * P))
+    out = layers.dense_block(p["out_proj"], y, blk["out_proj"])
     # decode-ready states; the conv rows are copied out of the projection
     # so that the (B, S, conv_dim) tensor is freed with the layer
     state = {"ssm": final_state.to(u.dtype),
@@ -231,9 +242,10 @@ def ssm_decode_step(p, cfg: ArchConfig, u, state, *, heads=None,
     y = torch.einsum("bn,bhnp->bhp", C_.to(f32), st)
     y = y + x.to(f32) * cut(p["D"])[None, :, None]
     y = y.reshape(Bsz, 1, Dr).to(u.dtype)
+    blk = head_param_blocks(cfg, h0, h1)
     y = layers.rmsnorm_apply(
-        {"scale": layers.block(p["norm"]["scale"], 0, (h0 * P, h1 * P))},
+        {"scale": layers.block(p["norm"]["scale"], 0, blk["norm"][1][0])},
         y * F.silu(z), all_reduce=all_reduce, n=d_inner)
-    out = layers.dense_apply(p["out_proj"], y, rows=(h0 * P, h1 * P))
+    out = layers.dense_block(p["out_proj"], y, blk["out_proj"])
     new_state = {"ssm": st.to(state["ssm"].dtype), "conv": window[:, 1:, :]}
     return out, new_state

@@ -8,8 +8,8 @@ for zamba2). The params of all cycles are stacked on a leading axis under
 ``params["stack"]["b{i}"]`` with the reference's keys, so
 ``bridge.params_from_jax`` maps a reference tree 1:1; the reference's
 ``lax.scan`` over cycles is a loop over that axis, and ``remat``
-checkpoints one cycle at a time (``torch.utils.checkpoint``) when autograd
-is on.
+recomputes one cycle at a time in the backward when autograd is on
+(``layers.remat``, which runs under ``torch.func`` transforms too).
 
 A vision-language model (``arch_type`` "vlm") takes its patch embeddings
 (the stub vision frontend's output) ahead of the text tokens; the loss
@@ -34,14 +34,16 @@ end (or the states kept as the rank's blocks of the cache layout,
 (``distributed.sharding.DecodeRank``): the rank's batch rows, the stream
 (B_r, 1, d) whole, each block on its heads, d_ff and SSM heads over its
 blocks of the cache (``sharding.CacheLayout``), the logits gathered whole
-from its vocabulary block.
+from its vocabulary block. ``loss_lm(tp=)`` is the tensor-parallel loss of
+the train step: ``prefill_lm``'s block path with autograd on, every
+collective differentiable (``kernels.collectives``), the stream gathered
+whole for the readout and cross-entropy.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.collectives import row_range
@@ -142,13 +144,21 @@ def _block_init(gen, cfg: ArchConfig, ltype: str, dtype, device):
     return p
 
 
-def _normed(tp, b, kind, p, x):
+def _normed(tp, b, kind, p, x, partial: bool = True):
     """A block's normed input, whole (B_r, S, d), from the stream ``x`` in
     its layout: the norm on the rank's rows, then the all-gather; with d
-    sharded, the all-gather first."""
+    sharded, the all-gather first. ``partial``: its readers are the
+    rank's column blocks or token groups (``ModelRank.gather_stream``),
+    not a computation every rank runs alike."""
     if tp.layout == "d":
-        return layers.norm_apply(kind, p, tp.gather_stream(x, b))
-    return tp.gather_stream(layers.norm_apply(kind, p, x), b)
+        return layers.norm_apply(kind, p, tp.gather_stream(x, b, partial))
+    return tp.gather_stream(layers.norm_apply(kind, p, x), b, partial)
+
+
+def moe_spreads(tp, moe_path: str, shards: int) -> bool:
+    """Whether the MoE token groups spread over the ``"model"`` ranks."""
+    return moe_path == "dispatch_sharded" and shards > 1 and \
+        tp.moe_size > 1
 
 
 def _moe_groups(tp, seq_len: int, moe_path: str, shards: int):
@@ -156,7 +166,7 @@ def _moe_groups(tp, seq_len: int, moe_path: str, shards: int):
     None, whether the groups spread over the ranks): a spread rank holds
     a contiguous run of the ``shards`` groups (``row_range``); unspread,
     every rank runs every token."""
-    if moe_path != "dispatch_sharded" or shards <= 1 or tp.moe_size == 1:
+    if not moe_spreads(tp, moe_path, shards):
         return (0, seq_len), None, False
     if seq_len % shards:
         raise ValueError(f"sequence {seq_len} does not divide into "
@@ -185,7 +195,7 @@ def _moe_sublayer(bp, cfg: ArchConfig, x, tp, b, *, moe_path, use_kernel,
     if in_place:
         xin = layers.norm_apply(kind, bp["ln2"], x)
     else:
-        hn = _normed(tp, b, kind, bp["ln2"], x)
+        hn = _normed(tp, b, kind, bp["ln2"], x, partial=spread)
         if split_batch:
             hn = tp.gather_batch(hn, 0, n_batch)
         xin = layers.block(hn, 1, (t0, t1))
@@ -416,20 +426,28 @@ def _one_device():
     return ModelRank(None)
 
 
+def _cycle_remat(cparams, shared, cfg: ArchConfig, x, positions, kw):
+    """One cycle without its decode states: (x, the cycle's aux)."""
+    x, _, aux = _cycle_apply(cparams, shared, cfg, x, positions, kw)
+    return x, aux
+
+
 def _run_layers(params, cfg: ArchConfig, x, positions, kw, *, remat=False,
             return_states=False):
     """Every cycle, then the tail, from the stream ``x``: (x, the MoE aux
-    summed over the layers, decode states stacked over cycles or None)."""
+    summed over the layers, decode states stacked over cycles or None).
+    ``remat`` (with autograd on; no states) recomputes each cycle in the
+    backward (``layers.remat``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
     stack_states = None
     if "stack" in params:
         per_cycle, auxs = [], []
         for cparams in _unbind(params["stack"]):
-            if remat and torch.is_grad_enabled():
-                x, st, a = torch.utils.checkpoint.checkpoint(
-                    _cycle_apply, cparams, shared, cfg, x, positions, kw,
-                    use_reentrant=False)
+            if remat and torch.is_grad_enabled() and not return_states:
+                x, a = layers.remat(_cycle_remat, cparams, shared, cfg, x,
+                                    positions, kw)
+                st = None
             else:
                 x, st, a = _cycle_apply(cparams, shared, cfg, x, positions,
                                         kw)
@@ -654,30 +672,57 @@ def _chunked_xent(params, cfg: ArchConfig, feats, targets, mask=None):
         mask = torch.nn.functional.pad(mask, (0, pad))
     nll = torch.zeros((), dtype=torch.float32, device=feats.device)
     msum = torch.zeros((), dtype=torch.float32, device=feats.device)
+    read = "embed" if cfg.tie_embeddings else "lm_head"
+    head = {"final_norm": params["final_norm"], read: params[read]}
     for off in range(0, S + pad, chunk):
-        args = (params, cfg, feats[:, off:off + chunk],
+        args = (head, cfg, feats[:, off:off + chunk],
                 targets[:, off:off + chunk], mask[:, off:off + chunk])
-        if torch.is_grad_enabled():
-            n, m = torch.utils.checkpoint.checkpoint(_chunk_nll, *args,
-                                                     use_reentrant=False)
-        else:
-            n, m = _chunk_nll(*args)
+        n, m = (layers.remat(_chunk_nll, *args) if torch.is_grad_enabled()
+                else _chunk_nll(*args))
         nll, msum = nll + n, msum + m
     return nll / torch.clamp(msum, min=1.0)
+
+
+def _features_on_rank(params, cfg: ArchConfig, tokens, patch_embeds, tp, *,
+                      remat: bool, moe_path: str, use_kernel: bool,
+                      moe_shards: int, moe_spmd_axes):
+    """The features (B, S, d) and the MoE aux of the train step's
+    ``"model"`` rank ``tp`` (``ModelRank(train=True)``), whole and alike on
+    every rank: ``prefill_lm``'s block path on the rank's blocks, from the
+    stream's block in its layout, gathered whole after the last layer."""
+    x, positions, _ = embed_inputs(params, cfg, tokens, patch_embeds)
+    b = tp.blocks(cfg, x.shape[1])
+    kw = dict(tp=tp, b=b, moe_path=moe_path, use_kernel=use_kernel,
+              moe_shards=moe_shards, moe_spmd_axes=moe_spmd_axes,
+              n_batch=x.shape[0])
+    x, aux, _ = _run_layers(params, cfg, tp.stream_block(x, b), positions,
+                            kw, remat=remat)
+    if cfg.moe is not None and moe_spreads(tp, moe_path, moe_shards):
+        aux = tp.all_reduce(aux)        # each rank's groups' share
+    return tp.gather_stream(x, b, partial=False), aux
 
 
 def loss_lm(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = False, moe_path: str = "dispatch",
             use_kernel: bool = False, moe_shards: int = 1,
-            moe_spmd_axes=None):
+            moe_spmd_axes=None, tp=None):
     """Next-token LM loss plus ``router_aux_coef`` x the MoE aux. batch:
-    {tokens, [patch_embeds], [mask]}. Returns (loss, {"xent", "aux"})."""
+    {tokens, [patch_embeds], [mask]}. Returns (loss, {"xent", "aux"}).
+
+    ``tp``: the train step's ``"model"`` rank (``distributed.sharding.
+    ModelRank(train=True)``; None, or one rank: one device). Its batch is
+    the rank's rows; each rank runs its share of every layer, forward and
+    backward, on its blocks (``_features_on_rank``), and the readout and
+    cross-entropy whole, so every rank computes the same loss."""
     tokens = batch["tokens"]
     patch = batch.get("patch_embeds")
-    feats, aux = forward_lm(params, cfg, tokens, patch, remat=remat,
-                            moe_path=moe_path, use_kernel=use_kernel,
-                            return_features=True, moe_shards=moe_shards,
-                            moe_spmd_axes=moe_spmd_axes)
+    kw = dict(remat=remat, moe_path=moe_path, use_kernel=use_kernel,
+              moe_shards=moe_shards, moe_spmd_axes=moe_spmd_axes)
+    if tp is None or tp.size == 1:
+        feats, aux = forward_lm(params, cfg, tokens, patch,
+                                return_features=True, **kw)
+    else:
+        feats, aux = _features_on_rank(params, cfg, tokens, patch, tp, **kw)
     n_prefix = (patch.shape[1] if patch is not None
                 and cfg.arch_type == "vlm" else 0)
     # tokens[t + 1] is predicted from sequence position n_prefix + t

@@ -2065,3 +2065,57 @@ def test_tensor_parallel_encdec_on_two_gloo_ranks_on_the_card(cuda,
                                    atol=2e-4)
         for a, b in zip(tree_leaves(got_cache), tree_leaves(cache)):
             torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training on two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_tensor_parallel_training_on_two_gloo_ranks_on_the_card(cuda,
+                                                                tmp_path):
+    """Two gloo ranks spawned on the one card, a (1, 2) ("data", "model")
+    mesh: one round of reduced qwen2-7b through ``make_fed_train_step``
+    with the stream by sequence block, on the parallel strategy (4
+    clients vmapped, K = 2, the ``fedavg_reduce`` kernel aggregating) and
+    on the sequential one (2 groups of 2); each rank's new params and
+    mean loss within the f32 tolerance of the one-process round on the
+    card, the ranks bit for bit alike."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import make_fed_train_step
+    from repro_torch.models import registry
+    from repro_torch.optim import tree_leaves, tree_map
+    from test_torch_mesh_ranks import spawn, tpt_rank_body
+    arch = "qwen2-7b-reduced"
+    cfg = get_arch(arch)
+    params = registry.init(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    runs = {"parallel": (dict(act_spec=(None, "model", None),
+                              use_kernel_avg=True), (4, 2, 2)),
+            "sequential": (dict(strategy="sequential",
+                                act_spec=("data", "model", None)),
+                           (2, 2, 2, 2))}
+    cases = []
+    for name, (kw, lead) in runs.items():
+        tokens = rng.integers(0, cfg.vocab_size, lead + (16,),
+                              dtype=np.int32)
+        w = np.full(lead[:-2], 0.25, np.float32)
+        cases.append((name, "round", (1, 2), arch, ({"tokens": tokens}, w,
+                                                    0.05),
+                      dict(kw, acc_dtype=torch.float32)))
+    ranks = spawn(tpt_rank_body, 2, tmp_path, {arch: (cfg, params)}, cases,
+                  "cuda")
+    card = tree_map(lambda t: t.to(cuda), params)
+    for name, _, _, _, (batches, w, eta), kw in cases:
+        one = {k: v for k, v in kw.items() if k != "act_spec"}
+        want, loss = make_fed_train_step(cfg, device="cuda", **one)(
+            card, batches, w, eta)
+        for res in ranks:
+            got, got_loss, _, _, _ = res[name]
+            torch.testing.assert_close(got_loss, float(loss), rtol=2e-4,
+                                       atol=2e-4)
+            for a, b, c in zip(tree_leaves(got), tree_leaves(want),
+                               tree_leaves(ranks[0][name][0])):
+                torch.testing.assert_close(a, b.cpu(), rtol=2e-4, atol=2e-4)
+                assert torch.equal(a, c)

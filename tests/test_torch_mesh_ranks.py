@@ -931,3 +931,140 @@ def tpe_rank_body(rank, world, models, cases, device="cpu"):
                     _leaf_shapes(cache), _leaf_shapes(cache.layout.shapes),
                     sum(m.launches for m in mods) - before)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training
+# ---------------------------------------------------------------------------
+
+def coll_rank_fns(mesh, sizes, r):
+    """The block path's collectives, each as (its Function's forward, the
+    plain function it must equal bit for bit, the rank's scalar of its
+    input): rank ``r`` of the ``"model"`` axis of ``mesh``, blocks of
+    ``sizes`` along dim 0. ``C`` is read whole by every rank, ``Cr`` is
+    the rank's own (the readers of a partial)."""
+    ax = "model"
+    lo = sum(sizes[:r])
+    mine = lambda t: t.narrow(0, lo, sizes[r])
+    c = collectives
+    return {
+        "block": (lambda x: c.block_dim(x, mesh, ax, 0, sizes),
+                  lambda x: mine(x).contiguous(),
+                  lambda y, C, Cr: (torch.tanh(y) * mine(C)).sum()),
+        "gather": (lambda x: c.gather_dim(x, mesh, ax, 0, sizes),
+                   lambda x: c.all_gather_dim(x, mesh, ax, 0, sizes),
+                   lambda y, C, Cr: (torch.tanh(y) * C).sum()),
+        "gather_partial": (
+            lambda x: c.gather_dim(x, mesh, ax, 0, sizes, partial=True),
+            lambda x: c.all_gather_dim(x, mesh, ax, 0, sizes),
+            lambda y, C, Cr: (torch.tanh(y) * Cr).sum()),
+        "reduce_scatter": (
+            lambda x: c.reduce_scatter_sum(x, mesh, ax, 0, sizes),
+            lambda x: c.reduce_scatter_dim(x, mesh, ax, 0),
+            lambda y, C, Cr: (torch.tanh(y) * mine(C)).sum()),
+        "all_reduce": (lambda x: c.all_reduce_sum(x, mesh, ax),
+                       lambda x: c.all_reduce_axis(x.clone(), mesh, ax),
+                       lambda y, C, Cr: (torch.tanh(y) * C).sum()),
+        "all_reduce_partial": (
+            lambda x: c.all_reduce_sum(x, mesh, ax, partial=True),
+            lambda x: c.all_reduce_axis(x.clone(), mesh, ax),
+            lambda y, C, Cr: (torch.tanh(y) * Cr).sum()),
+        "enter": (lambda x: c.enter(x, mesh, ax), lambda x: x,
+                  lambda y, C, Cr: (torch.tanh(y) * Cr).sum()),
+    }
+
+
+def _coll_case(mesh, r, case):
+    """Each collective's forward against its plain function, and the
+    gradient of the rank's scalar under ``torch.func.grad`` and under
+    ``vmap(grad)`` over the clients of ``case["batched"]``."""
+    sizes = case["sizes"]
+    C, Cr = case["C"], case["Cr"][r]
+    out = {}
+    for name, (fn, plain, scalar) in coll_rank_fns(mesh, sizes, r).items():
+        x, xs = case["inputs"][name][r], case["batched"][name][r]
+        with torch.no_grad():
+            fwd_equal = torch.equal(fn(x), plain(x))
+        f = lambda t: scalar(fn(t), C, Cr)
+        _zero_counts()
+        g = torch.func.grad(f)(x)
+        counts = dict(collectives.counts)
+        gv = torch.func.vmap(torch.func.grad(f))(xs)
+        out[name] = (fwd_equal, g, gv, counts)
+    return out
+
+
+def _tp_grads(cfg, params, batch, mesh, kw):
+    """One local step's whole gradient on this ``"model"`` rank: the
+    loss on the rank (``registry.loss_fn(tp=ModelRank(train=True))``)
+    under ``torch.func.grad``, then ``ModelGrads``' hook: the shared
+    spans summed, the owned spans gathered from their owners."""
+    from repro_torch.models import transformer
+    tp = sharding.ModelRank(mesh, kw.get("act_spec"), kw.get("attn_kv_spec"),
+                            kw.get("moe_spmd_axes"), train=True)
+    loss_kw = {k: kw[k] for k in ("remat", "moe_path", "moe_shards",
+                                  "moe_spmd_axes") if k in kw}
+    fn = registry.loss_fn(cfg, tp=tp, **loss_kw)
+    grads, (loss, _) = torch.func.grad_and_value(fn, has_aux=True)(params,
+                                                                   batch)
+    spread = transformer.moe_spreads(tp, kw.get("moe_path", "dispatch"),
+                                     kw.get("moe_shards", 1))
+    return sharding.ModelGrads(cfg, tp, params, spread).hook(gather=True)(
+        grads, loss, batch)
+
+
+def tpt_rank_body(rank, world, models, cases, device="cpu"):
+    """One rank of the tensor-parallel train step's meshes. Each case
+    ``(key, kind, shape, arch, inputs, kw)`` on the ([pod,] data, model)
+    mesh of ``shape`` (built once a shape, in the cases' order) and
+    ``models[arch]`` = (cfg, whole params):
+
+    * ``"coll"``: the block path's collectives (``coll_rank_fns``) on
+      ``inputs``, forward bit for bit, gradients under ``grad`` and
+      ``vmap(grad)`` (``_coll_case``);
+    * ``"grad"``: one local step's whole gradient on the batch ``inputs``
+      (``_tp_grads``) -> (grads, loss, collectives by kind);
+    * ``"round"``: ``make_fed_train_step(cfg, mesh=..., **kw)`` on
+      (batches, weights, eta) = ``inputs``; ``kw["param_specs"]`` True
+      takes ``param_pspecs`` on the mesh -> (new params, mean first loss,
+      collectives by kind and their bytes, ms).
+
+    Results on the CPU."""
+    import time
+    from repro_torch.distributed import make_fed_train_step
+    meshes, out = {}, {}
+    for key, kind, shape, arch, inputs, kw in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(
+                shape, ("pod", "data", "model")[-len(shape):], device)
+        mesh = meshes[shape]
+        if kind == "coll":
+            r = collectives.client_rank(mesh, ("model",))
+            out[key] = _coll_case(mesh, r, inputs)
+            continue
+        cfg, params = models[arch]
+        if device != "cpu":
+            params = _to(params, device)
+        _zero_counts()
+        if kind == "grad":
+            if device != "cpu":
+                inputs = _to(inputs, device)
+            grads, loss = _tp_grads(cfg, params, inputs, mesh, kw)
+            out[key] = (_to(grads, "cpu"), float(loss),
+                        dict(collectives.counts))
+            continue
+        kw = dict(kw)
+        if kw.get("param_specs"):
+            kw["param_specs"] = sharding.param_pspecs(
+                cfg, params, sharding.MeshShape.of(mesh))
+        for kind_ in collectives.counts:
+            collectives.nbytes[kind_] = 0
+        step = make_fed_train_step(cfg, mesh=mesh, device=device, **kw)
+        t = time.perf_counter()
+        new, loss = step(params, *inputs)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        out[key] = (_to(new, "cpu"), float(loss), dict(collectives.counts),
+                    dict(collectives.nbytes), ms)
+    return out

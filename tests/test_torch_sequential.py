@@ -403,18 +403,35 @@ def test_fed_train_step_matches_reference_shim(strategy):
 
 
 def test_fed_train_step_refuses_gspmd_arguments():
-    """Activation sharding is tensor-parallel compute (A15), refused by
-    name; ``param_specs``, ``moe_shards`` and the backend's client axes
-    are ported (A13 (b)) and accepted."""
+    """On one device the tensor-parallel specs (A15 (b)) are taken and
+    change no value: a round with ``act_spec`` and ``attn_kv_spec`` is
+    bit for bit the round without them; ``param_specs``, ``moe_shards``
+    and the backend's client axes are ported (A13 (b)) and accepted; an
+    unknown strategy is refused by name."""
     cfg = get_arch("qwen1.5-0.5b-reduced")
-    for kw in (dict(act_spec=("data",)), dict(attn_kv_spec=("data",))):
-        with pytest.raises(ValueError, match=rf"{next(iter(kw))}.*A15"):
-            make_fed_train_step(cfg, device="cpu", **kw)
+    params = small_lm_params(cfg)
+    batches, w = _lm_round_inputs(cfg)
+    kw = dict(remat=False, moe_path="dense", device="cpu")
+    want = make_fed_train_step(cfg, **kw)(params, batches, w, 0.05)
+    for specs in (dict(act_spec=("data", "model", None)),
+                  dict(attn_kv_spec=(None, "model", None, None)),
+                  dict(act_spec=("data",), attn_kv_spec=("data",))):
+        got = make_fed_train_step(cfg, **specs, **kw)(params, batches, w,
+                                                      0.05)
+        assert torch.equal(got[1], want[1]), specs
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(got[0]), tree_leaves(want[0]))), specs
     for kw in (dict(param_specs={}), dict(moe_shards=2),
                dict(client_spmd_axes=("data",))):
         make_fed_train_step(cfg, device="cpu", **kw)
     with pytest.raises(ValueError, match="strategy"):
         make_fed_train_step(cfg, strategy="ring", device="cpu")
+
+
+def small_lm_params(cfg):
+    """The port's init of ``cfg`` from seed 0, on the CPU."""
+    from repro_torch.models import registry
+    return registry.init(0, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", sorted(JARCHS))

@@ -34,9 +34,10 @@ A15 (a)) against the reference, on the CPU.
   the port's one-process step, every rank bit for bit the others, and
   each rank's collectives by kind equal to the count the layout
   implies.
-* Refusals: the train step still refuses ``act_spec``, ``attn_kv_spec``
-  and ``moe_spmd_axes`` over several ranks, citing A15 (b); the prefill
-  refuses an axis the mesh lacks and ``"model"`` twice.
+* Refusals: the train step is built on a mesh with ``act_spec``,
+  ``attn_kv_spec`` and ``moe_spmd_axes`` (A15 (b),
+  ``tests/test_torch_tp_train.py``) and refuses them malformed; the
+  prefill refuses an axis the mesh lacks and ``"model"`` twice.
 """
 import dataclasses
 
@@ -631,27 +632,34 @@ def check_cases(shape, mine, ranks):
 # ---------------------------------------------------------------------------
 
 class Mesh:
-    """A DeviceMesh's names and sizes: (1, 4) ("data", "model")."""
+    """A DeviceMesh's names, sizes and device: (1, 4) ("data",
+    "model")."""
     mesh_dim_names = ("data", "model")
+    device_type = "cpu"
 
     @staticmethod
     def size(i=None):
         return 4 if i is None else (1, 4)[i]
 
 
-@pytest.mark.parametrize("kw", [dict(act_spec=("data", "model", None)),
+@pytest.mark.parametrize("kw", [dict(act_spec=(None, "model", None)),
                                 dict(attn_kv_spec=(None, "model", None,
                                                    None)),
                                 dict(moe_spmd_axes=("model",))])
 def test_train_step_refuses_tensor_parallel_arguments(kw):
-    """The train step computes no tensor-parallel product: each argument
-    is refused by name, citing A15 (b) (``moe_spmd_axes`` where its axes
-    span more than one rank)."""
+    """The train step takes each tensor-parallel argument (A15 (b)): on a
+    (1, 4) mesh the step is built, on both strategies; the same argument
+    malformed (an axis the mesh lacks) is refused by name, before any
+    collective."""
     cfg = get_arch("phi3.5-moe-42b-a6.6b-reduced")
     name = next(iter(kw))
-    with pytest.raises(ValueError, match=rf"{name}.*A15 \(b\)"):
-        make_fed_train_step(cfg, mesh=Mesh(), moe_path="dispatch_sharded",
-                            moe_shards=2, **kw)
+    moe = dict(moe_path="dispatch_sharded", moe_shards=2)
+    for strategy in ("parallel", "sequential"):
+        make_fed_train_step(cfg, mesh=Mesh(), strategy=strategy, **moe,
+                            **kw)
+    bad = {name: tuple("tensor" if e == "model" else e for e in kw[name])}
+    with pytest.raises(ValueError, match=rf"{name}.*names axis 'tensor'"):
+        make_fed_train_step(cfg, mesh=Mesh(), **moe, **bad)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -29,7 +29,8 @@
   gathered, bit for bit its whole states; the dry run's cache bytes a
   rank equal to the blocks ``init_cache(mesh=)`` allocates.
 * Refusals: a mesh without ``"model"``, a cache not laid out on the
-  step's mesh; the train step still cites A15 (b).
+  step's mesh; the train step on a mesh takes ``act_spec`` (A15 (b)) and
+  refuses it malformed.
 """
 import dataclasses
 import threading
@@ -665,8 +666,10 @@ def test_serve_step_refuses_a_mesh_without_model():
 
 
 class Mesh14:
-    """A DeviceMesh's names and sizes: (1, 4) ("data", "model")."""
+    """A DeviceMesh's names, sizes and device: (1, 4) ("data",
+    "model")."""
     mesh_dim_names = ("data", "model")
+    device_type = "cpu"
 
     @staticmethod
     def size(i=None):
@@ -674,11 +677,14 @@ class Mesh14:
 
 
 def test_train_step_still_refuses_tensor_parallel():
-    """Tensor-parallel training is still ROADMAP A15 (b): the train step
-    refuses ``act_spec`` by name, citing it."""
-    with pytest.raises(ValueError, match=r"act_spec.*A15 \(b\)"):
-        make_fed_train_step(get_arch("qwen2-7b-reduced"), mesh=Mesh14(),
-                            act_spec=(None, "model", None))
+    """Tensor-parallel training is ROADMAP A15 (b), now ported: the train
+    step is built on a (1, 4) mesh with ``act_spec`` over the sequence;
+    what it still refuses by name is a spec the layout cannot place."""
+    cfg = get_arch("qwen2-7b-reduced")
+    make_fed_train_step(cfg, mesh=Mesh14(), act_spec=(None, "model", None))
+    with pytest.raises(ValueError, match=r"act_spec.*names 'model' twice"):
+        make_fed_train_step(cfg, mesh=Mesh14(),
+                            act_spec=(None, "model", "model"))
 
 
 # ---------------------------------------------------------------------------
